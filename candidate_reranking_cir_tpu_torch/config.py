@@ -1,9 +1,9 @@
 """Model configuration for the PyTorch port.
 
-An own copy of the eval-relevant fields of the JAX package's configuration
-tree. Training-only fields (dropout, remat, attention capture) and the
-attention-kernel switch are absent: the port evaluates only, and its
-attention always goes through the kernels of ``ops/cuda_attention.py``.
+An own copy of the fields of the JAX package's configuration tree that the
+port reads. Absent: the attention-kernel switch (the port's attention
+always routes through its kernels, ``ops/attention.py``), attention
+capture, and the options of paths not ported yet.
 """
 from __future__ import annotations
 
@@ -22,10 +22,16 @@ class TextEncoderConfig:
     max_position_embeddings: int = 512
     encoder_width: int = 768         # width of cross-attended (image) features
     layer_norm_eps: float = 1e-12
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
     initializer_range: float = 0.02
     # dual-stream re-ranker only: layers >= merge_mlp_from merge the twin
     # cross-attention outputs with an MLP; earlier layers average them
     merge_mlp_from: int = 6
+    # recompute each dual-encoder layer in backward (torch.utils.checkpoint)
+    remat: bool = False
+    # '' recomputes everything; 'dots' (save matmul outputs) is not ported
+    remat_policy: str = ""
 
     @property
     def head_dim(self) -> int:
@@ -43,6 +49,9 @@ class ViTConfig:
     num_heads: int = 12
     mlp_ratio: float = 4.0
     layer_norm_eps: float = 1e-6
+    dropout: float = 0.0
+    attention_dropout: float = 0.0
+    drop_path_rate: float = 0.0      # stage-II uses 0.1 (reference blip_stage2.py:37)
 
     @property
     def num_patches(self) -> int:
@@ -83,6 +92,17 @@ class RetrievalModelConfig:
 class RerankerModelConfig:
     """Stage-II model (reference blip_stage2.py:19-136)."""
 
-    vit: ViTConfig = field(default_factory=ViTConfig)
+    vit: ViTConfig = field(default_factory=lambda: ViTConfig(drop_path_rate=0.1))
     text: TextEncoderConfig = field(default_factory=TextEncoderConfig)
     text_len: int = 40
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer settings (reference stage2_train.py, utils.py:216-221)."""
+
+    learning_rate: float = 2e-5
+    min_lr: float = 0.0
+    weight_decay: float = 0.05
+    cosine_max_epoch: int = 10       # cosine schedule period
+    grad_accumulation: int = 1

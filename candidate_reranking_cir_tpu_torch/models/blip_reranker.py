@@ -1,7 +1,9 @@
-"""Stage-II re-ranker at eval (port of the JAX package's
-``models/blip_reranker.py``): ViT image encoder, candidate-major
-dual-stream encoder, and the cls head Linear(2D -> D) -> ReLU ->
-Linear(D -> 2) whose channel 0 is the re-rank score."""
+"""Stage-II re-ranker (port of the JAX package's
+``models/blip_reranker.py``): ViT image encoder, dual-stream encoder, and
+the cls head Linear(2D -> D) -> ReLU -> Linear(D -> 2) whose channel 0 is
+the re-rank score. ``score_grid`` is the candidate-major eval layout,
+``score_shared`` training's B x B pair grid over one shared candidate
+set."""
 from __future__ import annotations
 
 import torch
@@ -32,12 +34,27 @@ class RerankerModel(nn.Module):
         self.cls_dense1 = Dense(2 * d, d, dtype, device)
         self.cls_dense2 = Dense(d, 2, dtype, device)
 
-    def embed_images(self, images):
-        return self.visual_encoder(images)
+    def embed_images(self, images, *, deterministic: bool = True,
+                     seeds=None):
+        """``seeds``: the ViT's seed table (``visual_encoder.seed_shape``)
+        when not deterministic."""
+        return self.visual_encoder(images, deterministic=deterministic,
+                                   seeds=seeds)
 
     def _cls_scores(self, cls_pair):
         h = torch.relu(self.cls_dense1(cls_pair))
         return self.cls_dense2(h)[..., 0].float()
+
+    def score_shared(self, z_t, input_ids, attention_mask, cand_feats, *,
+                     deterministic: bool = True, seeds=None):
+        """[Q, L, D] x [C, M, W] -> [Q, C] scores (shared candidate set).
+        ``seeds``: the text encoder's seed table
+        (``text_encoder.seed_shape``) when not deterministic."""
+        cls_pair = self.text_encoder(input_ids, attention_mask, z_t,
+                                     cand_feats, layout="shared",
+                                     deterministic=deterministic,
+                                     seeds=seeds)
+        return self._cls_scores(cls_pair)
 
     def score_grid(self, z_t, input_ids, attention_mask, cand_feats):
         """Candidate-major grid: [A, B, L, D] x [A, M, W] -> [A, B] scores."""

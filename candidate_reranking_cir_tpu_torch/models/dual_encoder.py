@@ -1,5 +1,5 @@
-"""Dual-stream re-rank encoder, candidate-major layout (port of the JAX
-package's ``models/dual_encoder.py``).
+"""Dual-stream re-rank encoder (port of the JAX package's
+``models/dual_encoder.py``).
 
 Stream 0 starts from the stage-I query state z_t, stream 1 from fresh text
 embeddings. Each layer: twin self-attention (own weights and LayerNorms),
@@ -8,20 +8,35 @@ averaged below ``merge_mlp_from`` and merged by a Linear(2D -> D) from
 there on, a per-stream LayerNorm on the merged residual, and a shared FFN.
 Output: the two streams' CLS states concatenated, [.., 2D].
 
-Candidate-major: axis 0 indexes candidates and axis 1 the queries scored
-against each, so a candidate's cross-attention K/V are projected once and
-shared by all of its queries (``grid_cross_attention``).
+Two candidate layouts:
+- 'cand_major' (eval): axis 0 indexes candidates and axis 1 the queries
+  scored against each, so a candidate's cross-attention K/V are projected
+  once and shared by all of its queries (``grid_cross_attention``);
+- 'shared' (training's in-batch B x B contrast): queries [Q] x one shared
+  candidate set [C]; both streams broadcast over C and the candidates' K/V
+  are shared across the query axis (``pair_cross_attention``).
+
+Training (``deterministic=False``) takes a seed table of shape
+``seed_shape``: row 0 seeds the embedding dropout, row i + 1 layer i as
+``SEED_SITES`` int32 seeds (its generator for the non-kernel dropouts,
+then the kernel seeds of self-attention 0/1 and cross-attention 0/1). A
+layer re-seeds its generator at the start of its forward, so the forward
+is a pure function of (inputs, weights, seeds) and a remat recomputation
+draws the same masks.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from candidate_reranking_cir_tpu_torch.config import TextEncoderConfig
 from candidate_reranking_cir_tpu_torch.models.layers import (
     Dense,
+    Dropout,
     LayerNorm,
     MultiHeadAttention,
+    seeded_generator,
 )
 from candidate_reranking_cir_tpu_torch.models.med import (
     BertEmbeddings,
@@ -30,11 +45,16 @@ from candidate_reranking_cir_tpu_torch.models.med import (
 from candidate_reranking_cir_tpu_torch.ops.attention import (
     grid_cross_attention,
     make_additive_mask,
+    pair_cross_attention,
 )
+
+SEED_SITES = 5  # generator, self-attention 0/1, cross-attention 0/1
+LAYOUTS = ("cand_major", "shared")
 
 
 class DualLayer(nn.Module):
-    """One dual-stream layer over h0, h1 [A, B, L, D] and cand [A, M, W]."""
+    """One dual-stream layer over h0, h1 [A, B, L, D] with cand [A, M, W]
+    ('cand_major') or h0, h1 [Q, C, L, D] with cand [C, M, W] ('shared')."""
 
     def __init__(self, cfg: TextEncoderConfig, merge_mlp: bool,
                  dtype=torch.float32, device=None):
@@ -42,10 +62,12 @@ class DualLayer(nn.Module):
         d, w = cfg.hidden_size, cfg.encoder_width
         hd = cfg.num_heads * cfg.head_dim
         self.num_heads, self.head_dim = cfg.num_heads, cfg.head_dim
+        self.attention_dropout = cfg.attention_dropout
         eps = cfg.layer_norm_eps
         for s in ("0", "1"):
             setattr(self, f"self_attn{s}", MultiHeadAttention(
-                cfg.num_heads, cfg.head_dim, d, dtype=dtype, device=device))
+                cfg.num_heads, cfg.head_dim, d, dtype=dtype, device=device,
+                dropout_rate=cfg.attention_dropout))
             setattr(self, f"self_ln{s}", LayerNorm(d, eps, dtype, device))
             setattr(self, f"cross_q{s}", Dense(d, hd, dtype, device))
             setattr(self, f"cross_k{s}", Dense(w, hd, dtype, device))
@@ -53,39 +75,70 @@ class DualLayer(nn.Module):
             setattr(self, f"cross_dense{s}", Dense(hd, d, dtype, device))
             setattr(self, f"cross_ln{s}", LayerNorm(d, eps, dtype, device))
         self.merge = Dense(2 * d, d, dtype, device) if merge_mlp else None
+        self.drop = Dropout(cfg.hidden_dropout)
         self.ffn = BertFFN(cfg, dtype, device)
 
-    def _cross(self, s: str, h, cand):
+    def _cross(self, s: str, h, cand, layout: str, det: bool, seed, gen):
         heads = (self.num_heads, self.head_dim)
         q = getattr(self, f"cross_q{s}")(h).unflatten(-1, heads)
         k = getattr(self, f"cross_k{s}")(cand).unflatten(-1, heads)
         v = getattr(self, f"cross_v{s}")(cand).unflatten(-1, heads)
-        ctx = grid_cross_attention(q, k, v).flatten(-2)
-        return getattr(self, f"cross_dense{s}")(ctx)
+        if layout == "shared":
+            ctx = pair_cross_attention(
+                q, k, v, dropout_rate=self.attention_dropout,
+                deterministic=det, seed=seed, generator=gen)
+        elif det:
+            ctx = grid_cross_attention(q, k, v)
+        else:
+            raise NotImplementedError(
+                "the cand_major layout is eval-only in this port")
+        return getattr(self, f"cross_dense{s}")(ctx.flatten(-2))
 
-    def forward(self, h0, h1, text_bias, cand):
-        h0 = self.self_ln0(self.self_attn0(h0, None, text_bias) + h0)
-        h1 = self.self_ln1(self.self_attn1(h1, None, text_bias) + h1)
-        d0, d1 = self._cross("0", h0, cand), self._cross("1", h1, cand)
+    def forward(self, h0, h1, text_bias, cand, seeds=None,
+                layout: str = "cand_major"):
+        det = seeds is None
+        gen = None if det else seeded_generator(seeds[0], h0.device)
+        site = (lambda i: None) if det else (lambda i: seeds[i])
+        hs = []
+        for s, h in (("0", h0), ("1", h1)):
+            ctx = getattr(self, f"self_attn{s}")(
+                h, None, text_bias, deterministic=det, seed=site(1 + int(s)),
+                generator=gen)
+            ctx = self.drop(ctx, deterministic=det, generator=gen)
+            hs.append(getattr(self, f"self_ln{s}")(ctx + h))
+        h0, h1 = hs
+        d0 = self._cross("0", h0, cand, layout, det, site(3), gen)
+        d1 = self._cross("1", h1, cand, layout, det, site(4), gen)
         if self.merge is not None:
             merged = self.merge(torch.cat([d0, d1], dim=-1))
         else:
             merged = (d0 + d1) * 0.5
+        merged = self.drop(merged, deterministic=det, generator=gen)
         g0 = self.cross_ln0(merged + h0)
         g1 = self.cross_ln1(merged + h1)
-        return self.ffn(g0), self.ffn(g1)
+        return (self.ffn(g0, deterministic=det, generator=gen),
+                self.ffn(g1, deterministic=det, generator=gen))
 
 
 class DualStreamEncoder(nn.Module):
-    """Candidate-major dual-stream encoder.
+    """Dual-stream encoder over a pair grid.
 
-    input_ids, attention_mask [A, B, L] and z_t [A, B, L, D] per pair
-    (candidate a x its b-th query); cand_feats [A, M, W] per candidate.
-    Returns [A, B, 2D], the concatenated CLS states of both streams."""
+    'cand_major': input_ids, attention_mask [A, B, L] and z_t [A, B, L, D]
+    per pair (candidate a x its b-th query); cand_feats [A, M, W] per
+    candidate. Returns [A, B, 2D].
+    'shared': input_ids, attention_mask [Q, L] and z_t [Q, L, D] per query;
+    cand_feats [C, M, W] shared by all queries. Returns [Q, C, 2D].
+
+    ``cfg.remat`` recomputes each layer in backward
+    (``torch.utils.checkpoint``, everything recomputed: remat policy '')."""
 
     def __init__(self, cfg: TextEncoderConfig, dtype=torch.float32,
                  device=None):
         super().__init__()
+        if cfg.remat_policy:
+            raise NotImplementedError(
+                f"remat_policy {cfg.remat_policy!r} is not ported; '' "
+                "(recompute everything) is")
         self.cfg = cfg
         self.dtype = dtype
         self.embeddings = BertEmbeddings(cfg, dtype, device)
@@ -93,11 +146,41 @@ class DualStreamEncoder(nn.Module):
             DualLayer(cfg, i >= cfg.merge_mlp_from, dtype, device)
             for i in range(cfg.num_layers))
 
-    def forward(self, input_ids, attention_mask, z_t, cand_feats):
-        h1 = self.embeddings(input_ids)
-        h0 = z_t.to(self.dtype)
+    @property
+    def seed_shape(self) -> tuple[int, int]:
+        return (len(self.layers) + 1, SEED_SITES)
+
+    def forward(self, input_ids, attention_mask, z_t, cand_feats, *,
+                layout: str = "cand_major", deterministic: bool = True,
+                seeds=None):
+        if layout not in LAYOUTS:
+            raise ValueError(f"unknown layout {layout!r}; expected one of "
+                             f"{LAYOUTS}")
+        if not deterministic and seeds is None:
+            raise ValueError("training needs a seed table")
+        emb_gen = None if deterministic else seeded_generator(
+            seeds[0][0], input_ids.device)
+        text_emb = self.embeddings(input_ids, deterministic=deterministic,
+                                   generator=emb_gen)
         cand = cand_feats.to(self.dtype)
-        text_bias = make_additive_mask(attention_mask)  # [A, B, 1, 1, L]
-        for layer in self.layers:
-            h0, h1 = layer(h0, h1, text_bias, cand)
+        text_bias = make_additive_mask(attention_mask)
+        if layout == "cand_major":
+            h0, h1 = z_t.to(self.dtype), text_emb    # [A, B, L, D]
+        else:
+            n_q, length, d = z_t.shape
+            shape = (n_q, cand.shape[0], length, d)
+            h0 = z_t.to(self.dtype)[:, None].expand(shape)
+            h1 = text_emb[:, None].expand(shape)
+            text_bias = text_bias[:, None]           # [Q, 1, 1, 1, L]
+        remat = self.cfg.remat and torch.is_grad_enabled()
+        for i, layer in enumerate(self.layers):
+            row = None if deterministic else seeds[i + 1]
+            if remat:
+                # the layer seeds its own generator, so no global RNG
+                # state needs saving for the recomputation
+                h0, h1 = checkpoint(layer, h0, h1, text_bias, cand, row,
+                                    layout, use_reentrant=False,
+                                    preserve_rng_state=False)
+            else:
+                h0, h1 = layer(h0, h1, text_bias, cand, row, layout)
         return torch.cat([h0[..., 0, :], h1[..., 0, :]], dim=-1)

@@ -3,16 +3,26 @@
 Parameters are float32; each module computes in its ``dtype`` (bfloat16 on
 the card by default in the CLIs) with float32 LayerNorm statistics and a
 float32 softmax, as the JAX package does.
+
+Dropout randomness is explicit. Where the JAX package calls
+``make_rng('dropout')``, a module here takes a ``torch.Generator`` (the
+non-kernel dropouts) and, at attention sites that may take the
+in-kernel-dropout kernels, an int32 ``seed``. ``deterministic=True`` (the
+default) turns every dropout off, as in the JAX package.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
 import torch.nn.functional as F
 
+from candidate_reranking_cir_tpu_torch.ops import attention_train
 from candidate_reranking_cir_tpu_torch.ops.attention import (
     dot_product_attention,
     dot_product_attention_folded,
+    dot_product_attention_folded_train,
 )
 
 
@@ -34,6 +44,48 @@ def exact_gelu(x):
 def _normal_(t: torch.Tensor, std: float = 0.02) -> torch.Tensor:
     with torch.no_grad():
         return t.normal_(0.0, std)
+
+
+def seeded_generator(seed: int, device) -> torch.Generator:
+    """A generator on ``device`` seeded with ``seed``: a layer makes its own
+    from its seed-table entry at the start of its forward, so that a
+    recomputation under remat draws the same masks."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
+
+
+class Dropout(nn.Module):
+    """Inverted dropout (flax ``nn.Dropout``): keep ~ Bernoulli(1 - rate)
+    drawn from an explicit generator; kept values are divided by 1 - rate
+    in the input's dtype."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, *, deterministic: bool = True, generator=None):
+        if deterministic or self.rate == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("dropout needs a generator")
+        keep_prob = 1.0 - self.rate
+        keep = torch.rand(x.shape, generator=generator,
+                          device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
+def drop_path(x, rate: float, *, deterministic: bool, generator=None):
+    """Stochastic depth over the leading (batch) axis (JAX ``_drop_path``)."""
+    if deterministic or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("stochastic depth needs a generator")
+    shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+    keep = torch.rand(shape, generator=generator, device=x.device) \
+        < 1.0 - rate
+    return torch.where(keep, x / max(1.0 - rate, 1e-6),
+                       torch.zeros_like(x)).to(x.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -79,46 +131,69 @@ class MultiHeadAttention(nn.Module):
     """Self- or cross-attention; q from ``x``, k/v from ``y`` (self when
     ``y`` is None). Returns the context projected back to ``out_features``.
 
-    Eval routing as in the JAX package (layers.py:216-250): the folded
+    Routing as in the JAX package (layers.py:216-250). Eval: the folded
     [.., L, H*D] kernels for >= 128 query rows, or for cross-attention to
-    >= 128 keys; the unfolded [.., L, H, D] kernels otherwise."""
+    >= 128 keys; the unfolded [.., L, H, D] kernels otherwise. Train with
+    attention dropout: the folded in-kernel-dropout route where
+    ``attention_train.eligible`` holds (with ``seed``), else the unfolded
+    route, whose dropout comes from ``generator``."""
 
     def __init__(self, num_heads: int, head_dim: int, out_features: int,
                  kv_features: int | None = None, dtype=torch.float32,
-                 device=None):
+                 device=None, dropout_rate: float = 0.0):
         super().__init__()
         width = num_heads * head_dim
         kv_features = out_features if kv_features is None else kv_features
         self.num_heads, self.head_dim = num_heads, head_dim
+        self.dropout_rate = dropout_rate
         self.query = Dense(out_features, width, dtype, device)
         self.key = Dense(kv_features, width, dtype, device)
         self.value = Dense(kv_features, width, dtype, device)
         self.out = Dense(width, out_features, dtype, device)
 
-    def forward(self, x, y=None, bias=None):
+    def forward(self, x, y=None, bias=None, *, deterministic: bool = True,
+                seed: int | None = None, generator=None):
         is_cross = y is not None
         y = x if y is None else y
-        folded = x.shape[-2] >= 128 or (is_cross and y.shape[-2] >= 128)
+        train_drop = not deterministic and self.dropout_rate > 0.0
+        if train_drop:
+            folded = ((bias is None
+                       or (bias.ndim >= 3 and bias.shape[-3] == 1))
+                      and attention_train.eligible(
+                          x.shape[-2], bias, y.shape[-2],
+                          batch=math.prod(x.shape[:-2])))
+        else:
+            folded = x.shape[-2] >= 128 or (is_cross and y.shape[-2] >= 128)
         q, k, v = self.query(x), self.key(y), self.value(y)
-        if folded:
+        if folded and train_drop:
+            ctx = dot_product_attention_folded_train(
+                q, k, v, bias, num_heads=self.num_heads, seed=seed,
+                dropout_rate=self.dropout_rate)
+        elif folded:
             ctx = dot_product_attention_folded(q, k, v, bias,
                                                num_heads=self.num_heads)
         else:
             heads = (self.num_heads, self.head_dim)
             ctx = dot_product_attention(
                 q.unflatten(-1, heads), k.unflatten(-1, heads),
-                v.unflatten(-1, heads), bias).flatten(-2)
+                v.unflatten(-1, heads), bias, dropout_rate=self.dropout_rate,
+                deterministic=deterministic, seed=seed,
+                generator=generator).flatten(-2)
         return self.out(ctx)
 
 
 class Mlp(nn.Module):
-    """Transformer FFN: dense -> exact GELU -> dense."""
+    """Transformer FFN: dense -> exact GELU -> dropout -> dense."""
 
     def __init__(self, in_features: int, hidden_features: int,
-                 out_features: int, dtype=torch.float32, device=None):
+                 out_features: int, dtype=torch.float32, device=None,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.fc1 = Dense(in_features, hidden_features, dtype, device)
+        self.drop = Dropout(dropout_rate)
         self.fc2 = Dense(hidden_features, out_features, dtype, device)
 
-    def forward(self, x):
-        return self.fc2(exact_gelu(self.fc1(x)))
+    def forward(self, x, *, deterministic: bool = True, generator=None):
+        h = self.drop(exact_gelu(self.fc1(x)), deterministic=deterministic,
+                      generator=generator)
+        return self.fc2(h)

@@ -1,9 +1,11 @@
 """MED text encoder (port of the JAX package's ``models/med.py``).
 
-BLIP's single-stream BERT at eval: word + position embeddings, post-LN
-layers of self-attention, optional cross-attention over image tokens
-('multimodal' mode), and FFN; additive (1 - mask) * -10000 masking,
-LayerNorm eps 1e-12.
+BLIP's single-stream BERT: word + position embeddings, post-LN layers of
+self-attention, optional cross-attention over image tokens ('multimodal'
+mode), and FFN; additive (1 - mask) * -10000 masking, LayerNorm eps 1e-12.
+The embeddings, attention blocks and FFN carry the JAX package's dropout
+sites (``deterministic=False`` with a generator); ``TextEncoder`` runs at
+eval only (stage-I training is not ported yet).
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from torch import nn
 from candidate_reranking_cir_tpu_torch.config import TextEncoderConfig
 from candidate_reranking_cir_tpu_torch.models.layers import (
     Dense,
+    Dropout,
     LayerNorm,
     MultiHeadAttention,
     _normal_,
@@ -22,7 +25,7 @@ from candidate_reranking_cir_tpu_torch.ops.attention import make_additive_mask
 
 
 class BertEmbeddings(nn.Module):
-    """Word + absolute position embeddings, then LayerNorm."""
+    """Word + absolute position embeddings, LayerNorm, dropout."""
 
     def __init__(self, cfg: TextEncoderConfig, dtype=torch.float32,
                  device=None):
@@ -35,12 +38,15 @@ class BertEmbeddings(nn.Module):
             torch.empty(cfg.max_position_embeddings, cfg.hidden_size,
                         device=device), std))
         self.ln = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, dtype, device)
+        self.drop = Dropout(cfg.hidden_dropout)
 
-    def forward(self, input_ids):
+    def forward(self, input_ids, *, deterministic: bool = True,
+                generator=None):
         seq_len = input_ids.shape[-1]
         x = self.word_embeddings[input_ids.long()] \
             + self.position_embeddings[:seq_len]
-        return self.ln(x.to(self.dtype))
+        return self.drop(self.ln(x.to(self.dtype)),
+                         deterministic=deterministic, generator=generator)
 
 
 class BertSelfAttentionBlock(nn.Module):
@@ -51,15 +57,21 @@ class BertSelfAttentionBlock(nn.Module):
         super().__init__()
         self.attn = MultiHeadAttention(cfg.num_heads, cfg.head_dim,
                                        cfg.hidden_size, kv_features, dtype,
-                                       device)
+                                       device, cfg.attention_dropout)
+        self.drop = Dropout(cfg.hidden_dropout)
         self.ln = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, dtype, device)
 
-    def forward(self, x, kv=None, bias=None):
-        return self.ln(self.attn(x, kv, bias) + x)
+    def forward(self, x, kv=None, bias=None, *, deterministic: bool = True,
+                seed: int | None = None, generator=None):
+        ctx = self.attn(x, kv, bias, deterministic=deterministic, seed=seed,
+                        generator=generator)
+        ctx = self.drop(ctx, deterministic=deterministic, generator=generator)
+        return self.ln(ctx + x)
 
 
 class BertFFN(nn.Module):
-    """Intermediate GELU dense -> output dense -> residual post-LN."""
+    """Intermediate GELU dense -> output dense -> dropout -> residual
+    post-LN."""
 
     def __init__(self, cfg: TextEncoderConfig, dtype=torch.float32,
                  device=None):
@@ -68,10 +80,13 @@ class BertFFN(nn.Module):
                                   dtype, device)
         self.output = Dense(cfg.intermediate_size, cfg.hidden_size, dtype,
                             device)
+        self.drop = Dropout(cfg.hidden_dropout)
         self.ln = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, dtype, device)
 
-    def forward(self, x):
-        return self.ln(self.output(exact_gelu(self.intermediate(x))) + x)
+    def forward(self, x, *, deterministic: bool = True, generator=None):
+        h = self.output(exact_gelu(self.intermediate(x)))
+        h = self.drop(h, deterministic=deterministic, generator=generator)
+        return self.ln(h + x)
 
 
 class MedLayer(nn.Module):

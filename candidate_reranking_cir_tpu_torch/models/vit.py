@@ -1,9 +1,12 @@
 """Vision Transformer (port of the JAX package's ``models/vit.py``).
 
-timm-style ViT at eval: space-to-depth patch embedding plus one matmul (the
-same function as the stride-P convolution, without cuDNN), CLS token,
-learned position embeddings, pre-LN blocks, final LayerNorm (eps 1e-6).
-Images are channel-last [B, H, W, 3], as in the JAX package.
+timm-style ViT: space-to-depth patch embedding plus one matmul (the same
+function as the stride-P convolution, without cuDNN), CLS token, learned
+position embeddings, pre-LN blocks with linearly increasing stochastic
+depth, final LayerNorm (eps 1e-6). Images are channel-last [B, H, W, 3],
+as in the JAX package. Training (``deterministic=False``) takes a seed
+table of shape ``seed_shape``: row 0 seeds the embedding dropout, row
+i + 1 block i (its generator, then its attention's kernel seed).
 """
 from __future__ import annotations
 
@@ -13,10 +16,13 @@ from torch import nn
 from candidate_reranking_cir_tpu_torch.config import ViTConfig
 from candidate_reranking_cir_tpu_torch.models.layers import (
     Dense,
+    Dropout,
     LayerNorm,
     Mlp,
     MultiHeadAttention,
     _normal_,
+    drop_path,
+    seeded_generator,
 )
 
 
@@ -42,20 +48,33 @@ class PatchEmbed(nn.Module):
 
 
 class ViTBlock(nn.Module):
-    """Pre-LN transformer block."""
+    """Pre-LN transformer block with stochastic depth ``drop_path_rate``."""
 
-    def __init__(self, cfg: ViTConfig, dtype=torch.float32, device=None):
+    def __init__(self, cfg: ViTConfig, drop_path_rate: float = 0.0,
+                 dtype=torch.float32, device=None):
         super().__init__()
         d = cfg.hidden_size
+        self.drop_path_rate = drop_path_rate
         self.norm1 = LayerNorm(d, cfg.layer_norm_eps, dtype, device)
         self.attn = MultiHeadAttention(cfg.num_heads, cfg.head_dim, d,
-                                       dtype=dtype, device=device)
+                                       dtype=dtype, device=device,
+                                       dropout_rate=cfg.attention_dropout)
+        self.drop = Dropout(cfg.dropout)
         self.norm2 = LayerNorm(d, cfg.layer_norm_eps, dtype, device)
-        self.mlp = Mlp(d, int(d * cfg.mlp_ratio), d, dtype, device)
+        self.mlp = Mlp(d, int(d * cfg.mlp_ratio), d, dtype, device,
+                       cfg.dropout)
 
-    def forward(self, x):
-        x = x + self.attn(self.norm1(x))
-        return x + self.mlp(self.norm2(x))
+    def forward(self, x, seeds=None):
+        det = seeds is None
+        gen = None if det else seeded_generator(seeds[0], x.device)
+        h = self.attn(self.norm1(x), deterministic=det,
+                      seed=None if det else seeds[1], generator=gen)
+        h = self.drop(h, deterministic=det, generator=gen)
+        x = x + drop_path(h, self.drop_path_rate, deterministic=det,
+                          generator=gen)
+        h = self.mlp(self.norm2(x), deterministic=det, generator=gen)
+        return x + drop_path(h, self.drop_path_rate, deterministic=det,
+                             generator=gen)
 
 
 class VisionTransformer(nn.Module):
@@ -71,16 +90,29 @@ class VisionTransformer(nn.Module):
             _normal_(torch.empty(1, 1, d, device=device)))
         self.pos_embed = nn.Parameter(
             _normal_(torch.empty(1, cfg.num_tokens, d, device=device)))
+        # linearly spaced stochastic-depth rates (JAX: jnp.linspace)
+        rates = torch.linspace(0.0, cfg.drop_path_rate, cfg.num_layers,
+                               dtype=torch.float32).tolist()
         self.blocks = nn.ModuleList(
-            ViTBlock(cfg, dtype, device) for _ in range(cfg.num_layers))
+            ViTBlock(cfg, rate, dtype, device) for rate in rates)
+        self.drop = Dropout(cfg.dropout)
         self.norm = LayerNorm(d, cfg.layer_norm_eps, dtype, device)
 
-    def forward(self, images):
+    @property
+    def seed_shape(self) -> tuple[int, int]:
+        return (len(self.blocks) + 1, 2)
+
+    def forward(self, images, *, deterministic: bool = True, seeds=None):
+        if not deterministic and seeds is None:
+            raise ValueError("training needs a seed table")
         x = self.patch_embed(images)
         b = x.shape[0]
         cls = self.cls_token.to(self.dtype).expand(b, 1, -1)
         x = torch.cat([cls, x], dim=1)
         x = x + self.pos_embed[:, : x.shape[1]].to(self.dtype)
-        for block in self.blocks:
-            x = block(x)
+        if not deterministic:
+            x = self.drop(x, deterministic=False,
+                          generator=seeded_generator(seeds[0][0], x.device))
+        for i, block in enumerate(self.blocks):
+            x = block(x, None if deterministic else seeds[i + 1])
         return self.norm(x)

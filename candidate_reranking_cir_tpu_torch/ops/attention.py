@@ -1,14 +1,22 @@
-"""Eval attention routing (port of the JAX package's ``ops/attention.py``).
+"""Attention routing (port of the JAX package's ``ops/attention.py``).
 
-Every function here reaches one of the kernels of ``ops/cuda_attention.py``
-(the plain version of the same function for CPU tensors). Layouts follow
-the JAX package: ``[..., seq, heads, head_dim]`` unfolded, ``[..., seq,
-heads*head_dim]`` folded; the additive mask is ``(1 - mask) * -10000``.
+Eval calls reach one of the kernels of ``ops/cuda_attention.py`` (K1-K4).
+Train calls with dropout follow the JAX package's train routes: where
+``attention_train.eligible`` holds, the in-kernel-dropout kernels of
+``ops/attention_train.py`` (K6/K7, the mask keyed by an int32 seed);
+elsewhere plain attention with dropout drawn from a ``torch.Generator``,
+as the JAX package's own XLA path draws it from ``jax.random``. CPU
+tensors take the kernels' plain versions. Layouts follow the JAX package:
+``[..., seq, heads, head_dim]`` unfolded, ``[..., seq, heads*head_dim]``
+folded; the additive mask is ``(1 - mask) * -10000``.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
+from candidate_reranking_cir_tpu_torch.ops import attention_train
 from candidate_reranking_cir_tpu_torch.ops.cuda_attention import (
     fused_attention,
     fused_attention_folded,
@@ -35,20 +43,59 @@ def _flat_bias(bias, batch_shape, lq: int, m: int):
     return bias.expand(*batch_shape, 1, lq, m).reshape(-1, 1, lq, m)
 
 
-def dot_product_attention(q, k, v, bias=None):
+def _dropout_probs(probs, rate: float, generator):
+    """probs * keep / (1 - rate), keep ~ Bernoulli(1 - rate) drawn from
+    ``generator`` on the probabilities' device."""
+    if generator is None:
+        raise ValueError("attention dropout needs a generator")
+    keep = torch.rand(probs.shape, generator=generator,
+                      device=probs.device) < 1.0 - rate
+    return probs * keep / (1.0 - rate)
+
+
+def _plain_attention(spec_scores: str, spec_out: str, q, k, v, bias,
+                     rate: float, generator):
+    """The JAX package's XLA attention with dropout: fp32 scores times the
+    scale, + bias, fp32 softmax, dropout, probabilities cast to q's dtype,
+    fp32 P.V, output in q's dtype."""
+    scale = q.shape[-1] ** -0.5
+    scores = torch.einsum(spec_scores, q.float(), k.float()) * scale
+    if bias is not None:
+        scores = scores + bias.float()
+    probs = torch.softmax(scores, dim=-1)
+    probs = _dropout_probs(probs, rate, generator).to(q.dtype)
+    return torch.einsum(spec_out, probs.float(), v.float()).to(q.dtype)
+
+
+def dot_product_attention(q, k, v, bias=None, *, dropout_rate: float = 0.0,
+                          deterministic: bool = True, seed: int | None = None,
+                          generator=None):
     """Multi-head attention, unfolded: q [..., Lq, H, D]; k, v [..., M, H, D];
     bias None or head-independent, broadcastable to [..., 1, Lq, M].
-    Returns [..., Lq, H, D] in q's dtype (K2 with a bias, K3 without)."""
+    Returns [..., Lq, H, D] in q's dtype.
+
+    Eval (``deterministic`` or rate 0): K2 with a bias, K3 without. Train:
+    K6/K7 with ``seed`` where ``attention_train.eligible``, else plain
+    attention with dropout from ``generator``."""
     if q.ndim < 4 or k.ndim != q.ndim or k.shape[:-3] != q.shape[:-3]:
         raise ValueError(f"q {tuple(q.shape)} / k {tuple(k.shape)}: leading "
                          "batch axes must match")
     batch_shape = q.shape[:-3]
     lq, h, d = q.shape[-3:]
     m = k.shape[-3]
-    bias = _flat_bias(bias, batch_shape, lq, m)
-    out = fused_attention(q.reshape(-1, lq, h, d), k.reshape(-1, m, h, d),
-                          v.reshape(-1, m, h, d), bias)
-    return out.reshape(*batch_shape, lq, h, d)
+    if deterministic or dropout_rate == 0.0:
+        out = fused_attention(q.reshape(-1, lq, h, d), k.reshape(-1, m, h, d),
+                              v.reshape(-1, m, h, d),
+                              _flat_bias(bias, batch_shape, lq, m))
+        return out.reshape(*batch_shape, lq, h, d)
+    if attention_train.eligible(lq, bias, m, batch=math.prod(batch_shape)):
+        out = attention_train.fused_attention_train(
+            q.reshape(-1, lq, h, d), k.reshape(-1, m, h, d),
+            v.reshape(-1, m, h, d), _flat_bias(bias, batch_shape, lq, m),
+            seed, dropout_rate)
+        return out.reshape(*batch_shape, lq, h, d)
+    return _plain_attention("...qhd,...khd->...hqk", "...hqk,...khd->...qhd",
+                            q, k, v, bias, dropout_rate, generator)
 
 
 def dot_product_attention_folded(q, k, v, bias=None, *, num_heads: int):
@@ -65,6 +112,22 @@ def dot_product_attention_folded(q, k, v, bias=None, *, num_heads: int):
     return out.reshape(*batch_shape, lq, hd)
 
 
+def dot_product_attention_folded_train(q, k, v, bias=None, *, num_heads: int,
+                                       seed: int, dropout_rate: float):
+    """Folded twin of the in-kernel-dropout train route: q [..., Lq, H*D];
+    k, v [..., M, H*D]. The caller checks ``attention_train.eligible``.
+    Masks are keyed by the absolute entry index, as unfolded. On the card
+    this is kernel K8, not ported yet: it raises."""
+    batch_shape = q.shape[:-2]
+    lq, hd = q.shape[-2:]
+    m = k.shape[-2]
+    out = attention_train.fused_attention_train_folded(
+        q.reshape(-1, lq, hd), k.reshape(-1, m, hd), v.reshape(-1, m, hd),
+        _flat_bias(bias, batch_shape, lq, m), seed, dropout_rate,
+        num_heads=num_heads)
+    return out.reshape(*batch_shape, lq, hd)
+
+
 def grid_cross_attention(q, k, v):
     """Candidate-major cross-attention with per-candidate shared K/V.
 
@@ -76,12 +139,25 @@ def grid_cross_attention(q, k, v):
     return out.reshape(a, b, lq, h, d)
 
 
-def pair_cross_attention(q, k, v):
-    """Query-major pair grid with per-candidate shared K/V (eval form).
+def pair_cross_attention(q, k, v, *, dropout_rate: float = 0.0,
+                         deterministic: bool = True, seed: int | None = None,
+                         generator=None):
+    """Query-major pair grid with per-candidate shared K/V.
 
-    q [Q, C, Lq, H, D]; k, v [C, M, H, D]. Queries fold into each
-    candidate's row axis (K3). Returns [Q, C, Lq, H, D]."""
+    q [Q, C, Lq, H, D]; k, v [C, M, H, D]. Returns [Q, C, Lq, H, D].
+    Eval: the queries fold into each candidate's row axis (K3). Train: the
+    same fold (entry = candidate, row = query*Lq + token) through K6/K7
+    with ``seed`` where ``attention_train.eligible``, else plain attention
+    with dropout from ``generator``."""
     n_q, n_c, lq, h, d = q.shape
-    qt = q.transpose(0, 1).reshape(n_c, n_q * lq, h, d)
-    out = fused_attention(qt, k, v, None)
-    return out.reshape(n_c, n_q, lq, h, d).transpose(0, 1)
+    train = not deterministic and dropout_rate > 0.0
+    if not train or attention_train.eligible(n_q * lq, None, k.shape[-3]):
+        qt = q.transpose(0, 1).reshape(n_c, n_q * lq, h, d)
+        if train:
+            out = attention_train.fused_attention_train(
+                qt, k, v, None, seed, dropout_rate)
+        else:
+            out = fused_attention(qt, k, v, None)
+        return out.reshape(n_c, n_q, lq, h, d).transpose(0, 1)
+    return _plain_attention("qclhd,ckhd->qchlk", "qchlk,ckhd->qclhd",
+                            q, k, v, None, dropout_rate, generator)

@@ -44,10 +44,13 @@ def find_nvcc() -> str:
 def build(name: str = "attention") -> tuple[Path, float, str]:
     """Compile ``csrc/<name>.cu`` once per process; returns (library path,
     build seconds — 0.0 when a cached library was reused, compiler
-    output such as ptxas's register and spill report)."""
+    output such as ptxas's register and spill report). The hash covers
+    the source, the shared headers ``csrc/*.cuh`` and the flags."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    blob = src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        blob += header.read_bytes()
+    digest = hashlib.sha256(blob).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}_{digest}.so"
     if lib.exists():
         return lib, 0.0, ""
@@ -83,4 +86,27 @@ def load_attention_library() -> ctypes.CDLL:
         i32, vp, vp, vp, vp, vp, ctypes.POINTER(ctypes.c_longlong),
         i32, i32, i32, i32, ctypes.c_float, vp]
     lib.crc_attention_forward.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_attention_train_library() -> ctypes.CDLL:
+    """The train attention kernels' library (K5-K7) with its C signatures
+    declared."""
+    path, _, _ = build("attention_train")
+    lib = ctypes.CDLL(str(path))
+    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    strides = ctypes.POINTER(ctypes.c_longlong)
+    lib.crc_attention_train_max_keys.argtypes = []
+    lib.crc_attention_train_max_keys.restype = i32
+    lib.crc_attention_train_forward.argtypes = [
+        i32, vp, vp, vp, vp, vp, strides, i32, i32, i32, i32, f32, i32, f32,
+        f32, vp]
+    lib.crc_attention_train_forward.restype = i32
+    lib.crc_attention_train_backward.argtypes = [
+        i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, strides, i32, i32, i32, i32,
+        f32, i32, f32, f32, vp]
+    lib.crc_attention_train_backward.restype = i32
+    lib.crc_keep_mask.argtypes = [i32, i32, i32, i32, i32, f32, vp, vp]
+    lib.crc_keep_mask.restype = i32
     return lib

@@ -19,6 +19,12 @@ it runs well below the bf16 tensor-core bound (see ``csrc/attention.cu``).
 A tensor on the CPU goes to the plain version; a tensor on the card goes to
 the kernel or the wrapper raises. ``LAUNCHES`` counts kernel launches per
 kernel id; only a launch adds to it.
+
+Gradients: on the card the kernel runs inside ``_EvalAttention``, whose
+backward recomputes the plain version under autograd, as the JAX package's
+``custom_vjp`` backward recomputes with XLA (``pallas_attention.py``
+``_bwd`` / ``_folded_bwd``). The bias gets no gradient. On the CPU the
+plain version runs under autograd directly.
 """
 from __future__ import annotations
 
@@ -28,7 +34,7 @@ import torch
 
 LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_YZ = 65535
 
 
@@ -68,28 +74,25 @@ def _bias3(bias, e: int, lq: int, m: int):
     return bias[:, 0].expand(e, lq, m)
 
 
-def _launch(kid: str, q4, k4, v4, bias3, out4) -> None:
-    """Launch the CUDA kernel on 4-D [E, L, H, D] views (strided)."""
-    from candidate_reranking_cir_tpu_torch.ops.build import (
-        load_attention_library,
-    )
-
-    lib = load_attention_library()
-    e, lq, h, d = q4.shape
-    m = k4.shape[1]
-    for name, t in (("q", q4), ("k", k4), ("v", v4)):
-        if t.device != out4.device:
-            raise ValueError(f"{name} is on {t.device}, out on {out4.device}")
-        if t.dtype != q4.dtype:
-            raise ValueError(f"{name} dtype {t.dtype} != q dtype {q4.dtype}")
+def check_kernel_inputs(tensors: dict, head_dim: int, max_keys: int):
+    """Raise on what the attention kernels (eval and train) do not take.
+    ``tensors``: 4-D [E, L, H, D] views, q first and k second. Returns
+    (entries, query rows, heads, head_dim, keys)."""
+    q, k = tensors["q"], tensors["k"]
+    e, lq, h, d = q.shape
+    m = k.shape[1]
+    for name, t in tensors.items():
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.dtype != q.dtype:
+            raise ValueError(f"{name} dtype {t.dtype} != q dtype {q.dtype}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: head_dim axis must have stride 1")
-    if q4.dtype not in _DTYPE_CODES:
-        raise ValueError(f"unsupported dtype {q4.dtype} (float32 or bfloat16)")
-    if d != lib.crc_attention_head_dim():
+    if q.dtype not in DTYPE_CODES:
+        raise ValueError(f"unsupported dtype {q.dtype} (float32 or bfloat16)")
+    if d != head_dim:
         raise ValueError(f"head_dim {d} unsupported (kernel takes "
-                         f"{lib.crc_attention_head_dim()})")
-    max_keys = lib.crc_attention_max_keys()
+                         f"{head_dim})")
     if m > max_keys:
         raise ValueError(f"{m} keys exceed the kernel's {max_keys} "
                          "(score rows are held in shared memory)")
@@ -97,25 +100,72 @@ def _launch(kid: str, q4, k4, v4, bias3, out4) -> None:
         raise ValueError(f"entries {e} / heads {h} exceed the grid limit")
     if lq < 1 or m < 1:
         raise ValueError("empty query or key axis")
+    return e, lq, h, d, m
+
+
+def bias_args(bias3, device) -> tuple[int | None, list[int]]:
+    """(pointer, [entry, row] strides) of an fp32 [E, Lq, M] bias view, or
+    (None, [0, 0]) without one."""
+    if bias3 is None:
+        return None, [0, 0]
+    if bias3.dtype != torch.float32 or bias3.device != device:
+        raise ValueError("bias must be float32 on the inputs' device")
+    if bias3.stride(-1) != 1 and bias3.shape[-1] > 1:
+        raise ValueError("bias key axis must have stride 1")
+    return bias3.data_ptr(), list(bias3.stride()[:2])
+
+
+def _launch(kid: str, q4, k4, v4, bias3, out4) -> None:
+    """Launch the CUDA kernel on 4-D [E, L, H, D] views (strided)."""
+    from candidate_reranking_cir_tpu_torch.ops.build import (
+        load_attention_library,
+    )
+
+    lib = load_attention_library()
+    e, lq, h, d, m = check_kernel_inputs(
+        {"q": q4, "k": k4, "v": v4}, lib.crc_attention_head_dim(),
+        lib.crc_attention_max_keys())
+    bias_ptr, bias_strides = bias_args(bias3, q4.device)
     strides = [*q4.stride()[:3], *k4.stride()[:3], *v4.stride()[:3],
-               *out4.stride()[:3], 0, 0]
-    bias_ptr = None
-    if bias3 is not None:
-        if bias3.dtype != torch.float32 or bias3.device != out4.device:
-            raise ValueError("bias must be float32 on the output's device")
-        if bias3.stride(-1) != 1 and m > 1:
-            raise ValueError("bias key axis must have stride 1")
-        strides[12:14] = bias3.stride()[:2]
-        bias_ptr = bias3.data_ptr()
+               *out4.stride()[:3], *bias_strides]
     c_strides = (ctypes.c_longlong * 14)(*strides)
     err = lib.crc_attention_forward(
-        _DTYPE_CODES[q4.dtype], q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
+        DTYPE_CODES[q4.dtype], q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
         bias_ptr, out4.data_ptr(), c_strides, e, h, lq, m, d ** -0.5,
         torch.cuda.current_stream(out4.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"attention kernel {kid} launch failed: "
                            f"cudaError {err}")
     LAUNCHES[kid] += 1
+
+
+def _kernel_forward(kid: str, q4, k4, v4, bias3):
+    """The kernel's output [E, Lq, H, D] for 4-D views q4, k4, v4."""
+    out = torch.empty(q4.shape, dtype=q4.dtype, device=q4.device)
+    _launch(kid, q4, k4, v4, bias3, out)
+    return out
+
+
+class _EvalAttention(torch.autograd.Function):
+    """Forward: the kernel. Backward: the plain version recomputed under
+    autograd (the JAX package's XLA recompute); no gradient for the bias."""
+
+    @staticmethod
+    def forward(ctx, q4, k4, v4, bias3, kid):
+        ctx.save_for_backward(q4, k4, v4, bias3)
+        return _kernel_forward(kid, q4, k4, v4, bias3)
+
+    @staticmethod
+    def backward(ctx, g):
+        q4, k4, v4, bias3 = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:3]
+        inputs = [t.detach().requires_grad_(n)
+                  for t, n in zip((q4, k4, v4), needs)]
+        with torch.enable_grad():
+            out = attention_plain(*inputs, bias3)
+            wanted = [t for t in inputs if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, g))
+        return (*(next(grads) if n else None for n in needs), None, None)
 
 
 def _check_shapes(q, k, v, nd: int) -> None:
@@ -136,9 +186,8 @@ def fused_attention(q, k, v, bias=None):
     bias3 = _bias3(bias, e, lq, k.shape[1])
     if q.device.type == "cpu":
         return attention_plain(q, k, v, bias3)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch("K2" if bias3 is not None else "K3", q, k, v, bias3, out)
-    return out
+    return _EvalAttention.apply(q, k, v, bias3,
+                                "K2" if bias3 is not None else "K3")
 
 
 def fused_attention_folded(q, k, v, bias=None, *, num_heads: int):
@@ -154,7 +203,6 @@ def fused_attention_folded(q, k, v, bias=None, *, num_heads: int):
     q4, k4, v4 = (t.unflatten(-1, (num_heads, d)) for t in (q, k, v))
     if q.device.type == "cpu":
         return attention_plain(q4, k4, v4, bias3).flatten(-2)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch("K4" if bias3 is not None else "K1", q4, k4, v4, bias3,
-            out.unflatten(-1, (num_heads, d)))
-    return out
+    return _EvalAttention.apply(q4, k4, v4, bias3,
+                                "K4" if bias3 is not None else "K1"
+                                ).flatten(-2)

@@ -5,17 +5,31 @@
 
 Phases, each printing its own lines:
 1. device: requires CUDA; prints ``nvidia-smi`` name and power limit.
-2. build: compiles the attention kernels from ``csrc/`` (nvcc, sm_90a).
-3. kernels K1-K4 at the main path's shapes, bf16 and fp32: max |error|
+2. build: compiles the eval (K1-K4) and train (K5-K7) attention libraries
+   from ``csrc/`` (one nvcc each, started together; sm_90a) and prints
+   ptxas's register and spill lines.
+3. kernels K1-K4 at the eval path's shapes, bf16 and fp32: max |error|
    against the plain PyTorch version, kernel / plain / SDPA times (SDPA is
    a yardstick only; the port never calls it) and the least time the card
    could take (bytes over 3.35 TB/s or operations over the dtype's peak).
-4. main path: stage-II re-rank evaluation through the port's
+4. kernels K5-K7 at the training path's shape ([16, 640, 12, 64] queries
+   x 577 keys, rate 0.1), bf16 and fp32: the K5 mask bit for bit against
+   its plain version, K6's output and K7's dq/dk/dv against theirs, times,
+   bounds, and SDPA with dropout_p=0.1 as a yardstick (same work, its own
+   mask: no PyTorch call computes the same function).
+5. eval path: stage-II re-rank evaluation through the port's
    ``evaluate_cirr_stage2`` entry at full ViT-B/16@384 + MED + dual-encoder
    width in bf16, random weights from a seed, on a synthetic CIRR-shaped
    corpus held in memory; launch counts per kernel (K1-K3 must be > 0);
    then a few hundred pairs re-scored in fp32 on the card and on the CPU.
-5. a JSON line of kernel figures, then the card's name and power limit,
+6. training path: ``make_stage2_train_step`` at full width in bf16 with
+   remat, B = 16, fed by the port's ``BatchLoader`` over in-memory
+   CIRR-shaped triplets: 1 warm-up and 5 counted steps; step seconds,
+   triplets/s, losses, peak memory, launches per step (K6 and K7 at the
+   counts the configuration implies); the dual encoder must change and the
+   frozen ViT stay bit-identical; a profile of one step; then one fp32
+   step at B = 2 on the card and on the CPU from the same weights.
+7. a JSON line of kernel figures, then the card's name and power limit,
    then the last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero without the last line.
@@ -27,6 +41,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -37,12 +52,26 @@ N_CHECK_QUERIES = 4            # queries re-scored in fp32 on card and CPU
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM (NVIDIA data sheet)
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+GRAD_TOL = {torch.bfloat16: 2e-2, torch.float32: 3e-5}
 FP32_CARD_VS_CPU_TOL = 1e-3    # summation order through 12+12 layers
 BF16_VS_FP32_TOL = 0.1         # bf16 compute vs fp32 on the same weights
-SOURCE = "candidate_reranking_cir_tpu_torch/csrc/attention.cu"
+TRAIN_B, TRAIN_STEPS = 16, 5   # stage-II batch (B x B pairs), counted steps
+TRAIN_SHAPE = (16, 640, 577, 12, 64)   # K6/K7 on the path: [E, Lq, M, H, D]
+TRAIN_RATE, TRAIN_SEED = 0.1, 20261016
+TRAIN_LOSS_TOL = 1e-4          # fp32 train step, card vs CPU
+TRAIN_GRAD_REL_TOL = 1e-3      # max |grad diff| / max |grad|, same step
+CSRC = "candidate_reranking_cir_tpu_torch/csrc"
+SOURCES = {"K1": f"{CSRC}/attention.cu", "K2": f"{CSRC}/attention.cu",
+           "K3": f"{CSRC}/attention.cu", "K4": f"{CSRC}/attention.cu",
+           "K5": f"{CSRC}/attention_common.cuh",
+           "K6": f"{CSRC}/attention_train.cu",
+           "K7": f"{CSRC}/attention_train.cu"}
 JAX_KERNELS = "candidate_reranking_cir_tpu/ops/pallas_attention.py"
+JAX_TRAIN = "candidate_reranking_cir_tpu/ops/pallas_attention_train.py"
 REPLACES = {"K1": f"{JAX_KERNELS}:220", "K2": f"{JAX_KERNELS}:132",
-            "K3": f"{JAX_KERNELS}:122", "K4": f"{JAX_KERNELS}:236"}
+            "K3": f"{JAX_KERNELS}:122", "K4": f"{JAX_KERNELS}:236",
+            "K5": f"{JAX_TRAIN}:61", "K6": f"{JAX_TRAIN}:114",
+            "K7": f"{JAX_TRAIN}:135"}
 MAIN_PATH_KERNELS = ("K1", "K2", "K3")
 
 
@@ -72,8 +101,16 @@ def time_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound(n_bytes: float, n_ops: float, dtype) -> tuple[float, str]:
+    """The least time the card could take, ms: the bytes moved over the
+    memory rate or the operations over the dtype's peak, the larger."""
+    t_mem, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / PEAK_OPS[dtype]
+    return max(t_mem, t_ops) * 1e3, "bytes" if t_mem >= t_ops else \
+        "operations"
+
+
 # ---------------------------------------------------------------------------
-# phase 3: kernels at the main path's shapes
+# phase 3: kernels at the eval path's shapes
 
 def kernel_cases():
     """(kernel id, label, e, lq, m, heads, folded, with key-mask bias)."""
@@ -130,14 +167,12 @@ def run_kernel_case(kid, label, e, lq, m, h, folded, with_bias, dtype):
     itemsize = q.element_size()
     n_bytes = (q.numel() * 2 + k.numel() + v.numel()) * itemsize \
         + (0 if bias is None else bias.numel() * 4)
-    n_ops = 4 * e * h * lq * m * d
-    t_mem, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / PEAK_OPS[dtype]
+    b_ms, b_by = bound(n_bytes, 4 * e * h * lq * m * d, dtype)
     rec = {"name": kid, "label": label, "dtype": str(dtype).split(".")[-1],
            "shape": [e, lq, m, h, d], "max_abs_err": err,
            "ms": time_ms(kernel), "plain_ms": time_ms(plain),
-           "library_ms": time_ms(library),
-           "bound_ms": max(t_mem, t_ops) * 1e3,
-           "bound_by": "bytes" if t_mem >= t_ops else "operations"}
+           "library_ms": time_ms(library), "bound_ms": b_ms,
+           "bound_by": b_by}
     print(f"[kernel] {kid} {label} {rec['dtype']} q/k/v {list(shape_q)} x "
           f"{m} keys{' +mask' if with_bias else ''}: max|err| {err:.3e} "
           f"(tol {TOL[dtype]}), kernel {rec['ms']:.4f} ms, plain "
@@ -147,7 +182,110 @@ def run_kernel_case(kid, label, e, lq, m, h, folded, with_bias, dtype):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the main path
+# phase 4: the train kernels at the training path's shape
+def run_train_kernel_cases(dtype) -> dict:
+    """K5, K6, K7 at TRAIN_SHAPE in ``dtype``: error against the plain
+    versions, kernel / plain / SDPA-yardstick times and bounds."""
+    from candidate_reranking_cir_tpu_torch.ops import attention_train as tat
+    import torch.nn.functional as F
+
+    e, lq, m, h, d = TRAIN_SHAPE
+    rate, seed = TRAIN_RATE, TRAIN_SEED
+    name = str(dtype).split(".")[-1]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    q, gout = (torch.randn(e, lq, h, d, generator=g, device="cuda").to(dtype)
+               for _ in range(2))
+    k, v = (torch.randn(e, m, h, d, generator=g, device="cuda").to(dtype)
+            for _ in range(2))
+    isz = q.element_size()
+    recs = {}
+
+    # K5: the kernel-written mask against the plain hash, bit for bit
+    buf = torch.empty(lq, m, dtype=torch.uint8, device="cuda")
+    mismatches = 0
+    for s_, b_, h_ in ((seed, 0, 0), (seed, e - 1, h - 1),
+                       (-2 ** 31, 7, 3), (2 ** 31 - 1, 9_000_000, 5)):
+        out = tat.write_keep_mask(buf, s_, b_, h_, rate)
+        ref = tat.keep_mask(s_, b_, h_, lq, m, rate, device="cuda")
+        mismatches += int((out.bool() != ref).sum())
+    torch.cuda.synchronize()
+    print(f"[kernel] K5 keep-mask [{lq}, {m}] x 4 (seed, entry, head): "
+          f"{mismatches} mismatches", flush=True)
+    if mismatches:
+        fail(f"K5 mask differs from its plain version in {mismatches} places")
+    # one byte written per element; about 14 integer/float operations per
+    # element (one lowbias32 hash, the index, the compare), counted against
+    # the CUDA cores' fp32 rate, the table's nearest non-tensor peak
+    b_ms, b_by = bound(lq * m, 14 * lq * m, torch.float32)
+    recs["K5"] = {"name": "K5", "dtype": name, "shape": [lq, m],
+                  "max_abs_err": float(mismatches),
+                  "ms": time_ms(lambda: tat.write_keep_mask(buf, seed, 0, 0,
+                                                            rate)),
+                  "plain_ms": time_ms(lambda: tat.keep_mask(
+                      seed, 0, 0, lq, m, rate, device="cuda")),
+                  "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+
+    # K6
+    fwd = lambda: tat._kernel_fwd(q, k, v, None, seed, rate)
+    plain_fwd = lambda: tat.attention_train_plain(q, k, v, None, seed, rate)
+    out = fwd()
+    torch.cuda.synchronize()
+    err6 = (out.float() - plain_fwd().float()).abs().max().item()
+    if not torch.isfinite(out).all() or err6 > TOL[dtype]:
+        fail(f"K6 {name}: max |err| {err6:.3e} > {TOL[dtype]}")
+    qt, kt, vt, gt = (x.transpose(1, 2) for x in (q, k, v, gout))
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                  dropout_p=rate)
+    b_ms, b_by = bound(2 * (q.numel() + k.numel()) * isz,
+                       4 * e * h * lq * m * d, dtype)
+    # no PyTorch call computes K6/K7's function (the mask differs), so
+    # library_ms is null; SDPA with dropout is kept as a yardstick
+    recs["K6"] = {"name": "K6", "dtype": name, "shape": list(TRAIN_SHAPE),
+                  "max_abs_err": err6, "ms": time_ms(fwd),
+                  "plain_ms": time_ms(plain_fwd), "library_ms": None,
+                  "sdpa_own_mask_ms": time_ms(sdpa),
+                  "bound_ms": b_ms, "bound_by": b_by}
+
+    # K7
+    bwd = lambda: tat._kernel_bwd(q, k, v, None, seed, gout, rate)
+    plain_bwd = lambda: tat.attention_train_bwd_plain(q, k, v, None, seed,
+                                                      gout, rate)
+    grads = bwd()
+    torch.cuda.synchronize()
+    err7 = max((a.float() - b.float()).abs().max().item()
+               for a, b in zip(grads, plain_bwd()))
+    if not all(torch.isfinite(x).all() for x in grads) \
+            or err7 > GRAD_TOL[dtype]:
+        fail(f"K7 {name}: max |err| {err7:.3e} > {GRAD_TOL[dtype]}")
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qg, kg, vg, dropout_p=rate)
+        torch.autograd.grad(o, (qg, kg, vg), gt)
+
+    b_ms, b_by = bound((3 * q.numel() + 4 * k.numel()) * isz,
+                       10 * e * h * lq * m * d, dtype)
+    recs["K7"] = {"name": "K7", "dtype": name, "shape": list(TRAIN_SHAPE),
+                  "max_abs_err": err7, "ms": time_ms(bwd),
+                  "plain_ms": time_ms(plain_bwd), "library_ms": None,
+                  "sdpa_own_mask_ms": time_ms(sdpa_fwd_bwd),
+                  "bound_ms": b_ms, "bound_by": b_by}
+    for kid in ("K6", "K7"):
+        r = recs[kid]
+        print(f"[kernel] {kid} {name} {list(TRAIN_SHAPE)} rate {rate}: "
+              f"max|err| {r['max_abs_err']:.3e}, kernel {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, sdpa(dropout_p={rate}"
+              f"{', fwd+bwd' if kid == 'K7' else ''}; same work, its own "
+              f"mask) {r['sdpa_own_mask_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} "
+              f"ms ({r['bound_by']})", flush=True)
+    print(f"[kernel] K5 {name}: kernel {recs['K5']['ms']:.4f} ms, plain "
+          f"{recs['K5']['plain_ms']:.4f} ms per [{lq}, {m}] mask", flush=True)
+    return recs
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the eval path
 
 class Corpus:
     """'classic' dataset over in-memory [H, W, 3] images (CLIP-normalised
@@ -299,7 +437,7 @@ def main_path():
     if not d_bf16 <= BF16_VS_FP32_TOL:
         fail("bf16 card logits disagree with fp32 on the CPU")
 
-    profile_scoring(lambda: rerank_candidate_major(
+    profile_device("scoring pass", lambda: rerank_candidate_major(
         s1, None, s2, None, tok, device="cuda", index_feats=bank,
         captions=[q["caption"] for q in queries],
         reference_names=[q["reference_name"] for q in queries],
@@ -309,10 +447,24 @@ def main_path():
     return launches
 
 
-def profile_scoring(run):
-    """Device time by kernel family over one z_t + scoring pass (after the
-    counted run; torch.profiler, CUPTI), and the device's idle share of
-    the pass's wall time."""
+def kernel_family(name: str) -> str:
+    if "attn_train_fwd_kernel" in name:
+        return "train attention forward (K6)"
+    if "attn_bwd_rows_kernel" in name or "attn_bwd_keys_kernel" in name:
+        return "train attention backward (K7)"
+    if "attn_fwd_kernel" in name:
+        return ("eval attention, bias (K2/K4)" if "true" in name.lower()
+                else "eval attention, no bias (K1/K3)")
+    if any(s in name.lower() for s in ("gemm", "xmma", "cutlass", "nvjet")):
+        return "matmul (cuBLAS)"
+    if name.startswith("Memcpy"):
+        return "copies"
+    return "elementwise, norms, gathers, optimizer"
+
+
+def profile_device(label: str, run):
+    """Device time by kernel family over one run of ``run`` (torch.profiler,
+    CUPTI), and the device's idle share of its wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -333,30 +485,244 @@ def profile_scoring(run):
             us = getattr(evt, "self_cuda_time_total", 0.0)
         name = evt.key
         kernels[name] = kernels.get(name, 0.0) + us
-        if "attn_fwd_kernel" in name:
-            fam = ("attention, bias (K2/K4)" if "true" in name.lower()
-                   else "attention, no bias (K1/K3)")
-        elif any(s in name.lower() for s in ("gemm", "xmma", "cutlass",
-                                             "nvjet")):
-            fam = "matmul (cuBLAS)"
-        elif name.startswith("Memcpy"):
-            fam = "copies"
-        else:
-            fam = "elementwise, norms, gathers"
+        fam = kernel_family(name)
         families[fam] = families.get(fam, 0.0) + us
     busy = sum(families.values())
     if busy == 0.0:
-        print("[profile] the profiler reported no device time: device "
-              "breakdown not measured", flush=True)
+        print(f"[profile] {label}: the profiler reported no device time: "
+              "device breakdown not measured", flush=True)
         return
     parts = ", ".join(f"{k} {v / 1e3:.1f} ms ({100 * v / busy:.1f}%)"
                       for k, v in sorted(families.items(),
                                          key=lambda kv: -kv[1]))
-    print(f"[profile] scoring pass: wall {wall_us / 1e3:.1f} ms, device "
+    print(f"[profile] {label}: wall {wall_us / 1e3:.1f} ms, device "
           f"busy {busy / 1e3:.1f} ms, idle share "
           f"{100 * max(0.0, 1 - busy / wall_us):.1f}%; {parts}", flush=True)
     for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
         print(f"[profile]   {us / 1e3:8.1f} ms  {name[:110]}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the training path
+
+class Triplets:
+    """CIRR-shaped 'relative' training triplets (reference image, target
+    image, caption of 3-30 toy-vocabulary words) over an in-memory image
+    pool made from a seed."""
+
+    def __init__(self, n: int, n_images: int, size: int, rng,
+                 vocab_words: list[str]):
+        self.images = rng.normal(size=(n_images, size, size, 3)).astype(
+            np.float32)
+        self.rows = []
+        for _ in range(n):
+            ref, tgt = rng.choice(n_images, size=2, replace=False)
+            n_words = int(min(30, 3 + rng.geometric(0.12)))
+            self.rows.append((int(ref), int(tgt),
+                              " ".join(rng.choice(vocab_words, n_words))))
+
+    def __len__(self):
+        return len(self.rows)
+
+    def __getitem__(self, i):
+        ref, tgt, caption = self.rows[i]
+        return {"reference_image": self.images[ref],
+                "target_image": self.images[tgt], "caption": caption}
+
+
+def train_configs(dropout: bool):
+    from candidate_reranking_cir_tpu_torch.config import (
+        RerankerModelConfig,
+        RetrievalModelConfig,
+        TextEncoderConfig,
+        vit_config,
+    )
+
+    # as the JAX trainer builds them (cli/common.py::build_stage2 with
+    # remat): ViT drop-path 0.1 (frozen here), the dual encoder with remat;
+    # remat policy '' (JAX: 'dots', not ported yet)
+    rates = {} if dropout else {"hidden_dropout": 0.0,
+                                "attention_dropout": 0.0}
+    vit = vit_config("base", 384, drop_path_rate=0.1)
+    cfg1 = RetrievalModelConfig(vit=vit_config("base", 384),
+                                text=TextEncoderConfig(), text_len=TEXT_LEN)
+    cfg2 = RerankerModelConfig(
+        vit=vit, text=TextEncoderConfig(remat=True, **rates),
+        text_len=TEXT_LEN)
+    return cfg1, cfg2
+
+
+def train_batches(tok, words, n_batches: int, batch_size: int):
+    """Batches as the trainer feeds them: the port's BatchLoader over the
+    triplets, prefetched, captions tokenized with [ENC] at position 0."""
+    from candidate_reranking_cir_tpu_torch.data.loader import (
+        BatchLoader,
+        prefetch,
+    )
+
+    rng = np.random.default_rng(SEED + 2)
+    data = Triplets(n_batches * batch_size, 24, 384, rng, words)
+    loader = BatchLoader(data, batch_size, shuffle=True, seed=SEED,
+                         workers=4)
+    for raw in prefetch(iter(loader), 2):
+        ids, mask = tok.encode(raw["caption"], TEXT_LEN, set_enc_token=True)
+        yield {"ref_images": raw["reference_image"],
+               "target_images": raw["target_image"],
+               "input_ids": ids, "attention_mask": mask}
+
+
+def train_path(tok, words) -> dict:
+    from candidate_reranking_cir_tpu_torch.config import TrainConfig
+    from candidate_reranking_cir_tpu_torch.models.blip_reranker import (
+        RerankerModel,
+    )
+    from candidate_reranking_cir_tpu_torch.models.blip_retrieval import (
+        RetrievalModel,
+    )
+    from candidate_reranking_cir_tpu_torch.ops import attention_train as tat
+    from candidate_reranking_cir_tpu_torch.ops import cuda_attention as ck
+    from candidate_reranking_cir_tpu_torch.runtime.optim import (
+        make_optimizer,
+    )
+    from candidate_reranking_cir_tpu_torch.runtime.train_steps import (
+        make_stage2_train_step,
+    )
+
+    cfg1, cfg2 = train_configs(dropout=True)
+    torch.manual_seed(SEED + 3)
+    s1 = RetrievalModel(cfg1, dtype=torch.bfloat16, device="cuda")
+    s2 = RerankerModel(cfg2, dtype=torch.bfloat16, device="cuda")
+    opt, _ = make_optimizer(TrainConfig(), s2, 1000,
+                            freeze_prefixes=("visual_encoder",))
+    step = make_stage2_train_step(s1, s2, opt)
+    vit0 = {k: v.clone() for k, v in s2.visual_encoder.state_dict().items()}
+    trained0 = {n: p.detach().clone() for n, p in s2.named_parameters()
+                if p.requires_grad}
+    gen = torch.Generator().manual_seed(SEED)
+    batches = train_batches(tok, words, 1 + TRAIN_STEPS + 1, TRAIN_B)
+
+    loss = step(next(batches), gen)                      # warm-up
+    torch.cuda.synchronize()
+    print(f"[train] warm-up step: loss {float(loss):.4f}", flush=True)
+    ck.reset_launch_counts()
+    tat.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    seconds, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        batch = next(batches)
+        t0 = time.perf_counter()
+        loss = step(batch, gen)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    launches = {**ck.LAUNCHES, **tat.LAUNCHES}
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    mean_s = sum(seconds) / len(seconds)
+    pairs = TRAIN_B * TRAIN_B
+    print(f"[train] {TRAIN_STEPS} steps at B={TRAIN_B} ({pairs} pairs), "
+          f"bf16, remat: seconds {[round(x, 4) for x in seconds]}; mean "
+          f"{mean_s:.4f} s; stage-II train triplets/s {pairs / mean_s:.1f} "
+          f"({pairs} / step time)", flush=True)
+    print(f"[train] losses {[round(x, 5) for x in losses]}; peak "
+          f"max_memory_allocated {peak:.2f} GiB", flush=True)
+    print(f"[train] launches per step {json.dumps(per_step)}", flush=True)
+    if not all(np.isfinite(losses)):
+        fail("non-finite training loss")
+    n_layers = cfg2.text.num_layers
+    expect = {"K7": 2 * n_layers, "K6": 2 * 2 * n_layers}  # remat: twice
+    for kid, n in expect.items():
+        if per_step[kid] != n:
+            fail(f"{kid}: {per_step[kid]} launches per step, expected {n}")
+    if not (per_step["K1"] > 0 and per_step["K2"] > 0):
+        fail(f"the frozen producers did not run their kernels: {per_step}")
+    unchanged = [n for n, p in s2.named_parameters()
+                 if p.requires_grad and torch.equal(p, trained0[n])]
+    if unchanged:
+        fail(f"{len(unchanged)} trained parameters did not change, e.g. "
+             f"{unchanged[0]}")
+    if any(not torch.equal(v, vit0[k])
+           for k, v in s2.visual_encoder.state_dict().items()):
+        fail("the frozen ViT changed")
+    print(f"[train] all {len(trained0)} trained parameter tensors changed; "
+          "the frozen ViT is bit-identical", flush=True)
+    batch = next(batches)
+    profile_device("one train step", lambda: step(batch, gen))
+    return {"launches": launches, "per_step": per_step,
+            "triplets_per_s": pairs / mean_s}
+
+
+def train_fp32_check(tok, words):
+    """One fp32 step at B = 2 (4 pairs), full width, on the card and on
+    the CPU from the same weights and seeds. Dropout is 0 here: the
+    non-kernel dropouts draw from each device's own generator, and at B = 2
+    no site is eligible for the kernels' hash mask. So this holds the whole
+    step (frozen K1/K2 producers, the K3 pair cross-attention with its
+    plain-recompute backward, the loss, remat, AdamW) to the CPU."""
+    from candidate_reranking_cir_tpu_torch.config import TrainConfig
+    from candidate_reranking_cir_tpu_torch.models.blip_reranker import (
+        RerankerModel,
+    )
+    from candidate_reranking_cir_tpu_torch.models.blip_retrieval import (
+        RetrievalModel,
+    )
+    from candidate_reranking_cir_tpu_torch.runtime.optim import (
+        make_optimizer,
+    )
+    from candidate_reranking_cir_tpu_torch.runtime.train_steps import (
+        make_stage2_train_step,
+    )
+
+    cfg1, cfg2 = train_configs(dropout=False)
+    batch = next(train_batches(tok, words, 1, 2))
+    torch.manual_seed(SEED + 4)
+    s1_cpu = RetrievalModel(cfg1, device="cpu")
+    s2_cpu = RerankerModel(cfg2, device="cpu")
+    results = {}
+    for dev in ("cuda", "cpu"):
+        if dev == "cuda":
+            s1 = RetrievalModel(cfg1, device="cuda")
+            s1.load_state_dict(s1_cpu.state_dict())
+            s2 = RerankerModel(cfg2, device="cuda")
+            s2.load_state_dict(s2_cpu.state_dict())
+        else:
+            s1, s2 = s1_cpu, s2_cpu
+        opt, _ = make_optimizer(TrainConfig(), s2, 1000,
+                                freeze_prefixes=("visual_encoder",))
+        step = make_stage2_train_step(s1, s2, opt)
+        t0 = time.perf_counter()
+        loss = float(step(batch, torch.Generator().manual_seed(SEED)))
+        grads = {n: p.grad.detach().float().cpu()
+                 for n, p in s2.named_parameters() if p.grad is not None}
+        results[dev] = (loss, grads)
+        print(f"[check] fp32 train step at B=2 on {dev}: loss {loss:.6f} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        del s1, s2, opt, step
+    (lc, gc), (lp, gp) = results["cuda"], results["cpu"]
+    d_loss = abs(lc - lp)
+    g_max = max(float(g.abs().max()) for g in gp.values())
+    d_grad = max(float((gc[n] - gp[n]).abs().max()) for n in gp)
+    print(f"[check] fp32 train step card vs cpu: |loss diff| {d_loss:.3e} "
+          f"(tol {TRAIN_LOSS_TOL}); max |grad diff| {d_grad:.3e} over "
+          f"{len(gp)} tensors, largest |grad| {g_max:.3e} (tol "
+          f"{TRAIN_GRAD_REL_TOL} x largest)", flush=True)
+    if set(gc) != set(gp) or not d_loss <= TRAIN_LOSS_TOL \
+            or not d_grad <= TRAIN_GRAD_REL_TOL * g_max:
+        fail("the fp32 train step on the card disagrees with the CPU")
+
+
+def build_libraries() -> None:
+    """Both kernel libraries, one nvcc each, started together."""
+    from candidate_reranking_cir_tpu_torch.ops.build import build
+
+    with ThreadPoolExecutor(2) as pool:
+        built = list(pool.map(build, ("attention", "attention_train")))
+    for path, seconds, log in built:
+        print(f"[build] {path.name}: {seconds:.1f} s", flush=True)
+        for line in log.splitlines():
+            if "Compiling entry" in line or "registers" in line \
+                    or "spill" in line:
+                print(f"[build] {line.strip()}", flush=True)
 
 
 def main():
@@ -365,14 +731,7 @@ def main():
     smi = smi_name_and_limit()
     print(f"[device] {smi}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
-
-    from candidate_reranking_cir_tpu_torch.ops.build import build
-
-    path, seconds, log = build("attention")
-    print(f"[build] {path.name}: {seconds:.1f} s", flush=True)
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}", flush=True)
+    build_libraries()
 
     records = {}
     for case in kernel_cases():
@@ -381,18 +740,38 @@ def main():
             # the JSON line keeps each kernel's first main-path shape, bf16
             if dtype == torch.bfloat16 and case[0] not in records:
                 records[case[0]] = rec
+    for dtype in (torch.float32, torch.bfloat16):
+        recs = run_train_kernel_cases(dtype)
+        if dtype == torch.bfloat16:
+            records.update(recs)
 
     launches = main_path()
+    from candidate_reranking_cir_tpu_torch.models.tokenizer import (
+        WordPieceTokenizer,
+        build_test_vocab,
+    )
+
+    vocab = build_test_vocab()
+    words = [w for w in vocab if w.isalpha() and len(w) > 1]
+    tok = WordPieceTokenizer(vocab)
+    train = train_path(tok, words)
+    train_fp32_check(tok, words)
+
     kernels = []
-    for kid in ("K1", "K2", "K3", "K4"):
+    for kid in ("K1", "K2", "K3", "K4", "K5", "K6", "K7"):
         rec = records[kid]
+        # K1-K4: launches on the eval path; K5-K7 on the training path (K5
+        # runs inside every K6/K7 launch that applies the mask)
+        n = launches[kid] if kid in launches else train["launches"][kid]
         kernels.append({
-            "name": kid, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[kid], "launches": launches[kid],
+            "name": kid, "route": "cuda", "source": SOURCES[kid],
+            "replaces": REPLACES[kid], "launches": n,
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-            "shape": rec["shape"], "dtype": rec["dtype"]})
+            "shape": rec["shape"], "dtype": rec["dtype"],
+            **({"sdpa_own_mask_ms": rec["sdpa_own_mask_ms"]}
+               if "sdpa_own_mask_ms" in rec else {})})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""CUDA kernels K1-K4 against their plain PyTorch versions, on the card.
+"""CUDA kernels K1-K7 against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: they skip where no card is present. On a machine with a
 card (which need not have JAX), run them without the repository's conftest:
@@ -6,12 +6,14 @@ card (which need not have JAX), run them without the repository's conftest:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_port_cuda.py
 
-Tolerances: fp32 atol 2e-5, bf16 atol 2e-2 (tests/test_pallas_attention*).
+Tolerances: fp32 atol 2e-5 forward and 3e-5 gradients, bf16 atol 2e-2
+(tests/test_pallas_attention*); the K5 mask bit for bit.
 """
 import pytest
 import torch
 
 from candidate_reranking_cir_tpu_torch.ops import attention as tattn
+from candidate_reranking_cir_tpu_torch.ops import attention_train as tat
 from candidate_reranking_cir_tpu_torch.ops import cuda_attention as ck
 
 pytestmark = pytest.mark.cuda
@@ -96,3 +98,112 @@ def test_wrappers_raise_on_what_the_kernel_does_not_take(dev):
     kv = _rand(dev, torch.float32, 1, 5000, 1, 64)
     with pytest.raises(ValueError, match="keys"):
         ck.fused_attention(q, kv, kv)
+
+
+# ---------------------------------------------------------------------------
+# K1-K4 gradients: kernel forward, plain-recompute backward
+
+
+@pytest.mark.parametrize("folded,with_bias", [(True, False), (False, True),
+                                              (False, False), (True, True)])
+def test_eval_kernels_have_plain_gradients(dev, folded, with_bias):
+    e, lq, m, h = 2, 40, 577, 12
+    shape_q = (e, lq, h * 64) if folded else (e, lq, h, 64)
+    shape_kv = (e, m, h * 64) if folded else (e, m, h, 64)
+    q = _rand(dev, torch.float32, *shape_q, seed=8).requires_grad_()
+    k = _rand(dev, torch.float32, *shape_kv, seed=9).requires_grad_()
+    v = _rand(dev, torch.float32, *shape_kv, seed=10).requires_grad_()
+    g = _rand(dev, torch.float32, *shape_q, seed=11)
+    bias = _mask_bias(dev, e, m) if with_bias else None
+    if folded:
+        out = ck.fused_attention_folded(q, k, v, bias, num_heads=h)
+    else:
+        out = ck.fused_attention(q, k, v, bias)
+    assert out.grad_fn is not None
+    grads = torch.autograd.grad(out, (q, k, v), g)
+
+    def as4(x):
+        return x.unflatten(-1, (h, 64)) if folded else x
+
+    b3 = None if bias is None else bias[:, 0].expand(e, lq, m)
+    ref = ck.attention_plain(as4(q), as4(k), as4(v), b3)
+    refs = torch.autograd.grad(ref, (q, k, v), as4(g))
+    for a, b in zip(grads, refs):
+        torch.testing.assert_close(a, b, rtol=0, atol=3e-5)
+
+
+# ---------------------------------------------------------------------------
+# K5-K7 against their plain versions
+
+GRAD_TOL = {torch.float32: 3e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("seed,b,h,rows,cols", [
+    (12345, 0, 0, 640, 577), (-2 ** 31, 15, 11, 640, 577),
+    (2 ** 31 - 1, 9_000_000, 3, 33, 65)])
+def test_k5_mask_bit_exact(dev, seed, b, h, rows, cols):
+    out = tat.write_keep_mask(torch.empty(rows, cols, dtype=torch.uint8,
+                                          device=dev), seed, b, h, 0.1)
+    ref = tat.keep_mask(seed, b, h, rows, cols, 0.1, device=dev)
+    assert torch.equal(out.bool(), ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,lq,m,with_bias", [(3, 37, 45, True),
+                                              (16, 640, 577, False)])
+def test_k6_k7_match_plain(dev, dtype, e, lq, m, with_bias):
+    h, seed, rate = 12, -99, 0.1
+    q = _rand(dev, dtype, e, lq, h, 64, seed=12)
+    k = _rand(dev, dtype, e, m, h, 64, seed=13)
+    v = _rand(dev, dtype, e, m, h, 64, seed=14)
+    g = _rand(dev, dtype, e, lq, h, 64, seed=15)
+    bias = None
+    if with_bias:
+        bias = tat._train_bias3(_mask_bias(dev, e, m), e, lq, m)
+    before = dict(tat.LAUNCHES)
+    out = tat._kernel_fwd(q, k, v, bias, seed, rate)
+    grads = tat._kernel_bwd(q, k, v, bias, seed, g, rate)
+    torch.cuda.synchronize()
+    assert tat.LAUNCHES["K6"] == before["K6"] + 1
+    assert tat.LAUNCHES["K7"] == before["K7"] + 1
+    ref = tat.attention_train_plain(q, k, v, bias, seed, rate)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=TOL[dtype])
+    refs = tat.attention_train_bwd_plain(q, k, v, bias, seed, g, rate)
+    for a, b in zip(grads, refs):
+        torch.testing.assert_close(a.float(), b.float(), rtol=0,
+                                   atol=GRAD_TOL[dtype])
+
+
+def test_train_attention_autograd_on_the_card(dev):
+    """fused_attention_train's autograd.Function: K6 forward, K7 backward."""
+    e, lq, m, h = 2, 130, 300, 12
+    q = _rand(dev, torch.float32, e, lq, h, 64, seed=16).requires_grad_()
+    k = _rand(dev, torch.float32, e, m, h, 64, seed=17).requires_grad_()
+    v = _rand(dev, torch.float32, e, m, h, 64, seed=18).requires_grad_()
+    g = _rand(dev, torch.float32, e, lq, h, 64, seed=19)
+    out = tat.fused_attention_train(q, k, v, None, 7, 0.1)
+    grads = torch.autograd.grad(out, (q, k, v), g)
+    refs = tat.attention_train_bwd_plain(q.detach(), k.detach(), v.detach(),
+                                         None, 7, g, 0.1)
+    for a, b in zip(grads, refs):
+        torch.testing.assert_close(a, b, rtol=0, atol=3e-5)
+
+
+def test_train_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    q = _rand(dev, torch.float32, 2, 8, 2, 32)
+    with pytest.raises(ValueError, match="head_dim"):
+        tat.fused_attention_train(q, q, q, None, 0, 0.1)
+    q = _rand(dev, torch.float16, 2, 8, 2, 64)
+    with pytest.raises(ValueError, match="dtype"):
+        tat.fused_attention_train(q, q, q, None, 0, 0.1)
+    q = _rand(dev, torch.float32, 1, 4, 1, 64)
+    kv = _rand(dev, torch.float32, 1, 5000, 1, 64)
+    with pytest.raises(ValueError, match="keys"):
+        tat.fused_attention_train(q, kv, kv, None, 0, 0.1)
+    with pytest.raises(ValueError, match="int32"):
+        tat.fused_attention_train(q, q, q, None, 2 ** 31, 0.1)
+    qf = _rand(dev, torch.float32, 2, 8, 128)
+    with pytest.raises(NotImplementedError, match="K8"):
+        tat.fused_attention_train_folded(qf, qf, qf, None, 0, 0.1,
+                                         num_heads=2)
