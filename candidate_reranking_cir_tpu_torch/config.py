@@ -28,7 +28,7 @@ class TextEncoderConfig:
     # dual-stream re-ranker only: layers >= merge_mlp_from merge the twin
     # cross-attention outputs with an MLP; earlier layers average them
     merge_mlp_from: int = 6
-    # recompute each dual-encoder layer in backward (torch.utils.checkpoint)
+    # recompute each encoder layer in backward (torch.utils.checkpoint)
     remat: bool = False
     # '' recomputes everything; 'dots' (save matmul outputs) is not ported
     remat_policy: str = ""

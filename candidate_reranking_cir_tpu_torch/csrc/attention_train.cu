@@ -33,6 +33,30 @@
 // 10*Lq*M*D operations per head against a few (Lq + M)*D elements moved).
 // This first version uses plain fp32 FMAs from shared memory, not tensor
 // cores, and so runs far from that bound; it is simple and exact first.
+//
+// K8 (_fwd_kernel_folded) and K9 (_bwd_kernel_folded): K6 and K7 over the
+// head-folded layout [E, L, H*D], which the stage-I MED cross-attention
+// trains in. Viewed as [E, L, H, D] that layout has the strides
+// (L*H*D, H*D, D, 1), so K8 and K9 run the K6/K7 bodies with the head
+// stride fixed at compile time to kHeadDim; they are kernels and entry
+// points of their own, so that a profile names them apart from K6/K7.
+// The TPU kernels block 8 (forward) and 4 (backward) entries per program to
+// spread a per-program overhead; here a block is one (row tile, head,
+// entry) and the mask is keyed by the absolute entry index (blockIdx.z), so
+// no entry blocking is needed. The TPU's transposed dk/dv variant
+// (CRC_BWD_TRANSPOSED) has the same numbers: only the math is ported.
+//   What bounds them at the stage-I shape [E = 512, Lq <= 40, M = 577,
+// H = 12, D = 64]: bytes. Per (entry, head) in bf16, K8 does 4*Lq*M*D =
+// 5.9 M operations against (2*Lq + 2*M)*D*2 = 158 KB moved (37 per byte)
+// and K9 10*Lq*M*D = 14.8 M against (3*Lq + 4*M)*D*2 = 311 KB (48 per
+// byte), both far below the card's 295 operations per byte: with few query
+// rows there is little reuse of K and V. What the design does about it:
+// not yet enough. Every row tile reads its entry's K/V once (K8: two 32-row
+// tiles at Lq = 40, 24 of 64 rows idle; K9's row pass: three 16-row tiles,
+// 8 of 48 idle; its key pass reads q and g once per 32-key tile, in two
+// 32-row chunks, 24 of 64 rows idle), mostly from L2, and the fp32-FMA
+// loops run at the FMA rate, well above the bytes bound. One row tile per
+// (entry, head) and tensor cores are later work.
 
 #include "attention_common.cuh"
 
@@ -40,7 +64,14 @@ namespace {
 
 using namespace crc;
 
-// ---- K6 -------------------------------------------------------------------
+// The folded layout's head stride, fixed at compile time (K8/K9): with the
+// kernels' bodies inlined, head offsets become h * kHeadDim.
+__device__ __forceinline__ Strides folded(Strides st) {
+  st.q[2] = st.k[2] = st.v[2] = st.o[2] = kHeadDim;
+  return st;
+}
+
+// ---- K6, K8 ---------------------------------------------------------------
 
 template <typename T, bool kHasBias>
 __global__ void __launch_bounds__(kThreads)
@@ -53,10 +84,22 @@ attn_train_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, bool kHasBias>
+__global__ void __launch_bounds__(kThreads)
+attn_train_fwd_folded_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v,
+                             const float* __restrict__ bias,
+                             T* __restrict__ out, int lq, int m, float scale,
+                             Strides st, Dropout drop) {
+  attn_fwd_body<T, kHasBias, true>(q, k, v, bias, out, lq, m, scale,
+                                   folded(st), drop);
+}
+
+template <typename T, bool kHasBias, bool kFolded>
 int launch_fwd(const void* q, const void* k, const void* v, const float* bias,
                void* out, int entries, int heads, int lq, int m, float scale,
                const Strides& st, const Dropout& drop, cudaStream_t stream) {
   auto kernel = attn_train_fwd_kernel<T, kHasBias>;
+  if (kFolded) kernel = attn_train_fwd_folded_kernel<T, kHasBias>;
   const size_t smem = fwd_smem_bytes(m);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -88,17 +131,22 @@ struct BwdStrides {
   long long b[2];
 };
 
+__device__ __forceinline__ BwdStrides folded(BwdStrides st) {
+  st.q[2] = st.k[2] = st.v[2] = st.g[2] = kHeadDim;
+  st.dq[2] = st.dk[2] = st.dv[2] = kHeadDim;
+  return st;
+}
+
 // Row pass. Grid: (ceil(lq / kBwdRows), heads, entries). Dynamic shared
 // memory: q tile (scaled) and g tile [kBwdRows][kHeadDim], one K or V tile
 // [kKeys][kTileStride], then P and DD [kBwdRows][m] (fp32 probabilities,
 // and g . v^T turned in place into d_scores).
 template <typename T, bool kHasBias>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const float* __restrict__ bias,
-                     const T* __restrict__ g, T* __restrict__ dq,
-                     float* __restrict__ stats, int entries, int heads,
-                     int lq, int m, float scale, BwdStrides st, Dropout drop) {
+__device__ __forceinline__ void bwd_rows_body(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const float* __restrict__ bias, const T* __restrict__ g,
+    T* __restrict__ dq, float* __restrict__ stats, int entries, int heads,
+    int lq, int m, float scale, const BwdStrides& st, const Dropout& drop) {
   extern __shared__ float smem[];
   float* qs = smem;
   float* gs = qs + kBwdRows * kHeadDim;
@@ -247,13 +295,12 @@ attn_bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // (t / 32) * 8 .. +7 of each chunk, for dk/dv the head-dim columns
 // t / 32 + 4 * i, i = 0..15.
 template <typename T, bool kHasBias>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_keys_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const float* __restrict__ bias,
-                     const T* __restrict__ g, T* __restrict__ dk,
-                     T* __restrict__ dv, const float* __restrict__ stats,
-                     int entries, int heads, int lq, int m, float scale,
-                     BwdStrides st, Dropout drop) {
+__device__ __forceinline__ void bwd_keys_body(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const float* __restrict__ bias, const T* __restrict__ g,
+    T* __restrict__ dk, T* __restrict__ dv, const float* __restrict__ stats,
+    int entries, int heads, int lq, int m, float scale, const BwdStrides& st,
+    const Dropout& drop) {
   __shared__ float Ks[kKeyTile * kTileStride];
   __shared__ float Vs[kKeyTile * kTileStride];
   __shared__ float Qs[kRowChunk * kTileStride];  // unscaled q
@@ -346,6 +393,51 @@ attn_bwd_keys_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+#define CRC_BWD_ROWS_ARGS                                                    \
+  const T *__restrict__ q, const T *__restrict__ k, const T *__restrict__ v, \
+      const float *__restrict__ bias, const T *__restrict__ g,               \
+      T *__restrict__ dq, float *__restrict__ stats, int entries, int heads, \
+      int lq, int m, float scale, BwdStrides st, Dropout drop
+#define CRC_BWD_KEYS_ARGS                                                    \
+  const T *__restrict__ q, const T *__restrict__ k, const T *__restrict__ v, \
+      const float *__restrict__ bias, const T *__restrict__ g,               \
+      T *__restrict__ dk, T *__restrict__ dv,                                \
+      const float *__restrict__ stats, int entries, int heads, int lq, int m, \
+      float scale, BwdStrides st, Dropout drop
+
+// K7's two passes
+template <typename T, bool kHasBias>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_rows_kernel(CRC_BWD_ROWS_ARGS) {
+  bwd_rows_body<T, kHasBias>(q, k, v, bias, g, dq, stats, entries, heads, lq,
+                             m, scale, st, drop);
+}
+
+template <typename T, bool kHasBias>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_keys_kernel(CRC_BWD_KEYS_ARGS) {
+  bwd_keys_body<T, kHasBias>(q, k, v, bias, g, dk, dv, stats, entries, heads,
+                             lq, m, scale, st, drop);
+}
+
+// K9's two passes: K7's with the folded head stride
+template <typename T, bool kHasBias>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_rows_folded_kernel(CRC_BWD_ROWS_ARGS) {
+  bwd_rows_body<T, kHasBias>(q, k, v, bias, g, dq, stats, entries, heads, lq,
+                             m, scale, folded(st), drop);
+}
+
+template <typename T, bool kHasBias>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_keys_folded_kernel(CRC_BWD_KEYS_ARGS) {
+  bwd_keys_body<T, kHasBias>(q, k, v, bias, g, dk, dv, stats, entries, heads,
+                             lq, m, scale, folded(st), drop);
+}
+
+#undef CRC_BWD_ROWS_ARGS
+#undef CRC_BWD_KEYS_ARGS
+
 size_t bwd_rows_smem_bytes(int m) {
   return (static_cast<size_t>(kBwdFixedSmemFloats) +
           2 * static_cast<size_t>(kBwdRows) * m) * sizeof(float);
@@ -357,13 +449,18 @@ int bwd_max_keys() {
          (2 * kBwdRows * static_cast<int>(sizeof(float)));
 }
 
-template <typename T, bool kHasBias>
+template <typename T, bool kHasBias, bool kFolded>
 int launch_bwd(const void* q, const void* k, const void* v, const float* bias,
                const void* g, void* dq, void* dk, void* dv, float* stats,
                int entries, int heads, int lq, int m, float scale,
                const BwdStrides& st, const Dropout& drop,
                cudaStream_t stream) {
   auto rows = attn_bwd_rows_kernel<T, kHasBias>;
+  auto keys = attn_bwd_keys_kernel<T, kHasBias>;
+  if (kFolded) {
+    rows = attn_bwd_rows_folded_kernel<T, kHasBias>;
+    keys = attn_bwd_keys_folded_kernel<T, kHasBias>;
+  }
   const size_t smem = bwd_rows_smem_bytes(m);
   cudaError_t err = cudaFuncSetAttribute(
       rows, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -377,7 +474,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const float* bias,
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid_keys((m + kKeyTile - 1) / kKeyTile, heads, entries);
-  attn_bwd_keys_kernel<T, kHasBias><<<grid_keys, kThreads, 0, stream>>>(
+  keys<<<grid_keys, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), bias, static_cast<const T*>(g),
       static_cast<T*>(dk), static_cast<T*>(dv), stats, entries, heads, lq, m,
@@ -408,54 +505,50 @@ Dropout make_dropout(int seed, float rate, float inv) {
   return d;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Largest key count both K6 and K7 take (K7's row pass holds two score
-// buffers, so it is the tighter one).
-int crc_attention_train_max_keys() {
+int max_keys() {
   return bwd_max_keys() < fwd_max_keys() ? bwd_max_keys() : fwd_max_keys();
 }
 
-// K6. dtype: 0 = float32, 1 = bfloat16. strides: q, k, v, out as (entry,
-// row, head) triples, then the bias's (entry, row). inv = 1 / (1 - rate).
-// Returns the launch's cudaGetLastError() (0 = success).
-int crc_attention_train_forward(int dtype, const void* q, const void* k,
-                                const void* v, const float* bias, void* out,
-                                const long long* strides, int entries,
-                                int heads, int lq, int m, float scale,
-                                int seed, float rate, float inv,
-                                void* stream) {
+// K6 (kFolded false) or K8 (true); the folded kernels take head strides of
+// kHeadDim only.
+template <bool kFolded>
+int dispatch_forward(int dtype, const void* q, const void* k, const void* v,
+                     const float* bias, void* out, const long long* strides,
+                     int entries, int heads, int lq, int m, float scale,
+                     int seed, float rate, float inv, void* stream) {
   const Strides st = unpack_strides(strides);
   const Dropout drop = make_dropout(seed, rate, inv);
-  if (m < 1 || lq < 1 || m > crc_attention_train_max_keys())
+  if (m < 1 || lq < 1 || m > max_keys())
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (kFolded && (st.q[2] != kHeadDim || st.k[2] != kHeadDim ||
+                  st.v[2] != kHeadDim || st.o[2] != kHeadDim))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return bias ? launch_fwd<float, true>(q, k, v, bias, out, entries, heads,
-                                          lq, m, scale, st, drop, s)
-                : launch_fwd<float, false>(q, k, v, bias, out, entries, heads,
-                                           lq, m, scale, st, drop, s);
+    return bias ? launch_fwd<float, true, kFolded>(
+                      q, k, v, bias, out, entries, heads, lq, m, scale, st,
+                      drop, s)
+                : launch_fwd<float, false, kFolded>(
+                      q, k, v, bias, out, entries, heads, lq, m, scale, st,
+                      drop, s);
   if (dtype == 1)
-    return bias ? launch_fwd<__nv_bfloat16, true>(q, k, v, bias, out, entries,
-                                                  heads, lq, m, scale, st,
-                                                  drop, s)
-                : launch_fwd<__nv_bfloat16, false>(q, k, v, bias, out,
-                                                   entries, heads, lq, m,
-                                                   scale, st, drop, s);
+    return bias ? launch_fwd<__nv_bfloat16, true, kFolded>(
+                      q, k, v, bias, out, entries, heads, lq, m, scale, st,
+                      drop, s)
+                : launch_fwd<__nv_bfloat16, false, kFolded>(
+                      q, k, v, bias, out, entries, heads, lq, m, scale, st,
+                      drop, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// K7. strides: q, k, v, g, dq, dk, dv as (entry, row, head) triples, then
-// the bias's (entry, row). stats: fp32 scratch of 3 * entries * heads * lq.
-int crc_attention_train_backward(int dtype, const void* q, const void* k,
-                                 const void* v, const float* bias,
-                                 const void* g, void* dq, void* dk, void* dv,
-                                 float* stats, const long long* strides,
-                                 int entries, int heads, int lq, int m,
-                                 float scale, int seed, float rate, float inv,
-                                 void* stream) {
+// K7 (kFolded false) or K9 (true)
+template <bool kFolded>
+int dispatch_backward(int dtype, const void* q, const void* k,
+                      const void* v, const float* bias, const void* g,
+                      void* dq, void* dk, void* dv, float* stats,
+                      const long long* strides, int entries, int heads,
+                      int lq, int m, float scale, int seed, float rate,
+                      float inv, void* stream) {
   BwdStrides st;
   for (int i = 0; i < 3; ++i) {
     st.q[i] = strides[i];
@@ -469,24 +562,91 @@ int crc_attention_train_backward(int dtype, const void* q, const void* k,
   st.b[0] = strides[21];
   st.b[1] = strides[22];
   const Dropout drop = make_dropout(seed, rate, inv);
-  if (m < 1 || lq < 1 || m > crc_attention_train_max_keys())
+  if (m < 1 || lq < 1 || m > max_keys())
     return static_cast<int>(cudaErrorInvalidValue);
+  if (kFolded) {
+    for (int i = 0; i < 7; ++i)
+      if (strides[3 * i + 2] != kHeadDim)
+        return static_cast<int>(cudaErrorInvalidValue);
+  }
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return bias ? launch_bwd<float, true>(q, k, v, bias, g, dq, dk, dv, stats,
-                                          entries, heads, lq, m, scale, st,
-                                          drop, s)
-                : launch_bwd<float, false>(q, k, v, bias, g, dq, dk, dv,
-                                           stats, entries, heads, lq, m,
-                                           scale, st, drop, s);
+    return bias ? launch_bwd<float, true, kFolded>(
+                      q, k, v, bias, g, dq, dk, dv, stats, entries, heads, lq,
+                      m, scale, st, drop, s)
+                : launch_bwd<float, false, kFolded>(
+                      q, k, v, bias, g, dq, dk, dv, stats, entries, heads, lq,
+                      m, scale, st, drop, s);
   if (dtype == 1)
-    return bias ? launch_bwd<__nv_bfloat16, true>(q, k, v, bias, g, dq, dk,
-                                                  dv, stats, entries, heads,
-                                                  lq, m, scale, st, drop, s)
-                : launch_bwd<__nv_bfloat16, false>(q, k, v, bias, g, dq, dk,
-                                                   dv, stats, entries, heads,
-                                                   lq, m, scale, st, drop, s);
+    return bias ? launch_bwd<__nv_bfloat16, true, kFolded>(
+                      q, k, v, bias, g, dq, dk, dv, stats, entries, heads, lq,
+                      m, scale, st, drop, s)
+                : launch_bwd<__nv_bfloat16, false, kFolded>(
+                      q, k, v, bias, g, dq, dk, dv, stats, entries, heads, lq,
+                      m, scale, st, drop, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Largest key count K6-K9 take (the backward's row pass holds two score
+// buffers, so it is the tighter one).
+int crc_attention_train_max_keys() { return max_keys(); }
+
+// K6. dtype: 0 = float32, 1 = bfloat16. strides: q, k, v, out as (entry,
+// row, head) triples, then the bias's (entry, row). inv = 1 / (1 - rate).
+// Returns the launch's cudaGetLastError() (0 = success).
+int crc_attention_train_forward(int dtype, const void* q, const void* k,
+                                const void* v, const float* bias, void* out,
+                                const long long* strides, int entries,
+                                int heads, int lq, int m, float scale,
+                                int seed, float rate, float inv,
+                                void* stream) {
+  return dispatch_forward<false>(dtype, q, k, v, bias, out, strides, entries,
+                                 heads, lq, m, scale, seed, rate, inv,
+                                 stream);
+}
+
+// K8: as K6 over [E, L, H * kHeadDim] tensors (every head stride kHeadDim).
+int crc_attention_train_folded_forward(int dtype, const void* q,
+                                       const void* k, const void* v,
+                                       const float* bias, void* out,
+                                       const long long* strides, int entries,
+                                       int heads, int lq, int m, float scale,
+                                       int seed, float rate, float inv,
+                                       void* stream) {
+  return dispatch_forward<true>(dtype, q, k, v, bias, out, strides, entries,
+                                heads, lq, m, scale, seed, rate, inv, stream);
+}
+
+// K7. strides: q, k, v, g, dq, dk, dv as (entry, row, head) triples, then
+// the bias's (entry, row). stats: fp32 scratch of 3 * entries * heads * lq.
+int crc_attention_train_backward(int dtype, const void* q, const void* k,
+                                 const void* v, const float* bias,
+                                 const void* g, void* dq, void* dk, void* dv,
+                                 float* stats, const long long* strides,
+                                 int entries, int heads, int lq, int m,
+                                 float scale, int seed, float rate, float inv,
+                                 void* stream) {
+  return dispatch_backward<false>(dtype, q, k, v, bias, g, dq, dk, dv, stats,
+                                  strides, entries, heads, lq, m, scale,
+                                  seed, rate, inv, stream);
+}
+
+// K9: as K7 over [E, L, H * kHeadDim] tensors (every head stride kHeadDim).
+int crc_attention_train_folded_backward(int dtype, const void* q,
+                                        const void* k, const void* v,
+                                        const float* bias, const void* g,
+                                        void* dq, void* dk, void* dv,
+                                        float* stats, const long long* strides,
+                                        int entries, int heads, int lq, int m,
+                                        float scale, int seed, float rate,
+                                        float inv, void* stream) {
+  return dispatch_backward<true>(dtype, q, k, v, bias, g, dq, dk, dv, stats,
+                                 strides, entries, heads, lq, m, scale, seed,
+                                 rate, inv, stream);
 }
 
 // K5 written out: out[rows * cols] = keep(seed, b, h, row, col) as 0/1.

@@ -1,6 +1,7 @@
-"""Stage-I model at eval (port of the JAX package's
-``models/blip_retrieval.py``): ViT image features and the MED fusion that
-produces z_t, the stage-II query state."""
+"""Stage-I model (port of the JAX package's ``models/blip_retrieval.py``):
+ViT image features, the MED fusion that produces z_t (the stage-II query
+state) or the normalized prediction, and the in-batch contrastive logits
+of stage-I training."""
 from __future__ import annotations
 
 import torch
@@ -37,10 +38,13 @@ class RetrievalModel(nn.Module):
                                device)
         self.temp = nn.Parameter(torch.tensor(cfg.temp_init, device=device))
 
-    def embed_images(self, images, *, pool_and_normalize: bool = False):
+    def embed_images(self, images, *, pool_and_normalize: bool = False,
+                     deterministic: bool = True, seeds=None):
         """[B, H, W, 3] -> raw token features [B, M, D]; optionally also the
-        normalized projected CLS [B, embed_dim]."""
-        feats = self.visual_encoder(images)
+        normalized projected CLS [B, embed_dim]. ``seeds``: the ViT's seed
+        table (``visual_encoder.seed_shape``) when not deterministic."""
+        feats = self.visual_encoder(images, deterministic=deterministic,
+                                    seeds=seeds)
         if not pool_and_normalize:
             return feats
         return feats, self.pool_image_features(feats)
@@ -50,12 +54,22 @@ class RetrievalModel(nn.Module):
         return l2_normalize(self.vision_proj(feats[:, 0]))
 
     def fuse(self, ref_image_feats, input_ids, attention_mask, *,
-             return_raw: bool = False):
+             return_raw: bool = False, deterministic: bool = True,
+             seeds=None):
         """Text cross-attends to the reference image tokens.
 
         return_raw=True -> last_hidden_state z_t [B, L, D] (stage-II input);
-        otherwise the normalized projected prediction [B, embed_dim]."""
-        hidden = self.text_encoder(input_ids, attention_mask, ref_image_feats)
+        otherwise the normalized projected prediction [B, embed_dim].
+        ``seeds``: the MED's seed table (``text_encoder.seed_shape``) when
+        not deterministic."""
+        hidden = self.text_encoder(input_ids, attention_mask, ref_image_feats,
+                                   deterministic=deterministic, seeds=seeds)
         if return_raw:
             return hidden
         return l2_normalize(self.text_proj(hidden[:, 0]))
+
+    def contrastive_logits(self, predicted, targets):
+        """pred [B, E] x targets [N, E] -> [B, N] similarity / temp, in
+        fp32."""
+        logits = torch.einsum("be,ne->bn", predicted.float(), targets.float())
+        return logits / self.temp

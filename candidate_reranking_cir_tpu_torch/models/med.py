@@ -3,14 +3,23 @@
 BLIP's single-stream BERT: word + position embeddings, post-LN layers of
 self-attention, optional cross-attention over image tokens ('multimodal'
 mode), and FFN; additive (1 - mask) * -10000 masking, LayerNorm eps 1e-12.
-The embeddings, attention blocks and FFN carry the JAX package's dropout
-sites (``deterministic=False`` with a generator); ``TextEncoder`` runs at
-eval only (stage-I training is not ported yet).
+
+Training (``deterministic=False``, stage I) takes a seed table of shape
+``TextEncoder.seed_shape``: row 0 seeds the embedding dropout, row i + 1
+layer i as ``SEED_SITES`` int32 seeds (its generator for the hidden
+dropouts and any attention dropout off the kernels' route, then the kernel
+seeds of its self-attention and cross-attention). A layer re-seeds its
+generator at the start of its forward, so a remat recomputation draws the
+same masks. At B = 512 the cross-attention to the 577 image tokens takes
+the folded in-kernel-dropout route (K8/K9); the 40-key text self-attention
+is below ``attention_train.MIN_KV`` and drops out from the generator, as
+the JAX package's does from ``jax.random``.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from candidate_reranking_cir_tpu_torch.config import TextEncoderConfig
 from candidate_reranking_cir_tpu_torch.models.layers import (
@@ -20,8 +29,11 @@ from candidate_reranking_cir_tpu_torch.models.layers import (
     MultiHeadAttention,
     _normal_,
     exact_gelu,
+    seeded_generator,
 )
 from candidate_reranking_cir_tpu_torch.ops.attention import make_additive_mask
+
+SEED_SITES = 3  # generator, self-attention, cross-attention
 
 
 class BertEmbeddings(nn.Module):
@@ -90,7 +102,8 @@ class BertFFN(nn.Module):
 
 
 class MedLayer(nn.Module):
-    """One MED layer; its cross-attention runs only in 'multimodal' mode."""
+    """One MED layer; its cross-attention runs only in 'multimodal' mode.
+    ``seeds``: the layer's row of the seed table, or None at eval."""
 
     def __init__(self, cfg: TextEncoderConfig, multimodal: bool,
                  dtype=torch.float32, device=None):
@@ -101,11 +114,17 @@ class MedLayer(nn.Module):
                            if multimodal else None)
         self.ffn = BertFFN(cfg, dtype, device)
 
-    def forward(self, x, text_bias, image_kv=None, image_bias=None):
-        x = self.self_attn(x, None, text_bias)
+    def forward(self, x, text_bias, image_kv=None, image_bias=None,
+                seeds=None):
+        det = seeds is None
+        gen = None if det else seeded_generator(seeds[0], x.device)
+        x = self.self_attn(x, None, text_bias, deterministic=det,
+                           seed=None if det else seeds[1], generator=gen)
         if image_kv is not None:
-            x = self.cross_attn(x, image_kv, image_bias)
-        return self.ffn(x)
+            x = self.cross_attn(x, image_kv, image_bias, deterministic=det,
+                                seed=None if det else seeds[2],
+                                generator=gen)
+        return self.ffn(x, deterministic=det, generator=gen)
 
 
 class TextEncoder(nn.Module):
@@ -113,13 +132,19 @@ class TextEncoder(nn.Module):
 
     mode='text': self-attention only; 'multimodal': every layer also
     cross-attends to ``image_embeds`` [B, M, W] (``image_mask`` [B, M]
-    optional; image tokens are never padded on the eval path)."""
+    optional; image tokens are never padded on the ported paths).
+    ``cfg.remat`` recomputes each layer in backward when gradients are on
+    (``torch.utils.checkpoint``, remat policy '')."""
 
     def __init__(self, cfg: TextEncoderConfig, mode: str = "multimodal",
                  dtype=torch.float32, device=None):
         super().__init__()
         if mode not in ("text", "multimodal"):
             raise ValueError(f"unknown mode {mode!r}")
+        if cfg.remat_policy:
+            raise NotImplementedError(
+                f"remat_policy {cfg.remat_policy!r} is not ported; '' "
+                "(recompute everything) is")
         self.cfg = cfg
         self.mode = mode
         self.dtype = dtype
@@ -128,12 +153,22 @@ class TextEncoder(nn.Module):
             MedLayer(cfg, mode == "multimodal", dtype, device)
             for _ in range(cfg.num_layers))
 
+    @property
+    def seed_shape(self) -> tuple[int, int]:
+        return (len(self.layers) + 1, SEED_SITES)
+
     def forward(self, input_ids, attention_mask, image_embeds=None,
-                image_mask=None, *, mode: str | None = None):
+                image_mask=None, *, mode: str | None = None,
+                deterministic: bool = True, seeds=None):
         multimodal = (mode if mode is not None else self.mode) == "multimodal"
         if multimodal and self.mode != "multimodal":
             raise ValueError("this encoder was built without cross-attention")
-        x = self.embeddings(input_ids)
+        if not deterministic and seeds is None:
+            raise ValueError("training needs a seed table")
+        emb_gen = None if deterministic else seeded_generator(
+            seeds[0][0], input_ids.device)
+        x = self.embeddings(input_ids, deterministic=deterministic,
+                            generator=emb_gen)
         text_bias = make_additive_mask(attention_mask)
         image_bias = None
         if multimodal:
@@ -144,6 +179,15 @@ class TextEncoder(nn.Module):
                 image_bias = make_additive_mask(image_mask)
         else:
             image_embeds = None
-        for layer in self.layers:
-            x = layer(x, text_bias, image_embeds, image_bias)
+        remat = self.cfg.remat and torch.is_grad_enabled()
+        for i, layer in enumerate(self.layers):
+            row = None if deterministic else seeds[i + 1]
+            if remat:
+                # the layer seeds its own generator, so no global RNG
+                # state needs saving for the recomputation
+                x = checkpoint(layer, x, text_bias, image_embeds, image_bias,
+                               row, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = layer(x, text_bias, image_embeds, image_bias, row)
         return x

@@ -3,7 +3,8 @@
 Eval calls reach one of the kernels of ``ops/cuda_attention.py`` (K1-K4).
 Train calls with dropout follow the JAX package's train routes: where
 ``attention_train.eligible`` holds, the in-kernel-dropout kernels of
-``ops/attention_train.py`` (K6/K7, the mask keyed by an int32 seed);
+``ops/attention_train.py`` (K6/K7 unfolded, K8/K9 folded; the mask keyed by
+an int32 seed);
 elsewhere plain attention with dropout drawn from a ``torch.Generator``,
 as the JAX package's own XLA path draws it from ``jax.random``. CPU
 tensors take the kernels' plain versions. Layouts follow the JAX package:
@@ -114,10 +115,12 @@ def dot_product_attention_folded(q, k, v, bias=None, *, num_heads: int):
 
 def dot_product_attention_folded_train(q, k, v, bias=None, *, num_heads: int,
                                        seed: int, dropout_rate: float):
-    """Folded twin of the in-kernel-dropout train route: q [..., Lq, H*D];
-    k, v [..., M, H*D]. The caller checks ``attention_train.eligible``.
-    Masks are keyed by the absolute entry index, as unfolded. On the card
-    this is kernel K8, not ported yet: it raises."""
+    """Folded twin of the in-kernel-dropout train route (K8 forward, K9
+    backward): q [..., Lq, H*D]; k, v [..., M, H*D]; bias None or
+    head-independent, broadcastable to [..., 1, Lq, M] (the MED's text
+    mask [B, 1, 1, L] when its self-attention qualifies). The caller checks
+    ``attention_train.eligible``. Masks are keyed by the absolute entry
+    index of the flattened batch, as unfolded."""
     batch_shape = q.shape[:-2]
     lq, hd = q.shape[-2:]
     m = k.shape[-2]

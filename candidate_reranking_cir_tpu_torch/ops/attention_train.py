@@ -1,4 +1,4 @@
-"""Train attention with in-kernel dropout: K5-K7 and their plain versions.
+"""Train attention with in-kernel dropout: K5-K9 and their plain versions.
 
 Port of the JAX package's ``ops/pallas_attention_train.py``. The dropout
 mask is a pure function of (seed, entry, head, row, col), so the forward
@@ -12,16 +12,23 @@ and the backward regenerate it and no mask tensor is kept:
 - K7 ``_bwd_kernel``: dq, dk, dv with the mask regenerated
   (``attention_train_bwd_plain``, an explicit backward, not autograd of the
   forward, because it is what the kernel is held against).
+- K8 ``_fwd_kernel_folded`` and K9 ``_bwd_kernel_folded``: K6 and K7 over
+  head-folded [E, L, H*D] tensors (``attention_train_folded_plain``,
+  ``attention_train_folded_bwd_plain``: the unfolded plain versions on
+  [E, L, H, D] views, since the mask does not depend on the layout).
 
-``fused_attention_train`` is differentiable in q, k, v through
-``_TrainAttention``, which carries the int32 seed and the rate from the
-forward to the backward. The bias is head-independent and gets no
-gradient. CPU tensors take the plain versions; card tensors take the
-kernels (``csrc/attention_train.cu``) or the call raises.
+``fused_attention_train`` (K6/K7) and ``fused_attention_train_folded``
+(K8/K9) are differentiable in q, k, v through ``_TrainAttention``, which
+carries the int32 seed and the rate from the forward to the backward. The
+bias is head-independent and gets no gradient. CPU tensors take the plain
+versions; card tensors take the kernels (``csrc/attention_train.cu``) or
+the call raises.
 
-What bounds K6 and K7 on the H100 is arithmetic (4*Lq*M*D and 10*Lq*M*D
-operations per entry and head against (Lq + M)*D elements moved); the
-kernels use plain fp32 FMAs, not tensor cores (see the CUDA source).
+What bounds the kernels on the H100: at the stage-II pair-grid shape (640
+query rows per entry) arithmetic, 4*Lq*M*D and 10*Lq*M*D operations per
+entry and head against (Lq + M)*D elements moved; at the stage-I MED
+shape (at most 40 query rows) the bytes of K and V. The kernels use plain
+fp32 FMAs, not tensor cores (see the CUDA source).
 
 ``eligible`` and its thresholds are copies of the JAX package's, with the
 same values, so that the port sends the kernel the same calls.
@@ -39,7 +46,7 @@ from candidate_reranking_cir_tpu_torch.ops.cuda_attention import (
     check_kernel_inputs,
 )
 
-LAUNCHES = {"K5": 0, "K6": 0, "K7": 0}
+LAUNCHES = {"K5": 0, "K6": 0, "K7": 0, "K8": 0, "K9": 0}
 
 MAX_LQ = 1024
 MIN_KV = 256
@@ -215,8 +222,33 @@ def attention_train_bwd_plain(q, k, v, bias3, seed: int, g, rate: float):
     return dq, dk, dv
 
 
+def _heads(t, num_heads: int):
+    """[E, L, H*D] -> its [E, L, H, D] view."""
+    return t.unflatten(-1, (num_heads, t.shape[-1] // num_heads))
+
+
+def attention_train_folded_plain(q, k, v, bias3, seed: int, rate: float, *,
+                                 num_heads: int):
+    """K8's plain version: q [E, Lq, H*D]; k, v [E, M, H*D]. K6's plain
+    version on [E, L, H, D] views: the mask is the same function of the
+    absolute entry index. Returns [E, Lq, H*D]."""
+    return attention_train_plain(
+        *(_heads(t, num_heads) for t in (q, k, v)), bias3, seed,
+        rate).flatten(-2)
+
+
+def attention_train_folded_bwd_plain(q, k, v, bias3, seed: int, g,
+                                     rate: float, *, num_heads: int):
+    """K9's plain version: (dq, dk, dv) [E, L, H*D] of
+    ``attention_train_folded_plain`` for the cotangent g [E, Lq, H*D]."""
+    grads = attention_train_bwd_plain(
+        *(_heads(t, num_heads) for t in (q, k, v)), bias3, seed,
+        _heads(g, num_heads), rate)
+    return tuple(x.flatten(-2) for x in grads)
+
+
 # ---------------------------------------------------------------------------
-# K6 / K7, the kernels
+# K6 - K9, the kernels
 
 def _check_seed(seed: int) -> None:
     if not _INT32_MIN <= seed <= _INT32_MAX:
@@ -227,7 +259,10 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _kernel_fwd(q, k, v, bias3, seed: int, rate: float):
+def _kernel_fwd(q, k, v, bias3, seed: int, rate: float, *,
+                folded: bool = False):
+    """K6 on [E, L, H, D] views, or K8 (``folded``) on the [E, L, H, D]
+    views of [E, L, H*D] tensors (head stride ``HEAD_DIM``)."""
     from candidate_reranking_cir_tpu_torch.ops.build import (
         load_attention_train_library,
     )
@@ -239,19 +274,24 @@ def _kernel_fwd(q, k, v, bias3, seed: int, rate: float):
     bias_ptr, bias_strides = bias_args(bias3, q.device)
     strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                *out.stride()[:3], *bias_strides]
-    err = lib.crc_attention_train_forward(
+    kid = "K8" if folded else "K6"
+    launch = lib.crc_attention_train_folded_forward if folded \
+        else lib.crc_attention_train_forward
+    err = launch(
         DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         bias_ptr, out.data_ptr(), (ctypes.c_longlong * 14)(*strides), e, h,
         lq, m, d ** -0.5, seed, rate, 1.0 / (1.0 - rate), _stream(q.device))
     if err != 0:
-        raise RuntimeError(f"K6 launch failed: cudaError {err}")
-    LAUNCHES["K6"] += 1
+        raise RuntimeError(f"{kid} launch failed: cudaError {err}")
+    LAUNCHES[kid] += 1
     if rate > 0.0:
         LAUNCHES["K5"] += 1
     return out
 
 
-def _kernel_bwd(q, k, v, bias3, seed: int, g, rate: float):
+def _kernel_bwd(q, k, v, bias3, seed: int, g, rate: float, *,
+                folded: bool = False):
+    """K7, or K9 (``folded``), on [E, L, H, D] views as ``_kernel_fwd``."""
     from candidate_reranking_cir_tpu_torch.ops.build import (
         load_attention_train_library,
     )
@@ -269,41 +309,47 @@ def _kernel_bwd(q, k, v, bias3, seed: int, g, rate: float):
                *g.stride()[:3], *dq.stride()[:3], *dk.stride()[:3],
                *dv.stride()[:3], *bias_strides]
     inv = 1.0 / (1.0 - rate)
-    err = lib.crc_attention_train_backward(
+    kid = "K9" if folded else "K7"
+    launch = lib.crc_attention_train_folded_backward if folded \
+        else lib.crc_attention_train_backward
+    err = launch(
         DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         bias_ptr, g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         stats.data_ptr(), (ctypes.c_longlong * 23)(*strides), e, h, lq, m,
         d ** -0.5, seed, rate, inv, _stream(q.device))
     if err != 0:
-        raise RuntimeError(f"K7 launch failed: cudaError {err}")
-    LAUNCHES["K7"] += 1
+        raise RuntimeError(f"{kid} launch failed: cudaError {err}")
+    LAUNCHES[kid] += 1
     if rate > 0.0:
         LAUNCHES["K5"] += 1
     return dq, dk, dv
 
 
 class _TrainAttention(torch.autograd.Function):
-    """K6 forward, K7 backward (plain versions on the CPU); the seed and
-    the rate ride from the forward to the backward, so the mask is
-    regenerated, never stored."""
+    """K6 forward and K7 backward on [E, L, H, D] tensors, or K8 and K9
+    (``folded``: [E, L, H, D] views of [E, L, H*D] tensors); plain versions
+    on the CPU. The seed and the rate ride from the forward to the
+    backward, so the mask is regenerated, never stored."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias3, seed: int, rate: float):
-        ctx.seed, ctx.rate = seed, rate
+    def forward(ctx, q, k, v, bias3, seed: int, rate: float, folded: bool):
+        ctx.seed, ctx.rate, ctx.folded = seed, rate, folded
         ctx.save_for_backward(q, k, v, bias3)
         if q.device.type == "cpu":
             return attention_train_plain(q, k, v, bias3, seed, rate)
-        return _kernel_fwd(q, k, v, bias3, seed, rate)
+        return _kernel_fwd(q, k, v, bias3, seed, rate, folded=folded)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, bias3 = ctx.saved_tensors
+        g = g.contiguous()  # the kernels read g's last axis at stride 1
         if q.device.type == "cpu":
             grads = attention_train_bwd_plain(q, k, v, bias3, ctx.seed, g,
                                               ctx.rate)
         else:
-            grads = _kernel_bwd(q, k, v, bias3, ctx.seed, g, ctx.rate)
-        return (*grads, None, None, None)
+            grads = _kernel_bwd(q, k, v, bias3, ctx.seed, g, ctx.rate,
+                                folded=ctx.folded)
+        return (*grads, None, None, None, None)
 
 
 def _train_bias3(bias, e: int, lq: int, m: int):
@@ -314,38 +360,39 @@ def _train_bias3(bias, e: int, lq: int, m: int):
     return _bias3(bias, e, lq, m)
 
 
-def fused_attention_train(q, k, v, bias, seed: int, rate: float):
-    """Attention with in-kernel dropout, differentiable in q, k, v.
-
-    q [E, Lq, H, D]; k, v [E, M, H, D]; bias None or head-independent
-    additive [E, 1, Lq|1, M] / [E, Lq|1, M]; seed an int32; rate static.
-    The mask is keyed by the absolute entry index of this call."""
-    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape \
+def _check_train_args(q, k, v, nd: int, seed, rate: float) -> None:
+    if q.ndim != nd or k.ndim != nd or k.shape != v.shape \
             or k.shape[0] != q.shape[0] or k.shape[2:] != q.shape[2:]:
         raise ValueError(f"incompatible shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     _check_seed(int(seed))
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout rate {rate} is outside [0, 1)")
+
+
+def fused_attention_train(q, k, v, bias, seed: int, rate: float):
+    """Attention with in-kernel dropout (K6/K7), differentiable in q, k, v.
+
+    q [E, Lq, H, D]; k, v [E, M, H, D]; bias None or head-independent
+    additive [E, 1, Lq|1, M] / [E, Lq|1, M]; seed an int32; rate static.
+    The mask is keyed by the absolute entry index of this call."""
+    _check_train_args(q, k, v, 4, seed, rate)
     e, lq, _, _ = q.shape
     bias3 = _train_bias3(bias, e, lq, k.shape[1])
-    return _TrainAttention.apply(q, k, v, bias3, int(seed), float(rate))
+    return _TrainAttention.apply(q, k, v, bias3, int(seed), float(rate),
+                                 False)
 
 
 def fused_attention_train_folded(q, k, v, bias, seed: int, rate: float, *,
                                  num_heads: int):
-    """Head-folded twin: q [E, Lq, H*D]; k, v [E, M, H*D]. The mask is the
-    same function of (seed, entry, head, row, col) as unfolded, so on the
-    CPU this runs the unfolded plain versions on [E, L, H, D] views. On the
-    card it is kernel K8 (``_fwd_kernel_folded``), which this port does
-    not have yet: it raises."""
-    if q.device.type != "cpu":
-        raise NotImplementedError(
-            "the folded train attention kernels (K8 _fwd_kernel_folded, K9 "
-            "_bwd_kernel_folded) are not ported yet; they come with the "
-            "stage-I training slice")
-    def heads(t):
-        return t.unflatten(-1, (num_heads, t.shape[-1] // num_heads))
-
-    return fused_attention_train(heads(q), heads(k), heads(v), bias, seed,
-                                 rate).flatten(-2)
+    """Head-folded twin (K8/K9): q [E, Lq, H*D]; k, v [E, M, H*D]. The mask
+    is the same function of (seed, entry, head, row, col) as unfolded, so
+    the two are interchangeable. Returns [E, Lq, H*D]."""
+    _check_train_args(q, k, v, 3, seed, rate)
+    e, lq, hd = q.shape
+    if hd % num_heads:
+        raise ValueError(f"width {hd} not divisible by {num_heads} heads")
+    bias3 = _train_bias3(bias, e, lq, k.shape[1])
+    return _TrainAttention.apply(
+        *(_heads(t, num_heads) for t in (q, k, v)), bias3, int(seed),
+        float(rate), True).flatten(-2)

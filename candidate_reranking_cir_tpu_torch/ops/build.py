@@ -91,22 +91,25 @@ def load_attention_library() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def load_attention_train_library() -> ctypes.CDLL:
-    """The train attention kernels' library (K5-K7) with its C signatures
-    declared."""
+    """The train attention kernels' library (K5-K9) with its C signatures
+    declared. The folded entry points (K8, K9) take the unfolded ones'
+    arguments."""
     path, _, _ = build("attention_train")
     lib = ctypes.CDLL(str(path))
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     strides = ctypes.POINTER(ctypes.c_longlong)
     lib.crc_attention_train_max_keys.argtypes = []
     lib.crc_attention_train_max_keys.restype = i32
-    lib.crc_attention_train_forward.argtypes = [
-        i32, vp, vp, vp, vp, vp, strides, i32, i32, i32, i32, f32, i32, f32,
-        f32, vp]
-    lib.crc_attention_train_forward.restype = i32
-    lib.crc_attention_train_backward.argtypes = [
-        i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, strides, i32, i32, i32, i32,
-        f32, i32, f32, f32, vp]
-    lib.crc_attention_train_backward.restype = i32
+    for fn in (lib.crc_attention_train_forward,
+               lib.crc_attention_train_folded_forward):
+        fn.argtypes = [i32, vp, vp, vp, vp, vp, strides, i32, i32, i32, i32,
+                       f32, i32, f32, f32, vp]
+        fn.restype = i32
+    for fn in (lib.crc_attention_train_backward,
+               lib.crc_attention_train_folded_backward):
+        fn.argtypes = [i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, strides, i32,
+                       i32, i32, i32, f32, i32, f32, f32, vp]
+        fn.restype = i32
     lib.crc_keep_mask.argtypes = [i32, i32, i32, i32, i32, f32, vp, vp]
     lib.crc_keep_mask.restype = i32
     return lib

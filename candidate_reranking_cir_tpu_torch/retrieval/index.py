@@ -2,7 +2,8 @@
 ``retrieval/index.py`` with a float bank).
 
 Raw token features are stored in bfloat16 by default, as in the JAX
-package; the bank stays on the device that embedded it.
+package; the bank, and the pooled features where asked for, stay on the
+device that embedded them.
 """
 from __future__ import annotations
 
@@ -34,14 +35,31 @@ def iter_batches(dataset, batch_size: int
 
 @torch.inference_mode()
 def build_index(dataset, embed_fn: Callable, batch_size: int = 32, *,
-                feature_dtype=torch.bfloat16, device=None):
+                feature_dtype=torch.bfloat16, device=None,
+                pooled: bool = False, keep_raw: bool = True):
     """Embed the whole corpus with ``embed_fn`` ([B, H, W, 3] tensor on
-    ``device`` -> raw [B, M, D]). Returns (bank [N, M, D] feature_dtype on
-    ``device``, names)."""
+    ``device`` -> raw [B, M, D], or (raw, pooled [B, E]) with ``pooled``).
+
+    Returns (bank [N, M, D] feature_dtype on ``device``, names); with
+    ``pooled``, (bank, pooled [N, E] fp32 on ``device``, names), the bank
+    None when not ``keep_raw`` (the stage-I trainer's target-feature cache
+    never holds the [N, M, D] token bank). The flags are the JAX
+    function's; without ``pooled`` the bank must be kept."""
+    if not (pooled or keep_raw):
+        raise ValueError("build_index with neither pooled nor keep_raw "
+                         "returns nothing")
     device = resolve_device(device)
-    chunks, names_all = [], []
+    chunks, pooled_chunks, names_all = [], [], []
     for names, images in iter_batches(dataset, batch_size):
         x = torch.from_numpy(np.ascontiguousarray(images, np.float32))
-        chunks.append(embed_fn(x.to(device)).to(feature_dtype))
+        out = embed_fn(x.to(device))
+        if pooled:
+            out, pool = out
+            pooled_chunks.append(pool.float())
+        if keep_raw:
+            chunks.append(out.to(feature_dtype))
         names_all.extend(names)
-    return torch.cat(chunks), names_all
+    bank = torch.cat(chunks) if keep_raw else None
+    if pooled:
+        return bank, torch.cat(pooled_chunks), names_all
+    return bank, names_all

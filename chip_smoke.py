@@ -5,7 +5,7 @@
 
 Phases, each printing its own lines:
 1. device: requires CUDA; prints ``nvidia-smi`` name and power limit.
-2. build: compiles the eval (K1-K4) and train (K5-K7) attention libraries
+2. build: compiles the eval (K1-K4) and train (K5-K9) attention libraries
    from ``csrc/`` (one nvcc each, started together; sm_90a) and prints
    ptxas's register and spill lines.
 3. kernels K1-K4 at the eval path's shapes, bf16 and fp32: max |error|
@@ -14,7 +14,8 @@ Phases, each printing its own lines:
    could take (bytes over 3.35 TB/s or operations over the dtype's peak).
 4. kernels K5-K7 at the training path's shape ([16, 640, 12, 64] queries
    x 577 keys, rate 0.1), bf16 and fp32: the K5 mask bit for bit against
-   its plain version, K6's output and K7's dq/dk/dv against theirs, times,
+   its plain version, K6's output and K7's dq, dk and dv (each against its
+   own max) against theirs, times,
    bounds, and SDPA with dropout_p=0.1 as a yardstick (same work, its own
    mask: no PyTorch call computes the same function).
 5. eval path: stage-II re-rank evaluation through the port's
@@ -29,7 +30,25 @@ Phases, each printing its own lines:
    counts the configuration implies); the dual encoder must change and the
    frozen ViT stay bit-identical; a profile of one step; then one fp32
    step at B = 2 on the card and on the CPU from the same weights.
-7. a JSON line of kernel figures, then the card's name and power limit,
+7. kernels K8/K9 (head-folded train attention) at the stage-I MED
+   cross-attention's shapes ([512, Lq, 768] queries x 577 keys, rate 0.1,
+   Lq 32 and 40: the text widths the stage-I batches take), fp32 and
+   bf16, with and without a key-mask bias: K8's output and K9's dq, dk
+   and dv (each against its own max) against their plain versions, times
+   and bounds.
+8. stage-I training: ``make_stage1_train_step`` as the JAX trainer builds
+   it (B = 512, frozen ViT-B/16@384, MED with remat, bf16, AdamW lr 2e-5
+   and weight decay 0.05, pooled target features cached through
+   ``build_index``, text-length buckets 'auto'), fed by ``BatchLoader``
+   with the JAX benchmark's CIRR caption-length model (bench.py:223-231):
+   1 warm-up and 4 counted steps; step seconds, stage-I train pairs/s,
+   losses, peak memory, launches per step (K8 = 2 x layers and K9 =
+   layers under remat, K6 = K7 = 0); every trained tensor but
+   ``vision_proj`` must change and the ViT stay bit-identical; a profile
+   of one step; then one fp32 step at B = 4 on the card and on the CPU
+   with attention dropout 0.1 through the kernels' hash mask at every
+   MED attention site.
+9. a JSON line of kernel figures, then the card's name and power limit,
    then the last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero without the last line.
@@ -52,7 +71,8 @@ N_CHECK_QUERIES = 4            # queries re-scored in fp32 on card and CPU
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM (NVIDIA data sheet)
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
-GRAD_TOL = {torch.bfloat16: 2e-2, torch.float32: 3e-5}
+# each of dq, dk, dv: max |error| over the reference's max |value|
+GRAD_REL_TOL = {torch.bfloat16: 2e-2, torch.float32: 3e-5}
 FP32_CARD_VS_CPU_TOL = 1e-3    # summation order through 12+12 layers
 BF16_VS_FP32_TOL = 0.1         # bf16 compute vs fp32 on the same weights
 TRAIN_B, TRAIN_STEPS = 16, 5   # stage-II batch (B x B pairs), counted steps
@@ -60,18 +80,26 @@ TRAIN_SHAPE = (16, 640, 577, 12, 64)   # K6/K7 on the path: [E, Lq, M, H, D]
 TRAIN_RATE, TRAIN_SEED = 0.1, 20261016
 TRAIN_LOSS_TOL = 1e-4          # fp32 train step, card vs CPU
 TRAIN_GRAD_REL_TOL = 1e-3      # max |grad diff| / max |grad|, same step
+S1_B, S1_STEPS = 512, 4        # stage-I batch (B x B contrast), counted steps
+S1_POOL = 256                  # in-memory image pool of the stage-I triplets
+S1_SHAPE = (512, 577, 12, 64)          # K8/K9 on the path: [E, M, H, D]
+S1_WIDTHS = (32, 40)           # Lq: the 'auto' buckets stage-I batches take
+S1_CHECK_B = 4                 # fp32 stage-I step, card vs CPU
 CSRC = "candidate_reranking_cir_tpu_torch/csrc"
 SOURCES = {"K1": f"{CSRC}/attention.cu", "K2": f"{CSRC}/attention.cu",
            "K3": f"{CSRC}/attention.cu", "K4": f"{CSRC}/attention.cu",
            "K5": f"{CSRC}/attention_common.cuh",
            "K6": f"{CSRC}/attention_train.cu",
-           "K7": f"{CSRC}/attention_train.cu"}
+           "K7": f"{CSRC}/attention_train.cu",
+           "K8": f"{CSRC}/attention_train.cu",
+           "K9": f"{CSRC}/attention_train.cu"}
 JAX_KERNELS = "candidate_reranking_cir_tpu/ops/pallas_attention.py"
 JAX_TRAIN = "candidate_reranking_cir_tpu/ops/pallas_attention_train.py"
 REPLACES = {"K1": f"{JAX_KERNELS}:220", "K2": f"{JAX_KERNELS}:132",
             "K3": f"{JAX_KERNELS}:122", "K4": f"{JAX_KERNELS}:236",
             "K5": f"{JAX_TRAIN}:61", "K6": f"{JAX_TRAIN}:114",
-            "K7": f"{JAX_TRAIN}:135"}
+            "K7": f"{JAX_TRAIN}:135", "K8": f"{JAX_TRAIN}:382",
+            "K9": f"{JAX_TRAIN}:414"}
 MAIN_PATH_KERNELS = ("K1", "K2", "K3")
 
 
@@ -99,6 +127,25 @@ def time_ms(fn, iters: int = 10) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def check_grads(kid: str, label: str, grads, refs, dtype) -> float:
+    """dq, dk, dv against their plain versions one at a time, each within
+    GRAD_REL_TOL of its reference's max |value|; prints each error and
+    fails on any; returns the largest absolute error."""
+    parts, worst, ok = [], 0.0, True
+    for nm, a, b in zip(("dq", "dk", "dv"), grads, refs):
+        a, b = a.reshape(b.shape).float(), b.float()
+        err, top = (a - b).abs().max().item(), b.abs().max().item()
+        ok = ok and bool(torch.isfinite(a).all()) \
+            and err <= GRAD_REL_TOL[dtype] * top
+        worst = max(worst, err)
+        parts.append(f"{nm} {err:.3e} of max {top:.3e}")
+    print(f"[kernel] {kid} {label}: max|err| {', '.join(parts)} (tol "
+          f"{GRAD_REL_TOL[dtype]} x max)", flush=True)
+    if not ok:
+        fail(f"{kid} {label}: a gradient is off its plain version")
+    return worst
 
 
 def bound(n_bytes: float, n_ops: float, dtype) -> tuple[float, str]:
@@ -252,11 +299,8 @@ def run_train_kernel_cases(dtype) -> dict:
                                                       gout, rate)
     grads = bwd()
     torch.cuda.synchronize()
-    err7 = max((a.float() - b.float()).abs().max().item()
-               for a, b in zip(grads, plain_bwd()))
-    if not all(torch.isfinite(x).all() for x in grads) \
-            or err7 > GRAD_TOL[dtype]:
-        fail(f"K7 {name}: max |err| {err7:.3e} > {GRAD_TOL[dtype]}")
+    err7 = check_grads("K7", f"{name} {list(TRAIN_SHAPE)}", grads,
+                       plain_bwd(), dtype)
     qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
 
     def sdpa_fwd_bwd():
@@ -448,6 +492,11 @@ def main_path():
 
 
 def kernel_family(name: str) -> str:
+    if "attn_train_fwd_folded_kernel" in name:
+        return "train attention forward, folded (K8)"
+    if "attn_bwd_rows_folded_kernel" in name \
+            or "attn_bwd_keys_folded_kernel" in name:
+        return "train attention backward, folded (K9)"
     if "attn_train_fwd_kernel" in name:
         return "train attention forward (K6)"
     if "attn_bwd_rows_kernel" in name or "attn_bwd_keys_kernel" in name:
@@ -503,31 +552,112 @@ def profile_device(label: str, run):
 
 
 # ---------------------------------------------------------------------------
+# shared by the training paths
+
+def timed_steps(tag: str, step, batches, gen, n_steps: int):
+    """One warm-up step, then ``n_steps`` counted steps with every launch
+    count set to 0 just before them and read just after. Returns
+    (seconds, losses, launches, peak GiB, text widths)."""
+    from candidate_reranking_cir_tpu_torch.ops import attention_train as tat
+    from candidate_reranking_cir_tpu_torch.ops import cuda_attention as ck
+
+    loss = step(next(batches), gen)
+    torch.cuda.synchronize()
+    print(f"[{tag}] warm-up step: loss {float(loss):.4f}", flush=True)
+    ck.reset_launch_counts()
+    tat.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    seconds, losses, widths = [], [], []
+    for _ in range(n_steps):
+        batch = next(batches)
+        widths.append(batch["input_ids"].shape[1])
+        t0 = time.perf_counter()
+        loss = step(batch, gen)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    launches = {**ck.LAUNCHES, **tat.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(np.isfinite(losses)):
+        fail(f"non-finite {tag} loss")
+    return seconds, losses, launches, peak, widths
+
+
+def check_trained(tag: str, model, trained0: dict, vit0: dict,
+                  exempt: str = "") -> None:
+    """Every trained tensor (but those under ``exempt``) changed; the frozen
+    ViT is bit-identical."""
+    unchanged = [n for n, p in model.named_parameters()
+                 if p.requires_grad and not (exempt and n.startswith(exempt))
+                 and torch.equal(p, trained0[n])]
+    if unchanged:
+        fail(f"{tag}: {len(unchanged)} trained parameters did not change, "
+             f"e.g. {unchanged[0]}")
+    if any(not torch.equal(v, vit0[k])
+           for k, v in model.visual_encoder.state_dict().items()):
+        fail(f"{tag}: the frozen ViT changed")
+
+
+def card_vs_cpu(label: str, results: dict) -> None:
+    """Hold a step's loss and gradients on the card ({"cuda": (loss,
+    grads)}) to the CPU's within TRAIN_LOSS_TOL and TRAIN_GRAD_REL_TOL of
+    the largest gradient."""
+    (lc, gc), (lp, gp) = results["cuda"], results["cpu"]
+    d_loss = abs(lc - lp)
+    g_max = max(float(g.abs().max()) for g in gp.values())
+    d_grad = max(float((gc[n] - gp[n]).abs().max()) for n in gp)
+    print(f"[check] {label} card vs cpu: |loss diff| {d_loss:.3e} "
+          f"(tol {TRAIN_LOSS_TOL}); max |grad diff| {d_grad:.3e} over "
+          f"{len(gp)} tensors, largest |grad| {g_max:.3e} (tol "
+          f"{TRAIN_GRAD_REL_TOL} x largest)", flush=True)
+    if set(gc) != set(gp) or not d_loss <= TRAIN_LOSS_TOL \
+            or not d_grad <= TRAIN_GRAD_REL_TOL * g_max:
+        fail(f"the {label} on the card disagrees with the CPU")
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the training path
+
+def caption_lengths(n: int, max_len: int, rng) -> np.ndarray:
+    """CIRR-like caption token counts, [CLS] and [SEP] included, as the JAX
+    package's benchmark models its stage-I traffic (bench.py:223-231):
+    modification texts of about 11 words, about 13 wordpieces, drawn as
+    clip(round(N(15, 5)), 6, max_len)."""
+    return np.clip(np.round(rng.normal(15.0, 5.0, size=n)), 6,
+                   max_len).astype(np.int64)
+
 
 class Triplets:
     """CIRR-shaped 'relative' training triplets (reference image, target
-    image, caption of 3-30 toy-vocabulary words) over an in-memory image
-    pool made from a seed."""
+    image and its name, caption of toy-vocabulary words, one token each)
+    over an in-memory image pool (a ``Corpus``). Captions have 3 to 30
+    words, mostly short, or ``n_words[i]`` words when that is given.
+    Without ``target_image`` a sample carries the target's name only, as
+    the trainer's datasets do when the target features are cached."""
 
-    def __init__(self, n: int, n_images: int, size: int, rng,
-                 vocab_words: list[str]):
-        self.images = rng.normal(size=(n_images, size, size, 3)).astype(
-            np.float32)
+    def __init__(self, n: int, pool: Corpus, rng, vocab_words: list[str],
+                 target_image: bool = True, n_words=None):
+        self.pool = pool
+        self.target_image = target_image
         self.rows = []
-        for _ in range(n):
-            ref, tgt = rng.choice(n_images, size=2, replace=False)
-            n_words = int(min(30, 3 + rng.geometric(0.12)))
+        for i in range(n):
+            ref, tgt = rng.choice(len(pool), size=2, replace=False)
+            words = int(min(30, 3 + rng.geometric(0.12))) if n_words is None \
+                else int(n_words[i])
             self.rows.append((int(ref), int(tgt),
-                              " ".join(rng.choice(vocab_words, n_words))))
+                              " ".join(rng.choice(vocab_words, words))))
 
     def __len__(self):
         return len(self.rows)
 
     def __getitem__(self, i):
         ref, tgt, caption = self.rows[i]
-        return {"reference_image": self.images[ref],
-                "target_image": self.images[tgt], "caption": caption}
+        sample = {"reference_image": self.pool.images[ref],
+                  "target_name": self.pool.index_names[tgt],
+                  "caption": caption}
+        if self.target_image:
+            sample["target_image"] = self.pool.images[tgt]
+        return sample
 
 
 def train_configs(dropout: bool):
@@ -561,7 +691,7 @@ def train_batches(tok, words, n_batches: int, batch_size: int):
     )
 
     rng = np.random.default_rng(SEED + 2)
-    data = Triplets(n_batches * batch_size, 24, 384, rng, words)
+    data = Triplets(n_batches * batch_size, Corpus(24, 384, rng), rng, words)
     loader = BatchLoader(data, batch_size, shuffle=True, seed=SEED,
                          workers=4)
     for raw in prefetch(iter(loader), 2):
@@ -579,8 +709,6 @@ def train_path(tok, words) -> dict:
     from candidate_reranking_cir_tpu_torch.models.blip_retrieval import (
         RetrievalModel,
     )
-    from candidate_reranking_cir_tpu_torch.ops import attention_train as tat
-    from candidate_reranking_cir_tpu_torch.ops import cuda_attention as ck
     from candidate_reranking_cir_tpu_torch.runtime.optim import (
         make_optimizer,
     )
@@ -601,23 +729,9 @@ def train_path(tok, words) -> dict:
     gen = torch.Generator().manual_seed(SEED)
     batches = train_batches(tok, words, 1 + TRAIN_STEPS + 1, TRAIN_B)
 
-    loss = step(next(batches), gen)                      # warm-up
-    torch.cuda.synchronize()
-    print(f"[train] warm-up step: loss {float(loss):.4f}", flush=True)
-    ck.reset_launch_counts()
-    tat.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    seconds, losses = [], []
-    for _ in range(TRAIN_STEPS):
-        batch = next(batches)
-        t0 = time.perf_counter()
-        loss = step(batch, gen)
-        torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t0)
-        losses.append(float(loss))
-    launches = {**ck.LAUNCHES, **tat.LAUNCHES}
+    seconds, losses, launches, peak, _ = timed_steps(
+        "train", step, batches, gen, TRAIN_STEPS)
     per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     mean_s = sum(seconds) / len(seconds)
     pairs = TRAIN_B * TRAIN_B
     print(f"[train] {TRAIN_STEPS} steps at B={TRAIN_B} ({pairs} pairs), "
@@ -627,8 +741,6 @@ def train_path(tok, words) -> dict:
     print(f"[train] losses {[round(x, 5) for x in losses]}; peak "
           f"max_memory_allocated {peak:.2f} GiB", flush=True)
     print(f"[train] launches per step {json.dumps(per_step)}", flush=True)
-    if not all(np.isfinite(losses)):
-        fail("non-finite training loss")
     n_layers = cfg2.text.num_layers
     expect = {"K7": 2 * n_layers, "K6": 2 * 2 * n_layers}  # remat: twice
     for kid, n in expect.items():
@@ -636,14 +748,7 @@ def train_path(tok, words) -> dict:
             fail(f"{kid}: {per_step[kid]} launches per step, expected {n}")
     if not (per_step["K1"] > 0 and per_step["K2"] > 0):
         fail(f"the frozen producers did not run their kernels: {per_step}")
-    unchanged = [n for n, p in s2.named_parameters()
-                 if p.requires_grad and torch.equal(p, trained0[n])]
-    if unchanged:
-        fail(f"{len(unchanged)} trained parameters did not change, e.g. "
-             f"{unchanged[0]}")
-    if any(not torch.equal(v, vit0[k])
-           for k, v in s2.visual_encoder.state_dict().items()):
-        fail("the frozen ViT changed")
+    check_trained("stage-II", s2, trained0, vit0)
     print(f"[train] all {len(trained0)} trained parameter tensors changed; "
           "the frozen ViT is bit-identical", flush=True)
     batch = next(batches)
@@ -698,17 +803,284 @@ def train_fp32_check(tok, words):
         print(f"[check] fp32 train step at B=2 on {dev}: loss {loss:.6f} in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         del s1, s2, opt, step
-    (lc, gc), (lp, gp) = results["cuda"], results["cpu"]
-    d_loss = abs(lc - lp)
-    g_max = max(float(g.abs().max()) for g in gp.values())
-    d_grad = max(float((gc[n] - gp[n]).abs().max()) for n in gp)
-    print(f"[check] fp32 train step card vs cpu: |loss diff| {d_loss:.3e} "
-          f"(tol {TRAIN_LOSS_TOL}); max |grad diff| {d_grad:.3e} over "
-          f"{len(gp)} tensors, largest |grad| {g_max:.3e} (tol "
-          f"{TRAIN_GRAD_REL_TOL} x largest)", flush=True)
-    if set(gc) != set(gp) or not d_loss <= TRAIN_LOSS_TOL \
-            or not d_grad <= TRAIN_GRAD_REL_TOL * g_max:
-        fail("the fp32 train step on the card disagrees with the CPU")
+    card_vs_cpu("fp32 train step", results)
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the head-folded train kernels at the stage-I MED shape
+
+def run_folded_kernel_cases(dtype, lq: int) -> dict:
+    """K8, K9 at S1_SHAPE with ``lq`` query rows in ``dtype``, rate 0.1:
+    error against the plain versions without and with a key-mask bias;
+    kernel / plain / SDPA-yardstick times and bounds without the bias (the
+    path's case)."""
+    from candidate_reranking_cir_tpu_torch.ops import attention_train as tat
+    from candidate_reranking_cir_tpu_torch.ops.attention import (
+        make_additive_mask,
+    )
+    import torch.nn.functional as F
+
+    e, m, h, d = S1_SHAPE
+    shape = [e, lq, m, h, d]
+    rate, seed = TRAIN_RATE, TRAIN_SEED + 1
+    name = str(dtype).split(".")[-1]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    q, gout = (torch.randn(e, lq, h * d, generator=g, device="cuda").to(dtype)
+               for _ in range(2))
+    k, v = (torch.randn(e, m, h * d, generator=g, device="cuda").to(dtype)
+            for _ in range(2))
+    lens = torch.randint(1, m + 1, (e,), generator=g, device="cuda")
+    mask = torch.arange(m, device="cuda")[None] < lens[:, None]
+    key_bias = tat._train_bias3(make_additive_mask(mask), e, lq, m)
+    heads = [tat._heads(x, h) for x in (q, k, v, gout)]
+    isz = q.element_size()
+    recs = {}
+    errs = {}
+    for label, bias in (("", None), (" +mask", key_bias)):
+        tag = f"{name} {shape}{label} rate {rate}"
+        out = tat._kernel_fwd(*heads[:3], bias, seed, rate, folded=True)
+        grads = tat._kernel_bwd(*heads[:3], bias, seed, heads[3], rate,
+                                folded=True)
+        torch.cuda.synchronize()
+        ref = tat.attention_train_folded_plain(q, k, v, bias, seed, rate,
+                                               num_heads=h)
+        err8 = (out.flatten(-2).float() - ref.float()).abs().max().item()
+        del ref
+        print(f"[kernel] K8 {tag}: max|err| {err8:.3e} (tol {TOL[dtype]})",
+              flush=True)
+        if not torch.isfinite(out).all() or err8 > TOL[dtype]:
+            fail(f"K8 {tag}: max |err| {err8:.3e}")
+        err9 = check_grads("K9", tag, grads,
+                           tat.attention_train_folded_bwd_plain(
+                               q, k, v, bias, seed, gout, rate, num_heads=h),
+                           dtype)
+        errs[label] = (err8, err9)
+    qt, kt, vt, gt = (x.transpose(1, 2) for x in heads)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qg, kg, vg, dropout_p=rate)
+        torch.autograd.grad(o, (qg, kg, vg), gt)
+
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+    cases = {
+        # bytes: q read and out written once, k and v read once
+        "K8": (lambda: tat._kernel_fwd(*heads[:3], None, seed, rate,
+                                       folded=True),
+               lambda: tat.attention_train_folded_plain(
+                   q, k, v, None, seed, rate, num_heads=h),
+               lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                      dropout_p=rate),
+               (2 * q.numel() + 2 * k.numel()) * isz, 4),
+        # bytes: q, k, v, g read, dq, dk, dv written once
+        "K9": (lambda: tat._kernel_bwd(*heads[:3], None, seed, heads[3],
+                                       rate, folded=True),
+               lambda: tat.attention_train_folded_bwd_plain(
+                   q, k, v, None, seed, gout, rate, num_heads=h),
+               sdpa_fwd_bwd, (3 * q.numel() + 4 * k.numel()) * isz, 10),
+    }
+    for kid, (kernel, plain, sdpa, n_bytes, ops) in cases.items():
+        b_ms, b_by = bound(n_bytes, ops * e * h * lq * m * d, dtype)
+        recs[kid] = {"name": kid, "dtype": name, "shape": shape,
+                     "max_abs_err": max(v[kid == "K9"] for v in errs.values()),
+                     "ms": time_ms(kernel), "plain_ms": time_ms(plain, 3),
+                     "library_ms": None, "sdpa_own_mask_ms": time_ms(sdpa),
+                     "bound_ms": b_ms, "bound_by": b_by}
+        r = recs[kid]
+        print(f"[kernel] {kid} {name} {shape} rate {rate}: kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"sdpa(dropout_p={rate}{', fwd+bwd' if kid == 'K9' else ''}; "
+              f"same work, its own mask) {r['sdpa_own_mask_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+    return recs
+
+
+# ---------------------------------------------------------------------------
+# phase 8: stage-I training
+
+def stage1_config(**text_kw):
+    from candidate_reranking_cir_tpu_torch.config import (
+        RetrievalModelConfig,
+        TextEncoderConfig,
+        vit_config,
+    )
+
+    # as the JAX trainer builds it (cli/common.py::build_stage1 with remat):
+    # ViT-B/16 @ 384 (frozen here, so its remat does not matter) and the
+    # MED with remat, policy ''
+    return RetrievalModelConfig(vit=vit_config("base", 384),
+                                text=TextEncoderConfig(remat=True, **text_kw),
+                                text_len=TEXT_LEN)
+
+
+def target_cache(model, pool: Corpus):
+    """The trainer's pooled target-feature cache: the pool's normalized
+    projected CLS features through ``build_index``, kept on the host as the
+    JAX trainer keeps them; (features [N, E] fp32, row of each name)."""
+    from candidate_reranking_cir_tpu_torch.retrieval.index import build_index
+
+    device = next(model.parameters()).device
+    _, pooled, names = build_index(
+        pool, lambda x: model.embed_images(x, pool_and_normalize=True), 32,
+        pooled=True, keep_raw=False, device=device)
+    return pooled.cpu().numpy(), {nm: i for i, nm in enumerate(names)}
+
+
+def stage1_batches(tok, words, pool: Corpus, cache, n_batches: int,
+                   batch_size: int):
+    """Batches as the stage-I trainer feeds them: ``BatchLoader`` over
+    triplets without target images, captions tokenized with [ENC] and cut
+    to the smallest 'auto' text bucket, cached target features gathered
+    by name."""
+    from candidate_reranking_cir_tpu_torch.cli.common import (
+        parse_text_buckets,
+        text_bucket_slice,
+    )
+    from candidate_reranking_cir_tpu_torch.data.loader import (
+        BatchLoader,
+        prefetch,
+    )
+
+    feats, pos = cache
+    buckets = parse_text_buckets("auto", TEXT_LEN)
+    rng = np.random.default_rng(SEED + 6)
+    # caption lengths of the benchmark's stage-I traffic; a word is one
+    # token, and [ENC] and [SEP] take two
+    n = n_batches * batch_size
+    data = Triplets(n, pool, rng, words, target_image=False,
+                    n_words=caption_lengths(n, TEXT_LEN, rng) - 2)
+    loader = BatchLoader(data, batch_size, shuffle=True, seed=SEED,
+                         workers=4)
+    for raw in prefetch(iter(loader), 2):
+        ids, mask = tok.encode(raw["caption"], TEXT_LEN, set_enc_token=True)
+        ids, mask = text_bucket_slice(ids, mask, buckets)
+        rows = np.asarray([pos[nm] for nm in raw["target_name"]])
+        yield {"ref_images": raw["reference_image"], "input_ids": ids,
+               "attention_mask": mask, "target_pooled": feats[rows]}
+
+
+def stage1_train_path(tok, words) -> dict:
+    from candidate_reranking_cir_tpu_torch.config import TrainConfig
+    from candidate_reranking_cir_tpu_torch.models.blip_retrieval import (
+        RetrievalModel,
+    )
+    from candidate_reranking_cir_tpu_torch.runtime.optim import (
+        make_optimizer,
+    )
+    from candidate_reranking_cir_tpu_torch.runtime.train_steps import (
+        make_stage1_train_step,
+    )
+
+    cfg = stage1_config()
+    torch.manual_seed(SEED + 7)
+    model = RetrievalModel(cfg, dtype=torch.bfloat16, device="cuda")
+    opt, _ = make_optimizer(TrainConfig(learning_rate=2e-5,
+                                        weight_decay=0.05), model, 1000,
+                            freeze_prefixes=("visual_encoder",))
+    step = make_stage1_train_step(model, opt)
+    pool = Corpus(S1_POOL, cfg.vit.image_size, np.random.default_rng(SEED + 8))
+    t0 = time.perf_counter()
+    cache = target_cache(model, pool)
+    print(f"[stage1] target-feature cache of {S1_POOL} images "
+          f"{list(cache[0].shape)} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    vit0 = {k: v.clone() for k, v in model.visual_encoder.state_dict().items()}
+    trained0 = {n: p.detach().clone() for n, p in model.named_parameters()
+                if p.requires_grad}
+    gen = torch.Generator().manual_seed(SEED)
+    batches = stage1_batches(tok, words, pool, cache, 1 + S1_STEPS + 1, S1_B)
+
+    seconds, losses, launches, peak, widths = timed_steps(
+        "stage1", step, batches, gen, S1_STEPS)
+    per_step = {k: v / S1_STEPS for k, v in launches.items()}
+    mean_s = sum(seconds) / len(seconds)
+    if not set(widths) <= set(S1_WIDTHS):
+        fail(f"stage-I text widths {widths}: the K8/K9 phase measured "
+             f"{S1_WIDTHS} only")
+    print(f"[stage1] {S1_STEPS} steps at B={S1_B}, bf16, MED remat, text "
+          f"widths {widths}: seconds {[round(x, 4) for x in seconds]}; mean "
+          f"{mean_s:.4f} s; stage-I train pairs/s {S1_B / mean_s:.1f} "
+          f"({S1_B} / step time)", flush=True)
+    print(f"[stage1] losses {[round(x, 5) for x in losses]}; peak "
+          f"max_memory_allocated {peak:.2f} GiB", flush=True)
+    print(f"[stage1] launches per step {json.dumps(per_step)}", flush=True)
+    n_layers = cfg.text.num_layers
+    expect = {"K8": 2 * n_layers, "K9": n_layers, "K6": 0, "K7": 0}
+    for kid, n in expect.items():
+        if per_step[kid] != n:
+            fail(f"{kid}: {per_step[kid]} launches per stage-I step, "
+                 f"expected {n}")
+    if not (per_step["K1"] > 0 and per_step["K5"] > 0):
+        fail(f"the frozen ViT or the dropout hash did not run: {per_step}")
+    # vision_proj gets no gradient with cached targets: weight decay moves
+    # its weight, nothing moves its zero bias
+    check_trained("stage-I", model, trained0, vit0, exempt="vision_proj.")
+    print(f"[stage1] all {len(trained0) - 2} trained parameter tensors but "
+          "vision_proj's changed; the frozen ViT is bit-identical",
+          flush=True)
+    batch = next(batches)
+    profile_device("one stage-I step", lambda: step(batch, gen))
+    return {"launches": launches, "per_step": per_step,
+            "pairs_per_s": S1_B / mean_s}
+
+
+def stage1_fp32_check(tok, words):
+    """One fp32 stage-I step at B = 4, full width, on the card and on the
+    CPU from the same weights, the same cached targets and the same seeds.
+    Hidden dropout 0 and attention dropout 0.1 with the kernels' thresholds
+    lowered to 0: every MED attention site (the text self-attention with
+    its key mask too) then takes the folded in-kernel-dropout route, whose
+    hash mask is the same on both devices."""
+    from candidate_reranking_cir_tpu_torch.config import TrainConfig
+    from candidate_reranking_cir_tpu_torch.models.blip_retrieval import (
+        RetrievalModel,
+    )
+    from candidate_reranking_cir_tpu_torch.ops import attention_train as tat
+    from candidate_reranking_cir_tpu_torch.runtime.optim import (
+        make_optimizer,
+    )
+    from candidate_reranking_cir_tpu_torch.runtime.train_steps import (
+        make_stage1_train_step,
+    )
+
+    cfg = stage1_config(hidden_dropout=0.0, attention_dropout=0.1)
+    torch.manual_seed(SEED + 9)
+    cpu = RetrievalModel(cfg, device="cpu")
+    pool = Corpus(2 * S1_CHECK_B, cfg.vit.image_size,
+                  np.random.default_rng(SEED + 10))
+    cache = target_cache(cpu, pool)
+    batch = next(stage1_batches(tok, words, pool, cache, 1, S1_CHECK_B))
+    saved = tat.MIN_KV, tat.MIN_ROWS
+    tat.MIN_KV, tat.MIN_ROWS = 0, 0
+    results, launches = {}, {}
+    try:
+        for dev in ("cuda", "cpu"):
+            if dev == "cuda":
+                model = RetrievalModel(cfg, device="cuda")
+                model.load_state_dict(cpu.state_dict())
+            else:
+                model = cpu
+            opt, _ = make_optimizer(TrainConfig(), model, 1000,
+                                    freeze_prefixes=("visual_encoder",))
+            step = make_stage1_train_step(model, opt)
+            tat.reset_launch_counts()
+            t0 = time.perf_counter()
+            loss = float(step(batch, torch.Generator().manual_seed(SEED)))
+            grads = {n: p.grad.detach().float().cpu()
+                     for n, p in model.named_parameters()
+                     if p.grad is not None}
+            results[dev] = (loss, grads)
+            launches[dev] = dict(tat.LAUNCHES)
+            print(f"[check] fp32 stage-I step at B={S1_CHECK_B} on {dev}: "
+                  f"loss {loss:.6f} in {time.perf_counter() - t0:.1f} s; "
+                  f"launches {json.dumps(launches[dev])}", flush=True)
+            del model, opt, step
+    finally:
+        tat.MIN_KV, tat.MIN_ROWS = saved
+    n_layers, nc = cfg.text.num_layers, launches["cuda"]
+    if nc["K8"] != 2 * 2 * n_layers or nc["K9"] != 2 * n_layers:
+        fail(f"the fp32 check did not run K8/K9 at every MED attention "
+             f"site: {nc}")
+    card_vs_cpu("fp32 stage-I step", results)
 
 
 def build_libraries() -> None:
@@ -757,12 +1129,29 @@ def main():
     train = train_path(tok, words)
     train_fp32_check(tok, words)
 
+    for lq in S1_WIDTHS:
+        for dtype in (torch.float32, torch.bfloat16):
+            recs = run_folded_kernel_cases(dtype, lq)
+            # the JSON line keeps bf16 at the width most stage-I steps take
+            if dtype == torch.bfloat16 and lq == S1_WIDTHS[0]:
+                records.update(recs)
+    stage1 = stage1_train_path(tok, words)
+    stage1_fp32_check(tok, words)
+
     kernels = []
-    for kid in ("K1", "K2", "K3", "K4", "K5", "K6", "K7"):
+    for kid in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9"):
         rec = records[kid]
-        # K1-K4: launches on the eval path; K5-K7 on the training path (K5
-        # runs inside every K6/K7 launch that applies the mask)
-        n = launches[kid] if kid in launches else train["launches"][kid]
+        # K1-K4: launches on the eval path; K6/K7 on the stage-II training
+        # path; K8/K9 on the stage-I one; K5 runs inside every K6-K9 launch
+        # that applies the mask, on both training paths
+        if kid in launches:
+            n = launches[kid]
+        elif kid == "K5":
+            n = train["launches"]["K5"] + stage1["launches"]["K5"]
+        elif kid in ("K8", "K9"):
+            n = stage1["launches"][kid]
+        else:
+            n = train["launches"][kid]
         kernels.append({
             "name": kid, "route": "cuda", "source": SOURCES[kid],
             "replaces": REPLACES[kid], "launches": n,

@@ -1,4 +1,4 @@
-"""CUDA kernels K1-K7 against their plain PyTorch versions, on the card.
+"""CUDA kernels K1-K9 against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: they skip where no card is present. On a machine with a
 card (which need not have JAX), run them without the repository's conftest:
@@ -203,7 +203,75 @@ def test_train_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         tat.fused_attention_train(q, kv, kv, None, 0, 0.1)
     with pytest.raises(ValueError, match="int32"):
         tat.fused_attention_train(q, q, q, None, 2 ** 31, 0.1)
-    qf = _rand(dev, torch.float32, 2, 8, 128)
-    with pytest.raises(NotImplementedError, match="K8"):
+    qf = _rand(dev, torch.float16, 2, 8, 128)
+    with pytest.raises(ValueError, match="dtype"):
         tat.fused_attention_train_folded(qf, qf, qf, None, 0, 0.1,
                                          num_heads=2)
+    qf = _rand(dev, torch.float32, 2, 8, 256)[..., ::2]  # strided heads
+    with pytest.raises(ValueError, match="stride"):
+        tat.fused_attention_train_folded(qf, qf, qf, None, 0, 0.1,
+                                         num_heads=2)
+
+
+# ---------------------------------------------------------------------------
+# K8/K9 (head-folded) against their plain versions
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,lq,m,with_bias", [(3, 37, 45, True),
+                                              (64, 40, 577, False),
+                                              (16, 24, 577, True)])
+def test_k8_k9_match_plain(dev, dtype, e, lq, m, with_bias):
+    h, seed, rate = 12, 2 ** 31 - 5, 0.1
+    q = _rand(dev, dtype, e, lq, h * 64, seed=20)
+    k = _rand(dev, dtype, e, m, h * 64, seed=21)
+    v = _rand(dev, dtype, e, m, h * 64, seed=22)
+    g = _rand(dev, dtype, e, lq, h * 64, seed=23)
+    bias = None
+    if with_bias:
+        bias = tat._train_bias3(_mask_bias(dev, e, m), e, lq, m)
+    heads = [tat._heads(x, h) for x in (q, k, v, g)]
+    before = dict(tat.LAUNCHES)
+    out = tat._kernel_fwd(*heads[:3], bias, seed, rate, folded=True)
+    grads = tat._kernel_bwd(*heads[:3], bias, seed, heads[3], rate,
+                            folded=True)
+    torch.cuda.synchronize()
+    assert tat.LAUNCHES["K8"] == before["K8"] + 1
+    assert tat.LAUNCHES["K9"] == before["K9"] + 1
+    assert tat.LAUNCHES["K6"] == before["K6"]
+    assert tat.LAUNCHES["K7"] == before["K7"]
+    ref = tat.attention_train_folded_plain(q, k, v, bias, seed, rate,
+                                           num_heads=h)
+    torch.testing.assert_close(out.flatten(-2).float(), ref.float(), rtol=0,
+                               atol=TOL[dtype])
+    refs = tat.attention_train_folded_bwd_plain(q, k, v, bias, seed, g, rate,
+                                                num_heads=h)
+    for a, b in zip(grads, refs):
+        torch.testing.assert_close(a.flatten(-2).float(), b.float(), rtol=0,
+                                   atol=GRAD_TOL[dtype])
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_folded_train_attention_autograd_on_the_card(dev, with_bias):
+    """fused_attention_train_folded's autograd: K8 forward, K9 backward,
+    against the plain versions (fp32)."""
+    e, lq, m, h = 8, 40, 577, 12
+    q = _rand(dev, torch.float32, e, lq, h * 64, seed=24).requires_grad_()
+    k = _rand(dev, torch.float32, e, m, h * 64, seed=25).requires_grad_()
+    v = _rand(dev, torch.float32, e, m, h * 64, seed=26).requires_grad_()
+    g = _rand(dev, torch.float32, e, lq, h * 64, seed=27)
+    bias = _mask_bias(dev, e, m) if with_bias else None
+    before = dict(tat.LAUNCHES)
+    out = tat.fused_attention_train_folded(q, k, v, bias, -3, 0.1,
+                                           num_heads=h)
+    grads = torch.autograd.grad(out, (q, k, v), g)
+    assert tat.LAUNCHES["K8"] == before["K8"] + 1
+    assert tat.LAUNCHES["K9"] == before["K9"] + 1
+    b3 = None if bias is None else tat._train_bias3(bias, e, lq, m)
+    ref = tat.attention_train_folded_plain(q.detach(), k.detach(), v.detach(),
+                                           b3, -3, 0.1, num_heads=h)
+    torch.testing.assert_close(out, ref, rtol=0, atol=2e-5)
+    refs = tat.attention_train_folded_bwd_plain(
+        q.detach(), k.detach(), v.detach(), b3, -3, g, 0.1, num_heads=h)
+    for a, b in zip(grads, refs):
+        torch.testing.assert_close(a, b, rtol=0, atol=3e-5)
