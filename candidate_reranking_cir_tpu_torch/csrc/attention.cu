@@ -1,9 +1,9 @@
-// Eval attention forward for Hopper (sm_90a): one strided kernel for the
-// four eval kernels of the JAX package's ops/pallas_attention.py
-// (_attn_kernel_folded, _attn_bias_kernel, _attn_kernel,
-// _attn_bias_kernel_folded). They compute one function and differ only in
-// the layout of q/k/v ([E, L, H*D] folded or [E, L, H, D] unfolded, which
-// here is a matter of strides) and in an optional additive bias.
+// Eval attention forward for Hopper (sm_90a): the four eval kernels of the
+// JAX package's ops/pallas_attention.py (_attn_kernel_folded,
+// _attn_bias_kernel, _attn_kernel, _attn_bias_kernel_folded). They compute
+// one function and differ only in the layout of q/k/v ([E, L, H*D] folded
+// or [E, L, H, D] unfolded, which here is a matter of strides) and in an
+// optional additive bias.
 //
 // Per (entry e, head h): out = softmax(q*d^-1/2 . k^T + bias) . v with
 //   - the scale folded into q (exact: d = 64 makes it a power of two),
@@ -11,25 +11,32 @@
 //     reciprocal multiply), as pallas_attention.py:_head_attention does,
 //   - the probabilities rounded to the input type before P.V,
 //   - fp32 accumulation of P.V and the output rounded to the input type.
-// The body lives in attention_common.cuh (attn_fwd_body<T, bias, false>);
-// the train forward (K6, attention_train.cu) instantiates the same body
-// with its dropout step switched on.
 //
-// What bounds it: at the main path's shapes (577 keys, <= 1280 query rows
-// per entry) the work is about 4*Lq*M*D operations over (Lq + 2M)*D*2
-// bytes per head, far above the card's bytes-to-operations balance, so the
-// bound is arithmetic. This first version keeps the exact-softmax numerics
-// simple: a block holds the full fp32 score rows of its 32 query rows in
-// shared memory (32 x 577 x 4 B = 74 KB), so no online-softmax rescaling
-// is needed, and it does the products with plain fp32 FMAs from shared
-// memory, not tensor cores. That leaves it well short of the bf16 tensor-
-// core bound; wgmma/TMA tiles are the next step.
+// Two kernels, chosen by dtype and bias (routing, as the JAX package
+// routes by layout and bias; neither is a fallback of the other):
+//   - bf16 without a bias (K1, K3: the main path's launches) runs
+//     attn_fwd_tc_kernel (attention_tc.cuh): wgmma tensor cores, K/V tiles
+//     streamed by cp.async, the exact softmax in two sweeps over the keys.
+//   - fp32, and any launch with a bias (K2, K4), runs attn_fwd_kernel over
+//     attn_fwd_body (attention_common.cuh), which the train forward (K6,
+//     attention_train.cu) shares with its dropout step switched on. It
+//     keeps the full fp32 score rows of 32 query rows in shared memory (32
+//     x 577 x 4 B = 74 KB, up to fwd_max_keys() keys) and does plain fp32
+//     FMAs; fp32 stays off the tensor cores, which would round it to TF32.
+//
+// What bounds them at the main path's shapes (bf16, per (entry, head)
+// 4*Lq*M*D operations against (2*Lq + 2*M)*D*2 bytes): bytes for K1 in
+// the MED (40 x 577) and, by a hair, in the ViT (577 x 577: 289 operations
+// a byte against the card's 295), and for K2/K4 (40-160 keys); operations
+// for K3 at 1,280 rows of 577 keys per candidate, bytes at its narrowest
+// call (32 rows). PERF.md has the bounds.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC (see ops/build.py). Plain C entry
 // points, loaded with ctypes.
 
 #include "attention_common.cuh"
+#include "attention_tc.cuh"
 
 namespace {
 
@@ -65,32 +72,46 @@ int launch(const void* q, const void* k, const void* v, const float* bias,
 
 extern "C" {
 
-// Largest key count whose score rows fit the block's shared memory.
-int crc_attention_max_keys() { return fwd_max_keys(); }
-
 int crc_attention_head_dim() { return kHeadDim; }
+
+// Dynamic shared memory of one tensor-core block of 1 or 2 warpgroups.
+int crc_attention_tc_smem_bytes(int warpgroups) {
+  return static_cast<int>(tc::smem_bytes(warpgroups));
+}
+
+// What crc_attention_forward refuses, as negative codes (a positive code
+// is a cudaError_t): more keys than the fp32-FMA kernel's score rows hold
+// in shared memory (fwd_max_keys()); on the tensor-core route a base
+// pointer or stride that is not aligned (tc::aligned()).
+constexpr int kRefusedKeys = -1;
+constexpr int kRefusedAlignment = -2;
 
 // dtype: 0 = float32, 1 = bfloat16. bias: null, or fp32 with strides
 // strides[12..13]. strides: q, k, v, out as (entry, row, head) triples.
-// Returns the launch's cudaGetLastError() (0 = success).
+// Routes bf16 without a bias to the tensor-core kernel, the rest to
+// attn_fwd_kernel. Returns the launch's cudaGetLastError() (0 = success),
+// cudaErrorInvalidValue for an empty axis or an unknown dtype, or one of
+// the refusals above.
 int crc_attention_forward(int dtype, const void* q, const void* k,
                           const void* v, const float* bias, void* out,
                           const long long* strides, int entries, int heads,
                           int lq, int m, float scale, void* stream) {
   const Strides st = unpack_strides(strides);
-  if (m < 1 || lq < 1 || m > fwd_max_keys())
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (m < 1 || lq < 1) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && bias == nullptr) {
+    if (!tc::aligned(q, k, v, out, st)) return kRefusedAlignment;
+    return tc::launch(q, k, v, out, entries, heads, lq, m, scale, st, s);
+  }
+  if (m > fwd_max_keys()) return kRefusedKeys;
   if (dtype == 0)
     return bias ? launch<float, true>(q, k, v, bias, out, entries, heads, lq,
                                       m, scale, st, s)
                 : launch<float, false>(q, k, v, bias, out, entries, heads, lq,
                                        m, scale, st, s);
   if (dtype == 1)
-    return bias ? launch<__nv_bfloat16, true>(q, k, v, bias, out, entries,
-                                              heads, lq, m, scale, st, s)
-                : launch<__nv_bfloat16, false>(q, k, v, bias, out, entries,
-                                               heads, lq, m, scale, st, s);
+    return launch<__nv_bfloat16, true>(q, k, v, bias, out, entries, heads,
+                                       lq, m, scale, st, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,0 +1,481 @@
+// Tensor-core eval attention for Hopper (sm_90a): the bf16, no-bias
+// launches of the eval kernels. It replaces, for those launches, the JAX
+// package's ops/pallas_attention.py
+//   - _attn_kernel_folded (K1: q/k/v [E, L, H*D], head stride 64), and
+//   - _attn_kernel        (K3: q/k/v [E, L, H, D]),
+// both through _head_attention. Layouts differ only in strides. fp32 and
+// the bias variants (K2, K4) stay on attn_fwd_body (attention_common.cuh).
+//
+// The function, per (entry, head), is the one the plain version and the
+// Pallas kernels compute: q scaled by 1/8, fp32 scores, max-subtracted
+// exp, a sum, a DIVIDE by the sum, probabilities rounded to bf16 before
+// P.V, fp32 accumulation of P.V, output in bf16. How the kernel computes
+// it on the CUDA cores, where the time between the products goes:
+//   - the scale (exact for d = 64: a power of two) moves from q onto the
+//     fp32 scores and, with log2(e), into one FMA: exp(scale * (s - max))
+//     = 2^(c*s - c*max), on the special-function unit;
+//   - the divide is the correctly rounded quotient, from one correctly
+//     rounded reciprocal per row and a product and two FMAs per score
+//     (see divide()), not a reciprocal multiply;
+//   - only a tile holding keys past M tests the key index.
+//
+// What bounds it on the H100 (989 TFLOP/s bf16, 3.35 TB/s): per (entry,
+// head) 4*Lq*M*D operations against (2*Lq + 2*M)*D*2 bytes.
+//   - K1 in the MED (40 x 577: 37 operations a byte) and, by a hair, in
+//     the ViT (577 x 577: 289 against the card's 295): bytes.
+//   - K3 at 1,280 rows x 577 keys per candidate (398): operations; at the
+//     narrowest call, 32 rows (30): bytes.
+// What the design does about it:
+//   - wgmma m64n64k16 (bf16 in, fp32 out) for S = Q.K^T, with Q and K read
+//     by descriptor from 128-byte-swizzled shared memory, and for O += P.V
+//     with P from registers (the S accumulator re-packed as bf16) and V by
+//     descriptor, transposed (MN-major).
+//   - one block holds 64 query rows per warpgroup (two warpgroups when
+//     Lq > 64), so each K/V tile it loads serves up to 128 rows;
+//   - K/V stream through a ring of kStages 64-key tiles by 16-byte
+//     cp.async copies, so loads overlap the products;
+//   - exact softmax in two sweeps over the key tiles, no score rows in
+//     shared memory: sweep 1 keeps each row's max and sum of exp(s - max)
+//     (rescaled when the max grows); sweep 2 recomputes each S tile, forms
+//     p = exp(s - max) / sum, rounds it to bf16 and accumulates P.V. A
+//     one-pass online softmax would round exp(s - running max), not p, to
+//     bf16 before P.V: another function. The second sweep costs one more
+//     Q.K^T (1.5x the products); its K comes back mostly from L2.
+//     No key cap: shared memory does not grow with M.
+//   - rows past Lq are computed on zeros and never stored; keys past M
+//     count as -inf in sweep 1 and as p = 0 in sweep 2 (their K/V rows
+//     are zero-filled by the copies).
+// Inputs are strided views: every base pointer and every entry, row and
+// head stride of q, k and v must be 16-byte aligned (8 bf16), as 16-byte
+// copies need, and the output's 4-byte aligned (it is written as bf16
+// pairs); the C entry point refuses anything else (aligned()).
+
+#pragma once
+
+#include <atomic>
+
+#include "attention_common.cuh"
+
+namespace crc {
+namespace tc {
+
+constexpr int kRowsPerWg = 64;   // query rows per warpgroup (the wgmma M)
+constexpr int kTileKeys = 64;    // keys per K/V tile
+constexpr int kStages = 3;       // K/V tiles in flight
+constexpr int kTileBytes = kTileKeys * kHeadDim * 2;  // 8 KB, 128-byte rows
+constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = 2^(x log2 e)
+
+static_assert(kHeadDim == 64, "a tile row is one 128-byte swizzle row");
+
+// Dynamic shared memory: Q tiles (one per warpgroup), then the ring of
+// (K, V) tile pairs; +1 KB to align the start to the 1,024-byte swizzle
+// atom.
+inline size_t smem_bytes(int warpgroups) {
+  return static_cast<size_t>(warpgroups + 2 * kStages) * kTileBytes + 1024;
+}
+
+// Byte offset of 16-byte chunk c of row r in a 128-byte-swizzled tile
+// (Swizzle<3,4,3>: the chunk index XOR the row's position in its 8-row
+// atom), the layout wgmma's SWIZZLE_128B descriptors read.
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return static_cast<uint32_t>(r * 128 + ((c ^ (r & 7)) << 4));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+// the copies wrote shared memory through the generic proxy; wgmma reads
+// it through the async proxy
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Rows [row0, row0 + 64) of a [rows, 64] bf16 view into a swizzled tile;
+// rows at or past `rows` are zero-filled (and read no memory).
+__device__ __forceinline__ void load_tile(uint32_t dst,
+                                          const __nv_bfloat16* base,
+                                          long long row_stride, int row0,
+                                          int rows, int tid, int nthreads) {
+  for (int i = tid; i < kTileKeys * 8; i += nthreads) {
+    const int r = i >> 3, c = i & 7;
+    const int row = row0 + r;
+    const bool ok = row < rows;
+    cp_async16(dst + swz(r, c), base + (ok ? row : 0) * row_stride + c * 8,
+               ok ? 16 : 0);
+  }
+}
+
+// K-major or MN-major operand of one 64 x 64 bf16 tile in 128-byte-swizzled
+// rows: start address, leading offset 16 B (unused by swizzled layouts at
+// this width), stride between 8-row groups 1,024 B, SWIZZLE_128B.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving reads or writes of the accumulator across
+// the asynchronous product
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define CRC_WGMMA_D32                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+#define CRC_WGMMA_OUT32(d)                                                   \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),           \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),       \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),       \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),       \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
+      "+f"(d[31])
+
+// D (+)= A.B^T, A [64 x 16] and B [64 x 16] both K-major from shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " CRC_WGMMA_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : CRC_WGMMA_OUT32(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D += A.B, A [64 x 16] bf16 from registers, B [16 x 64] MN-major (N
+// contiguous) from shared memory
+__device__ __forceinline__ void wgmma_rs_tn(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " CRC_WGMMA_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : CRC_WGMMA_OUT32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 2^x on the special-function unit; results below 2^-126 flush to 0 (a
+// probability that small is 0 after the bf16 rounding's smallest normal
+// anyway, and adds nothing to a sum of at least 1)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// p / sum, correctly rounded, from inv = the correctly rounded 1 / sum:
+// q0 = p * inv is within an ulp of the quotient, the FMA gives the exact
+// remainder p - q0 * sum, and one more FMA rounds q0 + rem * inv to the
+// correctly rounded quotient (Markstein), the IEEE divide's result at a
+// product and two FMAs per element
+__device__ __forceinline__ float divide(float p, float sum, float inv) {
+  const float q0 = __fmul_rn(p, inv);
+  return __fmaf_rn(__fmaf_rn(-q0, sum, p), inv, q0);
+}
+
+// Sweep 1 on one tile: each row's running max (in accumulator units: the
+// scale is positive) and the quad-partial sum of exp(scale * (s - max)),
+// rescaled when the max grows. c = scale * log2(e). kMask: the tile holds
+// keys past m, which count as -inf.
+template <bool kMask>
+__device__ __forceinline__ void tile_stats(float (&s)[32], int key0, int m,
+                                           int quad, float c,
+                                           float (&row_max)[2],
+                                           float (&row_sum)[2]) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float tmax = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        float& x = s[4 * i + 2 * hh + b];
+        if (kMask && key0 + 8 * i + 2 * quad + b >= m) x = -INFINITY;
+        tmax = fmaxf(tmax, x);
+      }
+    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
+    const float mx = fmaxf(row_max[hh], tmax);
+    const float neg_mc = -mx * c;
+    float part = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int b = 0; b < 2; ++b)
+        part += ex2(fmaf(s[4 * i + 2 * hh + b], c, neg_mc));
+    row_sum[hh] = row_sum[hh] * ex2(fmaf(row_max[hh], c, neg_mc)) + part;
+    row_max[hh] = mx;
+  }
+}
+
+// Sweep 2 on one tile: p = exp(scale * (s - max)) / sum rounded to bf16,
+// packed as the A operand of P.V (k-step kk takes keys 16kk..16kk+15, i.e.
+// s[8kk .. 8kk+7]); keys past m (kMask) give p = 0.
+template <bool kMask>
+__device__ __forceinline__ void tile_probs(const float (&s)[32], int key0,
+                                           int m, int quad, float c,
+                                           const float (&neg_mc)[2],
+                                           const float (&sum)[2],
+                                           const float (&inv)[2],
+                                           uint32_t (&p)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int idx = 8 * kk + 2 * r;
+      const int hh = r & 1;
+      const int key = key0 + 16 * kk + 8 * (r >> 1) + 2 * quad;
+      float pv[2];
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        pv[b] = divide(ex2(fmaf(s[idx + b], c, neg_mc[hh])), sum[hh],
+                       inv[hh]);
+        if (kMask && key + b >= m) pv[b] = 0.f;
+      }
+      p[kk][r] = pack_bf16(pv[0], pv[1]);
+    }
+}
+
+// S = Q.K^T for one warpgroup: Q [64 x 64] and K [64 keys x 64], both
+// swizzled tiles; 4 k-steps of 16 (32 bytes along each 128-byte row).
+__device__ __forceinline__ void scores(float (&s)[32], uint32_t q_tile,
+                                       uint32_t k_tile) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kHeadDim / 16; ++kk)
+    wgmma_ss(s, desc_sw128(q_tile + 32 * kk), desc_sw128(k_tile + 32 * kk),
+             kk > 0);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_acc(s);
+}
+
+// Accumulator layout of m64n64 (per warpgroup thread t, warp w = t / 32,
+// lane l): s[4i + 2h + b] is row 16w + l/4 + 8h, column 8i + 2(l%4) + b.
+template <int kWarpgroups>
+__global__ void __launch_bounds__(kWarpgroups * 128, 4 / kWarpgroups)
+attn_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v,
+                   __nv_bfloat16* __restrict__ out, int lq, int m,
+                   float scale, Strides st) {
+  constexpr int kThreadsTc = kWarpgroups * 128;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw =
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t q_tiles = base;
+  const uint32_t ring = base + kWarpgroups * kTileBytes;
+  // stage s: K tile at ring + 2s * kTileBytes, V tile right after it
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int t = tid % 128;
+  const int warp = t / 32, lane = t % 32;
+  const int block_row0 = blockIdx.x * (kWarpgroups * kRowsPerWg);
+  const long long h = blockIdx.y;
+  const long long e = blockIdx.z;
+  const __nv_bfloat16* qb = q + e * st.q[0] + h * st.q[2];
+  const __nv_bfloat16* kb = k + e * st.k[0] + h * st.k[2];
+  const __nv_bfloat16* vb = v + e * st.v[0] + h * st.v[2];
+  __nv_bfloat16* ob = out + e * st.o[0] + h * st.o[2];
+
+  const int n_tiles = (m + kTileKeys - 1) / kTileKeys;
+  const int n_steps = 2 * n_tiles;  // sweep 1: K tiles; sweep 2: K and V
+
+  auto load_step = [&](int step) {
+    const int stage = step % kStages;
+    const int j = step < n_tiles ? step : step - n_tiles;
+    const uint32_t kt = ring + 2 * stage * kTileBytes;
+    load_tile(kt, kb, st.k[1], j * kTileKeys, m, tid, kThreadsTc);
+    if (step >= n_tiles)
+      load_tile(kt + kTileBytes, vb, st.v[1], j * kTileKeys, m, tid,
+                kThreadsTc);
+  };
+
+  // prologue: the Q tiles ride with step 0's group
+#pragma unroll
+  for (int w = 0; w < kWarpgroups; ++w)
+    load_tile(q_tiles + w * kTileBytes, qb, st.q[1],
+              block_row0 + w * kRowsPerWg, lq, tid, kThreadsTc);
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_steps) load_step(s);
+    cp_async_commit();
+  }
+
+  const uint32_t my_q = q_tiles + wg * kTileBytes;
+  const int quad = lane & 3;
+  const float c = scale * kLog2e;  // exp(scale * x) = 2^(c * x)
+  float row_max[2] = {-INFINITY, -INFINITY};
+  float row_sum[2] = {0.f, 0.f};
+  float neg_mc[2], inv[2];
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+
+  for (int step = 0; step < n_steps; ++step) {
+    cp_async_wait<kStages - 2>();  // this step's tiles have landed
+    fence_proxy_async();
+    __syncthreads();  // ... for every thread; the oldest stage is free
+    if (step + kStages - 1 < n_steps) load_step(step + kStages - 1);
+    cp_async_commit();
+
+    const int stage = step % kStages;
+    const uint32_t kt = ring + 2 * stage * kTileBytes;
+    const bool sweep2 = step >= n_tiles;
+    const int key0 = (sweep2 ? step - n_tiles : step) * kTileKeys;
+    const bool ragged = key0 + kTileKeys > m;  // only the last tile
+    float s[32];
+    scores(s, my_q, kt);
+
+    if (!sweep2) {
+      if (ragged)
+        tile_stats<true>(s, key0, m, quad, c, row_max, row_sum);
+      else
+        tile_stats<false>(s, key0, m, quad, c, row_max, row_sum);
+      if (step == n_tiles - 1) {
+        // the quad's partial sums share one max: add them
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          row_sum[hh] += __shfl_xor_sync(0xffffffffu, row_sum[hh], 1);
+          row_sum[hh] += __shfl_xor_sync(0xffffffffu, row_sum[hh], 2);
+          neg_mc[hh] = -row_max[hh] * c;
+          inv[hh] = __frcp_rn(row_sum[hh]);
+        }
+      }
+      continue;
+    }
+
+    uint32_t p[4][4];
+    if (ragged)
+      tile_probs<true>(s, key0, m, quad, c, neg_mc, row_sum, inv, p);
+    else
+      tile_probs<false>(s, key0, m, quad, c, neg_mc, row_sum, inv, p);
+    wgmma_fence();
+    fence_acc(o);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_tn(o, p[kk], desc_sw128(kt + kTileBytes + kk * 16 * 128));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_acc(o);
+  }
+
+  // output rows of this thread: 16w + l/4 (+8) of its warpgroup's 64
+  const int row_base = block_row0 + wg * kRowsPerWg + 16 * warp + lane / 4;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row_base + 8 * hh;
+    if (row >= lq) continue;
+    __nv_bfloat16* orow = ob + row * st.o[1];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i + 2 * quad) =
+          __floats2bfloat162_rn(o[4 * i + 2 * hh], o[4 * i + 2 * hh + 1]);
+  }
+}
+
+#undef CRC_WGMMA_D32
+#undef CRC_WGMMA_OUT32
+
+// 16-byte copies need 16-byte-aligned rows; the output is written as bf16
+// pairs
+inline bool aligned(const void* q, const void* k, const void* v,
+                    const void* out, const Strides& st) {
+  auto a16 = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  for (int i = 0; i < 3; ++i)
+    if (st.q[i] % 8 || st.k[i] % 8 || st.v[i] % 8 || st.o[i] % 2)
+      return false;
+  return a16(q) && a16(k) && a16(v) &&
+         reinterpret_cast<uintptr_t>(out) % 4 == 0;
+}
+
+constexpr int kMaxDevices = 64;
+
+// The kernel's attributes on the current device, set on its first launch
+// there and not again: the launch path stays one kernel launch.
+template <int kWarpgroups>
+cudaError_t configure_once(const void* kernel, size_t smem) {
+  static std::atomic<bool> done[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  // all of the SM's unified memory as shared memory (the copies bypass
+  // L1), so three one-warpgroup blocks fit an SM
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) done[dev].store(true, std::memory_order_release);
+  return err;
+}
+
+template <int kWarpgroups>
+int launch_wg(const void* q, const void* k, const void* v, void* out,
+              int entries, int heads, int lq, int m, float scale,
+              const Strides& st, cudaStream_t stream) {
+  auto kernel = attn_fwd_tc_kernel<kWarpgroups>;
+  const size_t smem = smem_bytes(kWarpgroups);
+  const cudaError_t err = configure_once<kWarpgroups>(
+      reinterpret_cast<const void*>(kernel), smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int rows = kWarpgroups * kRowsPerWg;
+  const dim3 grid((lq + rows - 1) / rows, heads, entries);
+  kernel<<<grid, kWarpgroups * 128, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      lq, m, scale, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One warpgroup (64 rows) per block up to 64 query rows, two above. The
+// caller has checked the alignment (aligned()).
+inline int launch(const void* q, const void* k, const void* v, void* out,
+                  int entries, int heads, int lq, int m, float scale,
+                  const Strides& st, cudaStream_t stream) {
+  return lq > kRowsPerWg
+             ? launch_wg<2>(q, k, v, out, entries, heads, lq, m, scale, st,
+                            stream)
+             : launch_wg<1>(q, k, v, out, entries, heads, lq, m, scale, st,
+                            stream);
+}
+
+}  // namespace tc
+}  // namespace crc

@@ -77,11 +77,11 @@ def load_attention_library() -> ctypes.CDLL:
     """The attention kernels' library with its C signatures declared."""
     path, _, _ = build("attention")
     lib = ctypes.CDLL(str(path))
-    lib.crc_attention_max_keys.argtypes = []
-    lib.crc_attention_max_keys.restype = ctypes.c_int
-    lib.crc_attention_head_dim.argtypes = []
-    lib.crc_attention_head_dim.restype = ctypes.c_int
     vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.crc_attention_head_dim.argtypes = []
+    lib.crc_attention_head_dim.restype = i32
+    lib.crc_attention_tc_smem_bytes.argtypes = [i32]
+    lib.crc_attention_tc_smem_bytes.restype = i32
     lib.crc_attention_forward.argtypes = [
         i32, vp, vp, vp, vp, vp, ctypes.POINTER(ctypes.c_longlong),
         i32, i32, i32, i32, ctypes.c_float, vp]

@@ -1,30 +1,39 @@
 """Eval attention kernels K1-K4 and their plain PyTorch versions.
 
 Each wrapper replaces one Pallas kernel of the JAX package's
-``ops/pallas_attention.py``; all four launch the same strided CUDA kernel
-(``csrc/attention.cu``, one template over fp32/bf16 and bias/no bias):
+``ops/pallas_attention.py``:
 
 - K1 ``_attn_kernel_folded``: ``fused_attention_folded``, no bias
 - K2 ``_attn_bias_kernel``: ``fused_attention`` with a bias
 - K3 ``_attn_kernel``: ``fused_attention``, no bias
 - K4 ``_attn_bias_kernel_folded``: ``fused_attention_folded`` with a bias
 
-Folded means q/k/v [E, L, H*D]; unfolded [E, L, H, D].
+Folded means q/k/v [E, L, H*D]; unfolded [E, L, H, D]. All four call one C
+entry point (``csrc/attention.cu``), which routes by dtype and bias: bf16
+without a bias (K1 and K3 on every path) runs the tensor-core kernel
+``attn_fwd_tc_kernel`` (``csrc/attention_tc.cuh``: wgmma, K/V tiles
+streamed through shared memory, the exact softmax in two sweeps over the
+keys); fp32 and the bias variants run ``attn_fwd_kernel``, fp32 FMAs over
+whole score rows held in shared memory. The C entry point also holds the
+rules of what each kernel takes (16-byte aligned base pointers and strides
+for the tensor-core kernel's 16-byte copies, a key cap for the other) and
+refuses the rest with a code the wrapper raises on.
 
-What bounds them on the H100: arithmetic (4*Lq*M*D operations per entry and
-head against (Lq + 2M)*D elements moved); the kernel keeps whole fp32 score
-rows in shared memory so that the softmax is exact, and uses fp32 FMAs, so
-it runs well below the bf16 tensor-core bound (see ``csrc/attention.cu``).
+What bounds them on the H100 at the main path's shapes: bytes for K1 (the
+ViT's 577 x 577 by a hair, the MED's 40 x 577 clearly) and for K2/K4;
+operations for K3 at 1,280 rows per candidate, bytes at its narrowest
+call of 32 rows (``PERF.md`` has each bound).
 
 A tensor on the CPU goes to the plain version; a tensor on the card goes to
 the kernel or the wrapper raises. ``LAUNCHES`` counts kernel launches per
 kernel id; only a launch adds to it.
 
-Gradients: on the card the kernel runs inside ``_EvalAttention``, whose
-backward recomputes the plain version under autograd, as the JAX package's
-``custom_vjp`` backward recomputes with XLA (``pallas_attention.py``
-``_bwd`` / ``_folded_bwd``). The bias gets no gradient. On the CPU the
-plain version runs under autograd directly.
+Gradients: on the card, where an input wants one, the kernel runs inside
+``_EvalAttention``, whose backward recomputes the plain version under
+autograd, as the JAX package's ``custom_vjp`` backward recomputes with XLA
+(``pallas_attention.py`` ``_bwd`` / ``_folded_bwd``); elsewhere the kernel
+is called directly. The bias gets no gradient. On the CPU the plain
+version runs under autograd directly.
 """
 from __future__ import annotations
 
@@ -74,9 +83,11 @@ def _bias3(bias, e: int, lq: int, m: int):
     return bias[:, 0].expand(e, lq, m)
 
 
-def check_kernel_inputs(tensors: dict, head_dim: int, max_keys: int):
+def check_kernel_inputs(tensors: dict, head_dim: int,
+                        max_keys: int | None = None):
     """Raise on what the attention kernels (eval and train) do not take.
-    ``tensors``: 4-D [E, L, H, D] views, q first and k second. Returns
+    ``tensors``: 4-D [E, L, H, D] views, q first and k second; ``max_keys``
+    None where the C entry point checks the key count itself. Returns
     (entries, query rows, heads, head_dim, keys)."""
     q, k = tensors["q"], tensors["k"]
     e, lq, h, d = q.shape
@@ -93,7 +104,7 @@ def check_kernel_inputs(tensors: dict, head_dim: int, max_keys: int):
     if d != head_dim:
         raise ValueError(f"head_dim {d} unsupported (kernel takes "
                          f"{head_dim})")
-    if m > max_keys:
+    if max_keys is not None and m > max_keys:
         raise ValueError(f"{m} keys exceed the kernel's {max_keys} "
                          "(score rows are held in shared memory)")
     if e > _MAX_GRID_YZ or h > _MAX_GRID_YZ:
@@ -115,6 +126,36 @@ def bias_args(bias3, device) -> tuple[int | None, list[int]]:
     return bias3.data_ptr(), list(bias3.stride()[:2])
 
 
+def uses_tensor_cores(dtype, bias3) -> bool:
+    """Whether a launch runs the tensor-core kernel (bf16 without a bias),
+    for reports; the C entry point does the routing."""
+    return dtype == torch.bfloat16 and bias3 is None
+
+
+# crc_attention_forward's refusals (csrc/attention.cu); a positive code is
+# a cudaError
+REFUSED_KEYS, REFUSED_ALIGNMENT = -1, -2
+
+
+def raise_on_error(err: int, kid: str, tensors: dict) -> None:
+    """Raise for a nonzero code of crc_attention_forward: ValueError for
+    what the routed kernel does not take, RuntimeError for a cudaError.
+    ``tensors``: the launch's q, k, v and out views, named."""
+    if err == REFUSED_KEYS:
+        raise ValueError(
+            f"{kid}: {tensors['k'].shape[1]} keys exceed the fp32-FMA "
+            "kernel's cap (score rows are held in shared memory)")
+    if err == REFUSED_ALIGNMENT:
+        views = "; ".join(f"{n} pointer offset {t.data_ptr() % 16}, strides "
+                          f"{tuple(t.stride())}" for n, t in tensors.items())
+        raise ValueError(
+            f"{kid}: the tensor-core kernel needs 16-byte aligned base "
+            f"pointers and entry, row and head strides; got {views}")
+    if err != 0:
+        raise RuntimeError(f"attention kernel {kid} launch failed: "
+                           f"cudaError {err}")
+
+
 def _launch(kid: str, q4, k4, v4, bias3, out4) -> None:
     """Launch the CUDA kernel on 4-D [E, L, H, D] views (strided)."""
     from candidate_reranking_cir_tpu_torch.ops.build import (
@@ -123,8 +164,7 @@ def _launch(kid: str, q4, k4, v4, bias3, out4) -> None:
 
     lib = load_attention_library()
     e, lq, h, d, m = check_kernel_inputs(
-        {"q": q4, "k": k4, "v": v4}, lib.crc_attention_head_dim(),
-        lib.crc_attention_max_keys())
+        {"q": q4, "k": k4, "v": v4}, lib.crc_attention_head_dim())
     bias_ptr, bias_strides = bias_args(bias3, q4.device)
     strides = [*q4.stride()[:3], *k4.stride()[:3], *v4.stride()[:3],
                *out4.stride()[:3], *bias_strides]
@@ -133,9 +173,7 @@ def _launch(kid: str, q4, k4, v4, bias3, out4) -> None:
         DTYPE_CODES[q4.dtype], q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
         bias_ptr, out4.data_ptr(), c_strides, e, h, lq, m, d ** -0.5,
         torch.cuda.current_stream(out4.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"attention kernel {kid} launch failed: "
-                           f"cudaError {err}")
+    raise_on_error(err, kid, {"q": q4, "k": k4, "v": v4, "out": out4})
     LAUNCHES[kid] += 1
 
 
@@ -168,6 +206,16 @@ class _EvalAttention(torch.autograd.Function):
         return (*(next(grads) if n else None for n in needs), None, None)
 
 
+def _card_forward(kid: str, q4, k4, v4, bias3):
+    """The kernel on the card, inside ``_EvalAttention`` only where a
+    gradient is wanted: the eval path (inference mode) and the frozen
+    producers (no grad) skip autograd's per-call host time."""
+    if torch.is_grad_enabled() and (q4.requires_grad or k4.requires_grad
+                                    or v4.requires_grad):
+        return _EvalAttention.apply(q4, k4, v4, bias3, kid)
+    return _kernel_forward(kid, q4, k4, v4, bias3)
+
+
 def _check_shapes(q, k, v, nd: int) -> None:
     if q.ndim != nd or k.ndim != nd or v.ndim != nd:
         raise ValueError(f"q/k/v must be {nd}-D")
@@ -186,8 +234,7 @@ def fused_attention(q, k, v, bias=None):
     bias3 = _bias3(bias, e, lq, k.shape[1])
     if q.device.type == "cpu":
         return attention_plain(q, k, v, bias3)
-    return _EvalAttention.apply(q, k, v, bias3,
-                                "K2" if bias3 is not None else "K3")
+    return _card_forward("K2" if bias3 is not None else "K3", q, k, v, bias3)
 
 
 def fused_attention_folded(q, k, v, bias=None, *, num_heads: int):
@@ -203,6 +250,5 @@ def fused_attention_folded(q, k, v, bias=None, *, num_heads: int):
     q4, k4, v4 = (t.unflatten(-1, (num_heads, d)) for t in (q, k, v))
     if q.device.type == "cpu":
         return attention_plain(q4, k4, v4, bias3).flatten(-2)
-    return _EvalAttention.apply(q4, k4, v4, bias3,
-                                "K4" if bias3 is not None else "K1"
-                                ).flatten(-2)
+    return _card_forward("K4" if bias3 is not None else "K1", q4, k4, v4,
+                         bias3).flatten(-2)

@@ -7,10 +7,15 @@ Phases, each printing its own lines:
 1. device: requires CUDA; prints ``nvidia-smi`` name and power limit.
 2. build: compiles the eval (K1-K4) and train (K5-K9) attention libraries
    from ``csrc/`` (one nvcc each, started together; sm_90a) and prints
-   ptxas's register and spill lines.
-3. kernels K1-K4 at the eval path's shapes, bf16 and fp32: max |error|
-   against the plain PyTorch version, kernel / plain / SDPA times (SDPA is
-   a yardstick only; the port never calls it) and the least time the card
+   ptxas's register and spill lines, and the tensor-core eval kernel's
+   registers, spills and shared memory.
+3. kernels K1-K4 at the eval path's shapes, bf16 and fp32 (bf16 K1/K3 run
+   the tensor-core kernel, the rest the fp32-FMA one; K3 also at the eval
+   path's narrowest call): max |error| against the plain PyTorch version,
+   kernel / plain / SDPA times over back-to-back calls (CUDA events, as
+   for every kernel) and the kernel/SDPA ratio (SDPA is a yardstick only;
+   the port never calls it), the kernel's and SDPA's device-only times
+   (CUDA-graph replays) and their ratio, and the least time the card
    could take (bytes over 3.35 TB/s or operations over the dtype's peak).
 4. kernels K5-K7 at the training path's shape ([16, 640, 12, 64] queries
    x 577 keys, rate 0.1), bf16 and fp32: the K5 mask bit for bit against
@@ -22,11 +27,16 @@ Phases, each printing its own lines:
    ``evaluate_cirr_stage2`` entry at full ViT-B/16@384 + MED + dual-encoder
    width in bf16, random weights from a seed, on a synthetic CIRR-shaped
    corpus held in memory; launch counts per kernel (K1-K3 must be > 0);
-   then a few hundred pairs re-scored in fp32 on the card and on the CPU.
+   then a few hundred pairs re-scored in fp32 on the card and on the CPU;
+   a profile of one scoring pass, which fails if any bf16 no-bias eval
+   attention ran on the fp32-FMA kernel (as do the training profiles).
 6. training path: ``make_stage2_train_step`` at full width in bf16 with
    remat, B = 16, fed by the port's ``BatchLoader`` over in-memory
-   CIRR-shaped triplets: 1 warm-up and 5 counted steps; step seconds,
-   triplets/s, losses, peak memory, launches per step (K6 and K7 at the
+   CIRR-shaped triplets: 1 warm-up and 5 counted steps; step seconds and
+   the cyclic garbage collector's seconds inside each (as on the stage-I
+   path; every profile ends by collecting its own garbage, so no later
+   timed step pays for it), triplets/s, losses, peak memory, launches per
+   step (K6 and K7 at the
    counts the configuration implies); the dual encoder must change and the
    frozen ViT stay bit-identical; a profile of one step; then one fp32
    step at B = 2 on the card and on the CPU from the same weights.
@@ -56,6 +66,7 @@ Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -86,8 +97,9 @@ S1_SHAPE = (512, 577, 12, 64)          # K8/K9 on the path: [E, M, H, D]
 S1_WIDTHS = (32, 40)           # Lq: the 'auto' buckets stage-I batches take
 S1_CHECK_B = 4                 # fp32 stage-I step, card vs CPU
 CSRC = "candidate_reranking_cir_tpu_torch/csrc"
-SOURCES = {"K1": f"{CSRC}/attention.cu", "K2": f"{CSRC}/attention.cu",
-           "K3": f"{CSRC}/attention.cu", "K4": f"{CSRC}/attention.cu",
+# K1/K3's records are bf16, the tensor-core kernel's launches
+SOURCES = {"K1": f"{CSRC}/attention_tc.cuh", "K2": f"{CSRC}/attention.cu",
+           "K3": f"{CSRC}/attention_tc.cuh", "K4": f"{CSRC}/attention.cu",
            "K5": f"{CSRC}/attention_common.cuh",
            "K6": f"{CSRC}/attention_train.cu",
            "K7": f"{CSRC}/attention_train.cu",
@@ -101,6 +113,13 @@ REPLACES = {"K1": f"{JAX_KERNELS}:220", "K2": f"{JAX_KERNELS}:132",
             "K7": f"{JAX_TRAIN}:135", "K8": f"{JAX_TRAIN}:382",
             "K9": f"{JAX_TRAIN}:414"}
 MAIN_PATH_KERNELS = ("K1", "K2", "K3")
+# profiler families of the eval kernels (see kernel_family)
+TC_FAMILY = "eval attention, tensor cores (K1/K3)"
+FMA_NO_BIAS_FAMILY = "eval attention, no bias, fp32 FMA (K1/K3)"
+# K3's narrowest eval call (retrieval/rerank.py): the smallest q-bucket (4
+# queries) x the smallest text bucket (8 tokens) = 32 rows per candidate,
+# and max(64, pairs_per_call 256 x text_len 40 // 8) // 4 candidates
+K3_NARROW = (max(64, 256 * TEXT_LEN // 8) // 4, 4 * 8)
 
 
 def fail(msg: str):
@@ -126,6 +145,29 @@ def time_ms(fn, iters: int = 10) -> float:
         fn()
     end.record()
     end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 10) -> float:
+    """Mean device-only milliseconds per call: ``iters`` calls captured in
+    one CUDA graph, replayed once to warm up, then one replay timed with
+    CUDA events, so the host's launch time is out of the way. For
+    functions that never wait on the host (the eval kernels, SDPA)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
     return start.elapsed_time(end) / iters
 
 
@@ -167,6 +209,8 @@ def kernel_cases():
         ("K2", "masked text self-attention", 256, 40, 40, 12, False, True),
         ("K3", "candidate-major cross-attention", 8, 32 * 40, 577, 12,
          False, False),
+        ("K3", "candidate-major cross-attention, narrowest call",
+         *K3_NARROW, 577, 12, False, False),
         ("K4", "masked folded attention", 8, 160, 160, 12, True, True),
     ]
 
@@ -215,16 +259,28 @@ def run_kernel_case(kid, label, e, lq, m, h, folded, with_bias, dtype):
     n_bytes = (q.numel() * 2 + k.numel() + v.numel()) * itemsize \
         + (0 if bias is None else bias.numel() * 4)
     b_ms, b_by = bound(n_bytes, 4 * e * h * lq * m * d, dtype)
+    # ms, plain_ms and library_ms: CUDA events over back-to-back calls, as
+    # for every other kernel, the host's launch time included where it
+    # exceeds the device's; *device_ms: graph replays, device time only
     rec = {"name": kid, "label": label, "dtype": str(dtype).split(".")[-1],
            "shape": [e, lq, m, h, d], "max_abs_err": err,
            "ms": time_ms(kernel), "plain_ms": time_ms(plain),
-           "library_ms": time_ms(library), "bound_ms": b_ms,
-           "bound_by": b_by}
-    print(f"[kernel] {kid} {label} {rec['dtype']} q/k/v {list(shape_q)} x "
-          f"{m} keys{' +mask' if with_bias else ''}: max|err| {err:.3e} "
-          f"(tol {TOL[dtype]}), kernel {rec['ms']:.4f} ms, plain "
-          f"{rec['plain_ms']:.4f} ms, sdpa {rec['library_ms']:.4f} ms, bound "
-          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})", flush=True)
+           "library_ms": time_ms(library), "device_ms": graph_ms(kernel),
+           "library_device_ms": graph_ms(library),
+           "bound_ms": b_ms, "bound_by": b_by}
+    ratio = rec["ms"] / rec["library_ms"]
+    device_ratio = rec["device_ms"] / rec["library_device_ms"]
+    route = "tensor cores" if ck.uses_tensor_cores(dtype, bias) \
+        else "fp32 FMA"
+    print(f"[kernel] {kid} {label} {rec['dtype']} ({route}) q/k/v "
+          f"{list(shape_q)} x {m} keys{' +mask' if with_bias else ''}: "
+          f"max|err| {err:.3e} (tol {TOL[dtype]}), kernel {rec['ms']:.4f} "
+          f"ms, plain {rec['plain_ms']:.4f} ms, sdpa "
+          f"{rec['library_ms']:.4f} ms, kernel/sdpa {ratio:.2f}x; device "
+          f"only: kernel {rec['device_ms']:.4f} ms, sdpa "
+          f"{rec['library_device_ms']:.4f} ms, kernel/sdpa "
+          f"{device_ratio:.2f}x; bound {rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']})", flush=True)
     return rec
 
 
@@ -501,9 +557,11 @@ def kernel_family(name: str) -> str:
         return "train attention forward (K6)"
     if "attn_bwd_rows_kernel" in name or "attn_bwd_keys_kernel" in name:
         return "train attention backward (K7)"
+    if "attn_fwd_tc_kernel" in name:
+        return TC_FAMILY
     if "attn_fwd_kernel" in name:
         return ("eval attention, bias (K2/K4)" if "true" in name.lower()
-                else "eval attention, no bias (K1/K3)")
+                else FMA_NO_BIAS_FAMILY)
     if any(s in name.lower() for s in ("gemm", "xmma", "cutlass", "nvjet")):
         return "matmul (cuBLAS)"
     if name.startswith("Memcpy"):
@@ -513,7 +571,9 @@ def kernel_family(name: str) -> str:
 
 def profile_device(label: str, run):
     """Device time by kernel family over one run of ``run`` (torch.profiler,
-    CUPTI), and the device's idle share of its wall time."""
+    CUPTI), and the device's idle share of its wall time. Every profiled
+    run is bf16: it fails if a no-bias eval attention ran on the fp32-FMA
+    kernel instead of the tensor-core one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -549,33 +609,69 @@ def profile_device(label: str, run):
           f"{100 * max(0.0, 1 - busy / wall_us):.1f}%; {parts}", flush=True)
     for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
         print(f"[profile]   {us / 1e3:8.1f} ms  {name[:110]}", flush=True)
+    # the profiler's event trees hold reference cycles: collect them here,
+    # or the cyclic collector frees them inside a later timed step
+    del prof
+    t0 = time.perf_counter()
+    freed = gc.collect()
+    print(f"[profile] {label}: gc.collect() after the profile freed {freed} "
+          f"objects in {time.perf_counter() - t0:.3f} s", flush=True)
+    if families.get(FMA_NO_BIAS_FAMILY, 0.0) > 0.0:
+        fail(f"{label}: {families[FMA_NO_BIAS_FAMILY] / 1e3:.1f} ms of bf16 "
+             "no-bias eval attention ran on the fp32-FMA kernel")
 
 
 # ---------------------------------------------------------------------------
 # shared by the training paths
 
+class GcClock:
+    """Seconds the cyclic garbage collector has run since it was made,
+    while registered in ``gc.callbacks``."""
+
+    def __init__(self):
+        self.seconds, self._t0 = 0.0, None
+
+    def __call__(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.seconds += time.perf_counter() - self._t0
+            self._t0 = None
+
+
 def timed_steps(tag: str, step, batches, gen, n_steps: int):
     """One warm-up step, then ``n_steps`` counted steps with every launch
-    count set to 0 just before them and read just after. Returns
-    (seconds, losses, launches, peak GiB, text widths)."""
+    count set to 0 just before them and read just after; prints the
+    seconds the cyclic garbage collector took inside each counted step.
+    Returns (seconds, losses, launches, peak GiB, text widths)."""
     from candidate_reranking_cir_tpu_torch.ops import attention_train as tat
     from candidate_reranking_cir_tpu_torch.ops import cuda_attention as ck
 
+    gc.collect()  # earlier phases' garbage is not this path's
     loss = step(next(batches), gen)
     torch.cuda.synchronize()
     print(f"[{tag}] warm-up step: loss {float(loss):.4f}", flush=True)
     ck.reset_launch_counts()
     tat.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    seconds, losses, widths = [], [], []
-    for _ in range(n_steps):
-        batch = next(batches)
-        widths.append(batch["input_ids"].shape[1])
-        t0 = time.perf_counter()
-        loss = step(batch, gen)
-        torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t0)
-        losses.append(float(loss))
+    seconds, losses, widths, gc_seconds = [], [], [], []
+    clock = GcClock()
+    gc.callbacks.append(clock)
+    try:
+        for _ in range(n_steps):
+            batch = next(batches)
+            widths.append(batch["input_ids"].shape[1])
+            gc0 = clock.seconds
+            t0 = time.perf_counter()
+            loss = step(batch, gen)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            gc_seconds.append(clock.seconds - gc0)
+            losses.append(float(loss))
+    finally:
+        gc.callbacks.remove(clock)
+    print(f"[{tag}] cyclic gc seconds inside each counted step "
+          f"{[round(x, 4) for x in gc_seconds]}", flush=True)
     launches = {**ck.LAUNCHES, **tat.LAUNCHES}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if not all(np.isfinite(losses)):
@@ -1084,17 +1180,30 @@ def stage1_fp32_check(tok, words):
 
 
 def build_libraries() -> None:
-    """Both kernel libraries, one nvcc each, started together."""
-    from candidate_reranking_cir_tpu_torch.ops.build import build
+    """Both kernel libraries, one nvcc each, started together; ptxas's
+    register and spill lines of every kernel (the tensor-core eval kernel's
+    must be among them when the library was built), and the tensor-core
+    kernel's dynamic shared memory."""
+    from candidate_reranking_cir_tpu_torch.ops.build import (
+        build,
+        load_attention_library,
+    )
 
+    names = ("attention", "attention_train")
     with ThreadPoolExecutor(2) as pool:
-        built = list(pool.map(build, ("attention", "attention_train")))
-    for path, seconds, log in built:
+        built = list(pool.map(build, names))
+    for name, (path, seconds, log) in zip(names, built):
         print(f"[build] {path.name}: {seconds:.1f} s", flush=True)
         for line in log.splitlines():
             if "Compiling entry" in line or "registers" in line \
                     or "spill" in line:
                 print(f"[build] {line.strip()}", flush=True)
+        if name == "attention" and log and "attn_fwd_tc_kernel" not in log:
+            fail("ptxas reported no attn_fwd_tc_kernel")
+    lib = load_attention_library()
+    print("[build] attn_fwd_tc_kernel dynamic shared memory: "
+          f"{lib.crc_attention_tc_smem_bytes(1)} B with 1 warpgroup, "
+          f"{lib.crc_attention_tc_smem_bytes(2)} B with 2", flush=True)
 
 
 def main():
@@ -1159,8 +1268,8 @@ def main():
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "shape": rec["shape"], "dtype": rec["dtype"],
-            **({"sdpa_own_mask_ms": rec["sdpa_own_mask_ms"]}
-               if "sdpa_own_mask_ms" in rec else {})})
+            **{key: rec[key] for key in ("device_ms", "library_device_ms",
+                                         "sdpa_own_mask_ms") if key in rec}})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""CUDA kernels K1-K9 against their plain PyTorch versions, on the card.
+"""CUDA kernels K1-K9 against their plain PyTorch versions, on the card
+(bf16 K1/K3 on the tensor-core kernel, fp32 and K2/K4 on the fp32-FMA one).
 
 Marked ``cuda``: they skip where no card is present. On a machine with a
 card (which need not have JAX), run them without the repository's conftest:
@@ -85,6 +86,80 @@ def test_unfolded_kernels_match_plain(dev, dtype):
                              .expand(a * b, lq, lq))
     torch.testing.assert_close(out.reshape(a * b, lq, h, 64).float(),
                                ref.float(), rtol=0, atol=TOL[dtype])
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core kernel (bf16, no bias: K1 and K3)
+
+
+def _tc_check(dev, e, lq, m, h, seed, q_scale=1.0):
+    """K3 (unfolded) and K1 (folded) on the same bf16 inputs against the
+    plain version; each must launch its own kernel id once."""
+    q = _rand(dev, torch.float32, e, lq, h, 64, seed=seed) * q_scale
+    q = q.to(torch.bfloat16)
+    k = _rand(dev, torch.bfloat16, e, m, h, 64, seed=seed + 1)
+    v = _rand(dev, torch.bfloat16, e, m, h, 64, seed=seed + 2)
+    ref = ck.attention_plain(q, k, v)
+    before = dict(ck.LAUNCHES)
+    out3 = ck.fused_attention(q, k, v)
+    out1 = ck.fused_attention_folded(q.flatten(-2), k.flatten(-2),
+                                     v.flatten(-2), num_heads=h)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["K3"] == before["K3"] + 1
+    assert ck.LAUNCHES["K1"] == before["K1"] + 1
+    for out in (out3, out1.unflatten(-1, (h, 64))):
+        assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+        torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                                   atol=TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("m", [1, 40, 64, 65, 577])
+@pytest.mark.parametrize("lq", [1, 40, 63, 64, 65, 577, 1280])
+def test_tc_kernel_matches_plain(dev, lq, m):
+    _tc_check(dev, 2, lq, m, 3, seed=100 + lq + m)
+
+
+def test_tc_kernel_large_scores_and_many_keys(dev):
+    """|q.k|/8 up to about 30 (the max subtraction carries the softmax),
+    and more keys than the fp32-FMA kernel's shared-memory cap."""
+    _tc_check(dev, 3, 130, 577, 2, seed=200, q_scale=6.0)
+    _tc_check(dev, 1, 40, 3000, 2, seed=210)
+
+
+def test_tc_kernel_strided_views(dev):
+    """Folded q/k/v sliced out of one fused projection (row stride 3 x
+    768), and pair_cross_attention's transposed q (a view for one query, a
+    copy for three)."""
+    e, lq, m, h = 2, 70, 577, 12
+    qkv = _rand(dev, torch.bfloat16, e, lq, 3 * h * 64, seed=220)
+    q, k, v = qkv.chunk(3, dim=-1)
+    assert q.stride(1) == 3 * h * 64
+    out = ck.fused_attention_folded(q, k, v, num_heads=h)
+    ref = ck.attention_plain(*(x.unflatten(-1, (h, 64)) for x in (q, k, v)))
+    torch.testing.assert_close(out.unflatten(-1, (h, 64)).float(),
+                               ref.float(), rtol=0, atol=TOL[torch.bfloat16])
+    for n_q in (1, 3):
+        n_c, lq = 4, 24
+        qp = _rand(dev, torch.bfloat16, n_q, n_c, lq, h, 64, seed=230 + n_q)
+        kp = _rand(dev, torch.bfloat16, n_c, m, h, 64, seed=240)
+        vp = _rand(dev, torch.bfloat16, n_c, m, h, 64, seed=241)
+        before = ck.LAUNCHES["K3"]
+        out = tattn.pair_cross_attention(qp, kp, vp)
+        assert ck.LAUNCHES["K3"] == before + 1
+        qt = qp.transpose(0, 1).reshape(n_c, n_q * lq, h, 64)
+        ref = ck.attention_plain(qt, kp, vp).reshape(n_c, n_q, lq, h, 64)
+        torch.testing.assert_close(out.float(), ref.transpose(0, 1).float(),
+                                   rtol=0, atol=TOL[torch.bfloat16])
+
+
+def test_tc_kernel_refuses_misaligned_views(dev):
+    x = _rand(dev, torch.bfloat16, 2, 8, 1, 72)
+    q = x[..., 4:68]                       # base pointer 8 bytes off
+    with pytest.raises(ValueError, match="aligned"):
+        ck.fused_attention(q, q, q)
+    y = _rand(dev, torch.bfloat16, 2, 8, 1 * 68)[..., :64]  # row stride 68
+    with pytest.raises(ValueError, match="aligned"):
+        ck.fused_attention_folded(y, y, y, num_heads=1)
 
 
 def test_wrappers_raise_on_what_the_kernel_does_not_take(dev):
