@@ -1,30 +1,43 @@
-// Tensor-core eval attention for Hopper (sm_90a): the bf16, no-bias
-// launches of the eval kernels. It replaces, for those launches, the JAX
-// package's ops/pallas_attention.py
-//   - _attn_kernel_folded (K1: q/k/v [E, L, H*D], head stride 64), and
-//   - _attn_kernel        (K3: q/k/v [E, L, H, D]),
-// both through _head_attention. Layouts differ only in strides. fp32 and
-// the bias variants (K2, K4) stay on attn_fwd_body (attention_common.cuh).
+// Tensor-core eval attention for Hopper (sm_90a): every bf16 launch of the
+// eval kernels. It replaces, for those launches, the JAX package's
+// ops/pallas_attention.py
+//   - _attn_kernel_folded      (K1: q/k/v [E, L, H*D], head stride 64),
+//   - _attn_bias_kernel        (K2: q/k/v [E, L, H, D] + bias [E, Lq, M]),
+//   - _attn_kernel             (K3: q/k/v [E, L, H, D]),
+//   - _attn_bias_kernel_folded (K4: K1's layout + K2's bias),
+// all through _head_attention. Layouts differ only in strides; the bias
+// is a template switch. fp32 stays on attn_fwd_body (attention_common.cuh):
+// the tensor cores would round fp32 inputs to TF32.
 //
 // The function, per (entry, head), is the one the plain version and the
-// Pallas kernels compute: q scaled by 1/8, fp32 scores, max-subtracted
-// exp, a sum, a DIVIDE by the sum, probabilities rounded to bf16 before
-// P.V, fp32 accumulation of P.V, output in bf16. How the kernel computes
-// it on the CUDA cores, where the time between the products goes:
-//   - the scale (exact for d = 64: a power of two) moves from q onto the
-//     fp32 scores and, with log2(e), into one FMA: exp(scale * (s - max))
-//     = 2^(c*s - c*max), on the special-function unit;
+// Pallas kernels compute: q scaled by 1/8, fp32 scores, (+ the bias, added
+// to the scaled score in fp32), max-subtracted exp, a sum, a DIVIDE by the
+// sum, probabilities rounded to bf16 before P.V, fp32 accumulation of P.V,
+// output in bf16. How the kernel computes it on the CUDA cores, where the
+// time between the products goes:
+//   - without a bias the scale (exact for d = 64: a power of two) moves
+//     from q onto the fp32 scores and, with log2(e), into one FMA:
+//     exp(scale * (s - max)) = 2^(c*s - c*max), on the special-function
+//     unit. With a bias that would be another function: the kernel forms
+//     t = fl(scale * s + bias) first (one FMA; scale * s is exact), as JAX
+//     adds the bias to the scaled score, and takes max and exp of t (c =
+//     log2(e)). The bias is read in fp32 through its (entry, row) strides;
+//     a row stride of 0 broadcasts a key mask over the rows. A masked key
+//     (-10000) gives 2^(-14427 + ...) = 0 exactly (ex2.approx.ftz);
 //   - the divide is the correctly rounded quotient, from one correctly
 //     rounded reciprocal per row and a product and two FMAs per score
 //     (see divide()), not a reciprocal multiply;
 //   - only a tile holding keys past M tests the key index.
 //
 // What bounds it on the H100 (989 TFLOP/s bf16, 3.35 TB/s): per (entry,
-// head) 4*Lq*M*D operations against (2*Lq + 2*M)*D*2 bytes.
+// head) 4*Lq*M*D operations against (2*Lq + 2*M)*D*2 bytes (+ the bias).
 //   - K1 in the MED (40 x 577: 37 operations a byte) and, by a hair, in
 //     the ViT (577 x 577: 289 against the card's 295): bytes.
 //   - K3 at 1,280 rows x 577 keys per candidate (398): operations; at the
 //     narrowest call, 32 rows (30): bytes.
+//   - K2 on the eval path (Lq = M <= 40 text tokens: 10 operations a
+//     byte) and K4: bytes, and at K2's tiny heads, latency: one 40 x 40
+//     head is one partial tile (24 of 64 rows idle, 24 of 64 keys padded).
 // What the design does about it:
 //   - wgmma m64n64k16 (bf16 in, fp32 out) for S = Q.K^T, with Q and K read
 //     by descriptor from 128-byte-swizzled shared memory, and for O += P.V
@@ -42,13 +55,19 @@
 //     bf16 before P.V: another function. The second sweep costs one more
 //     Q.K^T (1.5x the products); its K comes back mostly from L2.
 //     No key cap: shared memory does not grow with M.
-//   - rows past Lq are computed on zeros and never stored; keys past M
-//     count as -inf in sweep 1 and as p = 0 in sweep 2 (their K/V rows
-//     are zero-filled by the copies).
+//   - M <= 64 (one key tile: K2's text self-attention): sweep 1 already
+//     holds the exact max and sum, so the kernel forms S once, then p,
+//     then P.V, in one step; the block loads Q, K and V together and
+//     takes (warpgroups + 2) tiles of shared memory (25 KB with one
+//     warpgroup, not the ring's 58 KB), so more blocks share an SM.
+//   - rows past Lq are computed on zeros and never stored (they read no
+//     bias); keys past M count as -inf in sweep 1 and as p = 0 in sweep 2
+//     (their K/V rows are zero-filled by the copies; they read no bias).
 // Inputs are strided views: every base pointer and every entry, row and
 // head stride of q, k and v must be 16-byte aligned (8 bf16), as 16-byte
 // copies need, and the output's 4-byte aligned (it is written as bf16
-// pairs); the C entry point refuses anything else (aligned()).
+// pairs); the C entry point refuses anything else (aligned()). The bias
+// takes any fp32 strides.
 
 #pragma once
 
@@ -68,10 +87,11 @@ constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = 2^(x log2 e)
 static_assert(kHeadDim == 64, "a tile row is one 128-byte swizzle row");
 
 // Dynamic shared memory: Q tiles (one per warpgroup), then the ring of
-// (K, V) tile pairs; +1 KB to align the start to the 1,024-byte swizzle
-// atom.
-inline size_t smem_bytes(int warpgroups) {
-  return static_cast<size_t>(warpgroups + 2 * kStages) * kTileBytes + 1024;
+// (K, V) tile pairs, of which one key tile (m <= 64) uses the first only;
+// +1 KB to align the start to the 1,024-byte swizzle atom.
+inline size_t smem_bytes(int warpgroups, int m) {
+  const int stages = m <= kTileKeys ? 1 : kStages;
+  return static_cast<size_t>(warpgroups + 2 * stages) * kTileBytes + 1024;
 }
 
 // Byte offset of 16-byte chunk c of row r in a 128-byte-swizzled tile
@@ -201,10 +221,38 @@ __device__ __forceinline__ float divide(float p, float sum, float inv) {
   return __fmaf_rn(__fmaf_rn(-q0, sum, p), inv, q0);
 }
 
+// The bias variant's scores: t = fl(scale * s + bias), the bias added to
+// the scaled score in fp32 (scale * s is exact for a power-of-two scale,
+// so the FMA rounds once, as JAX's add does). Rows at or past lq and keys
+// at or past m (kMask) read no bias: the former are never stored, the
+// latter become -inf in tile_stats.
+template <bool kMask>
+__device__ __forceinline__ void add_bias(float (&s)[32],
+                                         const float* __restrict__ bias,
+                                         long long row_stride, int row_base,
+                                         int lq, int key0, int m, int quad,
+                                         float scale) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row_base + 8 * hh;
+    const float* brow = bias + (row < lq ? row : 0) * row_stride;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        const int key = key0 + 8 * i + 2 * quad + b;
+        float& x = s[4 * i + 2 * hh + b];
+        const bool read = row < lq && (!kMask || key < m);
+        x = __fmaf_rn(x, scale, read ? __ldg(brow + key) : 0.f);
+      }
+  }
+}
+
 // Sweep 1 on one tile: each row's running max (in accumulator units: the
 // scale is positive) and the quad-partial sum of exp(scale * (s - max)),
-// rescaled when the max grows. c = scale * log2(e). kMask: the tile holds
-// keys past m, which count as -inf.
+// rescaled when the max grows. c = scale * log2(e) (with a bias the scores
+// are already scaled and c = log2(e)). kMask: the tile holds keys past m,
+// which count as -inf.
 template <bool kMask>
 __device__ __forceinline__ void tile_stats(float (&s)[32], int key0, int m,
                                            int quad, float c,
@@ -280,11 +328,14 @@ __device__ __forceinline__ void scores(float (&s)[32], uint32_t q_tile,
 
 // Accumulator layout of m64n64 (per warpgroup thread t, warp w = t / 32,
 // lane l): s[4i + 2h + b] is row 16w + l/4 + 8h, column 8i + 2(l%4) + b.
-template <int kWarpgroups>
+// kHasBias: the bias variant (K2, K4); bias is fp32 with the (entry, row)
+// strides st.b.
+template <int kWarpgroups, bool kHasBias>
 __global__ void __launch_bounds__(kWarpgroups * 128, 4 / kWarpgroups)
 attn_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v,
+                   const float* __restrict__ bias,
                    __nv_bfloat16* __restrict__ out, int lq, int m,
                    float scale, Strides st) {
   constexpr int kThreadsTc = kWarpgroups * 128;
@@ -306,17 +357,22 @@ attn_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* qb = q + e * st.q[0] + h * st.q[2];
   const __nv_bfloat16* kb = k + e * st.k[0] + h * st.k[2];
   const __nv_bfloat16* vb = v + e * st.v[0] + h * st.v[2];
+  const float* bb = kHasBias ? bias + e * st.b[0] : nullptr;
   __nv_bfloat16* ob = out + e * st.o[0] + h * st.o[2];
 
   const int n_tiles = (m + kTileKeys - 1) / kTileKeys;
-  const int n_steps = 2 * n_tiles;  // sweep 1: K tiles; sweep 2: K and V
+  // one tile: S once, stats and P.V in one step (the smaller launch's
+  // shared memory holds stage 0 only); else sweep 1 over the K tiles,
+  // sweep 2 over K and V
+  const bool single = n_tiles == 1;
+  const int n_steps = single ? 1 : 2 * n_tiles;
 
   auto load_step = [&](int step) {
     const int stage = step % kStages;
     const int j = step < n_tiles ? step : step - n_tiles;
     const uint32_t kt = ring + 2 * stage * kTileBytes;
     load_tile(kt, kb, st.k[1], j * kTileKeys, m, tid, kThreadsTc);
-    if (step >= n_tiles)
+    if (single || step >= n_tiles)
       load_tile(kt + kTileBytes, vb, st.v[1], j * kTileKeys, m, tid,
                 kThreadsTc);
   };
@@ -334,7 +390,10 @@ attn_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
   const uint32_t my_q = q_tiles + wg * kTileBytes;
   const int quad = lane & 3;
-  const float c = scale * kLog2e;  // exp(scale * x) = 2^(c * x)
+  // exp(x) = 2^(c * x) with x the scaled score; without a bias the scale
+  // rides in c, with one it is already in t
+  const float c = kHasBias ? kLog2e : scale * kLog2e;
+  const int row_base = block_row0 + wg * kRowsPerWg + 16 * warp + lane / 4;
   float row_max[2] = {-INFINITY, -INFINITY};
   float row_sum[2] = {0.f, 0.f};
   float neg_mc[2], inv[2];
@@ -351,13 +410,19 @@ attn_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
     const int stage = step % kStages;
     const uint32_t kt = ring + 2 * stage * kTileBytes;
-    const bool sweep2 = step >= n_tiles;
-    const int key0 = (sweep2 ? step - n_tiles : step) * kTileKeys;
+    const bool sweep1 = step < n_tiles;
+    const int key0 = (sweep1 ? step : step - n_tiles) * kTileKeys;
     const bool ragged = key0 + kTileKeys > m;  // only the last tile
     float s[32];
     scores(s, my_q, kt);
+    if (kHasBias) {
+      if (ragged)
+        add_bias<true>(s, bb, st.b[1], row_base, lq, key0, m, quad, scale);
+      else
+        add_bias<false>(s, bb, st.b[1], row_base, lq, key0, m, quad, scale);
+    }
 
-    if (!sweep2) {
+    if (sweep1) {
       if (ragged)
         tile_stats<true>(s, key0, m, quad, c, row_max, row_sum);
       else
@@ -372,7 +437,7 @@ attn_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
           inv[hh] = __frcp_rn(row_sum[hh]);
         }
       }
-      continue;
+      if (!single) continue;
     }
 
     uint32_t p[4][4];
@@ -391,7 +456,6 @@ attn_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   }
 
   // output rows of this thread: 16w + l/4 (+8) of its warpgroup's 64
-  const int row_base = block_row0 + wg * kRowsPerWg + 16 * warp + lane / 4;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int row = row_base + 8 * hh;
@@ -423,11 +487,13 @@ inline bool aligned(const void* q, const void* k, const void* v,
 
 constexpr int kMaxDevices = 64;
 
-// The kernel's attributes on the current device, set on its first launch
-// there and not again: the launch path stays one kernel launch.
-template <int kWarpgroups>
-cudaError_t configure_once(const void* kernel, size_t smem) {
-  static std::atomic<bool> done[kMaxDevices];
+// A kernel's attributes on the current device, set on its first launch
+// there and not again (`done`: the caller's flags for that kernel), so the
+// launch path stays one kernel launch: the dynamic shared memory it may
+// take, and all of the SM's unified memory as shared memory (the copies
+// bypass L1), so more blocks fit an SM.
+inline cudaError_t configure_once(std::atomic<bool> (&done)[kMaxDevices],
+                                  const void* kernel, size_t smem) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -436,45 +502,12 @@ cudaError_t configure_once(const void* kernel, size_t smem) {
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
-  // all of the SM's unified memory as shared memory (the copies bypass
-  // L1), so three one-warpgroup blocks fit an SM
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   if (err == cudaSuccess) done[dev].store(true, std::memory_order_release);
   return err;
-}
-
-template <int kWarpgroups>
-int launch_wg(const void* q, const void* k, const void* v, void* out,
-              int entries, int heads, int lq, int m, float scale,
-              const Strides& st, cudaStream_t stream) {
-  auto kernel = attn_fwd_tc_kernel<kWarpgroups>;
-  const size_t smem = smem_bytes(kWarpgroups);
-  const cudaError_t err = configure_once<kWarpgroups>(
-      reinterpret_cast<const void*>(kernel), smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  constexpr int rows = kWarpgroups * kRowsPerWg;
-  const dim3 grid((lq + rows - 1) / rows, heads, entries);
-  kernel<<<grid, kWarpgroups * 128, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      lq, m, scale, st);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// One warpgroup (64 rows) per block up to 64 query rows, two above. The
-// caller has checked the alignment (aligned()).
-inline int launch(const void* q, const void* k, const void* v, void* out,
-                  int entries, int heads, int lq, int m, float scale,
-                  const Strides& st, cudaStream_t stream) {
-  return lq > kRowsPerWg
-             ? launch_wg<2>(q, k, v, out, entries, heads, lq, m, scale, st,
-                            stream)
-             : launch_wg<1>(q, k, v, out, entries, heads, lq, m, scale, st,
-                            stream);
 }
 
 }  // namespace tc

@@ -29,17 +29,19 @@
 // sequence of fmaf over d = 0..63 as the forward, so the two passes see
 // the same fp32 values.
 //
-// What bounds them: like the eval kernel, arithmetic (K6 4*Lq*M*D and K7
-// 10*Lq*M*D operations per head against a few (Lq + M)*D elements moved).
-// This first version uses plain fp32 FMAs from shared memory, not tensor
-// cores, and so runs far from that bound; it is simple and exact first.
+// What bounds them: like the eval kernel, arithmetic at the stage-II
+// shape (K6 4*Lq*M*D and K7 10*Lq*M*D operations per head against a few
+// (Lq + M)*D elements moved). K6 and K7 use plain fp32 FMAs from shared
+// memory, not tensor cores, and so run far from that bound; they are
+// simple and exact first.
 //
 // K8 (_fwd_kernel_folded) and K9 (_bwd_kernel_folded): K6 and K7 over the
 // head-folded layout [E, L, H*D], which the stage-I MED cross-attention
 // trains in. Viewed as [E, L, H, D] that layout has the strides
-// (L*H*D, H*D, D, 1), so K8 and K9 run the K6/K7 bodies with the head
-// stride fixed at compile time to kHeadDim; they are kernels and entry
-// points of their own, so that a profile names them apart from K6/K7.
+// (L*H*D, H*D, D, 1), so K8, and K9's fp32 and bias launches, run the
+// K6/K7 bodies with the head stride fixed at compile time to kHeadDim;
+// they are kernels and entry points of their own, so that a profile names
+// them apart from K6/K7.
 // The TPU kernels block 8 (forward) and 4 (backward) entries per program to
 // spread a per-program overhead; here a block is one (row tile, head,
 // entry) and the mask is keyed by the absolute entry index (blockIdx.z), so
@@ -51,14 +53,19 @@
 // and K9 10*Lq*M*D = 14.8 M against (3*Lq + 4*M)*D*2 = 311 KB (48 per
 // byte), both far below the card's 295 operations per byte: with few query
 // rows there is little reuse of K and V. What the design does about it:
-// not yet enough. Every row tile reads its entry's K/V once (K8: two 32-row
-// tiles at Lq = 40, 24 of 64 rows idle; K9's row pass: three 16-row tiles,
-// 8 of 48 idle; its key pass reads q and g once per 32-key tile, in two
-// 32-row chunks, 24 of 64 rows idle), mostly from L2, and the fp32-FMA
-// loops run at the FMA rate, well above the bytes bound. One row tile per
-// (entry, head) and tensor cores are later work.
+//   - K9's bf16 launches without a bias (every stage-I launch: the MED
+//     cross-attention has no image mask) run the tensor-core row and key
+//     passes of attention_train_tc.cuh: wgmma products, one 64-row tile
+//     per (entry, head) at Lq <= 64, K and V read twice by the row pass
+//     and once by the key pass. fp32 and bias launches run the FMA passes
+//     below (16-row tiles, 32-key tiles in 32-row chunks).
+//   - K8 still runs K6's fp32-FMA body: every 32-row tile reads its
+//     entry's K/V once (two tiles at Lq = 40, 24 of 64 rows idle), mostly
+//     from L2, at the FMA rate, well above the bytes bound. Tensor cores
+//     for K6/K8 are later work.
 
 #include "attention_common.cuh"
+#include "attention_train_tc.cuh"
 
 namespace {
 
@@ -124,12 +131,6 @@ constexpr int kRowChunk = 32;  // key pass: rows per chunk
 constexpr int kPad32 = kKeyTile + 1;
 static_assert(kThreads == 4 * kKeyTile, "four row groups of one key each");
 static_assert(kRowChunk == 4 * 8, "eight rows per row group");
-
-struct BwdStrides {
-  // element strides (entry, row, head) of q, k, v, g, dq, dk, dv
-  long long q[3], k[3], v[3], g[3], dq[3], dk[3], dv[3];
-  long long b[2];
-};
 
 __device__ __forceinline__ BwdStrides folded(BwdStrides st) {
   st.q[2] = st.k[2] = st.v[2] = st.g[2] = kHeadDim;
@@ -541,7 +542,14 @@ int dispatch_forward(int dtype, const void* q, const void* k, const void* v,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// K7 (kFolded false) or K9 (true)
+// What the backward entry points refuse besides cudaErrorInvalidValue, as
+// a negative code: on K9's tensor-core route a base pointer or stride that
+// is not aligned (tc::bwd_aligned()).
+constexpr int kRefusedAlignment = -2;
+
+// K7 (kFolded false) or K9 (true). K9's bf16 launches without a bias run
+// the tensor-core passes (attention_train_tc.cuh); the rest run the
+// fp32-FMA row and key passes.
 template <bool kFolded>
 int dispatch_backward(int dtype, const void* q, const void* k,
                       const void* v, const float* bias, const void* g,
@@ -570,6 +578,12 @@ int dispatch_backward(int dtype, const void* q, const void* k,
         return static_cast<int>(cudaErrorInvalidValue);
   }
   auto s = static_cast<cudaStream_t>(stream);
+  if (kFolded && dtype == 1 && bias == nullptr) {
+    if (!tc::bwd_aligned(q, k, v, g, dq, dk, dv, st))
+      return kRefusedAlignment;
+    return tc::launch_bwd(q, k, v, g, dq, dk, dv, stats, entries, heads, lq,
+                          m, scale, st, drop, s);
+  }
   if (dtype == 0)
     return bias ? launch_bwd<float, true, kFolded>(
                       q, k, v, bias, g, dq, dk, dv, stats, entries, heads, lq,
@@ -577,14 +591,15 @@ int dispatch_backward(int dtype, const void* q, const void* k,
                 : launch_bwd<float, false, kFolded>(
                       q, k, v, bias, g, dq, dk, dv, stats, entries, heads, lq,
                       m, scale, st, drop, s);
-  if (dtype == 1)
-    return bias ? launch_bwd<__nv_bfloat16, true, kFolded>(
-                      q, k, v, bias, g, dq, dk, dv, stats, entries, heads, lq,
-                      m, scale, st, drop, s)
-                : launch_bwd<__nv_bfloat16, false, kFolded>(
-                      q, k, v, bias, g, dq, dk, dv, stats, entries, heads, lq,
-                      m, scale, st, drop, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (bias)
+    return launch_bwd<__nv_bfloat16, true, kFolded>(
+        q, k, v, bias, g, dq, dk, dv, stats, entries, heads, lq, m, scale, st,
+        drop, s);
+  // K7 only: K9's bf16 launches without a bias took the tensor cores above
+  return launch_bwd<__nv_bfloat16, false, false>(
+      q, k, v, bias, g, dq, dk, dv, stats, entries, heads, lq, m, scale, st,
+      drop, s);
 }
 
 }  // namespace
@@ -635,7 +650,9 @@ int crc_attention_train_backward(int dtype, const void* q, const void* k,
                                   seed, rate, inv, stream);
 }
 
-// K9: as K7 over [E, L, H * kHeadDim] tensors (every head stride kHeadDim).
+// K9: as K7 over [E, L, H * kHeadDim] tensors (every head stride kHeadDim);
+// bf16 without a bias on the tensor cores, which refuse misaligned views
+// with kRefusedAlignment.
 int crc_attention_train_folded_backward(int dtype, const void* q,
                                         const void* k, const void* v,
                                         const float* bias, const void* g,
@@ -647,6 +664,13 @@ int crc_attention_train_folded_backward(int dtype, const void* q,
   return dispatch_backward<true>(dtype, q, k, v, bias, g, dq, dk, dv, stats,
                                  strides, entries, heads, lq, m, scale, seed,
                                  rate, inv, stream);
+}
+
+// Dynamic shared memory of K9's tensor-core passes: pass 0 = the row pass
+// with one warpgroup, 1 = with two, 2 = the key pass.
+int crc_attention_train_tc_smem_bytes(int pass) {
+  if (pass == 2) return static_cast<int>(tc::bwd_keys_smem_bytes());
+  return static_cast<int>(tc::bwd_rows_smem_bytes(pass + 1));
 }
 
 // K5 written out: out[rows * cols] = keep(seed, b, h, row, col) as 0/1.

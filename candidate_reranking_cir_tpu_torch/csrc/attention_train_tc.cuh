@@ -1,0 +1,582 @@
+// Tensor-core backward of the head-folded dropout attention for Hopper
+// (sm_90a): the bf16 launches without a bias of K9, the JAX package's
+// ops/pallas_attention_train.py::_bwd_kernel_folded (its stage-I MED
+// cross-attention backward). fp32 and bias launches stay on the fp32-FMA
+// passes of attention_train.cu, as does K7 (_bwd_kernel).
+//
+// The function, per (entry b, head h), with the K5 mask keep(seed, b, h,
+// row, col = key) and inv = 1 / (1 - rate):
+//   p = softmax(fl((q * scale) . k^T)) in fp32, with a divide;
+//   dropped = keep ? p * inv : 0 (fp32);
+//   dv = dropped^T . g, with fp32 dropped and g upcast from bf16;
+//   d_dropped = g . v^T; d_probs = keep ? d_dropped * inv : 0;
+//   d_scores = p * (d_probs - sum(d_probs * p)) * scale, rounded to bf16;
+//   dq = d_scores . k and dk = d_scores^T . q (q unscaled), fp32 sums,
+//   rounded on output.
+// (At rate 0 there is no mask and no multiply by inv, as in JAX.)
+//
+// What bounds it on the H100 at the stage-I shape [E = 512, Lq <= 40,
+// M = 577, H = 12, D = 64]: bytes. Per (entry, head) 10*Lq*M*D = 14.8 M
+// operations against (3*Lq + 4*M)*D*2 = 311 KB (48 per byte; the card's
+// ridge is 295): with 40 query rows, K and V see little reuse.
+//
+// Design: the deterministic, atomic-free split of the FMA passes, every
+// product on wgmma m64n64k16 in the eval kernel's two forms (wgmma_ss,
+// both operands K-major from swizzled tiles; wgmma_rs_tn, A from
+// registers, B MN-major):
+//   - ROW pass, a block per (64 or 128 query rows, head, entry), K and V
+//     tiles through a cp.async ring, two sweeps over the 64-key tiles:
+//       sweep 1: S = Q.K^T and dP = G.V^T (one commit); each row's max,
+//         sum of exp(s - max) and D = sum(d_probs * exp(s - max)), both
+//         rescaled when the max grows (online); delta = D / sum;
+//       sweep 2: S and dP again; p = exp(s - max) / sum (the correctly
+//         rounded quotient, divide()), the mask, d_scores rounded to bf16
+//         and packed from the accumulator as A; dQ += dS.K with K's tile
+//         read MN-major, as V in the eval kernel's P.V;
+//     then dq, and each row's (max, sum, delta) to an fp32 scratch.
+//     K and V are read twice per row tile (the second time mostly from
+//     L2); the online delta differs from JAX's sum(d_probs * p) in fp32
+//     rounding only (d_scores is rounded to bf16 after it).
+//   - KEY pass, a block per (64 keys, head, entry), the key tile's K and V
+//     held, 64-row chunks of Q, G and the row statistics through a
+//     two-stage ring:
+//       S^T = K.Q^T and dP^T = V.G^T (the eval kernel's scores() with the
+//         operands swapped: accumulator element (i, j) is key key0 + i,
+//         query row r0 + j, so the mask hash takes (row = r0 + j, col =
+//         key0 + i) with cols = M, the salt the absolute entry);
+//       p from the row pass's statistics, the mask, d_scores as above;
+//       dV += dropped^T.G with dropped split into bf16 hi + lo (lo =
+//         dropped - hi, exact in fp32; hi + lo holds dropped to about
+//         2^-17 of its value, against bf16's 2^-9), two wgmma_rs_tn into
+//         one accumulator, so dv keeps the fp32 product's precision;
+//       dK += dS^T.Q (Q unscaled), both with the chunk's tile MN-major.
+//     One chunk at Lq <= 64: Q, G, K, V are each read once.
+//   The two passes form S and S^T with different operand orders, so a
+//   score may differ in its last fp32 bit between them; the bf16 rounding
+//   of d_scores and the tolerance cover it.
+// Sweeps and bytes per (entry, head) at Lq = 40, M = 577: the row pass
+// reads Q, G once and K, V twice (296 KB), the key pass K, V once and Q, G
+// once per key tile (10 x 10 KB, from L2); writes dq, dk, dv once (153 KB).
+// Alignment: every base pointer and entry, row and head stride of q, k,
+// v and g 16-byte aligned (16-byte copies), of dq, dk and dv 4-byte
+// aligned (bf16 pairs); the C entry point refuses anything else.
+
+#pragma once
+
+#include "attention_tc.cuh"
+
+namespace crc {
+
+struct BwdStrides {
+  // element strides (entry, row, head) of q, k, v, g, dq, dk, dv
+  long long q[3], k[3], v[3], g[3], dq[3], dk[3], dv[3];
+  long long b[2];
+};
+
+namespace tc {
+
+constexpr int kKeyStages = 2;  // key pass: (Q, G) chunks in flight
+
+// Row pass: Q and G tiles per warpgroup, then the ring of (K, V) pairs.
+inline size_t bwd_rows_smem_bytes(int warpgroups) {
+  return static_cast<size_t>(2 * warpgroups + 2 * kStages) * kTileBytes +
+         1024;
+}
+
+// Key pass: the K and V tiles, the ring of (Q, G) chunk pairs, and each
+// stage's row statistics (-max * c, sum, 1 / sum, delta for 64 rows).
+inline size_t bwd_keys_smem_bytes() {
+  return static_cast<size_t>(2 + 2 * kKeyStages) * kTileBytes +
+         kKeyStages * 4 * kRowsPerWg * sizeof(float) + 1024;
+}
+
+// D1 = A1.B1^T and D2 = A2.B2^T, all four 64 x 64 swizzled tiles K-major,
+// issued together and waited for once.
+__device__ __forceinline__ void scores_pair(float (&d1)[32], uint32_t a1,
+                                            uint32_t b1, float (&d2)[32],
+                                            uint32_t a2, uint32_t b2) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kHeadDim / 16; ++kk)
+    wgmma_ss(d1, desc_sw128(a1 + 32 * kk), desc_sw128(b1 + 32 * kk), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < kHeadDim / 16; ++kk)
+    wgmma_ss(d2, desc_sw128(a2 + 32 * kk), desc_sw128(b2 + 32 * kk), kk > 0);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_acc(d1);
+  fence_acc(d2);
+}
+
+// d_probs of one element: the mask and inv at rate > 0, d_dropped itself
+// at rate 0 (JAX applies neither then); the product is not fused.
+__device__ __forceinline__ float d_probs(float dd, bool kept,
+                                         const Dropout& drop) {
+  if (drop.rate <= 0.f) return dd;
+  return kept ? __fmul_rn(dd, drop.inv) : 0.f;
+}
+
+__device__ __forceinline__ bool kept_at(uint32_t salt, int row, int m,
+                                        int key, const Dropout& drop) {
+  return drop.rate <= 0.f || keep_elem(salt, row, m, key, drop.rate);
+}
+
+// fl(fl(p * fl(dp - delta)) * scale) rounded to bf16, JAX's order
+__device__ __forceinline__ float d_score(float p, float dp, float delta,
+                                         float scale) {
+  return __fmul_rn(__fmul_rn(p, __fsub_rn(dp, delta)), scale);
+}
+
+// Row pass, sweep 1 on one tile: per row the running max (accumulator
+// units), and the quad-partial sum of e = exp(scale * (s - max)) and of
+// d_probs * e, both rescaled when the max grows. kMask: keys past m count
+// as -inf (their dP is 0: V's rows are zero-filled).
+template <bool kMask>
+__device__ __forceinline__ void tile_stats_delta(
+    float (&s)[32], const float (&dp)[32], int key0, int m, int quad,
+    float c, int row_base, uint32_t salt, const Dropout& drop,
+    float (&row_max)[2], float (&row_sum)[2], float (&row_d)[2]) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row_base + 8 * hh;
+    float tmax = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        float& x = s[4 * i + 2 * hh + b];
+        if (kMask && key0 + 8 * i + 2 * quad + b >= m) x = -INFINITY;
+        tmax = fmaxf(tmax, x);
+      }
+    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
+    const float mx = fmaxf(row_max[hh], tmax);
+    const float neg_mc = -mx * c;
+    float part = 0.f, dpart = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        const int idx = 4 * i + 2 * hh + b;
+        const int key = key0 + 8 * i + 2 * quad + b;
+        const float ex = ex2(fmaf(s[idx], c, neg_mc));
+        part += ex;
+        dpart = fmaf(d_probs(dp[idx], kept_at(salt, row, m, key, drop), drop),
+                     ex, dpart);
+      }
+    const float alpha = ex2(fmaf(row_max[hh], c, neg_mc));
+    row_sum[hh] = row_sum[hh] * alpha + part;
+    row_d[hh] = row_d[hh] * alpha + dpart;
+    row_max[hh] = mx;
+  }
+}
+
+// Row pass, sweep 2 on one tile: d_scores in bf16, packed as the A operand
+// of dS.K (k-step kk takes keys 16kk..16kk+15, i.e. s[8kk .. 8kk+7]);
+// keys past m (kMask) give 0.
+template <bool kMask>
+__device__ __forceinline__ void tile_dscores(
+    const float (&s)[32], const float (&dp)[32], int key0, int m, int quad,
+    float c, int row_base, uint32_t salt, const Dropout& drop, float scale,
+    const float (&neg_mc)[2], const float (&sum)[2], const float (&inv)[2],
+    const float (&delta)[2], uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int idx = 8 * kk + 2 * r;
+      const int hh = r & 1;
+      const int row = row_base + 8 * hh;
+      const int key = key0 + 16 * kk + 8 * (r >> 1) + 2 * quad;
+      float ds[2];
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        const float p = divide(ex2(fmaf(s[idx + b], c, neg_mc[hh])), sum[hh],
+                               inv[hh]);
+        const bool kept = kept_at(salt, row, m, key + b, drop);
+        ds[b] = d_score(p, d_probs(dp[idx + b], kept, drop), delta[hh],
+                        scale);
+        if (kMask && key + b >= m) ds[b] = 0.f;
+      }
+      a[kk][r] = pack_bf16(ds[0], ds[1]);
+    }
+}
+
+// ROW pass. Grid: (ceil(lq / (64 * kWarpgroups)), heads, entries).
+// stats: fp32 [3][entries][heads][lq] = max (accumulator units), sum,
+// delta of every row.
+template <int kWarpgroups>
+__global__ void __launch_bounds__(kWarpgroups * 128, kWarpgroups == 1 ? 3 : 1)
+attn_bwd_tc_rows_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const __nv_bfloat16* __restrict__ g,
+                        __nv_bfloat16* __restrict__ dq,
+                        float* __restrict__ stats, int entries, int heads,
+                        int lq, int m, float scale, BwdStrides st,
+                        Dropout drop) {
+  constexpr int kThreadsTc = kWarpgroups * 128;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw =
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t q_tiles = base;
+  const uint32_t g_tiles = base + kWarpgroups * kTileBytes;
+  const uint32_t ring = base + 2 * kWarpgroups * kTileBytes;
+  // stage s: K tile at ring + 2s * kTileBytes, V tile right after it
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int t = tid % 128;
+  const int warp = t / 32, lane = t % 32;
+  const int block_row0 = blockIdx.x * (kWarpgroups * kRowsPerWg);
+  const long long h = blockIdx.y;
+  const long long e = blockIdx.z;
+  const __nv_bfloat16* qb = q + e * st.q[0] + h * st.q[2];
+  const __nv_bfloat16* kb = k + e * st.k[0] + h * st.k[2];
+  const __nv_bfloat16* vb = v + e * st.v[0] + h * st.v[2];
+  const __nv_bfloat16* gb = g + e * st.g[0] + h * st.g[2];
+  __nv_bfloat16* dqb = dq + e * st.dq[0] + h * st.dq[2];
+
+  const int n_tiles = (m + kTileKeys - 1) / kTileKeys;
+  const int n_steps = 2 * n_tiles;  // both sweeps load K and V
+
+  auto load_step = [&](int step) {
+    const int stage = step % kStages;
+    const int j = step < n_tiles ? step : step - n_tiles;
+    const uint32_t kt = ring + 2 * stage * kTileBytes;
+    load_tile(kt, kb, st.k[1], j * kTileKeys, m, tid, kThreadsTc);
+    load_tile(kt + kTileBytes, vb, st.v[1], j * kTileKeys, m, tid,
+              kThreadsTc);
+  };
+
+  // prologue: the Q and G tiles ride with step 0's group
+#pragma unroll
+  for (int w = 0; w < kWarpgroups; ++w) {
+    const int row0 = block_row0 + w * kRowsPerWg;
+    load_tile(q_tiles + w * kTileBytes, qb, st.q[1], row0, lq, tid,
+              kThreadsTc);
+    load_tile(g_tiles + w * kTileBytes, gb, st.g[1], row0, lq, tid,
+              kThreadsTc);
+  }
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_steps) load_step(s);
+    cp_async_commit();
+  }
+
+  const uint32_t my_q = q_tiles + wg * kTileBytes;
+  const uint32_t my_g = g_tiles + wg * kTileBytes;
+  const int quad = lane & 3;
+  const float c = scale * kLog2e;  // exp(scale * x) = 2^(c * x)
+  const uint32_t salt =
+      keep_salt(drop.seed, static_cast<int>(e), static_cast<int>(h));
+  const int row_base = block_row0 + wg * kRowsPerWg + 16 * warp + lane / 4;
+  float row_max[2] = {-INFINITY, -INFINITY};
+  float row_sum[2] = {0.f, 0.f};
+  float row_d[2] = {0.f, 0.f};
+  float neg_mc[2], inv[2], delta[2];
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+
+  for (int step = 0; step < n_steps; ++step) {
+    cp_async_wait<kStages - 2>();  // this step's tiles have landed
+    fence_proxy_async();
+    __syncthreads();  // ... for every thread; the oldest stage is free
+    if (step + kStages - 1 < n_steps) load_step(step + kStages - 1);
+    cp_async_commit();
+
+    const int stage = step % kStages;
+    const uint32_t kt = ring + 2 * stage * kTileBytes;
+    const bool sweep1 = step < n_tiles;
+    const int key0 = (sweep1 ? step : step - n_tiles) * kTileKeys;
+    const bool ragged = key0 + kTileKeys > m;  // only the last tile
+    float s[32], dp[32];
+    scores_pair(s, my_q, kt, dp, my_g, kt + kTileBytes);
+
+    if (sweep1) {
+      if (ragged)
+        tile_stats_delta<true>(s, dp, key0, m, quad, c, row_base, salt, drop,
+                               row_max, row_sum, row_d);
+      else
+        tile_stats_delta<false>(s, dp, key0, m, quad, c, row_base, salt,
+                                drop, row_max, row_sum, row_d);
+      if (step == n_tiles - 1) {
+        // the quad's partial sums share one max: add them
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          row_sum[hh] += __shfl_xor_sync(0xffffffffu, row_sum[hh], 1);
+          row_sum[hh] += __shfl_xor_sync(0xffffffffu, row_sum[hh], 2);
+          row_d[hh] += __shfl_xor_sync(0xffffffffu, row_d[hh], 1);
+          row_d[hh] += __shfl_xor_sync(0xffffffffu, row_d[hh], 2);
+          neg_mc[hh] = -row_max[hh] * c;
+          inv[hh] = __frcp_rn(row_sum[hh]);
+          delta[hh] = __fdiv_rn(row_d[hh], row_sum[hh]);
+        }
+      }
+      continue;
+    }
+
+    uint32_t a[4][4];
+    if (ragged)
+      tile_dscores<true>(s, dp, key0, m, quad, c, row_base, salt, drop, scale,
+                         neg_mc, row_sum, inv, delta, a);
+    else
+      tile_dscores<false>(s, dp, key0, m, quad, c, row_base, salt, drop,
+                          scale, neg_mc, row_sum, inv, delta, a);
+    wgmma_fence();
+    fence_acc(o);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_tn(o, a[kk], desc_sw128(kt + kk * 16 * 128));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_acc(o);
+  }
+
+  const long long plane = static_cast<long long>(entries) * heads * lq;
+  float* mstat = stats + (e * heads + h) * lq;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row_base + 8 * hh;
+    if (row >= lq) continue;
+    __nv_bfloat16* drow = dqb + row * st.dq[1];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(drow + 8 * i + 2 * quad) =
+          __floats2bfloat162_rn(o[4 * i + 2 * hh], o[4 * i + 2 * hh + 1]);
+    if (quad == 0) {
+      mstat[row] = row_max[hh];
+      mstat[plane + row] = row_sum[hh];
+      mstat[2 * plane + row] = delta[hh];
+    }
+  }
+}
+
+// KEY pass. Grid: (ceil(m / 64), heads, entries), one warpgroup. Reads the
+// row pass's stats.
+__global__ void __launch_bounds__(128, 2)
+attn_bwd_tc_keys_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const __nv_bfloat16* __restrict__ g,
+                        __nv_bfloat16* __restrict__ dk,
+                        __nv_bfloat16* __restrict__ dv,
+                        const float* __restrict__ stats, int entries,
+                        int heads, int lq, int m, float scale, BwdStrides st,
+                        Dropout drop) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw =
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const gen_base = smem_raw + (base - raw);  // the same address
+  const uint32_t k_tile = base;
+  const uint32_t v_tile = base + kTileBytes;
+  const uint32_t ring = base + 2 * kTileBytes;
+  // stage s: Q chunk at ring + 2s * kTileBytes, G chunk right after it;
+  // then each stage's row statistics, 4 x 64 floats
+  float* const row_stats = reinterpret_cast<float*>(
+      gen_base + (2 + 2 * kKeyStages) * kTileBytes);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int quad = lane & 3;
+  const int key0 = blockIdx.x * kTileKeys;
+  const long long h = blockIdx.y;
+  const long long e = blockIdx.z;
+  const __nv_bfloat16* qb = q + e * st.q[0] + h * st.q[2];
+  const __nv_bfloat16* kb = k + e * st.k[0] + h * st.k[2];
+  const __nv_bfloat16* vb = v + e * st.v[0] + h * st.v[2];
+  const __nv_bfloat16* gb = g + e * st.g[0] + h * st.g[2];
+  const long long plane = static_cast<long long>(entries) * heads * lq;
+  const float* mstat = stats + (e * heads + h) * lq;
+  const float c = scale * kLog2e;
+
+  const int n_chunks = (lq + kRowsPerWg - 1) / kRowsPerWg;
+  auto load_step = [&](int step) {
+    const int stage = step % kKeyStages;
+    const int r0 = step * kRowsPerWg;
+    const uint32_t qc = ring + 2 * stage * kTileBytes;
+    load_tile(qc, qb, st.q[1], r0, lq, tid, 128);
+    load_tile(qc + kTileBytes, gb, st.g[1], r0, lq, tid, 128);
+    // rows past lq: exp(-inf) = 0 gives p = 0, and their G rows are 0
+    float* rs = row_stats + stage * 4 * kRowsPerWg;
+    for (int i = tid; i < kRowsPerWg; i += 128) {
+      const int row = r0 + i;
+      const bool ok = row < lq;
+      const float sum = ok ? mstat[plane + row] : 1.f;
+      rs[i] = ok ? -mstat[row] * c : -INFINITY;
+      rs[kRowsPerWg + i] = sum;
+      rs[2 * kRowsPerWg + i] = __frcp_rn(sum);
+      rs[3 * kRowsPerWg + i] = ok ? mstat[2 * plane + row] : 0.f;
+    }
+  };
+
+  // prologue: the K and V tiles ride with chunk 0's group
+  load_tile(k_tile, kb, st.k[1], key0, m, tid, 128);
+  load_tile(v_tile, vb, st.v[1], key0, m, tid, 128);
+#pragma unroll
+  for (int s = 0; s < kKeyStages - 1; ++s) {
+    if (s < n_chunks) load_step(s);
+    cp_async_commit();
+  }
+
+  const uint32_t salt =
+      keep_salt(drop.seed, static_cast<int>(e), static_cast<int>(h));
+  // this thread's accumulator rows are keys key_base (+8)
+  const int key_base = key0 + 16 * warp + lane / 4;
+  float dk_acc[32], dv_acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  for (int step = 0; step < n_chunks; ++step) {
+    cp_async_wait<kKeyStages - 2>();  // this chunk has landed
+    fence_proxy_async();
+    __syncthreads();  // ... and its statistics; the oldest stage is free
+    if (step + kKeyStages - 1 < n_chunks) load_step(step + kKeyStages - 1);
+    cp_async_commit();
+
+    const int stage = step % kKeyStages;
+    const uint32_t qc = ring + 2 * stage * kTileBytes;
+    const uint32_t gc = qc + kTileBytes;
+    const float* rs = row_stats + stage * 4 * kRowsPerWg;
+    const int r0 = step * kRowsPerWg;
+    float s[32], dp[32];
+    // S^T = K.Q^T, dP^T = V.G^T: element (i, j) is key i, query row j
+    scores_pair(s, k_tile, qc, dp, v_tile, gc);
+
+    uint32_t hi[4][4], lo[4][4], ds[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int idx = 8 * kk + 2 * r;
+        const int key = key_base + 8 * (r & 1);
+        const int j0 = 16 * kk + 8 * (r >> 1) + 2 * quad;  // chunk row
+        float dh[2], dl[2], dsv[2];
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          const int j = j0 + b;
+          const float p =
+              divide(ex2(fmaf(s[idx + b], c, rs[j])), rs[kRowsPerWg + j],
+                     rs[2 * kRowsPerWg + j]);
+          const bool kept = kept_at(salt, r0 + j, m, key, drop);
+          const float dropped = drop.rate <= 0.f ? p
+                                : kept           ? __fmul_rn(p, drop.inv)
+                                                 : 0.f;
+          const __nv_bfloat16 h16 = __float2bfloat16_rn(dropped);
+          dh[b] = __bfloat162float(h16);
+          dl[b] = dropped - dh[b];  // exact
+          dsv[b] = d_score(p, d_probs(dp[idx + b], kept, drop),
+                           rs[3 * kRowsPerWg + j], scale);
+        }
+        hi[kk][r] = pack_bf16(dh[0], dh[1]);
+        lo[kk][r] = pack_bf16(dl[0], dl[1]);
+        ds[kk][r] = pack_bf16(dsv[0], dsv[1]);
+      }
+    wgmma_fence();
+    fence_acc(dv_acc);
+    fence_acc(dk_acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_rs_tn(dv_acc, hi[kk], desc_sw128(gc + kk * 16 * 128));
+      wgmma_rs_tn(dv_acc, lo[kk], desc_sw128(gc + kk * 16 * 128));
+      wgmma_rs_tn(dk_acc, ds[kk], desc_sw128(qc + kk * 16 * 128));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_acc(dv_acc);
+    fence_acc(dk_acc);
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int key = key_base + 8 * hh;
+    if (key >= m) continue;
+    __nv_bfloat16* krow = dk + e * st.dk[0] + h * st.dk[2] + key * st.dk[1];
+    __nv_bfloat16* vrow = dv + e * st.dv[0] + h * st.dv[2] + key * st.dv[1];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int d = 8 * i + 2 * quad;
+      *reinterpret_cast<__nv_bfloat162*>(krow + d) = __floats2bfloat162_rn(
+          dk_acc[4 * i + 2 * hh], dk_acc[4 * i + 2 * hh + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(vrow + d) = __floats2bfloat162_rn(
+          dv_acc[4 * i + 2 * hh], dv_acc[4 * i + 2 * hh + 1]);
+    }
+  }
+}
+
+// 16-byte copies of q, k, v and g need 16-byte-aligned rows; dq, dk and
+// dv are written as bf16 pairs
+inline bool bwd_aligned(const void* q, const void* k, const void* v,
+                        const void* g, const void* dq, const void* dk,
+                        const void* dv, const BwdStrides& st) {
+  auto a = [](const void* p, uintptr_t n) {
+    return reinterpret_cast<uintptr_t>(p) % n == 0;
+  };
+  for (int i = 0; i < 3; ++i)
+    if (st.q[i] % 8 || st.k[i] % 8 || st.v[i] % 8 || st.g[i] % 8 ||
+        st.dq[i] % 2 || st.dk[i] % 2 || st.dv[i] % 2)
+      return false;
+  return a(q, 16) && a(k, 16) && a(v, 16) && a(g, 16) && a(dq, 4) &&
+         a(dk, 4) && a(dv, 4);
+}
+
+template <int kWarpgroups>
+cudaError_t launch_bwd_rows(const void* q, const void* k, const void* v,
+                            const void* g, void* dq, float* stats,
+                            int entries, int heads, int lq, int m,
+                            float scale, const BwdStrides& st,
+                            const Dropout& drop, cudaStream_t stream) {
+  static std::atomic<bool> done[kMaxDevices];
+  auto kernel = attn_bwd_tc_rows_kernel<kWarpgroups>;
+  const size_t smem = bwd_rows_smem_bytes(kWarpgroups);
+  const cudaError_t err =
+      configure_once(done, reinterpret_cast<const void*>(kernel), smem);
+  if (err != cudaSuccess) return err;
+  constexpr int rows = kWarpgroups * kRowsPerWg;
+  const dim3 grid((lq + rows - 1) / rows, heads, entries);
+  kernel<<<grid, kWarpgroups * 128, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<const __nv_bfloat16*>(g), static_cast<__nv_bfloat16*>(dq),
+      stats, entries, heads, lq, m, scale, st, drop);
+  return cudaGetLastError();
+}
+
+// The row pass (one warpgroup up to 64 query rows, two above), then the
+// key pass, on one stream. The caller has checked the alignment
+// (bwd_aligned()).
+inline int launch_bwd(const void* q, const void* k, const void* v,
+                      const void* g, void* dq, void* dk, void* dv,
+                      float* stats, int entries, int heads, int lq, int m,
+                      float scale, const BwdStrides& st, const Dropout& drop,
+                      cudaStream_t stream) {
+  cudaError_t err =
+      lq > kRowsPerWg
+          ? launch_bwd_rows<2>(q, k, v, g, dq, stats, entries, heads, lq, m,
+                               scale, st, drop, stream)
+          : launch_bwd_rows<1>(q, k, v, g, dq, stats, entries, heads, lq, m,
+                               scale, st, drop, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static std::atomic<bool> done[kMaxDevices];
+  const size_t smem = bwd_keys_smem_bytes();
+  err = configure_once(done,
+                       reinterpret_cast<const void*>(attn_bwd_tc_keys_kernel),
+                       smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((m + kTileKeys - 1) / kTileKeys, heads, entries);
+  attn_bwd_tc_keys_kernel<<<grid, 128, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<const __nv_bfloat16*>(g), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), stats, entries, heads, lq, m, scale,
+      st, drop);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+}  // namespace crc

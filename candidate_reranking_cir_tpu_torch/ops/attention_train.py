@@ -27,8 +27,11 @@ the call raises.
 What bounds the kernels on the H100: at the stage-II pair-grid shape (640
 query rows per entry) arithmetic, 4*Lq*M*D and 10*Lq*M*D operations per
 entry and head against (Lq + M)*D elements moved; at the stage-I MED
-shape (at most 40 query rows) the bytes of K and V. The kernels use plain
-fp32 FMAs, not tensor cores (see the CUDA source).
+shape (at most 40 query rows) the bytes of K and V. K9's bf16 launches
+without a bias (the stage-I path's) run tensor-core row and key passes
+(``csrc/attention_train_tc.cuh``: wgmma, dv's fp32 product as a bf16
+hi + lo pair); K5-K8, fp32 K9 and K9 with a bias use plain fp32 FMAs (see
+the CUDA sources). ``bwd_uses_tensor_cores`` states the route for reports.
 
 ``eligible`` and its thresholds are copies of the JAX package's, with the
 same values, so that the port sends the kernel the same calls.
@@ -44,6 +47,7 @@ from candidate_reranking_cir_tpu_torch.ops.cuda_attention import (
     _bias3,
     bias_args,
     check_kernel_inputs,
+    raise_on_error,
 )
 
 LAUNCHES = {"K5": 0, "K6": 0, "K7": 0, "K8": 0, "K9": 0}
@@ -289,6 +293,12 @@ def _kernel_fwd(q, k, v, bias3, seed: int, rate: float, *,
     return out
 
 
+def bwd_uses_tensor_cores(dtype, bias3, folded: bool) -> bool:
+    """Whether a backward launch runs the tensor-core passes: K9 (folded)
+    in bf16 without a bias. The C entry point does the routing."""
+    return folded and dtype == torch.bfloat16 and bias3 is None
+
+
 def _kernel_bwd(q, k, v, bias3, seed: int, g, rate: float, *,
                 folded: bool = False):
     """K7, or K9 (``folded``), on [E, L, H, D] views as ``_kernel_fwd``."""
@@ -317,8 +327,8 @@ def _kernel_bwd(q, k, v, bias3, seed: int, g, rate: float, *,
         bias_ptr, g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         stats.data_ptr(), (ctypes.c_longlong * 23)(*strides), e, h, lq, m,
         d ** -0.5, seed, rate, inv, _stream(q.device))
-    if err != 0:
-        raise RuntimeError(f"{kid} launch failed: cudaError {err}")
+    raise_on_error(err, kid, {"q": q, "k": k, "v": v, "g": g, "dq": dq,
+                              "dk": dk, "dv": dv})
     LAUNCHES[kid] += 1
     if rate > 0.0:
         LAUNCHES["K5"] += 1

@@ -80,7 +80,7 @@ def load_attention_library() -> ctypes.CDLL:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.crc_attention_head_dim.argtypes = []
     lib.crc_attention_head_dim.restype = i32
-    lib.crc_attention_tc_smem_bytes.argtypes = [i32]
+    lib.crc_attention_tc_smem_bytes.argtypes = [i32, i32]
     lib.crc_attention_tc_smem_bytes.restype = i32
     lib.crc_attention_forward.argtypes = [
         i32, vp, vp, vp, vp, vp, ctypes.POINTER(ctypes.c_longlong),
@@ -110,6 +110,8 @@ def load_attention_train_library() -> ctypes.CDLL:
         fn.argtypes = [i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, strides, i32,
                        i32, i32, i32, f32, i32, f32, f32, vp]
         fn.restype = i32
+    lib.crc_attention_train_tc_smem_bytes.argtypes = [i32]
+    lib.crc_attention_train_tc_smem_bytes.restype = i32
     lib.crc_keep_mask.argtypes = [i32, i32, i32, i32, i32, f32, vp, vp]
     lib.crc_keep_mask.restype = i32
     return lib

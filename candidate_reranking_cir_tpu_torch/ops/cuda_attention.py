@@ -9,20 +9,22 @@ Each wrapper replaces one Pallas kernel of the JAX package's
 - K4 ``_attn_bias_kernel_folded``: ``fused_attention_folded`` with a bias
 
 Folded means q/k/v [E, L, H*D]; unfolded [E, L, H, D]. All four call one C
-entry point (``csrc/attention.cu``), which routes by dtype and bias: bf16
-without a bias (K1 and K3 on every path) runs the tensor-core kernel
+entry point (``csrc/attention.cu``), which routes by dtype: bf16 (K1-K4 on
+every path, with or without a bias) runs the tensor-core kernel
 ``attn_fwd_tc_kernel`` (``csrc/attention_tc.cuh``: wgmma, K/V tiles
 streamed through shared memory, the exact softmax in two sweeps over the
-keys); fp32 and the bias variants run ``attn_fwd_kernel``, fp32 FMAs over
-whole score rows held in shared memory. The C entry point also holds the
-rules of what each kernel takes (16-byte aligned base pointers and strides
-for the tensor-core kernel's 16-byte copies, a key cap for the other) and
-refuses the rest with a code the wrapper raises on.
+keys, or one step when the keys fit one 64-key tile, the bias added to the
+scaled score); fp32 runs ``attn_fwd_kernel``, fp32 FMAs over whole score
+rows held in shared memory. The C entry point also holds the rules of what
+each kernel takes (16-byte aligned base pointers and strides for the
+tensor-core kernel's 16-byte copies, a key cap for the other) and refuses
+the rest with a code the wrapper raises on.
 
 What bounds them on the H100 at the main path's shapes: bytes for K1 (the
-ViT's 577 x 577 by a hair, the MED's 40 x 577 clearly) and for K2/K4;
-operations for K3 at 1,280 rows per candidate, bytes at its narrowest
-call of 32 rows (``PERF.md`` has each bound).
+ViT's 577 x 577 by a hair, the MED's 40 x 577 clearly) and for K2/K4
+(with latency at K2's one-tile text heads); operations for K3 at 1,280
+rows per candidate, bytes at its narrowest call of 32 rows (``PERF.md``
+has each bound).
 
 A tensor on the CPU goes to the plain version; a tensor on the card goes to
 the kernel or the wrapper raises. ``LAUNCHES`` counts kernel launches per
@@ -126,21 +128,22 @@ def bias_args(bias3, device) -> tuple[int | None, list[int]]:
     return bias3.data_ptr(), list(bias3.stride()[:2])
 
 
-def uses_tensor_cores(dtype, bias3) -> bool:
-    """Whether a launch runs the tensor-core kernel (bf16 without a bias),
-    for reports; the C entry point does the routing."""
-    return dtype == torch.bfloat16 and bias3 is None
+def uses_tensor_cores(dtype) -> bool:
+    """Whether an eval launch runs the tensor-core kernel (every bf16 one,
+    with or without a bias), for reports; the C entry point does the
+    routing."""
+    return dtype == torch.bfloat16
 
 
-# crc_attention_forward's refusals (csrc/attention.cu); a positive code is
-# a cudaError
+# the C entry points' refusals (csrc/attention.cu, and the alignment one of
+# K9's in csrc/attention_train.cu); a positive code is a cudaError
 REFUSED_KEYS, REFUSED_ALIGNMENT = -1, -2
 
 
 def raise_on_error(err: int, kid: str, tensors: dict) -> None:
-    """Raise for a nonzero code of crc_attention_forward: ValueError for
-    what the routed kernel does not take, RuntimeError for a cudaError.
-    ``tensors``: the launch's q, k, v and out views, named."""
+    """Raise for a nonzero code of an attention entry point: ValueError
+    for what the routed kernel does not take, RuntimeError for a cudaError.
+    ``tensors``: the launch's input and output views, named."""
     if err == REFUSED_KEYS:
         raise ValueError(
             f"{kid}: {tensors['k'].shape[1]} keys exceed the fp32-FMA "

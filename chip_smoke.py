@@ -7,11 +7,12 @@ Phases, each printing its own lines:
 1. device: requires CUDA; prints ``nvidia-smi`` name and power limit.
 2. build: compiles the eval (K1-K4) and train (K5-K9) attention libraries
    from ``csrc/`` (one nvcc each, started together; sm_90a) and prints
-   ptxas's register and spill lines, and the tensor-core eval kernel's
-   registers, spills and shared memory.
-3. kernels K1-K4 at the eval path's shapes, bf16 and fp32 (bf16 K1/K3 run
-   the tensor-core kernel, the rest the fp32-FMA one; K3 also at the eval
-   path's narrowest call): max |error| against the plain PyTorch version,
+   ptxas's register and spill lines, and the tensor-core kernels' (eval,
+   and K9's two backward passes) registers, spills and shared memory.
+3. kernels K1-K4 at the eval path's shapes, bf16 and fp32 (bf16 runs the
+   tensor-core kernel, with or without a bias, fp32 the fp32-FMA one; K3
+   also at the eval path's narrowest call): max |error| against the plain
+   PyTorch version,
    kernel / plain / SDPA times over back-to-back calls (CUDA events, as
    for every kernel) and the kernel/SDPA ratio (SDPA is a yardstick only;
    the port never calls it), the kernel's and SDPA's device-only times
@@ -28,8 +29,9 @@ Phases, each printing its own lines:
    width in bf16, random weights from a seed, on a synthetic CIRR-shaped
    corpus held in memory; launch counts per kernel (K1-K3 must be > 0);
    then a few hundred pairs re-scored in fp32 on the card and on the CPU;
-   a profile of one scoring pass, which fails if any bf16 no-bias eval
-   attention ran on the fp32-FMA kernel (as do the training profiles).
+   a profile of one scoring pass, which fails if any eval attention ran
+   on the fp32-FMA kernel, or any K9 on its fp32-FMA passes (every profile
+   is bf16; the training profiles fail alike).
 6. training path: ``make_stage2_train_step`` at full width in bf16 with
    remat, B = 16, fed by the port's ``BatchLoader`` over in-memory
    CIRR-shaped triplets: 1 warm-up and 5 counted steps; step seconds and
@@ -45,7 +47,7 @@ Phases, each printing its own lines:
    Lq 32 and 40: the text widths the stage-I batches take), fp32 and
    bf16, with and without a key-mask bias: K8's output and K9's dq, dk
    and dv (each against its own max) against their plain versions, times
-   and bounds.
+   and bounds (bf16 K9 without a bias runs the tensor-core passes).
 8. stage-I training: ``make_stage1_train_step`` as the JAX trainer builds
    it (B = 512, frozen ViT-B/16@384, MED with remat, bf16, AdamW lr 2e-5
    and weight decay 0.05, pooled target features cached through
@@ -97,14 +99,15 @@ S1_SHAPE = (512, 577, 12, 64)          # K8/K9 on the path: [E, M, H, D]
 S1_WIDTHS = (32, 40)           # Lq: the 'auto' buckets stage-I batches take
 S1_CHECK_B = 4                 # fp32 stage-I step, card vs CPU
 CSRC = "candidate_reranking_cir_tpu_torch/csrc"
-# K1/K3's records are bf16, the tensor-core kernel's launches
-SOURCES = {"K1": f"{CSRC}/attention_tc.cuh", "K2": f"{CSRC}/attention.cu",
-           "K3": f"{CSRC}/attention_tc.cuh", "K4": f"{CSRC}/attention.cu",
+# the records are bf16: K1-K4 on the tensor-core eval kernel, K9 (no
+# bias) on the tensor-core backward passes
+SOURCES = {"K1": f"{CSRC}/attention_tc.cuh", "K2": f"{CSRC}/attention_tc.cuh",
+           "K3": f"{CSRC}/attention_tc.cuh", "K4": f"{CSRC}/attention_tc.cuh",
            "K5": f"{CSRC}/attention_common.cuh",
            "K6": f"{CSRC}/attention_train.cu",
            "K7": f"{CSRC}/attention_train.cu",
            "K8": f"{CSRC}/attention_train.cu",
-           "K9": f"{CSRC}/attention_train.cu"}
+           "K9": f"{CSRC}/attention_train_tc.cuh"}
 JAX_KERNELS = "candidate_reranking_cir_tpu/ops/pallas_attention.py"
 JAX_TRAIN = "candidate_reranking_cir_tpu/ops/pallas_attention_train.py"
 REPLACES = {"K1": f"{JAX_KERNELS}:220", "K2": f"{JAX_KERNELS}:132",
@@ -113,9 +116,13 @@ REPLACES = {"K1": f"{JAX_KERNELS}:220", "K2": f"{JAX_KERNELS}:132",
             "K7": f"{JAX_TRAIN}:135", "K8": f"{JAX_TRAIN}:382",
             "K9": f"{JAX_TRAIN}:414"}
 MAIN_PATH_KERNELS = ("K1", "K2", "K3")
-# profiler families of the eval kernels (see kernel_family)
-TC_FAMILY = "eval attention, tensor cores (K1/K3)"
-FMA_NO_BIAS_FAMILY = "eval attention, no bias, fp32 FMA (K1/K3)"
+# profiler families of the eval kernels and of K9 (see kernel_family); a
+# bf16 profile fails on any time in the FMA families
+TC_FAMILY = "eval attention, tensor cores (bf16 K1-K4)"
+FMA_EVAL_FAMILY = "eval attention, fp32 FMA (fp32 K1-K4)"
+TC_K9_FAMILY = "train attention backward, folded, tensor cores (K9)"
+FMA_K9_FAMILY = "train attention backward, folded, fp32 FMA (K9)"
+FMA_FAMILIES = (FMA_EVAL_FAMILY, FMA_K9_FAMILY)
 # K3's narrowest eval call (retrieval/rerank.py): the smallest q-bucket (4
 # queries) x the smallest text bucket (8 tokens) = 32 rows per candidate,
 # and max(64, pairs_per_call 256 x text_len 40 // 8) // 4 candidates
@@ -270,8 +277,7 @@ def run_kernel_case(kid, label, e, lq, m, h, folded, with_bias, dtype):
            "bound_ms": b_ms, "bound_by": b_by}
     ratio = rec["ms"] / rec["library_ms"]
     device_ratio = rec["device_ms"] / rec["library_device_ms"]
-    route = "tensor cores" if ck.uses_tensor_cores(dtype, bias) \
-        else "fp32 FMA"
+    route = "tensor cores" if ck.uses_tensor_cores(dtype) else "fp32 FMA"
     print(f"[kernel] {kid} {label} {rec['dtype']} ({route}) q/k/v "
           f"{list(shape_q)} x {m} keys{' +mask' if with_bias else ''}: "
           f"max|err| {err:.3e} (tol {TOL[dtype]}), kernel {rec['ms']:.4f} "
@@ -550,9 +556,11 @@ def main_path():
 def kernel_family(name: str) -> str:
     if "attn_train_fwd_folded_kernel" in name:
         return "train attention forward, folded (K8)"
+    if "attn_bwd_tc_rows_kernel" in name or "attn_bwd_tc_keys_kernel" in name:
+        return TC_K9_FAMILY
     if "attn_bwd_rows_folded_kernel" in name \
             or "attn_bwd_keys_folded_kernel" in name:
-        return "train attention backward, folded (K9)"
+        return FMA_K9_FAMILY
     if "attn_train_fwd_kernel" in name:
         return "train attention forward (K6)"
     if "attn_bwd_rows_kernel" in name or "attn_bwd_keys_kernel" in name:
@@ -560,8 +568,7 @@ def kernel_family(name: str) -> str:
     if "attn_fwd_tc_kernel" in name:
         return TC_FAMILY
     if "attn_fwd_kernel" in name:
-        return ("eval attention, bias (K2/K4)" if "true" in name.lower()
-                else FMA_NO_BIAS_FAMILY)
+        return FMA_EVAL_FAMILY
     if any(s in name.lower() for s in ("gemm", "xmma", "cutlass", "nvjet")):
         return "matmul (cuBLAS)"
     if name.startswith("Memcpy"):
@@ -572,8 +579,8 @@ def kernel_family(name: str) -> str:
 def profile_device(label: str, run):
     """Device time by kernel family over one run of ``run`` (torch.profiler,
     CUPTI), and the device's idle share of its wall time. Every profiled
-    run is bf16: it fails if a no-bias eval attention ran on the fp32-FMA
-    kernel instead of the tensor-core one."""
+    run is bf16: it fails if an eval attention ran on the fp32-FMA kernel,
+    or a K9 on its fp32-FMA passes, instead of the tensor-core ones."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -616,9 +623,10 @@ def profile_device(label: str, run):
     freed = gc.collect()
     print(f"[profile] {label}: gc.collect() after the profile freed {freed} "
           f"objects in {time.perf_counter() - t0:.3f} s", flush=True)
-    if families.get(FMA_NO_BIAS_FAMILY, 0.0) > 0.0:
-        fail(f"{label}: {families[FMA_NO_BIAS_FAMILY] / 1e3:.1f} ms of bf16 "
-             "no-bias eval attention ran on the fp32-FMA kernel")
+    for fam in FMA_FAMILIES:
+        if families.get(fam, 0.0) > 0.0:
+            fail(f"{label}: {families[fam] / 1e3:.1f} ms of bf16 attention "
+                 f"ran on an fp32-FMA kernel ({fam})")
 
 
 # ---------------------------------------------------------------------------
@@ -974,6 +982,8 @@ def run_folded_kernel_cases(dtype, lq: int) -> dict:
                    q, k, v, None, seed, gout, rate, num_heads=h),
                sdpa_fwd_bwd, (3 * q.numel() + 4 * k.numel()) * isz, 10),
     }
+    k9_route = "tensor cores" if tat.bwd_uses_tensor_cores(dtype, None, True) \
+        else "fp32 FMA"
     for kid, (kernel, plain, sdpa, n_bytes, ops) in cases.items():
         b_ms, b_by = bound(n_bytes, ops * e * h * lq * m * d, dtype)
         recs[kid] = {"name": kid, "dtype": name, "shape": shape,
@@ -982,7 +992,8 @@ def run_folded_kernel_cases(dtype, lq: int) -> dict:
                      "library_ms": None, "sdpa_own_mask_ms": time_ms(sdpa),
                      "bound_ms": b_ms, "bound_by": b_by}
         r = recs[kid]
-        print(f"[kernel] {kid} {name} {shape} rate {rate}: kernel "
+        route = f" ({k9_route})" if kid == "K9" else ""
+        print(f"[kernel] {kid} {name}{route} {shape} rate {rate}: kernel "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"sdpa(dropout_p={rate}{', fwd+bwd' if kid == 'K9' else ''}; "
               f"same work, its own mask) {r['sdpa_own_mask_ms']:.4f} ms, "
@@ -1181,12 +1192,13 @@ def stage1_fp32_check(tok, words):
 
 def build_libraries() -> None:
     """Both kernel libraries, one nvcc each, started together; ptxas's
-    register and spill lines of every kernel (the tensor-core eval kernel's
-    must be among them when the library was built), and the tensor-core
-    kernel's dynamic shared memory."""
+    register and spill lines of every kernel (the tensor-core kernels'
+    must be among them when a library was built), and the tensor-core
+    kernels' dynamic shared memory."""
     from candidate_reranking_cir_tpu_torch.ops.build import (
         build,
         load_attention_library,
+        load_attention_train_library,
     )
 
     names = ("attention", "attention_train")
@@ -1198,12 +1210,22 @@ def build_libraries() -> None:
             if "Compiling entry" in line or "registers" in line \
                     or "spill" in line:
                 print(f"[build] {line.strip()}", flush=True)
-        if name == "attention" and log and "attn_fwd_tc_kernel" not in log:
-            fail("ptxas reported no attn_fwd_tc_kernel")
+        wanted = {"attention": ("attn_fwd_tc_kernel",),
+                  "attention_train": ("attn_bwd_tc_rows_kernel",
+                                      "attn_bwd_tc_keys_kernel")}[name]
+        for kernel in wanted:
+            if log and kernel not in log:
+                fail(f"ptxas reported no {kernel}")
     lib = load_attention_library()
     print("[build] attn_fwd_tc_kernel dynamic shared memory: "
-          f"{lib.crc_attention_tc_smem_bytes(1)} B with 1 warpgroup, "
-          f"{lib.crc_attention_tc_smem_bytes(2)} B with 2", flush=True)
+          f"{lib.crc_attention_tc_smem_bytes(1, 64)} B with 1 warpgroup "
+          f"over one key tile, {lib.crc_attention_tc_smem_bytes(1, 577)} B "
+          f"over more, {lib.crc_attention_tc_smem_bytes(2, 577)} B with 2",
+          flush=True)
+    smem = load_attention_train_library().crc_attention_train_tc_smem_bytes
+    print("[build] K9 tensor-core passes' dynamic shared memory: "
+          f"attn_bwd_tc_rows_kernel {smem(0)} B with 1 warpgroup, {smem(1)} "
+          f"B with 2; attn_bwd_tc_keys_kernel {smem(2)} B", flush=True)
 
 
 def main():

@@ -1,5 +1,7 @@
 """CUDA kernels K1-K9 against their plain PyTorch versions, on the card
-(bf16 K1/K3 on the tensor-core kernel, fp32 and K2/K4 on the fp32-FMA one).
+(bf16 K1-K4 on the tensor-core eval kernel, fp32 on the fp32-FMA one; bf16
+K9 without a bias on the tensor-core backward passes, the rest of K5-K9 on
+fp32-FMA kernels).
 
 Marked ``cuda``: they skip where no card is present. On a machine with a
 card (which need not have JAX), run them without the repository's conftest:
@@ -37,6 +39,21 @@ def _mask_bias(dev, e, m):
     lens = torch.arange(e) % m + 1
     mask = (torch.arange(m)[None] < lens[:, None]).float()
     return tattn.make_additive_mask(mask.to(dev))      # [E, 1, 1, M]
+
+
+def _kernel_names(fn) -> set:
+    """Names of the device kernels one call of ``fn`` launched."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {evt.key for evt in prof.key_averages()}
+
+
+def _launched(names: set, kernel: str) -> bool:
+    return any(kernel in n for n in names)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -176,6 +193,89 @@ def test_wrappers_raise_on_what_the_kernel_does_not_take(dev):
 
 
 # ---------------------------------------------------------------------------
+# the tensor-core kernel with a bias (bf16: K2 and K4)
+
+
+def _full_bias(dev, e, lq, m, seed):
+    """[E, 1, Lq, M] fp32: a random additive bias with masked (-10000)
+    keys, and in entry 0 a row masked everywhere but one key and a row
+    masked everywhere."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    bias = torch.randn(e, 1, lq, m, generator=g)
+    bias[torch.rand(e, 1, lq, m, generator=g) < 0.3] = -10000.0
+    bias[0, 0, 0] = -10000.0
+    bias[0, 0, 0, m // 2] = 0.0
+    if lq > 1:
+        bias[0, 0, 1] = -10000.0
+    return bias.to(dev)
+
+
+def _bias_check(dev, e, lq, m, h, bias, seed):
+    """K2 (unfolded) and K4 (folded) on the same bf16 inputs with ``bias``
+    against the plain version, each launching the tensor-core kernel once
+    and the fp32-FMA one never."""
+    q = _rand(dev, torch.bfloat16, e, lq, h, 64, seed=seed)
+    k = _rand(dev, torch.bfloat16, e, m, h, 64, seed=seed + 1)
+    v = _rand(dev, torch.bfloat16, e, m, h, 64, seed=seed + 2)
+    ref = ck.attention_plain(q, k, v, bias[:, 0].expand(e, lq, m))
+    before = dict(ck.LAUNCHES)
+    outs = {}
+    names = _kernel_names(lambda: outs.update(
+        K2=ck.fused_attention(q, k, v, bias),
+        K4=ck.fused_attention_folded(q.flatten(-2), k.flatten(-2),
+                                     v.flatten(-2), bias, num_heads=h)))
+    assert ck.LAUNCHES["K2"] == before["K2"] + 1
+    assert ck.LAUNCHES["K4"] == before["K4"] + 1
+    assert _launched(names, "attn_fwd_tc_kernel")
+    assert not _launched(names, "attn_fwd_kernel<")
+    for out in (outs["K2"], outs["K4"].unflatten(-1, (h, 64))):
+        assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+        torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                                   atol=TOL[torch.bfloat16])
+    return q, k, v, outs
+
+
+@pytest.mark.parametrize("lq,m", [(8, 8), (40, 40), (40, 77), (577, 577)])
+def test_tc_bias_kernel_matches_plain_key_mask(dev, lq, m):
+    """The key mask broadcast over the rows (row stride 0), as the text
+    self-attention hands it."""
+    e = 5
+    bias = _mask_bias(dev, e, m)
+    assert bias[:, 0].expand(e, lq, m).stride(1) == 0
+    _bias_check(dev, e, lq, m, 12, bias, seed=300 + lq + m)
+
+
+@pytest.mark.parametrize("lq,m", [(8, 8), (40, 40), (40, 77), (577, 577)])
+def test_tc_bias_kernel_matches_plain_full_bias(dev, lq, m):
+    """A full [E, Lq, M] bias; a row masked everywhere but one key gives
+    that key's v row, exactly."""
+    e = 3
+    bias = _full_bias(dev, e, lq, m, seed=lq + m)
+    _, _, v, outs = _bias_check(dev, e, lq, m, 4, bias, seed=400 + lq + m)
+    assert torch.equal(outs["K2"][0, 0], v[0, m // 2])
+
+
+def test_tc_bias_kernel_strided_views(dev):
+    """q/k/v sliced out of one fused projection (K2's unfolded views and
+    K4's folded ones), and a full bias sliced out of a wider tensor."""
+    e, lq, h = 3, 40, 12
+    qkv = _rand(dev, torch.bfloat16, e, lq, 3 * h * 64, seed=500)
+    q, k, v = qkv.chunk(3, dim=-1)
+    wide = _full_bias(dev, e, lq, lq + 9, seed=501)
+    bias = wide[..., :lq]
+    assert bias.stride(2) == lq + 9
+    b3 = bias[:, 0].expand(e, lq, lq)
+    ref = ck.attention_plain(*(x.unflatten(-1, (h, 64)) for x in (q, k, v)),
+                             b3)
+    out4 = ck.fused_attention_folded(q, k, v, bias, num_heads=h)
+    out2 = ck.fused_attention(*(x.unflatten(-1, (h, 64)) for x in (q, k, v)),
+                              bias)
+    for out in (out2, out4.unflatten(-1, (h, 64))):
+        torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                                   atol=TOL[torch.bfloat16])
+
+
+# ---------------------------------------------------------------------------
 # K1-K4 gradients: kernel forward, plain-recompute backward
 
 
@@ -308,11 +408,19 @@ def test_k8_k9_match_plain(dev, dtype, e, lq, m, with_bias):
     heads = [tat._heads(x, h) for x in (q, k, v, g)]
     before = dict(tat.LAUNCHES)
     out = tat._kernel_fwd(*heads[:3], bias, seed, rate, folded=True)
-    grads = tat._kernel_bwd(*heads[:3], bias, seed, heads[3], rate,
-                            folded=True)
-    torch.cuda.synchronize()
+    grads = []
+    names = _kernel_names(lambda: grads.extend(tat._kernel_bwd(
+        *heads[:3], bias, seed, heads[3], rate, folded=True)))
     assert tat.LAUNCHES["K8"] == before["K8"] + 1
     assert tat.LAUNCHES["K9"] == before["K9"] + 1
+    # the route: bf16 without a bias on the tensor-core passes only
+    tc = tat.bwd_uses_tensor_cores(dtype, bias, True)
+    assert tc == (dtype == torch.bfloat16 and not with_bias)
+    for kernel in ("attn_bwd_tc_rows_kernel", "attn_bwd_tc_keys_kernel"):
+        assert _launched(names, kernel) == tc
+    for kernel in ("attn_bwd_rows_folded_kernel",
+                   "attn_bwd_keys_folded_kernel"):
+        assert _launched(names, kernel) != tc
     assert tat.LAUNCHES["K6"] == before["K6"]
     assert tat.LAUNCHES["K7"] == before["K7"]
     ref = tat.attention_train_folded_plain(q, k, v, bias, seed, rate,
@@ -350,3 +458,63 @@ def test_folded_train_attention_autograd_on_the_card(dev, with_bias):
         q.detach(), k.detach(), v.detach(), b3, -3, g, 0.1, num_heads=h)
     for a, b in zip(grads, refs):
         torch.testing.assert_close(a, b, rtol=0, atol=3e-5)
+
+
+# ---------------------------------------------------------------------------
+# K9 on the tensor cores (bf16, no bias)
+
+
+def _k9_inputs(dev, e, lq, m, h, seed):
+    return [_rand(dev, torch.bfloat16, e, n, h * 64, seed=seed + i)
+            for i, n in enumerate((lq, m, m, lq))]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("m", [577, 45])
+@pytest.mark.parametrize("lq", [32, 40, 64, 130])
+def test_k9_tensor_cores_match_plain(dev, lq, m, rate):
+    e, h, seed = 6, 12, 12345
+    q, k, v, g = _k9_inputs(dev, e, lq, m, h, seed=600 + lq + m)
+    heads = [tat._heads(x, h) for x in (q, k, v, g)]
+    grads = []
+    names = _kernel_names(lambda: grads.extend(tat._kernel_bwd(
+        *heads[:3], None, seed, heads[3], rate, folded=True)))
+    assert _launched(names, "attn_bwd_tc_rows_kernel")
+    assert _launched(names, "attn_bwd_tc_keys_kernel")
+    assert not _launched(names, "attn_bwd_rows_folded_kernel")
+    refs = tat.attention_train_folded_bwd_plain(q, k, v, None, seed, g, rate,
+                                                num_heads=h)
+    for a, b in zip(grads, refs):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a).all()
+        torch.testing.assert_close(a.flatten(-2).float(), b.float(), rtol=0,
+                                   atol=GRAD_TOL[torch.bfloat16])
+
+
+def test_k9_tensor_cores_autograd(dev):
+    """fused_attention_train_folded's autograd in bf16 without a bias: K8
+    forward, K9 backward on the tensor cores, against the plain versions."""
+    e, lq, m, h, seed, rate = 8, 40, 577, 12, -7, 0.1
+    q, k, v, g = _k9_inputs(dev, e, lq, m, h, seed=700)
+    x = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(tat.LAUNCHES)
+    out = tat.fused_attention_train_folded(*x, None, seed, rate, num_heads=h)
+    grads = torch.autograd.grad(out, x, g)
+    assert tat.LAUNCHES["K8"] == before["K8"] + 1
+    assert tat.LAUNCHES["K9"] == before["K9"] + 1
+    refs = tat.attention_train_folded_bwd_plain(q, k, v, None, seed, g, rate,
+                                                num_heads=h)
+    for a, b in zip(grads, refs):
+        torch.testing.assert_close(a.float(), b.float(), rtol=0,
+                                   atol=GRAD_TOL[torch.bfloat16])
+
+
+def test_k9_tensor_cores_refuse_misaligned_views(dev):
+    """A base pointer 8 bytes off: the entry point refuses it and the
+    wrapper raises a ValueError."""
+    e, lq, m, h = 2, 40, 577, 12
+    x = _rand(dev, torch.bfloat16, e, lq, h * 64 + 8)[..., 4:4 + h * 64]
+    k, v = (_rand(dev, torch.bfloat16, e, m, h * 64, seed=s) for s in (1, 2))
+    heads = [tat._heads(t, h) for t in (x, k, v)]
+    with pytest.raises(ValueError, match="aligned"):
+        tat._kernel_bwd(*heads, None, 0, tat._heads(x.contiguous(), h), 0.1,
+                        folded=True)

@@ -146,11 +146,10 @@ def test_row_reciprocal_quotient_is_the_divide():
 
 
 def test_routing_sends_bf16_without_bias_to_tensor_cores():
-    bias = torch.zeros(1, 4, 4)
-    assert ck.uses_tensor_cores(torch.bfloat16, None)
-    assert not ck.uses_tensor_cores(torch.bfloat16, bias)
-    assert not ck.uses_tensor_cores(torch.float32, None)
-    assert not ck.uses_tensor_cores(torch.float32, bias)
+    """bf16 takes the tensor cores with or without a bias (K2/K4 since
+    their bias variant); fp32 stays on the FMA kernel."""
+    assert ck.uses_tensor_cores(torch.bfloat16)
+    assert not ck.uses_tensor_cores(torch.float32)
 
 
 def _tc_aligned(x) -> bool:
@@ -226,21 +225,22 @@ def test_card_forward_takes_autograd_only_for_gradients(monkeypatch, mode,
 
 
 @pytest.mark.parametrize("name,family", [
-    ("void crc::tc::attn_fwd_tc_kernel<1>(__nv_bfloat16 const*, "
-     "__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16*, int, int, "
-     "float, crc::Strides)", "K1/K3"),
-    ("void crc::tc::attn_fwd_tc_kernel<2>(...)", "K1/K3"),
-    ("void (anonymous namespace)::attn_fwd_kernel<__nv_bfloat16, true>("
-     "...)", "K2/K4"),
-    ("void (anonymous namespace)::attn_fwd_kernel<float, true>(...)",
-     "K2/K4"),
+    ("void crc::tc::attn_fwd_tc_kernel<1, false>(__nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, __nv_bfloat16 const*, float const*, "
+     "__nv_bfloat16*, int, int, float, crc::Strides)", "K1-K4"),
+    ("void crc::tc::attn_fwd_tc_kernel<2, true>(...)", "K1-K4"),
+    ("void (anonymous namespace)::attn_fwd_kernel<true>(float const*, ...)",
+     "fp32 K1-K4"),
+    ("void (anonymous namespace)::attn_fwd_kernel<false>(...)",
+     "fp32 K1-K4"),
 ])
 def test_profile_families_name_the_eval_kernels(name, family):
     assert family in chip_smoke.kernel_family(name)
-    if family == "K1/K3":
+    if "fp32" not in family:
         assert chip_smoke.kernel_family(name) == chip_smoke.TC_FAMILY
-    # the fp32 no-bias body has a family of its own, which the bf16
-    # profiles must not see
+    # the fp32-FMA body has a family of its own, which the bf16 profiles
+    # must not see
     fma = chip_smoke.kernel_family(
-        "void (anonymous namespace)::attn_fwd_kernel<float, false>(...)")
-    assert fma == chip_smoke.FMA_NO_BIAS_FAMILY != chip_smoke.TC_FAMILY
+        "void (anonymous namespace)::attn_fwd_kernel<false>(...)")
+    assert fma == chip_smoke.FMA_EVAL_FAMILY != chip_smoke.TC_FAMILY
+    assert fma in chip_smoke.FMA_FAMILIES
