@@ -7,7 +7,9 @@
 //   - _attn_bias_kernel_folded (K4: K1's layout + K2's bias),
 // all through _head_attention. Layouts differ only in strides; the bias
 // is a template switch. fp32 stays on attn_fwd_body (attention_common.cuh):
-// the tensor cores would round fp32 inputs to TF32.
+// the tensor cores would round fp32 inputs to TF32. The body below also
+// carries K6, the stage-II dropout forward (attention_train_tc.cuh), with
+// its dropout switch on.
 //
 // The function, per (entry, head), is the one the plain version and the
 // Pallas kernels compute: q scaled by 1/8, fp32 scores, (+ the bias, added
@@ -284,15 +286,20 @@ __device__ __forceinline__ void tile_stats(float (&s)[32], int key0, int m,
   }
 }
 
-// Sweep 2 on one tile: p = exp(scale * (s - max)) / sum rounded to bf16,
-// packed as the A operand of P.V (k-step kk takes keys 16kk..16kk+15, i.e.
-// s[8kk .. 8kk+7]); keys past m (kMask) give p = 0.
-template <bool kMask>
+// Sweep 2 on one tile: p = exp(scale * (s - max)) / sum; with kDropout
+// at rate > 0 (K6) the K5 mask of (row, key) and 1/(1 - rate), kept ?
+// fl(p * inv) : 0, as JAX applies them to the fp32 p (at rate 0 neither,
+// as in JAX); then p rounded to bf16 and packed as the A operand of P.V
+// (k-step kk takes keys 16kk..16kk+15, i.e. s[8kk .. 8kk+7]). Keys past m
+// (kMask) give p = 0.
+template <bool kMask, bool kDropout>
 __device__ __forceinline__ void tile_probs(const float (&s)[32], int key0,
                                            int m, int quad, float c,
                                            const float (&neg_mc)[2],
                                            const float (&sum)[2],
                                            const float (&inv)[2],
+                                           int row_base, uint32_t salt,
+                                           const Dropout& drop,
                                            uint32_t (&p)[4][4]) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
@@ -306,6 +313,10 @@ __device__ __forceinline__ void tile_probs(const float (&s)[32], int key0,
       for (int b = 0; b < 2; ++b) {
         pv[b] = divide(ex2(fmaf(s[idx + b], c, neg_mc[hh])), sum[hh],
                        inv[hh]);
+        if (kDropout && drop.rate > 0.f)
+          pv[b] = keep_elem(salt, row_base + 8 * hh, m, key + b, drop.rate)
+                      ? __fmul_rn(pv[b], drop.inv)
+                      : 0.f;
         if (kMask && key + b >= m) pv[b] = 0.f;
       }
       p[kk][r] = pack_bf16(pv[0], pv[1]);
@@ -329,15 +340,17 @@ __device__ __forceinline__ void scores(float (&s)[32], uint32_t q_tile,
 // Accumulator layout of m64n64 (per warpgroup thread t, warp w = t / 32,
 // lane l): s[4i + 2h + b] is row 16w + l/4 + 8h, column 8i + 2(l%4) + b.
 // kHasBias: the bias variant (K2, K4); bias is fp32 with the (entry, row)
-// strides st.b.
-template <int kWarpgroups, bool kHasBias>
-__global__ void __launch_bounds__(kWarpgroups * 128, 4 / kWarpgroups)
-attn_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v,
-                   const float* __restrict__ bias,
-                   __nv_bfloat16* __restrict__ out, int lq, int m,
-                   float scale, Strides st) {
+// strides st.b. kDropout: K6's dropout in sweep 2 (tile_probs), the mask
+// keyed by the absolute entry blockIdx.z, the head and the absolute row
+// and key. The eval kernels (attn_fwd_tc_kernel) and K6
+// (attn_train_fwd_tc_kernel, attention_train_tc.cuh) are __global__
+// entry points of their own over this body.
+template <int kWarpgroups, bool kHasBias, bool kDropout>
+__device__ __forceinline__ void attn_fwd_tc_body(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
+    __nv_bfloat16* __restrict__ out, int lq, int m, float scale,
+    const Strides& st, const Dropout& drop) {
   constexpr int kThreadsTc = kWarpgroups * 128;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw =
@@ -394,6 +407,9 @@ attn_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   // rides in c, with one it is already in t
   const float c = kHasBias ? kLog2e : scale * kLog2e;
   const int row_base = block_row0 + wg * kRowsPerWg + 16 * warp + lane / 4;
+  const uint32_t salt = kDropout ? keep_salt(drop.seed, static_cast<int>(e),
+                                             static_cast<int>(h))
+                                 : 0u;
   float row_max[2] = {-INFINITY, -INFINITY};
   float row_sum[2] = {0.f, 0.f};
   float neg_mc[2], inv[2];
@@ -442,9 +458,11 @@ attn_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
     uint32_t p[4][4];
     if (ragged)
-      tile_probs<true>(s, key0, m, quad, c, neg_mc, row_sum, inv, p);
+      tile_probs<true, kDropout>(s, key0, m, quad, c, neg_mc, row_sum, inv,
+                                 row_base, salt, drop, p);
     else
-      tile_probs<false>(s, key0, m, quad, c, neg_mc, row_sum, inv, p);
+      tile_probs<false, kDropout>(s, key0, m, quad, c, neg_mc, row_sum, inv,
+                                  row_base, salt, drop, p);
     wgmma_fence();
     fence_acc(o);
 #pragma unroll
@@ -466,6 +484,20 @@ attn_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i + 2 * quad) =
           __floats2bfloat162_rn(o[4 * i + 2 * hh], o[4 * i + 2 * hh + 1]);
   }
+}
+
+// K1-K4 in bf16
+template <int kWarpgroups, bool kHasBias>
+__global__ void __launch_bounds__(kWarpgroups * 128, 4 / kWarpgroups)
+attn_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v,
+                   const float* __restrict__ bias,
+                   __nv_bfloat16* __restrict__ out, int lq, int m,
+                   float scale, Strides st) {
+  attn_fwd_tc_body<kWarpgroups, kHasBias, false>(q, k, v, bias, out, lq, m,
+                                                 scale, st,
+                                                 Dropout{0, 0.f, 1.f});
 }
 
 #undef CRC_WGMMA_D32

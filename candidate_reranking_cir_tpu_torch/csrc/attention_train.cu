@@ -1,23 +1,56 @@
 // Train attention with in-kernel dropout for Hopper (sm_90a): the kernels
 // of the JAX package's ops/pallas_attention_train.py over the unfolded
-// [E, L, H, D] layout (strided, like the eval kernels).
+// [E, L, H, D] layout (strided, like the eval kernels), and their C entry
+// points.
 //
 // K5 (_lowbias32 / _keep_mask): the keep-mask hash, a device function in
-//     attention_common.cuh, run inside K6 and K7; keep_mask_kernel below
+//     attention_common.cuh, run inside K6-K9; keep_mask_kernel below
 //     writes it out for one (seed, entry, head) so that a test can hold it
 //     bit for bit against the plain version.
-// K6 (_fwd_kernel): the eval forward body with the dropout step on: fp32
-//     softmax, the K5 mask, kept probabilities times 1/(1 - rate), dropped
-//     ones 0, the cast to the input type, then P.V.
+// K6 (_fwd_kernel): the eval forward with the dropout step on: fp32
+//     softmax, the K5 mask, kept probabilities times 1/(1 - rate),
+//     dropped ones 0, the cast to the input type, then P.V.
 // K7 (_bwd_kernel): dq, dk, dv with the mask regenerated. The products keep
 //     the Pallas kernel's precisions: dv = dropped^T . g with fp32 dropped
 //     and fp32 g; d_dropped = g . v^T in fp32; d_probs = keep * d_dropped *
 //     inv; d_scores = p * (d_probs - sum(d_probs * p)) * scale, cast to the
 //     input type; dq = d_scores . k and dk = d_scores^T . q (unscaled q),
 //     fp32 accumulation, cast on output.
+// K8 (_fwd_kernel_folded) and K9 (_bwd_kernel_folded): K6 and K7 over the
+//     head-folded layout [E, L, H*D], which the stage-I MED cross-attention
+//     trains in. Viewed as [E, L, H, D] that layout has the strides
+//     (L*H*D, H*D, D, 1), so their kernels run K6/K7's bodies with the head
+//     stride fixed at compile time to kHeadDim (folded()); they are kernels
+//     and entry points of their own, so that a profile names them apart.
 //
-// K7 design, deterministic and without atomics (blocks run in any order,
-// so nothing may be summed across blocks):
+// Which launches take which kernel (the entry points route; nothing falls
+// back from one kernel to another):
+//   - bf16 without a bias, K6: attn_train_fwd_tc_kernel; K7:
+//     attn_train_bwd_tc_{rows,keys}_kernel; K9: attn_bwd_tc_{rows,keys}_
+//     kernel (all in attention_train_tc.cuh, wgmma). A view that is not
+//     16-byte aligned is refused (kRefusedAlignment), not sent elsewhere.
+//     Every stage-II launch (K6, K7) and every stage-I K9 launch is one.
+//   - fp32, or a bias (no path launches K6, K7 or K9 with one): the
+//     fp32-FMA bodies below, attn_fwd_body (attention_common.cuh) for K6
+//     and the row and key passes for K7, K9 at the folded stride. The
+//     tensor cores would round fp32 to TF32.
+//   - K8, every launch: K6's fp32-FMA body at the folded stride. Routing
+//     its bf16 launches to attn_train_fwd_tc_kernel at the folded strides
+//     is the next step.
+//
+// What bounds them at the stage-II shape [E = 16, Lq = 640, M = 577, H =
+// 12, D = 64] in bf16: operations. Per (entry, head) K6 does 4*Lq*M*D =
+// 94.5 M operations against (2*Lq + 2*M)*D*2 = 312 KB (303 a byte) and K7
+// 10*Lq*M*D = 236 M against (3*Lq + 4*M)*D*2 = 541 KB (437 a byte), both
+// above the card's 295: the tensor cores are the resource, so the bf16
+// launches run on wgmma (attention_train_tc.cuh says how). At the stage-I
+// MED shape [E = 512, Lq <= 40, M = 577] K8 and K9 are bound by bytes
+// (37 and 48 operations a byte): with few query rows there is little
+// reuse of K and V.
+//
+// The FMA passes of K7 (and of fp32 and bias K9), deterministic and
+// without atomics (blocks run in any order, so nothing may be summed
+// across blocks):
 //   - a ROW pass per (entry, head, 16-row tile) recomputes scores and
 //     probabilities for its rows against all keys (two [16][M] fp32 buffers
 //     in shared memory), writes dq, and stores each row's max, sum and
@@ -28,41 +61,11 @@
 // Both passes form each score and each g . v^T element with the same
 // sequence of fmaf over d = 0..63 as the forward, so the two passes see
 // the same fp32 values.
-//
-// What bounds them: like the eval kernel, arithmetic at the stage-II
-// shape (K6 4*Lq*M*D and K7 10*Lq*M*D operations per head against a few
-// (Lq + M)*D elements moved). K6 and K7 use plain fp32 FMAs from shared
-// memory, not tensor cores, and so run far from that bound; they are
-// simple and exact first.
-//
-// K8 (_fwd_kernel_folded) and K9 (_bwd_kernel_folded): K6 and K7 over the
-// head-folded layout [E, L, H*D], which the stage-I MED cross-attention
-// trains in. Viewed as [E, L, H, D] that layout has the strides
-// (L*H*D, H*D, D, 1), so K8, and K9's fp32 and bias launches, run the
-// K6/K7 bodies with the head stride fixed at compile time to kHeadDim;
-// they are kernels and entry points of their own, so that a profile names
-// them apart from K6/K7.
 // The TPU kernels block 8 (forward) and 4 (backward) entries per program to
 // spread a per-program overhead; here a block is one (row tile, head,
 // entry) and the mask is keyed by the absolute entry index (blockIdx.z), so
 // no entry blocking is needed. The TPU's transposed dk/dv variant
 // (CRC_BWD_TRANSPOSED) has the same numbers: only the math is ported.
-//   What bounds them at the stage-I shape [E = 512, Lq <= 40, M = 577,
-// H = 12, D = 64]: bytes. Per (entry, head) in bf16, K8 does 4*Lq*M*D =
-// 5.9 M operations against (2*Lq + 2*M)*D*2 = 158 KB moved (37 per byte)
-// and K9 10*Lq*M*D = 14.8 M against (3*Lq + 4*M)*D*2 = 311 KB (48 per
-// byte), both far below the card's 295 operations per byte: with few query
-// rows there is little reuse of K and V. What the design does about it:
-//   - K9's bf16 launches without a bias (every stage-I launch: the MED
-//     cross-attention has no image mask) run the tensor-core row and key
-//     passes of attention_train_tc.cuh: wgmma products, one 64-row tile
-//     per (entry, head) at Lq <= 64, K and V read twice by the row pass
-//     and once by the key pass. fp32 and bias launches run the FMA passes
-//     below (16-row tiles, 32-key tiles in 32-row chunks).
-//   - K8 still runs K6's fp32-FMA body: every 32-row tile reads its
-//     entry's K/V once (two tiles at Lq = 40, 24 of 64 rows idle), mostly
-//     from L2, at the FMA rate, well above the bytes bound. Tensor cores
-//     for K6/K8 are later work.
 
 #include "attention_common.cuh"
 #include "attention_train_tc.cuh"
@@ -70,13 +73,6 @@
 namespace {
 
 using namespace crc;
-
-// The folded layout's head stride, fixed at compile time (K8/K9): with the
-// kernels' bodies inlined, head offsets become h * kHeadDim.
-__device__ __forceinline__ Strides folded(Strides st) {
-  st.q[2] = st.k[2] = st.v[2] = st.o[2] = kHeadDim;
-  return st;
-}
 
 // ---- K6, K8 ---------------------------------------------------------------
 
@@ -105,8 +101,14 @@ template <typename T, bool kHasBias, bool kFolded>
 int launch_fwd(const void* q, const void* k, const void* v, const float* bias,
                void* out, int entries, int heads, int lq, int m, float scale,
                const Strides& st, const Dropout& drop, cudaStream_t stream) {
-  auto kernel = attn_train_fwd_kernel<T, kHasBias>;
-  if (kFolded) kernel = attn_train_fwd_folded_kernel<T, kHasBias>;
+  // only the kernel launched is instantiated: bf16 K6 without a bias runs
+  // the tensor cores, so its FMA instantiation would be dead code
+  const auto kernel = [] {
+    if constexpr (kFolded)
+      return attn_train_fwd_folded_kernel<T, kHasBias>;
+    else
+      return attn_train_fwd_kernel<T, kHasBias>;
+  }();
   const size_t smem = fwd_smem_bytes(m);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -131,12 +133,6 @@ constexpr int kRowChunk = 32;  // key pass: rows per chunk
 constexpr int kPad32 = kKeyTile + 1;
 static_assert(kThreads == 4 * kKeyTile, "four row groups of one key each");
 static_assert(kRowChunk == 4 * 8, "eight rows per row group");
-
-__device__ __forceinline__ BwdStrides folded(BwdStrides st) {
-  st.q[2] = st.k[2] = st.v[2] = st.g[2] = kHeadDim;
-  st.dq[2] = st.dk[2] = st.dv[2] = kHeadDim;
-  return st;
-}
 
 // Row pass. Grid: (ceil(lq / kBwdRows), heads, entries). Dynamic shared
 // memory: q tile (scaled) and g tile [kBwdRows][kHeadDim], one K or V tile
@@ -458,7 +454,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const float* bias,
                cudaStream_t stream) {
   auto rows = attn_bwd_rows_kernel<T, kHasBias>;
   auto keys = attn_bwd_keys_kernel<T, kHasBias>;
-  if (kFolded) {
+  if constexpr (kFolded) {
     rows = attn_bwd_rows_folded_kernel<T, kHasBias>;
     keys = attn_bwd_keys_folded_kernel<T, kHasBias>;
   }
@@ -510,8 +506,14 @@ int max_keys() {
   return bwd_max_keys() < fwd_max_keys() ? bwd_max_keys() : fwd_max_keys();
 }
 
+// What the entry points refuse besides cudaErrorInvalidValue, as a
+// negative code: on a tensor-core route a base pointer or stride that is
+// not aligned (tc::aligned(), tc::bwd_aligned()).
+constexpr int kRefusedAlignment = -2;
+
 // K6 (kFolded false) or K8 (true); the folded kernels take head strides of
-// kHeadDim only.
+// kHeadDim only. K6's bf16 launches without a bias run the tensor-core
+// kernel; the rest, and every K8 launch, the fp32-FMA body.
 template <bool kFolded>
 int dispatch_forward(int dtype, const void* q, const void* k, const void* v,
                      const float* bias, void* out, const long long* strides,
@@ -532,24 +534,23 @@ int dispatch_forward(int dtype, const void* q, const void* k, const void* v,
                 : launch_fwd<float, false, kFolded>(
                       q, k, v, bias, out, entries, heads, lq, m, scale, st,
                       drop, s);
-  if (dtype == 1)
-    return bias ? launch_fwd<__nv_bfloat16, true, kFolded>(
-                      q, k, v, bias, out, entries, heads, lq, m, scale, st,
-                      drop, s)
-                : launch_fwd<__nv_bfloat16, false, kFolded>(
-                      q, k, v, bias, out, entries, heads, lq, m, scale, st,
-                      drop, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (bias)
+    return launch_fwd<__nv_bfloat16, true, kFolded>(
+        q, k, v, bias, out, entries, heads, lq, m, scale, st, drop, s);
+  if constexpr (kFolded) {
+    return launch_fwd<__nv_bfloat16, false, true>(
+        q, k, v, bias, out, entries, heads, lq, m, scale, st, drop, s);
+  } else {
+    if (!tc::aligned(q, k, v, out, st)) return kRefusedAlignment;
+    return tc::launch_train_fwd(q, k, v, out, entries, heads, lq, m, scale,
+                                st, drop, s);
+  }
 }
 
-// What the backward entry points refuse besides cudaErrorInvalidValue, as
-// a negative code: on K9's tensor-core route a base pointer or stride that
-// is not aligned (tc::bwd_aligned()).
-constexpr int kRefusedAlignment = -2;
-
-// K7 (kFolded false) or K9 (true). K9's bf16 launches without a bias run
-// the tensor-core passes (attention_train_tc.cuh); the rest run the
-// fp32-FMA row and key passes.
+// K7 (kFolded false) or K9 (true). Their bf16 launches without a bias run
+// the tensor-core passes (attention_train_tc.cuh); fp32 and bias launches
+// the fp32-FMA row and key passes.
 template <bool kFolded>
 int dispatch_backward(int dtype, const void* q, const void* k,
                       const void* v, const float* bias, const void* g,
@@ -578,11 +579,11 @@ int dispatch_backward(int dtype, const void* q, const void* k,
         return static_cast<int>(cudaErrorInvalidValue);
   }
   auto s = static_cast<cudaStream_t>(stream);
-  if (kFolded && dtype == 1 && bias == nullptr) {
+  if (dtype == 1 && bias == nullptr) {
     if (!tc::bwd_aligned(q, k, v, g, dq, dk, dv, st))
       return kRefusedAlignment;
-    return tc::launch_bwd(q, k, v, g, dq, dk, dv, stats, entries, heads, lq,
-                          m, scale, st, drop, s);
+    return tc::launch_bwd<kFolded>(q, k, v, g, dq, dk, dv, stats, entries,
+                                   heads, lq, m, scale, st, drop, s);
   }
   if (dtype == 0)
     return bias ? launch_bwd<float, true, kFolded>(
@@ -592,12 +593,7 @@ int dispatch_backward(int dtype, const void* q, const void* k,
                       q, k, v, bias, g, dq, dk, dv, stats, entries, heads, lq,
                       m, scale, st, drop, s);
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (bias)
-    return launch_bwd<__nv_bfloat16, true, kFolded>(
-        q, k, v, bias, g, dq, dk, dv, stats, entries, heads, lq, m, scale, st,
-        drop, s);
-  // K7 only: K9's bf16 launches without a bias took the tensor cores above
-  return launch_bwd<__nv_bfloat16, false, false>(
+  return launch_bwd<__nv_bfloat16, true, kFolded>(
       q, k, v, bias, g, dq, dk, dv, stats, entries, heads, lq, m, scale, st,
       drop, s);
 }
@@ -612,7 +608,8 @@ int crc_attention_train_max_keys() { return max_keys(); }
 
 // K6. dtype: 0 = float32, 1 = bfloat16. strides: q, k, v, out as (entry,
 // row, head) triples, then the bias's (entry, row). inv = 1 / (1 - rate).
-// Returns the launch's cudaGetLastError() (0 = success).
+// Returns the launch's cudaGetLastError() (0 = success), or
+// kRefusedAlignment for a misaligned view on the tensor-core route.
 int crc_attention_train_forward(int dtype, const void* q, const void* k,
                                 const void* v, const float* bias, void* out,
                                 const long long* strides, int entries,
@@ -638,6 +635,8 @@ int crc_attention_train_folded_forward(int dtype, const void* q,
 
 // K7. strides: q, k, v, g, dq, dk, dv as (entry, row, head) triples, then
 // the bias's (entry, row). stats: fp32 scratch of 3 * entries * heads * lq.
+// bf16 without a bias on the tensor cores, which refuse misaligned views
+// with kRefusedAlignment.
 int crc_attention_train_backward(int dtype, const void* q, const void* k,
                                  const void* v, const float* bias,
                                  const void* g, void* dq, void* dk, void* dv,
@@ -666,11 +665,13 @@ int crc_attention_train_folded_backward(int dtype, const void* q,
                                  rate, inv, stream);
 }
 
-// Dynamic shared memory of K9's tensor-core passes: pass 0 = the row pass
-// with one warpgroup, 1 = with two, 2 = the key pass.
+// Dynamic shared memory of the tensor-core kernels: 0 = the backward's
+// (K7, K9) row pass, 1 = its key pass; 2 = K6 with one warpgroup over more
+// than one key tile, 3 = with two.
 int crc_attention_train_tc_smem_bytes(int pass) {
-  if (pass == 2) return static_cast<int>(tc::bwd_keys_smem_bytes());
-  return static_cast<int>(tc::bwd_rows_smem_bytes(pass + 1));
+  if (pass == 0) return static_cast<int>(tc::bwd_rows_smem_bytes());
+  if (pass == 1) return static_cast<int>(tc::bwd_keys_smem_bytes());
+  return static_cast<int>(tc::smem_bytes(pass - 1, tc::kTileKeys + 1));
 }
 
 // K5 written out: out[rows * cols] = keep(seed, b, h, row, col) as 0/1.

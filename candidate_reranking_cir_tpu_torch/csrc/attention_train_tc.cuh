@@ -1,11 +1,30 @@
-// Tensor-core backward of the head-folded dropout attention for Hopper
-// (sm_90a): the bf16 launches without a bias of K9, the JAX package's
-// ops/pallas_attention_train.py::_bwd_kernel_folded (its stage-I MED
-// cross-attention backward). fp32 and bias launches stay on the fp32-FMA
-// passes of attention_train.cu, as does K7 (_bwd_kernel).
+// Tensor-core kernels of the dropout attention for Hopper (sm_90a): the
+// bf16 launches without a bias of
+//   - K6, ops/pallas_attention_train.py::_fwd_kernel (the stage-II pair
+//     cross-attention forward): attn_train_fwd_tc_kernel, the eval
+//     kernel's body (attention_tc.cuh) with the K5 mask and 1/(1 - rate)
+//     applied to p in its second sweep, before the bf16 rounding;
+//   - K7, _bwd_kernel (its backward): attn_train_bwd_tc_{rows,keys}_kernel;
+//   - K9, _bwd_kernel_folded (the stage-I MED cross-attention backward):
+//     attn_bwd_tc_{rows,keys}_kernel, K7's passes with the head stride
+//     fixed at kHeadDim at compile time.
+// K7 and K9, and K6 and the eval kernels, are __global__ entry points of
+// their own over shared device bodies, so a profile and ptxas name them
+// apart. fp32 and bias launches stay on the fp32-FMA bodies of
+// attention_train.cu (the tensor cores would round fp32 to TF32; no path
+// launches K6, K7 or K9 with a bias), and so does K8 for now.
 //
-// The function, per (entry b, head h), with the K5 mask keep(seed, b, h,
-// row, col = key) and inv = 1 / (1 - rate):
+// K6's function: p = softmax(fl((q * scale) . k^T)) in fp32 with a
+// divide; at rate > 0, kept ? fl(p * inv) : 0; rounded to bf16; P.V with
+// fp32 sums. Its bounds and design are the eval kernel's: at the stage-II
+// shape [E = 16, Lq = 640, M = 577, H = 12, D = 64], 4*Lq*M*D operations
+// per (entry, head) against (2*Lq + 2*M)*D*2 bytes (303 a byte against the
+// card's 295): operations, so wgmma, K/V through a cp.async ring, 128 query
+// rows a block (two warpgroups), the softmax in two sweeps; the mask adds
+// one lowbias32 hash per score in sweep 2.
+//
+// The backward's function, per (entry b, head h), with the K5 mask
+// keep(seed, b, h, row, col = key) and inv = 1 / (1 - rate):
 //   p = softmax(fl((q * scale) . k^T)) in fp32, with a divide;
 //   dropped = keep ? p * inv : 0 (fp32);
 //   dv = dropped^T . g, with fp32 dropped and g upcast from bf16;
@@ -15,17 +34,21 @@
 //   rounded on output.
 // (At rate 0 there is no mask and no multiply by inv, as in JAX.)
 //
-// What bounds it on the H100 at the stage-I shape [E = 512, Lq <= 40,
-// M = 577, H = 12, D = 64]: bytes. Per (entry, head) 10*Lq*M*D = 14.8 M
-// operations against (3*Lq + 4*M)*D*2 = 311 KB (48 per byte; the card's
-// ridge is 295): with 40 query rows, K and V see little reuse.
+// What bounds the backward on the H100:
+//   - K7 at the stage-II shape [16, 640, 577, 12, 64]: operations. Per
+//     (entry, head) 10*Lq*M*D = 236 M operations against (3*Lq + 4*M)*D*2
+//     = 541 KB (437 a byte; the card's ridge is 295).
+//   - K9 at the stage-I shape [E = 512, Lq <= 40, M = 577, H = 12, D =
+//     64]: bytes. 14.8 M operations against 311 KB (48 a byte): with 40
+//     query rows, K and V see little reuse.
 //
 // Design: the deterministic, atomic-free split of the FMA passes, every
 // product on wgmma m64n64k16 in the eval kernel's two forms (wgmma_ss,
 // both operands K-major from swizzled tiles; wgmma_rs_tn, A from
 // registers, B MN-major):
-//   - ROW pass, a block per (64 or 128 query rows, head, entry), K and V
-//     tiles through a cp.async ring, two sweeps over the 64-key tiles:
+//   - ROW pass, a block (one warpgroup) per (64 query rows, head, entry),
+//     K and V tiles through a cp.async ring, two sweeps over the 64-key
+//     tiles:
 //       sweep 1: S = Q.K^T and dP = G.V^T (one commit); each row's max,
 //         sum of exp(s - max) and D = sum(d_probs * exp(s - max)), both
 //         rescaled when the max grows (online); delta = D / sum;
@@ -50,16 +73,22 @@
 //         2^-17 of its value, against bf16's 2^-9), two wgmma_rs_tn into
 //         one accumulator, so dv keeps the fp32 product's precision;
 //       dK += dS^T.Q (Q unscaled), both with the chunk's tile MN-major.
-//     One chunk at Lq <= 64: Q, G, K, V are each read once.
+//     One chunk at Lq <= 64 (K9): Q, G, K, V are each read once; ten at
+//     K7's Lq = 640, the dk and dv accumulators held across them.
 //   The two passes form S and S^T with different operand orders, so a
 //   score may differ in its last fp32 bit between them; the bf16 rounding
 //   of d_scores and the tolerance cover it.
-// Sweeps and bytes per (entry, head) at Lq = 40, M = 577: the row pass
-// reads Q, G once and K, V twice (296 KB), the key pass K, V once and Q, G
-// once per key tile (10 x 10 KB, from L2); writes dq, dk, dv once (153 KB).
+// Blocks at K7's shape: the row pass 10 per (entry, head), 1,920 in all,
+// three an SM (146 registers); the key pass 10 per (entry, head), 1,920.
+// The row pass's blocks hold one warpgroup, not two: 128-row blocks read
+// K and V half as often, but at 153 registers x 256 threads one block
+// fits an SM, and K7 took 0.61 ms with them against 0.55 with one
+// warpgroup on an H100 (PERF.md). Each score is formed three times
+// (twice by the row pass, once by the key pass) and the hash evaluated
+// three times: 3.3x the forward's products.
 // Alignment: every base pointer and entry, row and head stride of q, k,
-// v and g 16-byte aligned (16-byte copies), of dq, dk and dv 4-byte
-// aligned (bf16 pairs); the C entry point refuses anything else.
+// v and g 16-byte aligned (16-byte copies), of dq, dk, dv and K6's out
+// 4-byte aligned (bf16 pairs); the C entry points refuse anything else.
 
 #pragma once
 
@@ -73,14 +102,26 @@ struct BwdStrides {
   long long b[2];
 };
 
+// The folded layout's head stride, fixed at compile time (K8, K9): with
+// the kernels' bodies inlined, head offsets become h * kHeadDim.
+__device__ __forceinline__ Strides folded(Strides st) {
+  st.q[2] = st.k[2] = st.v[2] = st.o[2] = kHeadDim;
+  return st;
+}
+
+__device__ __forceinline__ BwdStrides folded(BwdStrides st) {
+  st.q[2] = st.k[2] = st.v[2] = st.g[2] = kHeadDim;
+  st.dq[2] = st.dk[2] = st.dv[2] = kHeadDim;
+  return st;
+}
+
 namespace tc {
 
 constexpr int kKeyStages = 2;  // key pass: (Q, G) chunks in flight
 
-// Row pass: Q and G tiles per warpgroup, then the ring of (K, V) pairs.
-inline size_t bwd_rows_smem_bytes(int warpgroups) {
-  return static_cast<size_t>(2 * warpgroups + 2 * kStages) * kTileBytes +
-         1024;
+// Row pass: the Q and G tiles, then the ring of (K, V) pairs.
+inline size_t bwd_rows_smem_bytes() {
+  return static_cast<size_t>(2 + 2 * kStages) * kTileBytes + 1024;
 }
 
 // Key pass: the K and V tiles, the ring of (Q, G) chunk pairs, and each
@@ -202,34 +243,27 @@ __device__ __forceinline__ void tile_dscores(
     }
 }
 
-// ROW pass. Grid: (ceil(lq / (64 * kWarpgroups)), heads, entries).
+// ROW pass, one warpgroup. Grid: (ceil(lq / 64), heads, entries).
 // stats: fp32 [3][entries][heads][lq] = max (accumulator units), sum,
 // delta of every row.
-template <int kWarpgroups>
-__global__ void __launch_bounds__(kWarpgroups * 128, kWarpgroups == 1 ? 3 : 1)
-attn_bwd_tc_rows_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        const __nv_bfloat16* __restrict__ g,
-                        __nv_bfloat16* __restrict__ dq,
-                        float* __restrict__ stats, int entries, int heads,
-                        int lq, int m, float scale, BwdStrides st,
-                        Dropout drop) {
-  constexpr int kThreadsTc = kWarpgroups * 128;
+__device__ __forceinline__ void bwd_rows_tc_body(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ g,
+    __nv_bfloat16* __restrict__ dq, float* __restrict__ stats, int entries,
+    int heads, int lq, int m, float scale, const BwdStrides& st,
+    const Dropout& drop) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw =
       static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
   const uint32_t base = (raw + 1023u) & ~1023u;
-  const uint32_t q_tiles = base;
-  const uint32_t g_tiles = base + kWarpgroups * kTileBytes;
-  const uint32_t ring = base + 2 * kWarpgroups * kTileBytes;
+  const uint32_t q_tile = base;
+  const uint32_t g_tile = base + kTileBytes;
+  const uint32_t ring = base + 2 * kTileBytes;
   // stage s: K tile at ring + 2s * kTileBytes, V tile right after it
 
   const int tid = threadIdx.x;
-  const int wg = tid / 128;
-  const int t = tid % 128;
-  const int warp = t / 32, lane = t % 32;
-  const int block_row0 = blockIdx.x * (kWarpgroups * kRowsPerWg);
+  const int warp = tid / 32, lane = tid % 32;
+  const int row0 = blockIdx.x * kRowsPerWg;
   const long long h = blockIdx.y;
   const long long e = blockIdx.z;
   const __nv_bfloat16* qb = q + e * st.q[0] + h * st.q[2];
@@ -245,33 +279,24 @@ attn_bwd_tc_rows_kernel(const __nv_bfloat16* __restrict__ q,
     const int stage = step % kStages;
     const int j = step < n_tiles ? step : step - n_tiles;
     const uint32_t kt = ring + 2 * stage * kTileBytes;
-    load_tile(kt, kb, st.k[1], j * kTileKeys, m, tid, kThreadsTc);
-    load_tile(kt + kTileBytes, vb, st.v[1], j * kTileKeys, m, tid,
-              kThreadsTc);
+    load_tile(kt, kb, st.k[1], j * kTileKeys, m, tid, 128);
+    load_tile(kt + kTileBytes, vb, st.v[1], j * kTileKeys, m, tid, 128);
   };
 
   // prologue: the Q and G tiles ride with step 0's group
-#pragma unroll
-  for (int w = 0; w < kWarpgroups; ++w) {
-    const int row0 = block_row0 + w * kRowsPerWg;
-    load_tile(q_tiles + w * kTileBytes, qb, st.q[1], row0, lq, tid,
-              kThreadsTc);
-    load_tile(g_tiles + w * kTileBytes, gb, st.g[1], row0, lq, tid,
-              kThreadsTc);
-  }
+  load_tile(q_tile, qb, st.q[1], row0, lq, tid, 128);
+  load_tile(g_tile, gb, st.g[1], row0, lq, tid, 128);
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < n_steps) load_step(s);
     cp_async_commit();
   }
 
-  const uint32_t my_q = q_tiles + wg * kTileBytes;
-  const uint32_t my_g = g_tiles + wg * kTileBytes;
   const int quad = lane & 3;
   const float c = scale * kLog2e;  // exp(scale * x) = 2^(c * x)
   const uint32_t salt =
       keep_salt(drop.seed, static_cast<int>(e), static_cast<int>(h));
-  const int row_base = block_row0 + wg * kRowsPerWg + 16 * warp + lane / 4;
+  const int row_base = row0 + 16 * warp + lane / 4;
   float row_max[2] = {-INFINITY, -INFINITY};
   float row_sum[2] = {0.f, 0.f};
   float row_d[2] = {0.f, 0.f};
@@ -293,7 +318,7 @@ attn_bwd_tc_rows_kernel(const __nv_bfloat16* __restrict__ q,
     const int key0 = (sweep1 ? step : step - n_tiles) * kTileKeys;
     const bool ragged = key0 + kTileKeys > m;  // only the last tile
     float s[32], dp[32];
-    scores_pair(s, my_q, kt, dp, my_g, kt + kTileBytes);
+    scores_pair(s, q_tile, kt, dp, g_tile, kt + kTileBytes);
 
     if (sweep1) {
       if (ragged)
@@ -356,16 +381,12 @@ attn_bwd_tc_rows_kernel(const __nv_bfloat16* __restrict__ q,
 
 // KEY pass. Grid: (ceil(m / 64), heads, entries), one warpgroup. Reads the
 // row pass's stats.
-__global__ void __launch_bounds__(128, 2)
-attn_bwd_tc_keys_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        const __nv_bfloat16* __restrict__ g,
-                        __nv_bfloat16* __restrict__ dk,
-                        __nv_bfloat16* __restrict__ dv,
-                        const float* __restrict__ stats, int entries,
-                        int heads, int lq, int m, float scale, BwdStrides st,
-                        Dropout drop) {
+__device__ __forceinline__ void bwd_keys_tc_body(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ g,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+    const float* __restrict__ stats, int entries, int heads, int lq, int m,
+    float scale, const BwdStrides& st, const Dropout& drop) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw =
       static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
@@ -507,6 +528,62 @@ attn_bwd_tc_keys_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+#define CRC_TC_ROWS_ARGS                                                     \
+  const __nv_bfloat16 *__restrict__ q, const __nv_bfloat16 *__restrict__ k, \
+      const __nv_bfloat16 *__restrict__ v,                                  \
+      const __nv_bfloat16 *__restrict__ g, __nv_bfloat16 *__restrict__ dq,  \
+      float *__restrict__ stats, int entries, int heads, int lq, int m,     \
+      float scale, BwdStrides st, Dropout drop
+#define CRC_TC_KEYS_ARGS                                                     \
+  const __nv_bfloat16 *__restrict__ q, const __nv_bfloat16 *__restrict__ k, \
+      const __nv_bfloat16 *__restrict__ v,                                  \
+      const __nv_bfloat16 *__restrict__ g, __nv_bfloat16 *__restrict__ dk,  \
+      __nv_bfloat16 *__restrict__ dv, const float *__restrict__ stats,      \
+      int entries, int heads, int lq, int m, float scale, BwdStrides st,    \
+      Dropout drop
+
+// K7's passes: general (entry, row, head) strides
+__global__ void __launch_bounds__(128, 3)
+attn_train_bwd_tc_rows_kernel(CRC_TC_ROWS_ARGS) {
+  bwd_rows_tc_body(q, k, v, g, dq, stats, entries, heads, lq, m, scale, st,
+                   drop);
+}
+
+__global__ void __launch_bounds__(128, 2)
+attn_train_bwd_tc_keys_kernel(CRC_TC_KEYS_ARGS) {
+  bwd_keys_tc_body(q, k, v, g, dk, dv, stats, entries, heads, lq, m, scale,
+                   st, drop);
+}
+
+// K9's passes: K7's with the folded head stride
+__global__ void __launch_bounds__(128, 3)
+attn_bwd_tc_rows_kernel(CRC_TC_ROWS_ARGS) {
+  bwd_rows_tc_body(q, k, v, g, dq, stats, entries, heads, lq, m, scale,
+                   folded(st), drop);
+}
+
+__global__ void __launch_bounds__(128, 2)
+attn_bwd_tc_keys_kernel(CRC_TC_KEYS_ARGS) {
+  bwd_keys_tc_body(q, k, v, g, dk, dv, stats, entries, heads, lq, m, scale,
+                   folded(st), drop);
+}
+
+#undef CRC_TC_ROWS_ARGS
+#undef CRC_TC_KEYS_ARGS
+
+// K6: the eval kernel's body with its dropout switch on, no bias, general
+// strides (K8's folded ones would take folded(st))
+template <int kWarpgroups>
+__global__ void __launch_bounds__(kWarpgroups * 128, 4 / kWarpgroups)
+attn_train_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         __nv_bfloat16* __restrict__ out, int lq, int m,
+                         float scale, Strides st, Dropout drop) {
+  attn_fwd_tc_body<kWarpgroups, false, true>(q, k, v, nullptr, out, lq, m,
+                                             scale, st, drop);
+}
+
 // 16-byte copies of q, k, v and g need 16-byte-aligned rows; dq, dk and
 // dv are written as bf16 pairs
 inline bool bwd_aligned(const void* q, const void* k, const void* v,
@@ -524,55 +601,73 @@ inline bool bwd_aligned(const void* q, const void* k, const void* v,
 }
 
 template <int kWarpgroups>
-cudaError_t launch_bwd_rows(const void* q, const void* k, const void* v,
-                            const void* g, void* dq, float* stats,
-                            int entries, int heads, int lq, int m,
-                            float scale, const BwdStrides& st,
-                            const Dropout& drop, cudaStream_t stream) {
+cudaError_t launch_train_fwd_wg(const void* q, const void* k, const void* v,
+                                void* out, int entries, int heads, int lq,
+                                int m, float scale, const Strides& st,
+                                const Dropout& drop, cudaStream_t stream) {
   static std::atomic<bool> done[kMaxDevices];
-  auto kernel = attn_bwd_tc_rows_kernel<kWarpgroups>;
-  const size_t smem = bwd_rows_smem_bytes(kWarpgroups);
+  auto kernel = attn_train_fwd_tc_kernel<kWarpgroups>;
   const cudaError_t err =
-      configure_once(done, reinterpret_cast<const void*>(kernel), smem);
+      configure_once(done, reinterpret_cast<const void*>(kernel),
+                     smem_bytes(kWarpgroups, kTileKeys + 1));
   if (err != cudaSuccess) return err;
   constexpr int rows = kWarpgroups * kRowsPerWg;
   const dim3 grid((lq + rows - 1) / rows, heads, entries);
-  kernel<<<grid, kWarpgroups * 128, smem, stream>>>(
+  kernel<<<grid, kWarpgroups * 128, smem_bytes(kWarpgroups, m), stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(g), static_cast<__nv_bfloat16*>(dq),
-      stats, entries, heads, lq, m, scale, st, drop);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      lq, m, scale, st, drop);
   return cudaGetLastError();
 }
 
-// The row pass (one warpgroup up to 64 query rows, two above), then the
-// key pass, on one stream. The caller has checked the alignment
-// (bwd_aligned()).
-inline int launch_bwd(const void* q, const void* k, const void* v,
-                      const void* g, void* dq, void* dk, void* dv,
-                      float* stats, int entries, int heads, int lq, int m,
-                      float scale, const BwdStrides& st, const Dropout& drop,
-                      cudaStream_t stream) {
-  cudaError_t err =
+// K6: one warpgroup (64 rows) a block up to 64 query rows, two above. The
+// caller has checked the alignment (aligned()).
+inline int launch_train_fwd(const void* q, const void* k, const void* v,
+                            void* out, int entries, int heads, int lq, int m,
+                            float scale, const Strides& st,
+                            const Dropout& drop, cudaStream_t stream) {
+  return static_cast<int>(
       lq > kRowsPerWg
-          ? launch_bwd_rows<2>(q, k, v, g, dq, stats, entries, heads, lq, m,
-                               scale, st, drop, stream)
-          : launch_bwd_rows<1>(q, k, v, g, dq, stats, entries, heads, lq, m,
-                               scale, st, drop, stream);
+          ? launch_train_fwd_wg<2>(q, k, v, out, entries, heads, lq, m, scale,
+                                   st, drop, stream)
+          : launch_train_fwd_wg<1>(q, k, v, out, entries, heads, lq, m, scale,
+                                   st, drop, stream));
+}
+
+// K7 (kFolded false) or K9 (true): the row pass, then the key pass, on
+// one stream. The caller has checked the alignment (bwd_aligned()).
+template <bool kFolded>
+int launch_bwd(const void* q, const void* k, const void* v, const void* g,
+               void* dq, void* dk, void* dv, float* stats, int entries,
+               int heads, int lq, int m, float scale, const BwdStrides& st,
+               const Dropout& drop, cudaStream_t stream) {
+  static std::atomic<bool> rows_done[kMaxDevices], keys_done[kMaxDevices];
+  auto rows = attn_train_bwd_tc_rows_kernel;
+  auto keys = attn_train_bwd_tc_keys_kernel;
+  if constexpr (kFolded) {
+    rows = attn_bwd_tc_rows_kernel;
+    keys = attn_bwd_tc_keys_kernel;
+  }
+  cudaError_t err = configure_once(
+      rows_done, reinterpret_cast<const void*>(rows), bwd_rows_smem_bytes());
+  if (err == cudaSuccess)
+    err = configure_once(keys_done, reinterpret_cast<const void*>(keys),
+                         bwd_keys_smem_bytes());
   if (err != cudaSuccess) return static_cast<int>(err);
-  static std::atomic<bool> done[kMaxDevices];
-  const size_t smem = bwd_keys_smem_bytes();
-  err = configure_once(done,
-                       reinterpret_cast<const void*>(attn_bwd_tc_keys_kernel),
-                       smem);
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
+  const auto* kp = static_cast<const __nv_bfloat16*>(k);
+  const auto* vp = static_cast<const __nv_bfloat16*>(v);
+  const auto* gp = static_cast<const __nv_bfloat16*>(g);
+  const dim3 grid_rows((lq + kRowsPerWg - 1) / kRowsPerWg, heads, entries);
+  rows<<<grid_rows, 128, bwd_rows_smem_bytes(), stream>>>(
+      qp, kp, vp, gp, static_cast<__nv_bfloat16*>(dq), stats, entries, heads,
+      lq, m, scale, st, drop);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((m + kTileKeys - 1) / kTileKeys, heads, entries);
-  attn_bwd_tc_keys_kernel<<<grid, 128, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(g), static_cast<__nv_bfloat16*>(dk),
+  const dim3 grid_keys((m + kTileKeys - 1) / kTileKeys, heads, entries);
+  keys<<<grid_keys, 128, bwd_keys_smem_bytes(), stream>>>(
+      qp, kp, vp, gp, static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), stats, entries, heads, lq, m, scale,
       st, drop);
   return static_cast<int>(cudaGetLastError());

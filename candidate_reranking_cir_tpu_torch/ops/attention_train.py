@@ -24,14 +24,22 @@ bias is head-independent and gets no gradient. CPU tensors take the plain
 versions; card tensors take the kernels (``csrc/attention_train.cu``) or
 the call raises.
 
-What bounds the kernels on the H100: at the stage-II pair-grid shape (640
-query rows per entry) arithmetic, 4*Lq*M*D and 10*Lq*M*D operations per
-entry and head against (Lq + M)*D elements moved; at the stage-I MED
-shape (at most 40 query rows) the bytes of K and V. K9's bf16 launches
-without a bias (the stage-I path's) run tensor-core row and key passes
-(``csrc/attention_train_tc.cuh``: wgmma, dv's fp32 product as a bf16
-hi + lo pair); K5-K8, fp32 K9 and K9 with a bias use plain fp32 FMAs (see
-the CUDA sources). ``bwd_uses_tensor_cores`` states the route for reports.
+What bounds the kernels on the H100: at the stage-II pair-grid shape
+[16, 640, 577, 12, 64] operations (K6 4*Lq*M*D and K7 10*Lq*M*D per entry
+and head against (2*Lq + 2*M)*D and (3*Lq + 4*M)*D bf16 elements moved,
+303 and 437 operations a byte against the card's 295); at the stage-I MED
+shape (at most 40 query rows) the bytes of K and V. Which launch runs
+which kernel (the C entry points route; ``fwd_uses_tensor_cores`` and
+``bwd_uses_tensor_cores`` state it for reports):
+
+- bf16 without a bias, every stage-II launch and every stage-I K9 launch:
+  the tensor cores (``csrc/attention_train_tc.cuh``: K6 is the eval
+  kernel's two sweeps with the mask and 1/(1 - rate) applied to p before
+  its bf16 rounding; K7 and K9 run a row pass and a key pass on wgmma, dv's
+  fp32 product as a bf16 hi + lo pair). A misaligned view raises
+  ``ValueError``; nothing falls back to the FMA kernels.
+- fp32 or with a bias, and every K8 launch: plain fp32 FMAs (see the CUDA
+  sources).
 
 ``eligible`` and its thresholds are copies of the JAX package's, with the
 same values, so that the port sends the kernel the same calls.
@@ -285,18 +293,24 @@ def _kernel_fwd(q, k, v, bias3, seed: int, rate: float, *,
         DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         bias_ptr, out.data_ptr(), (ctypes.c_longlong * 14)(*strides), e, h,
         lq, m, d ** -0.5, seed, rate, 1.0 / (1.0 - rate), _stream(q.device))
-    if err != 0:
-        raise RuntimeError(f"{kid} launch failed: cudaError {err}")
+    raise_on_error(err, kid, {"q": q, "k": k, "v": v, "out": out})
     LAUNCHES[kid] += 1
     if rate > 0.0:
         LAUNCHES["K5"] += 1
     return out
 
 
+def fwd_uses_tensor_cores(dtype, bias3, folded: bool) -> bool:
+    """Whether a forward launch runs the tensor-core kernel: K6 (unfolded)
+    in bf16 without a bias; K8 (folded) keeps its FMA body. The C entry
+    point does the routing."""
+    return not folded and dtype == torch.bfloat16 and bias3 is None
+
+
 def bwd_uses_tensor_cores(dtype, bias3, folded: bool) -> bool:
-    """Whether a backward launch runs the tensor-core passes: K9 (folded)
-    in bf16 without a bias. The C entry point does the routing."""
-    return folded and dtype == torch.bfloat16 and bias3 is None
+    """Whether a backward launch runs the tensor-core passes: K7 and K9
+    alike in bf16 without a bias. The C entry point does the routing."""
+    return dtype == torch.bfloat16 and bias3 is None
 
 
 def _kernel_bwd(q, k, v, bias3, seed: int, g, rate: float, *,

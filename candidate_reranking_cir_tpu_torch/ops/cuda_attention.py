@@ -136,7 +136,8 @@ def uses_tensor_cores(dtype) -> bool:
 
 
 # the C entry points' refusals (csrc/attention.cu, and the alignment one of
-# K9's in csrc/attention_train.cu); a positive code is a cudaError
+# K6's, K7's and K9's in csrc/attention_train.cu); a positive code is a
+# cudaError
 REFUSED_KEYS, REFUSED_ALIGNMENT = -1, -2
 
 

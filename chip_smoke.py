@@ -8,7 +8,8 @@ Phases, each printing its own lines:
 2. build: compiles the eval (K1-K4) and train (K5-K9) attention libraries
    from ``csrc/`` (one nvcc each, started together; sm_90a) and prints
    ptxas's register and spill lines, and the tensor-core kernels' (eval,
-   and K9's two backward passes) registers, spills and shared memory.
+   K6, and K7's and K9's two backward passes) registers, spills and shared
+   memory.
 3. kernels K1-K4 at the eval path's shapes, bf16 and fp32 (bf16 runs the
    tensor-core kernel, with or without a bias, fp32 the fp32-FMA one; K3
    also at the eval path's narrowest call): max |error| against the plain
@@ -19,19 +20,21 @@ Phases, each printing its own lines:
    (CUDA-graph replays) and their ratio, and the least time the card
    could take (bytes over 3.35 TB/s or operations over the dtype's peak).
 4. kernels K5-K7 at the training path's shape ([16, 640, 12, 64] queries
-   x 577 keys, rate 0.1), bf16 and fp32: the K5 mask bit for bit against
-   its plain version, K6's output and K7's dq, dk and dv (each against its
-   own max) against theirs, times,
-   bounds, and SDPA with dropout_p=0.1 as a yardstick (same work, its own
-   mask: no PyTorch call computes the same function).
+   x 577 keys, rate 0.1), bf16 and fp32 (bf16 K6 and K7 run the
+   tensor-core kernels, fp32 the fp32-FMA ones): the K5 mask bit for bit
+   against its plain version, K6's output and K7's dq, dk and dv (each
+   against its own max) against theirs, times over back-to-back calls and
+   device-only times (CUDA-graph replays), bounds, and SDPA with
+   dropout_p=0.1 as a yardstick (same work, its own mask: no PyTorch call
+   computes the same function).
 5. eval path: stage-II re-rank evaluation through the port's
    ``evaluate_cirr_stage2`` entry at full ViT-B/16@384 + MED + dual-encoder
    width in bf16, random weights from a seed, on a synthetic CIRR-shaped
    corpus held in memory; launch counts per kernel (K1-K3 must be > 0);
    then a few hundred pairs re-scored in fp32 on the card and on the CPU;
    a profile of one scoring pass, which fails if any eval attention ran
-   on the fp32-FMA kernel, or any K9 on its fp32-FMA passes (every profile
-   is bf16; the training profiles fail alike).
+   on the fp32-FMA kernel, or any K6, K7 or K9 on its fp32-FMA body
+   (every profile is bf16; the training profiles fail alike).
 6. training path: ``make_stage2_train_step`` at full width in bf16 with
    remat, B = 16, fed by the port's ``BatchLoader`` over in-memory
    CIRR-shaped triplets: 1 warm-up and 5 counted steps; step seconds and
@@ -99,13 +102,13 @@ S1_SHAPE = (512, 577, 12, 64)          # K8/K9 on the path: [E, M, H, D]
 S1_WIDTHS = (32, 40)           # Lq: the 'auto' buckets stage-I batches take
 S1_CHECK_B = 4                 # fp32 stage-I step, card vs CPU
 CSRC = "candidate_reranking_cir_tpu_torch/csrc"
-# the records are bf16: K1-K4 on the tensor-core eval kernel, K9 (no
-# bias) on the tensor-core backward passes
+# the records are bf16: K1-K4 on the tensor-core eval kernel, K6, K7 and
+# K9 (no bias) on the tensor-core train kernels
 SOURCES = {"K1": f"{CSRC}/attention_tc.cuh", "K2": f"{CSRC}/attention_tc.cuh",
            "K3": f"{CSRC}/attention_tc.cuh", "K4": f"{CSRC}/attention_tc.cuh",
            "K5": f"{CSRC}/attention_common.cuh",
-           "K6": f"{CSRC}/attention_train.cu",
-           "K7": f"{CSRC}/attention_train.cu",
+           "K6": f"{CSRC}/attention_train_tc.cuh",
+           "K7": f"{CSRC}/attention_train_tc.cuh",
            "K8": f"{CSRC}/attention_train.cu",
            "K9": f"{CSRC}/attention_train_tc.cuh"}
 JAX_KERNELS = "candidate_reranking_cir_tpu/ops/pallas_attention.py"
@@ -116,13 +119,18 @@ REPLACES = {"K1": f"{JAX_KERNELS}:220", "K2": f"{JAX_KERNELS}:132",
             "K7": f"{JAX_TRAIN}:135", "K8": f"{JAX_TRAIN}:382",
             "K9": f"{JAX_TRAIN}:414"}
 MAIN_PATH_KERNELS = ("K1", "K2", "K3")
-# profiler families of the eval kernels and of K9 (see kernel_family); a
-# bf16 profile fails on any time in the FMA families
+# profiler families of the attention kernels (see kernel_family); a bf16
+# profile fails on any time in the FMA families
 TC_FAMILY = "eval attention, tensor cores (bf16 K1-K4)"
 FMA_EVAL_FAMILY = "eval attention, fp32 FMA (fp32 K1-K4)"
+TC_K6_FAMILY = "train attention forward, tensor cores (K6)"
+FMA_K6_FAMILY = "train attention forward, fp32 FMA (K6)"
+TC_K7_FAMILY = "train attention backward, tensor cores (K7)"
+FMA_K7_FAMILY = "train attention backward, fp32 FMA (K7)"
 TC_K9_FAMILY = "train attention backward, folded, tensor cores (K9)"
 FMA_K9_FAMILY = "train attention backward, folded, fp32 FMA (K9)"
-FMA_FAMILIES = (FMA_EVAL_FAMILY, FMA_K9_FAMILY)
+FMA_FAMILIES = (FMA_EVAL_FAMILY, FMA_K6_FAMILY, FMA_K7_FAMILY,
+                FMA_K9_FAMILY)
 # K3's narrowest eval call (retrieval/rerank.py): the smallest q-bucket (4
 # queries) x the smallest text bucket (8 tokens) = 32 rows per candidate,
 # and max(64, pairs_per_call 256 x text_len 40 // 8) // 4 candidates
@@ -351,6 +359,7 @@ def run_train_kernel_cases(dtype) -> dict:
     # library_ms is null; SDPA with dropout is kept as a yardstick
     recs["K6"] = {"name": "K6", "dtype": name, "shape": list(TRAIN_SHAPE),
                   "max_abs_err": err6, "ms": time_ms(fwd),
+                  "device_ms": graph_ms(fwd),
                   "plain_ms": time_ms(plain_fwd), "library_ms": None,
                   "sdpa_own_mask_ms": time_ms(sdpa),
                   "bound_ms": b_ms, "bound_by": b_by}
@@ -373,18 +382,22 @@ def run_train_kernel_cases(dtype) -> dict:
                        10 * e * h * lq * m * d, dtype)
     recs["K7"] = {"name": "K7", "dtype": name, "shape": list(TRAIN_SHAPE),
                   "max_abs_err": err7, "ms": time_ms(bwd),
+                  "device_ms": graph_ms(bwd),
                   "plain_ms": time_ms(plain_bwd), "library_ms": None,
                   "sdpa_own_mask_ms": time_ms(sdpa_fwd_bwd),
                   "bound_ms": b_ms, "bound_by": b_by}
+    routes = {"K6": tat.fwd_uses_tensor_cores(dtype, None, False),
+              "K7": tat.bwd_uses_tensor_cores(dtype, None, False)}
     for kid in ("K6", "K7"):
         r = recs[kid]
-        print(f"[kernel] {kid} {name} {list(TRAIN_SHAPE)} rate {rate}: "
-              f"max|err| {r['max_abs_err']:.3e}, kernel {r['ms']:.4f} ms, "
+        route = "tensor cores" if routes[kid] else "fp32 FMA"
+        print(f"[kernel] {kid} {name} ({route}) {list(TRAIN_SHAPE)} rate "
+              f"{rate}: max|err| {r['max_abs_err']:.3e}, kernel "
+              f"{r['ms']:.4f} ms, device only {r['device_ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, sdpa(dropout_p={rate}"
               f"{', fwd+bwd' if kid == 'K7' else ''}; same work, its own "
               f"mask) {r['sdpa_own_mask_ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.4f} "
-              f"ms ({r['bound_by']})", flush=True)
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
     print(f"[kernel] K5 {name}: kernel {recs['K5']['ms']:.4f} ms, plain "
           f"{recs['K5']['plain_ms']:.4f} ms per [{lq}, {m}] mask", flush=True)
     return recs
@@ -554,6 +567,11 @@ def main_path():
 
 
 def kernel_family(name: str) -> str:
+    if "attn_train_fwd_tc_kernel" in name:
+        return TC_K6_FAMILY
+    if "attn_train_bwd_tc_rows_kernel" in name \
+            or "attn_train_bwd_tc_keys_kernel" in name:
+        return TC_K7_FAMILY
     if "attn_train_fwd_folded_kernel" in name:
         return "train attention forward, folded (K8)"
     if "attn_bwd_tc_rows_kernel" in name or "attn_bwd_tc_keys_kernel" in name:
@@ -562,9 +580,9 @@ def kernel_family(name: str) -> str:
             or "attn_bwd_keys_folded_kernel" in name:
         return FMA_K9_FAMILY
     if "attn_train_fwd_kernel" in name:
-        return "train attention forward (K6)"
+        return FMA_K6_FAMILY
     if "attn_bwd_rows_kernel" in name or "attn_bwd_keys_kernel" in name:
-        return "train attention backward (K7)"
+        return FMA_K7_FAMILY
     if "attn_fwd_tc_kernel" in name:
         return TC_FAMILY
     if "attn_fwd_kernel" in name:
@@ -580,7 +598,8 @@ def profile_device(label: str, run):
     """Device time by kernel family over one run of ``run`` (torch.profiler,
     CUPTI), and the device's idle share of its wall time. Every profiled
     run is bf16: it fails if an eval attention ran on the fp32-FMA kernel,
-    or a K9 on its fp32-FMA passes, instead of the tensor-core ones."""
+    or a K6, K7 or K9 on its fp32-FMA body, instead of the tensor-core
+    ones."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1211,7 +1230,10 @@ def build_libraries() -> None:
                     or "spill" in line:
                 print(f"[build] {line.strip()}", flush=True)
         wanted = {"attention": ("attn_fwd_tc_kernel",),
-                  "attention_train": ("attn_bwd_tc_rows_kernel",
+                  "attention_train": ("attn_train_fwd_tc_kernel",
+                                      "attn_train_bwd_tc_rows_kernel",
+                                      "attn_train_bwd_tc_keys_kernel",
+                                      "attn_bwd_tc_rows_kernel",
                                       "attn_bwd_tc_keys_kernel")}[name]
         for kernel in wanted:
             if log and kernel not in log:
@@ -1223,9 +1245,12 @@ def build_libraries() -> None:
           f"over more, {lib.crc_attention_tc_smem_bytes(2, 577)} B with 2",
           flush=True)
     smem = load_attention_train_library().crc_attention_train_tc_smem_bytes
-    print("[build] K9 tensor-core passes' dynamic shared memory: "
-          f"attn_bwd_tc_rows_kernel {smem(0)} B with 1 warpgroup, {smem(1)} "
-          f"B with 2; attn_bwd_tc_keys_kernel {smem(2)} B", flush=True)
+    print("[build] train tensor-core kernels' dynamic shared memory: K6 "
+          f"attn_train_fwd_tc_kernel {smem(2)} B with 1 warpgroup over more "
+          f"than one key tile, {smem(3)} B with 2; K7 and K9 row passes "
+          f"(attn_train_bwd_tc_rows_kernel, attn_bwd_tc_rows_kernel) "
+          f"{smem(0)} B; key passes (attn_train_bwd_tc_keys_kernel, "
+          f"attn_bwd_tc_keys_kernel) {smem(1)} B", flush=True)
 
 
 def main():

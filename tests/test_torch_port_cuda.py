@@ -1,7 +1,7 @@
 """CUDA kernels K1-K9 against their plain PyTorch versions, on the card
 (bf16 K1-K4 on the tensor-core eval kernel, fp32 on the fp32-FMA one; bf16
-K9 without a bias on the tensor-core backward passes, the rest of K5-K9 on
-fp32-FMA kernels).
+K6, K7 and K9 without a bias on the tensor-core train kernels; K8, and the
+fp32 and bias launches of K6, K7 and K9, on fp32-FMA kernels).
 
 Marked ``cuda``: they skip where no card is present. On a machine with a
 card (which need not have JAX), run them without the repository's conftest:
@@ -336,11 +336,25 @@ def test_k6_k7_match_plain(dev, dtype, e, lq, m, with_bias):
     if with_bias:
         bias = tat._train_bias3(_mask_bias(dev, e, m), e, lq, m)
     before = dict(tat.LAUNCHES)
-    out = tat._kernel_fwd(q, k, v, bias, seed, rate)
-    grads = tat._kernel_bwd(q, k, v, bias, seed, g, rate)
-    torch.cuda.synchronize()
+    outs, grads = [], []
+    names = _kernel_names(lambda: (
+        outs.append(tat._kernel_fwd(q, k, v, bias, seed, rate)),
+        grads.extend(tat._kernel_bwd(q, k, v, bias, seed, g, rate))))
+    out = outs[0]
     assert tat.LAUNCHES["K6"] == before["K6"] + 1
     assert tat.LAUNCHES["K7"] == before["K7"] + 1
+    # the route: bf16 without a bias on the tensor-core kernels only
+    tc = dtype == torch.bfloat16 and not with_bias
+    assert tat.fwd_uses_tensor_cores(dtype, bias, False) == tc
+    assert tat.bwd_uses_tensor_cores(dtype, bias, False) == tc
+    assert _launched(names, "attn_train_fwd_tc_kernel") == tc
+    assert _launched(names, "attn_train_fwd_kernel<") != tc
+    for kernel in ("attn_train_bwd_tc_rows_kernel",
+                   "attn_train_bwd_tc_keys_kernel"):
+        assert _launched(names, kernel) == tc
+    for kernel in ("attn_bwd_rows_kernel<", "attn_bwd_keys_kernel<"):
+        assert _launched(names, kernel) != tc
+    assert not _launched(names, "attn_bwd_tc_rows_kernel")   # K9's
     ref = tat.attention_train_plain(q, k, v, bias, seed, rate)
     torch.testing.assert_close(out.float(), ref.float(), rtol=0,
                                atol=TOL[dtype])
@@ -518,3 +532,102 @@ def test_k9_tensor_cores_refuse_misaligned_views(dev):
     with pytest.raises(ValueError, match="aligned"):
         tat._kernel_bwd(*heads, None, 0, tat._heads(x.contiguous(), h), 0.1,
                         folded=True)
+
+
+# ---------------------------------------------------------------------------
+# K6 and K7 on the tensor cores (bf16, no bias)
+
+
+def _k6_k7_check(dev, q, k, v, g, seed, rate):
+    """K6 and K7 on bf16 [E, L, H, D] views against the plain versions,
+    each on its tensor-core kernels only; dk and dv (sums over all rows)
+    are held, like dq, within GRAD_TOL of each reference's max |value|."""
+    outs, grads = [], []
+    names = _kernel_names(lambda: (
+        outs.append(tat._kernel_fwd(q, k, v, None, seed, rate)),
+        grads.extend(tat._kernel_bwd(q, k, v, None, seed, g, rate))))
+    for kernel in ("attn_train_fwd_tc_kernel", "attn_train_bwd_tc_rows_kernel",
+                   "attn_train_bwd_tc_keys_kernel"):
+        assert _launched(names, kernel)
+    for kernel in ("attn_train_fwd_kernel<", "attn_bwd_rows_kernel<",
+                   "attn_bwd_keys_kernel<", "attn_bwd_tc_rows_kernel"):
+        assert not _launched(names, kernel)
+    ref = tat.attention_train_plain(q, k, v, None, seed, rate)
+    assert outs[0].dtype == torch.bfloat16 and torch.isfinite(outs[0]).all()
+    torch.testing.assert_close(outs[0].float(), ref.float(), rtol=0,
+                               atol=TOL[torch.bfloat16])
+    refs = tat.attention_train_bwd_plain(q, k, v, None, seed, g, rate)
+    for a, b in zip(grads, refs):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a).all()
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= GRAD_TOL[torch.bfloat16] * b.float().abs().max().item()
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("m", [577, 45])
+@pytest.mark.parametrize("lq", [64, 130, 640])
+def test_k6_k7_tensor_cores_match_plain(dev, lq, m, rate):
+    """64 rows (one block of K6 and of K7's row pass, one key-pass
+    chunk), 130 (K6's two-warpgroup blocks, a partial one; three row
+    blocks and chunks of K7) and the stage-II width (640: ten row blocks
+    and chunks)."""
+    e, h, seed = 4, 12, 424242
+    q, g = (_rand(dev, torch.bfloat16, e, lq, h, 64, seed=800 + i + lq + m)
+            for i in (0, 1))
+    k, v = (_rand(dev, torch.bfloat16, e, m, h, 64, seed=810 + i + lq + m)
+            for i in (0, 1))
+    _k6_k7_check(dev, q, k, v, g, seed, rate)
+
+
+def test_k6_k7_tensor_cores_strided_views(dev):
+    """q, k, v sliced out of fused projections (row strides 3 x 768 and
+    2 x 768), g a transposed copy's view, on the tensor-core route."""
+    e, lq, m, h = 3, 130, 577, 12
+    qx = _rand(dev, torch.bfloat16, e, lq, 3 * h * 64, seed=900)
+    kv = _rand(dev, torch.bfloat16, e, m, 2 * h * 64, seed=901)
+    q = qx[..., h * 64:2 * h * 64].unflatten(-1, (h, 64))
+    k, v = (x.unflatten(-1, (h, 64)) for x in kv.chunk(2, dim=-1))
+    assert q.stride(1) == 3 * h * 64 and k.stride(1) == 2 * h * 64
+    g = _rand(dev, torch.bfloat16, lq, e, h, 64, seed=902).transpose(0, 1)
+    assert not g.is_contiguous()
+    _k6_k7_check(dev, q, k, v, g, 5, 0.1)
+
+
+def test_k6_k7_tensor_cores_refuse_misaligned_views(dev):
+    """A base pointer 8 bytes off: the entry points refuse it and the
+    wrappers raise a ValueError; nothing runs on the FMA kernels."""
+    e, lq, m, h = 2, 130, 577, 12
+    x = _rand(dev, torch.bfloat16, e, lq, h * 64 + 8)[..., 4:4 + h * 64]
+    q = x.unflatten(-1, (h, 64))
+    k, v = (_rand(dev, torch.bfloat16, e, m, h, 64, seed=s) for s in (1, 2))
+    g = q.contiguous()
+    before = dict(tat.LAUNCHES)
+    with pytest.raises(ValueError, match="K6.*aligned"):
+        tat._kernel_fwd(q, k, v, None, 0, 0.1)
+    with pytest.raises(ValueError, match="K7.*aligned"):
+        tat._kernel_bwd(q, k, v, None, 0, g, 0.1)
+    assert tat.LAUNCHES == before
+
+
+def test_k6_k7_tensor_cores_autograd(dev):
+    """fused_attention_train's autograd in bf16 without a bias, at the
+    stage-II width: K6 forward and K7 backward on the tensor cores, against
+    the plain versions."""
+    e, lq, m, h, seed, rate = 4, 640, 577, 12, -11, 0.1
+    q, g = (_rand(dev, torch.bfloat16, e, lq, h, 64, seed=950 + i)
+            for i in (0, 1))
+    k, v = (_rand(dev, torch.bfloat16, e, m, h, 64, seed=952 + i)
+            for i in (0, 1))
+    x = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(tat.LAUNCHES)
+    out = tat.fused_attention_train(*x, None, seed, rate)
+    grads = torch.autograd.grad(out, x, g)
+    assert tat.LAUNCHES["K6"] == before["K6"] + 1
+    assert tat.LAUNCHES["K7"] == before["K7"] + 1
+    ref = tat.attention_train_plain(q, k, v, None, seed, rate)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=TOL[torch.bfloat16])
+    refs = tat.attention_train_bwd_plain(q, k, v, None, seed, g, rate)
+    for a, b in zip(grads, refs):
+        torch.testing.assert_close(a.float(), b.float(), rtol=0,
+                                   atol=GRAD_TOL[torch.bfloat16])

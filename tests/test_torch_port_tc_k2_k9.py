@@ -15,11 +15,14 @@ a key pass per 64-key tile over 64-row chunks that forms S^T = K.Q^T and
 dP^T = V.G^T, regenerates the mask with the hash taking (row, key) from
 the transposed element (query row on the column axis), and accumulates
 dv from dropped split into a bf16 hi + lo pair and dk from d_scores.
+``emulate_tc_bwd`` is that order over unfolded [E, L, H, D] inputs, which
+K7 runs too (``tests/test_torch_port_tc_k6_k7.py``); ``emulate_k9`` takes
+it to the folded layout.
 
 Tolerances follow tests/test_pallas_attention*.py: fp32 atol 2e-5 forward
 and 3e-5 gradients, bf16 atol 2e-2.
 
-Also here: K9's route predicate, how its wrapper raises on the new
+Also here: the backward's route predicate, how K9's wrapper raises on the
 refusal code, and the names ``chip_smoke.py`` gives the new kernels in a
 profile."""
 import jax.numpy as jnp
@@ -157,12 +160,13 @@ def _keep_t(seed, e, h, r0, rows, key0, keys, m, rate):
     return u >= torch.tensor(rate, dtype=torch.float32)
 
 
-def emulate_k9(q, k, v, g, seed, rate, num_heads):
-    """Folded q, g [E, Lq, H*D]; k, v [E, M, H*D] -> (dq, dk, dv) in the
-    tensor-core passes' order (rows of one row tile are independent, so
-    the row pass takes all rows at once)."""
+def emulate_tc_bwd(q, k, v, g, seed, rate):
+    """q, g [E, Lq, H, D]; k, v [E, M, H, D] -> (dq, dk, dv) [E, L, H, D]
+    in the order of the tensor-core backward passes that K7 and K9 share
+    (rows of one row tile are independent, so the row pass takes all rows
+    at once; the key pass takes 64-row chunks, as many as Lq needs)."""
     dtype = q.dtype
-    qh, kh, vh, gh = (tat._heads(x, num_heads).float() for x in (q, k, v, g))
+    qh, kh, vh, gh = (x.float() for x in (q, k, v, g))
     e, lq, h, _ = qh.shape
     m = kh.shape[1]
     inv = 1.0 / (1.0 - rate) if rate > 0.0 else 1.0
@@ -219,7 +223,15 @@ def emulate_k9(q, k, v, g, seed, rate, num_heads):
             dv[:, j:j + keys] += torch.einsum("ehml,elhd->emhd", hi, gc) \
                 + torch.einsum("ehml,elhd->emhd", lo, gc)
             dk[:, j:j + keys] += torch.einsum("ehml,elhd->emhd", ds, qc)
-    return tuple(x.to(dtype).flatten(-2) for x in (dq, dk, dv))
+    return tuple(x.to(dtype) for x in (dq, dk, dv))
+
+
+def emulate_k9(q, k, v, g, seed, rate, num_heads):
+    """Folded q, g [E, Lq, H*D]; k, v [E, M, H*D] -> folded (dq, dk, dv):
+    the shared passes on the [E, L, H, D] views."""
+    grads = emulate_tc_bwd(*(tat._heads(x, num_heads) for x in (q, k, v, g)),
+                           seed, rate)
+    return tuple(x.flatten(-2) for x in grads)
 
 
 def _k9_inputs(seed, e, lq, m, h, dtype):
@@ -269,7 +281,7 @@ def test_k9_transposed_mask_is_the_row_pass_mask():
     (torch.bfloat16, None, True, True),
     (torch.bfloat16, torch.zeros(1, 4, 4), True, False),
     (torch.float32, None, True, False),
-    (torch.bfloat16, None, False, False),            # K7 stays on FMAs
+    (torch.bfloat16, None, False, True),             # K7 on them too
 ])
 def test_k9_route_predicate(dtype, bias, folded, tc):
     assert tat.bwd_uses_tensor_cores(dtype, bias, folded) == tc
