@@ -81,13 +81,34 @@ __device__ __forceinline__ uint32_t keep_salt(int seed, int b, int h) {
                    static_cast<uint32_t>(h));
 }
 
-// keep iff float(hash(salt + row * cols + col) >> 8) * 2^-24 >= rate
+// the top 24 bits of hash(salt + row * cols + col)
+__device__ __forceinline__ uint32_t keep_bits(uint32_t salt, int row,
+                                              int cols, int col) {
+  return lowbias32(salt + static_cast<uint32_t>(row) *
+                              static_cast<uint32_t>(cols) +
+                   static_cast<uint32_t>(col)) >>
+         8;
+}
+
+// keep iff float(keep_bits) * 2^-24 >= rate
 __device__ __forceinline__ bool keep_elem(uint32_t salt, int row, int cols,
                                           int col, float rate) {
-  const uint32_t bits = lowbias32(salt + static_cast<uint32_t>(row) *
-                                             static_cast<uint32_t>(cols) +
-                                  static_cast<uint32_t>(col));
-  return static_cast<float>(bits >> 8) * 5.9604644775390625e-8f >= rate;
+  return static_cast<float>(keep_bits(salt, row, cols, col)) *
+             5.9604644775390625e-8f >=
+         rate;
+}
+
+// The same test as an integer compare, for the tensor-core forward:
+// keep_bits is below 2^24, so float(keep_bits) * 2^-24 >= rate holds
+// exactly when keep_bits >= keep_threshold(rate) = ceil(rate * 2^24)
+// (both scalings by 2^24 are exact).
+__device__ __forceinline__ uint32_t keep_threshold(float rate) {
+  return static_cast<uint32_t>(ceilf(rate * 16777216.f));
+}
+__device__ __forceinline__ bool keep_elem_int(uint32_t salt, int row,
+                                              int cols, int col,
+                                              uint32_t threshold) {
+  return keep_bits(salt, row, cols, col) >= threshold;
 }
 
 // Dropout of the attention probabilities: keep-mask seed, rate, and

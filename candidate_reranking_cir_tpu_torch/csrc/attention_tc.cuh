@@ -62,9 +62,25 @@
 //     then P.V, in one step; the block loads Q, K and V together and
 //     takes (warpgroups + 2) tiles of shared memory (25 KB with one
 //     warpgroup, not the ring's 58 KB), so more blocks share an SM.
-//   - rows past Lq are computed on zeros and never stored (they read no
-//     bias); keys past M count as -inf in sweep 1 and as p = 0 in sweep 2
-//     (their K/V rows are zero-filled by the copies; they read no bias).
+//   - short rows: 64 is wgmma's smallest M, and the MED's and the narrow
+//     K3 calls' heads have 32-40 query rows. The CUDA-core work between
+//     the products (exp, divide, hash, packing) is per row, so the rows of
+//     a warpgroup's tile are laid out (tile_row()) to let whole warp
+//     halves idle: the first 32 query rows go to the first halves of the
+//     four warps, the next 32 to their second halves. A half whose eight
+//     rows are all past Lq skips that work in both sweeps and hands the
+//     P.V product zeros; the products still cover the 64-row tile. At 32
+//     rows each warp skips its second half, so all four of the SM's
+//     sub-partitions keep equal shares; at 40, the one warp with a
+//     second half turns with the head.
+//   - rows past Lq are computed on zeros (or skipped, above) and never
+//     stored (they read no bias); keys past M count as -inf in sweep 1
+//     and as p = 0 in sweep 2 (their K/V rows are zero-filled by the
+//     copies; they read no bias).
+//   - K8's form (attention_train_tc.cuh) takes the ring's depth and an L2
+//     hint as template arguments: two stages, and sweep 2's copies marked
+//     evict-first, so that they do not push sweep 1's K tiles out of L2
+//     before sweep 2 reads them again.
 // Inputs are strided views: every base pointer and every entry, row and
 // head stride of q, k and v must be 16-byte aligned (8 bf16), as 16-byte
 // copies need, and the output's 4-byte aligned (it is written as bf16
@@ -88,11 +104,11 @@ constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = 2^(x log2 e)
 
 static_assert(kHeadDim == 64, "a tile row is one 128-byte swizzle row");
 
-// Dynamic shared memory: Q tiles (one per warpgroup), then the ring of
-// (K, V) tile pairs, of which one key tile (m <= 64) uses the first only;
-// +1 KB to align the start to the 1,024-byte swizzle atom.
-inline size_t smem_bytes(int warpgroups, int m) {
-  const int stages = m <= kTileKeys ? 1 : kStages;
+// Dynamic shared memory: Q tiles (one per warpgroup), then a ring of
+// `stages` (K, V) tile pairs, of which one key tile (m <= 64) uses the
+// first only; +1 KB to align the start to the 1,024-byte swizzle atom.
+inline size_t smem_bytes(int warpgroups, int m, int stages = kStages) {
+  if (m <= kTileKeys) stages = 1;
   return static_cast<size_t>(warpgroups + 2 * stages) * kTileBytes + 1024;
 }
 
@@ -115,6 +131,20 @@ template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
 }
+// an L2 policy that evicts the lines it loads first, for data read once
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+               : "=l"(policy));
+  return policy;
+}
+__device__ __forceinline__ void cp_async16_hint(uint32_t dst, const void* src,
+                                                int src_bytes,
+                                                uint64_t policy) {
+  asm volatile(
+      "cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2, %3;\n"
+      ::"r"(dst), "l"(src), "r"(src_bytes), "l"(policy));
+}
 // the copies wrote shared memory through the generic proxy; wgmma reads
 // it through the async proxy
 __device__ __forceinline__ void fence_proxy_async() {
@@ -122,14 +152,45 @@ __device__ __forceinline__ void fence_proxy_async() {
 }
 
 // Rows [row0, row0 + 64) of a [rows, 64] bf16 view into a swizzled tile;
-// rows at or past `rows` are zero-filled (and read no memory).
+// rows at or past `rows` are zero-filled (and read no memory). kHint: the
+// copies carry the L2 `policy`.
+template <bool kHint = false>
 __device__ __forceinline__ void load_tile(uint32_t dst,
                                           const __nv_bfloat16* base,
                                           long long row_stride, int row0,
-                                          int rows, int tid, int nthreads) {
+                                          int rows, int tid, int nthreads,
+                                          uint64_t policy = 0) {
   for (int i = tid; i < kTileKeys * 8; i += nthreads) {
     const int r = i >> 3, c = i & 7;
     const int row = row0 + r;
+    const bool ok = row < rows;
+    const __nv_bfloat16* src = base + (ok ? row : 0) * row_stride + c * 8;
+    if constexpr (kHint)
+      cp_async16_hint(dst + swz(r, c), src, ok ? 16 : 0, policy);
+    else
+      cp_async16(dst + swz(r, c), src, ok ? 16 : 0);
+  }
+}
+
+// The query row (of a warpgroup's 64) that accumulator row 16w + 8h + i
+// holds (warp w, half h, i = lane / 4): 32h + 8((w + rot) & 3) + i. The
+// first 32 query rows fill the four warps' first halves, so a tile of at
+// most 32 rows leaves every second half idle; rot (the head) turns which
+// warp holds rows 8j..8j+7 and 32+8j..32+8j+7.
+__device__ __forceinline__ int tile_row(int w, int h, int i, int rot) {
+  return 32 * h + 8 * ((w + rot) & 3) + i;
+}
+
+// The Q tile of rows [row0, row0 + 64) of a [rows, 64] bf16 view in
+// tile_row()'s order; rows at or past `rows` are zero-filled.
+__device__ __forceinline__ void load_q_tile(uint32_t dst,
+                                            const __nv_bfloat16* base,
+                                            long long row_stride, int row0,
+                                            int rows, int rot, int tid,
+                                            int nthreads) {
+  for (int i = tid; i < kRowsPerWg * 8; i += nthreads) {
+    const int r = i >> 3, c = i & 7;
+    const int row = row0 + tile_row(r >> 4, (r >> 3) & 1, r & 7, rot);
     const bool ok = row < rows;
     cp_async16(dst + swz(r, c), base + (ok ? row : 0) * row_stride + c * 8,
                ok ? 16 : 0);
@@ -225,18 +286,20 @@ __device__ __forceinline__ float divide(float p, float sum, float inv) {
 
 // The bias variant's scores: t = fl(scale * s + bias), the bias added to
 // the scaled score in fp32 (scale * s is exact for a power-of-two scale,
-// so the FMA rounds once, as JAX's add does). Rows at or past lq and keys
-// at or past m (kMask) read no bias: the former are never stored, the
-// latter become -inf in tile_stats.
+// so the FMA rounds once, as JAX's add does). rows[h]: the query row of
+// the thread's half h. Rows at or past lq and keys at or past m (kMask)
+// read no bias: the former are never stored, the latter become -inf in
+// tile_stats.
 template <bool kMask>
 __device__ __forceinline__ void add_bias(float (&s)[32],
                                          const float* __restrict__ bias,
-                                         long long row_stride, int row_base,
-                                         int lq, int key0, int m, int quad,
+                                         long long row_stride,
+                                         const int (&rows)[2], int lq,
+                                         int key0, int m, int quad,
                                          float scale) {
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    const int row = row_base + 8 * hh;
+    const int row = rows[hh];
     const float* brow = bias + (row < lq ? row : 0) * row_stride;
 #pragma unroll
     for (int i = 0; i < 8; ++i)
@@ -254,14 +317,15 @@ __device__ __forceinline__ void add_bias(float (&s)[32],
 // scale is positive) and the quad-partial sum of exp(scale * (s - max)),
 // rescaled when the max grows. c = scale * log2(e) (with a bias the scores
 // are already scaled and c = log2(e)). kMask: the tile holds keys past m,
-// which count as -inf.
-template <bool kMask>
+// which count as -inf. kHalves: the warp's halves that hold query rows
+// (1: the second half's rows are all past lq and keep no statistics).
+template <bool kMask, int kHalves>
 __device__ __forceinline__ void tile_stats(float (&s)[32], int key0, int m,
                                            int quad, float c,
                                            float (&row_max)[2],
                                            float (&row_sum)[2]) {
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
+  for (int hh = 0; hh < kHalves; ++hh) {
     float tmax = -INFINITY;
 #pragma unroll
     for (int i = 0; i < 8; ++i)
@@ -291,14 +355,18 @@ __device__ __forceinline__ void tile_stats(float (&s)[32], int key0, int m,
 // fl(p * inv) : 0, as JAX applies them to the fp32 p (at rate 0 neither,
 // as in JAX); then p rounded to bf16 and packed as the A operand of P.V
 // (k-step kk takes keys 16kk..16kk+15, i.e. s[8kk .. 8kk+7]). Keys past m
-// (kMask) give p = 0.
-template <bool kMask, bool kDropout>
+// (kMask) give p = 0; so do the rows of a second half that holds none
+// (kHalves 1), which P.V then keeps at zero and nothing stores. rows[h]:
+// the query row of the thread's half h, which the mask hash takes;
+// keep_thr: keep_threshold(drop.rate).
+template <bool kMask, bool kDropout, int kHalves>
 __device__ __forceinline__ void tile_probs(const float (&s)[32], int key0,
                                            int m, int quad, float c,
                                            const float (&neg_mc)[2],
                                            const float (&sum)[2],
                                            const float (&inv)[2],
-                                           int row_base, uint32_t salt,
+                                           const int (&rows)[2],
+                                           uint32_t salt, uint32_t keep_thr,
                                            const Dropout& drop,
                                            uint32_t (&p)[4][4]) {
 #pragma unroll
@@ -308,13 +376,17 @@ __device__ __forceinline__ void tile_probs(const float (&s)[32], int key0,
       const int idx = 8 * kk + 2 * r;
       const int hh = r & 1;
       const int key = key0 + 16 * kk + 8 * (r >> 1) + 2 * quad;
+      if (hh >= kHalves) {
+        p[kk][r] = 0u;
+        continue;
+      }
       float pv[2];
 #pragma unroll
       for (int b = 0; b < 2; ++b) {
         pv[b] = divide(ex2(fmaf(s[idx + b], c, neg_mc[hh])), sum[hh],
                        inv[hh]);
         if (kDropout && drop.rate > 0.f)
-          pv[b] = keep_elem(salt, row_base + 8 * hh, m, key + b, drop.rate)
+          pv[b] = keep_elem_int(salt, rows[hh], m, key + b, keep_thr)
                       ? __fmul_rn(pv[b], drop.inv)
                       : 0.f;
         if (kMask && key + b >= m) pv[b] = 0.f;
@@ -338,19 +410,25 @@ __device__ __forceinline__ void scores(float (&s)[32], uint32_t q_tile,
 }
 
 // Accumulator layout of m64n64 (per warpgroup thread t, warp w = t / 32,
-// lane l): s[4i + 2h + b] is row 16w + l/4 + 8h, column 8i + 2(l%4) + b.
+// lane l): s[4i + 2h + b] is row 16w + l/4 + 8h, column 8i + 2(l%4) + b;
+// row 16w + 8h + l/4 holds query row tile_row(w, h, l/4, head) of its
+// warpgroup's 64.
 // kHasBias: the bias variant (K2, K4); bias is fp32 with the (entry, row)
 // strides st.b. kDropout: K6's dropout in sweep 2 (tile_probs), the mask
 // keyed by the absolute entry blockIdx.z, the head and the absolute row
-// and key. The eval kernels (attn_fwd_tc_kernel) and K6
-// (attn_train_fwd_tc_kernel, attention_train_tc.cuh) are __global__
-// entry points of their own over this body.
-template <int kWarpgroups, bool kHasBias, bool kDropout>
+// and key. kRing: the (K, V) ring's stages. kStreamSweep2: sweep 2's
+// copies carry an evict-first L2 policy (they are read once). The eval
+// kernels (attn_fwd_tc_kernel), K6 (attn_train_fwd_tc_kernel) and K8
+// (attn_train_fwd_folded_tc_kernel, attention_train_tc.cuh) are
+// __global__ entry points of their own over this body.
+template <int kWarpgroups, bool kHasBias, bool kDropout, int kRing = kStages,
+          bool kStreamSweep2 = false>
 __device__ __forceinline__ void attn_fwd_tc_body(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
     __nv_bfloat16* __restrict__ out, int lq, int m, float scale,
     const Strides& st, const Dropout& drop) {
+  static_assert(kRing >= 2, "a step's tiles and the next step's");
   constexpr int kThreadsTc = kWarpgroups * 128;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw =
@@ -372,6 +450,7 @@ __device__ __forceinline__ void attn_fwd_tc_body(
   const __nv_bfloat16* vb = v + e * st.v[0] + h * st.v[2];
   const float* bb = kHasBias ? bias + e * st.b[0] : nullptr;
   __nv_bfloat16* ob = out + e * st.o[0] + h * st.o[2];
+  const int rot = static_cast<int>(h) & 3;
 
   const int n_tiles = (m + kTileKeys - 1) / kTileKeys;
   // one tile: S once, stats and P.V in one step (the smaller launch's
@@ -379,11 +458,19 @@ __device__ __forceinline__ void attn_fwd_tc_body(
   // sweep 2 over K and V
   const bool single = n_tiles == 1;
   const int n_steps = single ? 1 : 2 * n_tiles;
+  const uint64_t sweep2_policy = kStreamSweep2 ? l2_evict_first() : 0;
 
   auto load_step = [&](int step) {
-    const int stage = step % kStages;
+    const int stage = step % kRing;
     const int j = step < n_tiles ? step : step - n_tiles;
     const uint32_t kt = ring + 2 * stage * kTileBytes;
+    if (kStreamSweep2 && step >= n_tiles) {
+      load_tile<true>(kt, kb, st.k[1], j * kTileKeys, m, tid, kThreadsTc,
+                      sweep2_policy);
+      load_tile<true>(kt + kTileBytes, vb, st.v[1], j * kTileKeys, m, tid,
+                      kThreadsTc, sweep2_policy);
+      return;
+    }
     load_tile(kt, kb, st.k[1], j * kTileKeys, m, tid, kThreadsTc);
     if (single || step >= n_tiles)
       load_tile(kt + kTileBytes, vb, st.v[1], j * kTileKeys, m, tid,
@@ -393,10 +480,10 @@ __device__ __forceinline__ void attn_fwd_tc_body(
   // prologue: the Q tiles ride with step 0's group
 #pragma unroll
   for (int w = 0; w < kWarpgroups; ++w)
-    load_tile(q_tiles + w * kTileBytes, qb, st.q[1],
-              block_row0 + w * kRowsPerWg, lq, tid, kThreadsTc);
+    load_q_tile(q_tiles + w * kTileBytes, qb, st.q[1],
+                block_row0 + w * kRowsPerWg, lq, rot, tid, kThreadsTc);
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
+  for (int s = 0; s < kRing - 1; ++s) {
     if (s < n_steps) load_step(s);
     cp_async_commit();
   }
@@ -406,10 +493,17 @@ __device__ __forceinline__ void attn_fwd_tc_body(
   // exp(x) = 2^(c * x) with x the scaled score; without a bias the scale
   // rides in c, with one it is already in t
   const float c = kHasBias ? kLog2e : scale * kLog2e;
-  const int row_base = block_row0 + wg * kRowsPerWg + 16 * warp + lane / 4;
+  const int wg_row0 = block_row0 + wg * kRowsPerWg;
+  const int rows[2] = {wg_row0 + tile_row(warp, 0, lane / 4, rot),
+                       wg_row0 + tile_row(warp, 1, lane / 4, rot)};
+  // this warp's halves that hold query rows (warp-uniform): 2, 1 (the
+  // second half's eight rows are all past lq) or 0
+  const int first = wg_row0 + tile_row(warp, 0, 0, rot);
+  const int halves = (first < lq) + (first + 32 < lq);
   const uint32_t salt = kDropout ? keep_salt(drop.seed, static_cast<int>(e),
                                              static_cast<int>(h))
                                  : 0u;
+  const uint32_t keep_thr = kDropout ? keep_threshold(drop.rate) : 0u;
   float row_max[2] = {-INFINITY, -INFINITY};
   float row_sum[2] = {0.f, 0.f};
   float neg_mc[2], inv[2];
@@ -418,13 +512,13 @@ __device__ __forceinline__ void attn_fwd_tc_body(
   for (int i = 0; i < 32; ++i) o[i] = 0.f;
 
   for (int step = 0; step < n_steps; ++step) {
-    cp_async_wait<kStages - 2>();  // this step's tiles have landed
+    cp_async_wait<kRing - 2>();  // this step's tiles have landed
     fence_proxy_async();
     __syncthreads();  // ... for every thread; the oldest stage is free
-    if (step + kStages - 1 < n_steps) load_step(step + kStages - 1);
+    if (step + kRing - 1 < n_steps) load_step(step + kRing - 1);
     cp_async_commit();
 
-    const int stage = step % kStages;
+    const int stage = step % kRing;
     const uint32_t kt = ring + 2 * stage * kTileBytes;
     const bool sweep1 = step < n_tiles;
     const int key0 = (sweep1 ? step : step - n_tiles) * kTileKeys;
@@ -433,16 +527,23 @@ __device__ __forceinline__ void attn_fwd_tc_body(
     scores(s, my_q, kt);
     if (kHasBias) {
       if (ragged)
-        add_bias<true>(s, bb, st.b[1], row_base, lq, key0, m, quad, scale);
+        add_bias<true>(s, bb, st.b[1], rows, lq, key0, m, quad, scale);
       else
-        add_bias<false>(s, bb, st.b[1], row_base, lq, key0, m, quad, scale);
+        add_bias<false>(s, bb, st.b[1], rows, lq, key0, m, quad, scale);
     }
 
     if (sweep1) {
-      if (ragged)
-        tile_stats<true>(s, key0, m, quad, c, row_max, row_sum);
-      else
-        tile_stats<false>(s, key0, m, quad, c, row_max, row_sum);
+      if (halves == 2) {
+        if (ragged)
+          tile_stats<true, 2>(s, key0, m, quad, c, row_max, row_sum);
+        else
+          tile_stats<false, 2>(s, key0, m, quad, c, row_max, row_sum);
+      } else if (halves == 1) {
+        if (ragged)
+          tile_stats<true, 1>(s, key0, m, quad, c, row_max, row_sum);
+        else
+          tile_stats<false, 1>(s, key0, m, quad, c, row_max, row_sum);
+      }
       if (step == n_tiles - 1) {
         // the quad's partial sums share one max: add them
 #pragma unroll
@@ -457,12 +558,26 @@ __device__ __forceinline__ void attn_fwd_tc_body(
     }
 
     uint32_t p[4][4];
-    if (ragged)
-      tile_probs<true, kDropout>(s, key0, m, quad, c, neg_mc, row_sum, inv,
-                                 row_base, salt, drop, p);
-    else
-      tile_probs<false, kDropout>(s, key0, m, quad, c, neg_mc, row_sum, inv,
-                                  row_base, salt, drop, p);
+    if (halves == 2) {
+      if (ragged)
+        tile_probs<true, kDropout, 2>(s, key0, m, quad, c, neg_mc, row_sum,
+                                      inv, rows, salt, keep_thr, drop, p);
+      else
+        tile_probs<false, kDropout, 2>(s, key0, m, quad, c, neg_mc, row_sum,
+                                       inv, rows, salt, keep_thr, drop, p);
+    } else if (halves == 1) {
+      if (ragged)
+        tile_probs<true, kDropout, 1>(s, key0, m, quad, c, neg_mc, row_sum,
+                                      inv, rows, salt, keep_thr, drop, p);
+      else
+        tile_probs<false, kDropout, 1>(s, key0, m, quad, c, neg_mc, row_sum,
+                                       inv, rows, salt, keep_thr, drop, p);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) p[kk][r] = 0u;
+    }
     wgmma_fence();
     fence_acc(o);
 #pragma unroll
@@ -473,10 +588,10 @@ __device__ __forceinline__ void attn_fwd_tc_body(
     fence_acc(o);
   }
 
-  // output rows of this thread: 16w + l/4 (+8) of its warpgroup's 64
+  // output rows of this thread: its halves' query rows
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    const int row = row_base + 8 * hh;
+    const int row = rows[hh];
     if (row >= lq) continue;
     __nv_bfloat16* orow = ob + row * st.o[1];
 #pragma unroll

@@ -26,17 +26,15 @@
 // Which launches take which kernel (the entry points route; nothing falls
 // back from one kernel to another):
 //   - bf16 without a bias, K6: attn_train_fwd_tc_kernel; K7:
-//     attn_train_bwd_tc_{rows,keys}_kernel; K9: attn_bwd_tc_{rows,keys}_
-//     kernel (all in attention_train_tc.cuh, wgmma). A view that is not
-//     16-byte aligned is refused (kRefusedAlignment), not sent elsewhere.
-//     Every stage-II launch (K6, K7) and every stage-I K9 launch is one.
-//   - fp32, or a bias (no path launches K6, K7 or K9 with one): the
-//     fp32-FMA bodies below, attn_fwd_body (attention_common.cuh) for K6
-//     and the row and key passes for K7, K9 at the folded stride. The
-//     tensor cores would round fp32 to TF32.
-//   - K8, every launch: K6's fp32-FMA body at the folded stride. Routing
-//     its bf16 launches to attn_train_fwd_tc_kernel at the folded strides
-//     is the next step.
+//     attn_train_bwd_tc_{rows,keys}_kernel; K8:
+//     attn_train_fwd_folded_tc_kernel; K9: attn_bwd_tc_{rows,keys}_kernel
+//     (all in attention_train_tc.cuh, wgmma). A view that is not 16-byte
+//     aligned is refused (kRefusedAlignment), not sent elsewhere. Every
+//     stage-II launch (K6, K7) and every stage-I one (K8, K9) is one.
+//   - fp32, or a bias (no path launches K6-K9 with one): the fp32-FMA
+//     bodies below: attn_fwd_body (attention_common.cuh) for K6 and, at
+//     the folded stride, K8; the row and key passes for K7 and, at the
+//     folded stride, K9. The tensor cores would round fp32 to TF32.
 //
 // What bounds them at the stage-II shape [E = 16, Lq = 640, M = 577, H =
 // 12, D = 64] in bf16: operations. Per (entry, head) K6 does 4*Lq*M*D =
@@ -101,8 +99,9 @@ template <typename T, bool kHasBias, bool kFolded>
 int launch_fwd(const void* q, const void* k, const void* v, const float* bias,
                void* out, int entries, int heads, int lq, int m, float scale,
                const Strides& st, const Dropout& drop, cudaStream_t stream) {
-  // only the kernel launched is instantiated: bf16 K6 without a bias runs
-  // the tensor cores, so its FMA instantiation would be dead code
+  // only the kernel launched is instantiated: bf16 K6 and K8 without a
+  // bias run the tensor cores, so their FMA instantiations would be dead
+  // code
   const auto kernel = [] {
     if constexpr (kFolded)
       return attn_train_fwd_folded_kernel<T, kHasBias>;
@@ -512,8 +511,8 @@ int max_keys() {
 constexpr int kRefusedAlignment = -2;
 
 // K6 (kFolded false) or K8 (true); the folded kernels take head strides of
-// kHeadDim only. K6's bf16 launches without a bias run the tensor-core
-// kernel; the rest, and every K8 launch, the fp32-FMA body.
+// kHeadDim only. bf16 launches without a bias run the tensor-core kernels;
+// the rest the fp32-FMA body.
 template <bool kFolded>
 int dispatch_forward(int dtype, const void* q, const void* k, const void* v,
                      const float* bias, void* out, const long long* strides,
@@ -527,6 +526,11 @@ int dispatch_forward(int dtype, const void* q, const void* k, const void* v,
                   st.v[2] != kHeadDim || st.o[2] != kHeadDim))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && bias == nullptr) {
+    if (!tc::aligned(q, k, v, out, st)) return kRefusedAlignment;
+    return tc::launch_train_fwd<kFolded>(q, k, v, out, entries, heads, lq, m,
+                                         scale, st, drop, s);
+  }
   if (dtype == 0)
     return bias ? launch_fwd<float, true, kFolded>(
                       q, k, v, bias, out, entries, heads, lq, m, scale, st,
@@ -535,17 +539,8 @@ int dispatch_forward(int dtype, const void* q, const void* k, const void* v,
                       q, k, v, bias, out, entries, heads, lq, m, scale, st,
                       drop, s);
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (bias)
-    return launch_fwd<__nv_bfloat16, true, kFolded>(
-        q, k, v, bias, out, entries, heads, lq, m, scale, st, drop, s);
-  if constexpr (kFolded) {
-    return launch_fwd<__nv_bfloat16, false, true>(
-        q, k, v, bias, out, entries, heads, lq, m, scale, st, drop, s);
-  } else {
-    if (!tc::aligned(q, k, v, out, st)) return kRefusedAlignment;
-    return tc::launch_train_fwd(q, k, v, out, entries, heads, lq, m, scale,
-                                st, drop, s);
-  }
+  return launch_fwd<__nv_bfloat16, true, kFolded>(
+      q, k, v, bias, out, entries, heads, lq, m, scale, st, drop, s);
 }
 
 // K7 (kFolded false) or K9 (true). Their bf16 launches without a bias run
@@ -621,7 +616,9 @@ int crc_attention_train_forward(int dtype, const void* q, const void* k,
                                  stream);
 }
 
-// K8: as K6 over [E, L, H * kHeadDim] tensors (every head stride kHeadDim).
+// K8: as K6 over [E, L, H * kHeadDim] tensors (every head stride kHeadDim);
+// bf16 without a bias on the tensor cores, which refuse misaligned views
+// with kRefusedAlignment.
 int crc_attention_train_folded_forward(int dtype, const void* q,
                                        const void* k, const void* v,
                                        const float* bias, void* out,
@@ -667,11 +664,22 @@ int crc_attention_train_folded_backward(int dtype, const void* q,
 
 // Dynamic shared memory of the tensor-core kernels: 0 = the backward's
 // (K7, K9) row pass, 1 = its key pass; 2 = K6 with one warpgroup over more
-// than one key tile, 3 = with two.
+// than one key tile, 3 = with two; 4 = K8 with one warpgroup over more
+// than one key tile, 5 = with two.
 int crc_attention_train_tc_smem_bytes(int pass) {
   if (pass == 0) return static_cast<int>(tc::bwd_rows_smem_bytes());
   if (pass == 1) return static_cast<int>(tc::bwd_keys_smem_bytes());
-  return static_cast<int>(tc::smem_bytes(pass - 1, tc::kTileKeys + 1));
+  if (pass >= 4)
+    return static_cast<int>(
+        tc::train_fwd_smem_bytes<true>(pass - 3, tc::kTileKeys + 1));
+  return static_cast<int>(
+      tc::train_fwd_smem_bytes<false>(pass - 1, tc::kTileKeys + 1));
+}
+
+// Blocks of the bf16 K8 kernel for lq rows and m keys that an SM of the
+// current device holds at once, or a negative cudaError_t.
+int crc_attention_train_folded_forward_blocks_per_sm(int lq, int m) {
+  return tc::folded_fwd_blocks_per_sm(lq, m);
 }
 
 // K5 written out: out[rows * cols] = keep(seed, b, h, row, col) as 0/1.

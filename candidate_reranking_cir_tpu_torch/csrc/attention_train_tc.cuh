@@ -5,23 +5,43 @@
 //     kernel's body (attention_tc.cuh) with the K5 mask and 1/(1 - rate)
 //     applied to p in its second sweep, before the bf16 rounding;
 //   - K7, _bwd_kernel (its backward): attn_train_bwd_tc_{rows,keys}_kernel;
+//   - K8, _fwd_kernel_folded (the stage-I MED cross-attention forward):
+//     attn_train_fwd_folded_tc_kernel, K6's body with the head stride
+//     fixed at kHeadDim at compile time, a two-stage ring and sweep 2's
+//     copies marked evict-first in L2 (below);
 //   - K9, _bwd_kernel_folded (the stage-I MED cross-attention backward):
 //     attn_bwd_tc_{rows,keys}_kernel, K7's passes with the head stride
 //     fixed at kHeadDim at compile time.
-// K7 and K9, and K6 and the eval kernels, are __global__ entry points of
-// their own over shared device bodies, so a profile and ptxas name them
-// apart. fp32 and bias launches stay on the fp32-FMA bodies of
+// K7 and K9, K6 and K8, and K6 and the eval kernels, are __global__ entry
+// points of their own over shared device bodies, so a profile and ptxas
+// name them apart. fp32 and bias launches stay on the fp32-FMA bodies of
 // attention_train.cu (the tensor cores would round fp32 to TF32; no path
-// launches K6, K7 or K9 with a bias), and so does K8 for now.
+// launches K6-K9 with a bias).
 //
-// K6's function: p = softmax(fl((q * scale) . k^T)) in fp32 with a
-// divide; at rate > 0, kept ? fl(p * inv) : 0; rounded to bf16; P.V with
-// fp32 sums. Its bounds and design are the eval kernel's: at the stage-II
-// shape [E = 16, Lq = 640, M = 577, H = 12, D = 64], 4*Lq*M*D operations
-// per (entry, head) against (2*Lq + 2*M)*D*2 bytes (303 a byte against the
-// card's 295): operations, so wgmma, K/V through a cp.async ring, 128 query
-// rows a block (two warpgroups), the softmax in two sweeps; the mask adds
-// one lowbias32 hash per score in sweep 2.
+// K6's and K8's function: p = softmax(fl((q * scale) . k^T)) in fp32 with
+// a divide; at rate > 0, kept ? fl(p * inv) : 0; rounded to bf16; P.V
+// with fp32 sums. The same steps in the same order for both, so K8 on
+// [E, L, H*D] gives K6's bits on the [E, L, H, D] copy.
+//   - K6 at the stage-II shape [E = 16, Lq = 640, M = 577, H = 12, D =
+//     64]: 4*Lq*M*D operations per (entry, head) against (2*Lq + 2*M)*D*2
+//     bytes (303 a byte against the card's 295): operations, so the eval
+//     kernel's design: wgmma, K/V through a cp.async ring, 128 query rows
+//     a block (two warpgroups), the softmax in two sweeps; the mask adds
+//     one lowbias32 hash per score in sweep 2.
+//   - K8 at the stage-I MED shape [E = 512, Lq = 32 or 40, M = 577, H =
+//     12, D = 64]: 37 operations a byte, so bytes: 6,144 (entry, head)
+//     blocks of one warpgroup, each reading 148 KB of K and V for 5 KB of
+//     q. Two costs above the bytes: sweep 2 reads K again, and the 64-row
+//     wgmma tile carries 24-32 rows that do not exist. The body's
+//     short-row layout (tile_row()) lets the warp halves that hold no
+//     query row skip the exp, the divide, the hash and the packing in both
+//     sweeps. The ring has two stages, not three: 41 KB a block, so four
+//     blocks (the registers' limit) share an SM, not three; and sweep 2's
+//     copies, read once, go first out of L2, so sweep 1's K tiles stay
+//     there for sweep 2. Each choice was timed against the others on an
+//     H100 (PERF.md): a form that kept every K tile in shared memory
+//     from sweep 1 to sweep 2 (113 KB, two blocks an SM) moved the bytes
+//     of the bound but lost to the ring on latency.
 //
 // The backward's function, per (entry b, head h), with the K5 mask
 // keep(seed, b, h, row, col = key) and inv = 1 / (1 - rate):
@@ -572,7 +592,7 @@ attn_bwd_tc_keys_kernel(CRC_TC_KEYS_ARGS) {
 #undef CRC_TC_KEYS_ARGS
 
 // K6: the eval kernel's body with its dropout switch on, no bias, general
-// strides (K8's folded ones would take folded(st))
+// strides
 template <int kWarpgroups>
 __global__ void __launch_bounds__(kWarpgroups * 128, 4 / kWarpgroups)
 attn_train_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
@@ -582,6 +602,22 @@ attn_train_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                          float scale, Strides st, Dropout drop) {
   attn_fwd_tc_body<kWarpgroups, false, true>(q, k, v, nullptr, out, lq, m,
                                              scale, st, drop);
+}
+
+// K8: K6's kernel at the folded head stride, with a ring of kK8Stages
+// stages and sweep 2's copies marked evict-first in L2
+constexpr int kK8Stages = 2;
+
+template <int kWarpgroups>
+__global__ void __launch_bounds__(kWarpgroups * 128, 4 / kWarpgroups)
+attn_train_fwd_folded_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                                const __nv_bfloat16* __restrict__ k,
+                                const __nv_bfloat16* __restrict__ v,
+                                __nv_bfloat16* __restrict__ out, int lq,
+                                int m, float scale, Strides st,
+                                Dropout drop) {
+  attn_fwd_tc_body<kWarpgroups, false, true, kK8Stages, true>(
+      q, k, v, nullptr, out, lq, m, scale, folded(st), drop);
 }
 
 // 16-byte copies of q, k, v and g need 16-byte-aligned rows; dq, dk and
@@ -600,20 +636,44 @@ inline bool bwd_aligned(const void* q, const void* k, const void* v,
          a(dk, 4) && a(dv, 4);
 }
 
-template <int kWarpgroups>
+// The forward kernel of K6 (kFolded false) or K8 (true) with kWarpgroups
+// warpgroups a block, and its dynamic shared memory for m keys.
+template <int kWarpgroups, bool kFolded>
+constexpr auto train_fwd_kernel() {
+  if constexpr (kFolded)
+    return attn_train_fwd_folded_tc_kernel<kWarpgroups>;
+  else
+    return attn_train_fwd_tc_kernel<kWarpgroups>;
+}
+
+template <bool kFolded>
+size_t train_fwd_smem_bytes(int warpgroups, int m) {
+  return smem_bytes(warpgroups, m, kFolded ? kK8Stages : kStages);
+}
+
+// Sets the kernel's attributes on the current device once, for the most
+// shared memory a launch of it takes (configure_once).
+template <int kWarpgroups, bool kFolded>
+cudaError_t configure_train_fwd() {
+  static std::atomic<bool> done[kMaxDevices];
+  return configure_once(
+      done,
+      reinterpret_cast<const void*>(train_fwd_kernel<kWarpgroups, kFolded>()),
+      train_fwd_smem_bytes<kFolded>(kWarpgroups, kTileKeys + 1));
+}
+
+template <int kWarpgroups, bool kFolded>
 cudaError_t launch_train_fwd_wg(const void* q, const void* k, const void* v,
                                 void* out, int entries, int heads, int lq,
                                 int m, float scale, const Strides& st,
                                 const Dropout& drop, cudaStream_t stream) {
-  static std::atomic<bool> done[kMaxDevices];
-  auto kernel = attn_train_fwd_tc_kernel<kWarpgroups>;
-  const cudaError_t err =
-      configure_once(done, reinterpret_cast<const void*>(kernel),
-                     smem_bytes(kWarpgroups, kTileKeys + 1));
+  const cudaError_t err = configure_train_fwd<kWarpgroups, kFolded>();
   if (err != cudaSuccess) return err;
+  const auto kernel = train_fwd_kernel<kWarpgroups, kFolded>();
   constexpr int rows = kWarpgroups * kRowsPerWg;
   const dim3 grid((lq + rows - 1) / rows, heads, entries);
-  kernel<<<grid, kWarpgroups * 128, smem_bytes(kWarpgroups, m), stream>>>(
+  kernel<<<grid, kWarpgroups * 128,
+           train_fwd_smem_bytes<kFolded>(kWarpgroups, m), stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
@@ -621,18 +681,38 @@ cudaError_t launch_train_fwd_wg(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// K6: one warpgroup (64 rows) a block up to 64 query rows, two above. The
-// caller has checked the alignment (aligned()).
-inline int launch_train_fwd(const void* q, const void* k, const void* v,
-                            void* out, int entries, int heads, int lq, int m,
-                            float scale, const Strides& st,
-                            const Dropout& drop, cudaStream_t stream) {
+// K6 (kFolded false) or K8 (true): one warpgroup (64 rows) a block up to
+// 64 query rows, two above. The caller has checked the alignment
+// (aligned()).
+template <bool kFolded>
+int launch_train_fwd(const void* q, const void* k, const void* v, void* out,
+                     int entries, int heads, int lq, int m, float scale,
+                     const Strides& st, const Dropout& drop,
+                     cudaStream_t stream) {
   return static_cast<int>(
       lq > kRowsPerWg
-          ? launch_train_fwd_wg<2>(q, k, v, out, entries, heads, lq, m, scale,
-                                   st, drop, stream)
-          : launch_train_fwd_wg<1>(q, k, v, out, entries, heads, lq, m, scale,
-                                   st, drop, stream));
+          ? launch_train_fwd_wg<2, kFolded>(q, k, v, out, entries, heads, lq,
+                                            m, scale, st, drop, stream)
+          : launch_train_fwd_wg<1, kFolded>(q, k, v, out, entries, heads, lq,
+                                            m, scale, st, drop, stream));
+}
+
+// Blocks of K8's kernel for lq rows and m keys that an SM of the current
+// device holds at once, or a negative cudaError_t.
+template <int kWarpgroups>
+int folded_fwd_occupancy(int m) {
+  cudaError_t err = configure_train_fwd<kWarpgroups, true>();
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, train_fwd_kernel<kWarpgroups, true>(), kWarpgroups * 128,
+        train_fwd_smem_bytes<true>(kWarpgroups, m));
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
+inline int folded_fwd_blocks_per_sm(int lq, int m) {
+  return lq > kRowsPerWg ? folded_fwd_occupancy<2>(m)
+                         : folded_fwd_occupancy<1>(m);
 }
 
 // K7 (kFolded false) or K9 (true): the row pass, then the key pass, on

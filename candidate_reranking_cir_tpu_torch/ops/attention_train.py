@@ -32,14 +32,14 @@ shape (at most 40 query rows) the bytes of K and V. Which launch runs
 which kernel (the C entry points route; ``fwd_uses_tensor_cores`` and
 ``bwd_uses_tensor_cores`` state it for reports):
 
-- bf16 without a bias, every stage-II launch and every stage-I K9 launch:
-  the tensor cores (``csrc/attention_train_tc.cuh``: K6 is the eval
-  kernel's two sweeps with the mask and 1/(1 - rate) applied to p before
-  its bf16 rounding; K7 and K9 run a row pass and a key pass on wgmma, dv's
-  fp32 product as a bf16 hi + lo pair). A misaligned view raises
-  ``ValueError``; nothing falls back to the FMA kernels.
-- fp32 or with a bias, and every K8 launch: plain fp32 FMAs (see the CUDA
-  sources).
+- bf16 without a bias, every launch of both training paths: the tensor
+  cores (``csrc/attention_train_tc.cuh``: K6 and K8 are the eval kernel's
+  two sweeps with the mask and 1/(1 - rate) applied to p before its bf16
+  rounding, K8 with a shallower ring, so that more blocks share an SM;
+  K7 and K9 run a row pass and a key pass on wgmma, dv's fp32 product as
+  a bf16 hi + lo pair). A misaligned view raises ``ValueError``; nothing
+  falls back to the FMA kernels.
+- fp32 or with a bias: plain fp32 FMAs (see the CUDA sources).
 
 ``eligible`` and its thresholds are copies of the JAX package's, with the
 same values, so that the port sends the kernel the same calls.
@@ -301,10 +301,23 @@ def _kernel_fwd(q, k, v, bias3, seed: int, rate: float, *,
 
 
 def fwd_uses_tensor_cores(dtype, bias3, folded: bool) -> bool:
-    """Whether a forward launch runs the tensor-core kernel: K6 (unfolded)
-    in bf16 without a bias; K8 (folded) keeps its FMA body. The C entry
-    point does the routing."""
-    return not folded and dtype == torch.bfloat16 and bias3 is None
+    """Whether a forward launch runs the tensor-core kernel: K6 and K8
+    alike in bf16 without a bias. The C entry point does the routing."""
+    return dtype == torch.bfloat16 and bias3 is None
+
+
+def folded_forward_blocks_per_sm(lq: int, m: int) -> int:
+    """How many blocks of the bf16 K8 kernel for ``lq`` rows and ``m`` keys
+    an SM of the current card holds at once."""
+    from candidate_reranking_cir_tpu_torch.ops.build import (
+        load_attention_train_library,
+    )
+
+    blocks = load_attention_train_library(
+    ).crc_attention_train_folded_forward_blocks_per_sm(lq, m)
+    if blocks < 0:
+        raise RuntimeError(f"K8 occupancy query failed: cudaError {-blocks}")
+    return blocks
 
 
 def bwd_uses_tensor_cores(dtype, bias3, folded: bool) -> bool:

@@ -112,6 +112,9 @@ def load_attention_train_library() -> ctypes.CDLL:
         fn.restype = i32
     lib.crc_attention_train_tc_smem_bytes.argtypes = [i32]
     lib.crc_attention_train_tc_smem_bytes.restype = i32
+    blocks_per_sm = lib.crc_attention_train_folded_forward_blocks_per_sm
+    blocks_per_sm.argtypes = [i32, i32]
+    blocks_per_sm.restype = i32
     lib.crc_keep_mask.argtypes = [i32, i32, i32, i32, i32, f32, vp, vp]
     lib.crc_keep_mask.restype = i32
     return lib

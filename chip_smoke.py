@@ -8,8 +8,9 @@ Phases, each printing its own lines:
 2. build: compiles the eval (K1-K4) and train (K5-K9) attention libraries
    from ``csrc/`` (one nvcc each, started together; sm_90a) and prints
    ptxas's register and spill lines, and the tensor-core kernels' (eval,
-   K6, and K7's and K9's two backward passes) registers, spills and shared
-   memory.
+   K6, K8, and K7's and K9's two backward passes) registers, spills and
+   shared memory, and the blocks of K8's kernel an SM holds at the
+   stage-I widths.
 3. kernels K1-K4 at the eval path's shapes, bf16 and fp32 (bf16 runs the
    tensor-core kernel, with or without a bias, fp32 the fp32-FMA one; K3
    also at the eval path's narrowest call): max |error| against the plain
@@ -33,8 +34,8 @@ Phases, each printing its own lines:
    corpus held in memory; launch counts per kernel (K1-K3 must be > 0);
    then a few hundred pairs re-scored in fp32 on the card and on the CPU;
    a profile of one scoring pass, which fails if any eval attention ran
-   on the fp32-FMA kernel, or any K6, K7 or K9 on its fp32-FMA body
-   (every profile is bf16; the training profiles fail alike).
+   on the fp32-FMA kernel, or any K6-K9 on its fp32-FMA body (every
+   profile is bf16; the training profiles fail alike).
 6. training path: ``make_stage2_train_step`` at full width in bf16 with
    remat, B = 16, fed by the port's ``BatchLoader`` over in-memory
    CIRR-shaped triplets: 1 warm-up and 5 counted steps; step seconds and
@@ -50,7 +51,8 @@ Phases, each printing its own lines:
    Lq 32 and 40: the text widths the stage-I batches take), fp32 and
    bf16, with and without a key-mask bias: K8's output and K9's dq, dk
    and dv (each against its own max) against their plain versions, times
-   and bounds (bf16 K9 without a bias runs the tensor-core passes).
+   over back-to-back calls, device-only times (CUDA-graph replays) and
+   bounds (bf16 without a bias runs the tensor-core kernels).
 8. stage-I training: ``make_stage1_train_step`` as the JAX trainer builds
    it (B = 512, frozen ViT-B/16@384, MED with remat, bf16, AdamW lr 2e-5
    and weight decay 0.05, pooled target features cached through
@@ -102,14 +104,14 @@ S1_SHAPE = (512, 577, 12, 64)          # K8/K9 on the path: [E, M, H, D]
 S1_WIDTHS = (32, 40)           # Lq: the 'auto' buckets stage-I batches take
 S1_CHECK_B = 4                 # fp32 stage-I step, card vs CPU
 CSRC = "candidate_reranking_cir_tpu_torch/csrc"
-# the records are bf16: K1-K4 on the tensor-core eval kernel, K6, K7 and
-# K9 (no bias) on the tensor-core train kernels
+# the records are bf16: K1-K4 on the tensor-core eval kernel, K6-K9 (no
+# bias) on the tensor-core train kernels
 SOURCES = {"K1": f"{CSRC}/attention_tc.cuh", "K2": f"{CSRC}/attention_tc.cuh",
            "K3": f"{CSRC}/attention_tc.cuh", "K4": f"{CSRC}/attention_tc.cuh",
            "K5": f"{CSRC}/attention_common.cuh",
            "K6": f"{CSRC}/attention_train_tc.cuh",
            "K7": f"{CSRC}/attention_train_tc.cuh",
-           "K8": f"{CSRC}/attention_train.cu",
+           "K8": f"{CSRC}/attention_train_tc.cuh",
            "K9": f"{CSRC}/attention_train_tc.cuh"}
 JAX_KERNELS = "candidate_reranking_cir_tpu/ops/pallas_attention.py"
 JAX_TRAIN = "candidate_reranking_cir_tpu/ops/pallas_attention_train.py"
@@ -127,10 +129,12 @@ TC_K6_FAMILY = "train attention forward, tensor cores (K6)"
 FMA_K6_FAMILY = "train attention forward, fp32 FMA (K6)"
 TC_K7_FAMILY = "train attention backward, tensor cores (K7)"
 FMA_K7_FAMILY = "train attention backward, fp32 FMA (K7)"
+TC_K8_FAMILY = "train attention forward, folded, tensor cores (K8)"
+FMA_K8_FAMILY = "train attention forward, folded, fp32 FMA (K8)"
 TC_K9_FAMILY = "train attention backward, folded, tensor cores (K9)"
 FMA_K9_FAMILY = "train attention backward, folded, fp32 FMA (K9)"
 FMA_FAMILIES = (FMA_EVAL_FAMILY, FMA_K6_FAMILY, FMA_K7_FAMILY,
-                FMA_K9_FAMILY)
+                FMA_K8_FAMILY, FMA_K9_FAMILY)
 # K3's narrowest eval call (retrieval/rerank.py): the smallest q-bucket (4
 # queries) x the smallest text bucket (8 tokens) = 32 rows per candidate,
 # and max(64, pairs_per_call 256 x text_len 40 // 8) // 4 candidates
@@ -444,7 +448,9 @@ def make_queries(names: list[str], n_q: int, k: int, rng,
     return out
 
 
-def main_path():
+def eval_models():
+    """The eval path's stage-I and stage-II models at full width in bf16
+    on the card, random weights from SEED."""
     from candidate_reranking_cir_tpu_torch.config import (
         RerankerModelConfig,
         RetrievalModelConfig,
@@ -457,10 +463,61 @@ def main_path():
     from candidate_reranking_cir_tpu_torch.models.blip_retrieval import (
         RetrievalModel,
     )
+
+    vit, text = vit_config("base", 384), TextEncoderConfig()
+    cfg1 = RetrievalModelConfig(vit=vit, text=text, text_len=TEXT_LEN)
+    cfg2 = RerankerModelConfig(vit=vit, text=text, text_len=TEXT_LEN)
+    torch.manual_seed(SEED)
+    return (RetrievalModel(cfg1, dtype=torch.bfloat16, device="cuda"),
+            RerankerModel(cfg2, dtype=torch.bfloat16, device="cuda"))
+
+
+def eval_workload(image_size: int):
+    """The eval path's synthetic corpus, queries, tokenizer and the mask of
+    queries whose top-K misses the target, made from SEED."""
     from candidate_reranking_cir_tpu_torch.models.tokenizer import (
         WordPieceTokenizer,
         build_test_vocab,
     )
+
+    rng = np.random.default_rng(SEED)
+    corpus = Corpus(N_IMAGES, image_size, rng)
+    vocab = build_test_vocab()
+    words = [w for w in vocab if w.isalpha() and len(w) > 1]
+    queries = make_queries(corpus.index_names, N_QUERIES, TOPK, rng, words)
+    skip = np.asarray([not q["topk_labels"].any() for q in queries])
+    return corpus, queries, WordPieceTokenizer(vocab), skip
+
+
+def rescore(s1, s2, tok, bank, names, queries, skip, dtype, device):
+    """The first N_CHECK_QUERIES scored queries' pairs re-scored by copies
+    of s1 and s2 in ``dtype`` on ``device``: their logits and group
+    logits, one row a query."""
+    from candidate_reranking_cir_tpu_torch.retrieval.rerank import (
+        rerank_candidate_major,
+    )
+
+    sel = [i for i in range(len(queries)) if not skip[i]][:N_CHECK_QUERIES]
+    m1 = type(s1)(s1.cfg, dtype=dtype, device=device)
+    m1.load_state_dict(s1.state_dict())
+    m2 = type(s2)(s2.cfg, dtype=dtype, device=device)
+    m2.load_state_dict(s2.state_dict())
+    t0 = time.perf_counter()
+    r = rerank_candidate_major(
+        m1, None, m2, None, tok, device=device, index_feats=bank.to(device),
+        captions=[queries[i]["caption"] for i in sel],
+        reference_names=[queries[i]["reference_name"] for i in sel],
+        topk_names=np.stack([queries[i]["topk_names"] for i in sel]),
+        index_names=names, text_len=TEXT_LEN,
+        group_members=[queries[i]["group_members"] for i in sel],
+        zt_batch=N_CHECK_QUERIES)
+    logits = np.concatenate([r.logits, r.group_logits], axis=1)
+    print(f"[check] {str(dtype).split('.')[-1]} {device}: {logits.size} "
+          f"pairs in {time.perf_counter() - t0:.1f} s", flush=True)
+    return logits
+
+
+def main_path():
     from candidate_reranking_cir_tpu_torch.ops import cuda_attention as ck
     from candidate_reranking_cir_tpu_torch.retrieval.index import build_index
     from candidate_reranking_cir_tpu_torch.retrieval.rerank import (
@@ -470,25 +527,14 @@ def main_path():
         evaluate_cirr_stage2_datasets,
     )
 
-    vit, text = vit_config("base", 384), TextEncoderConfig()
-    cfg1 = RetrievalModelConfig(vit=vit, text=text, text_len=TEXT_LEN)
-    cfg2 = RerankerModelConfig(vit=vit, text=text, text_len=TEXT_LEN)
-    torch.manual_seed(SEED)
     t0 = time.perf_counter()
-    s1 = RetrievalModel(cfg1, dtype=torch.bfloat16, device="cuda")
-    s2 = RerankerModel(cfg2, dtype=torch.bfloat16, device="cuda")
+    s1, s2 = eval_models()
     torch.cuda.synchronize()
     print(f"[main] random weights at full width (seed {SEED}): "
           f"{sum(p.numel() for p in s1.parameters()) / 1e6:.1f}M + "
           f"{sum(p.numel() for p in s2.parameters()) / 1e6:.1f}M params in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-
-    rng = np.random.default_rng(SEED)
-    corpus = Corpus(N_IMAGES, vit.image_size, rng)
-    vocab = build_test_vocab()
-    words = [w for w in vocab if w.isalpha() and len(w) > 1]
-    queries = make_queries(corpus.index_names, N_QUERIES, TOPK, rng, words)
-    tok = WordPieceTokenizer(vocab)
+    corpus, queries, tok, skip = eval_workload(s1.cfg.vit.image_size)
     kw = dict(k=TOPK, text_len=TEXT_LEN, batch_size=16, device="cuda")
 
     # warm-up on a few queries (cuBLAS handles, allocator), then the
@@ -500,7 +546,6 @@ def main_path():
                                         queries, **kw)
     launches = dict(ck.LAUNCHES)
     out = res.rerank
-    skip = np.asarray([not q["topk_labels"].any() for q in queries])
     n_pairs = int((~skip).sum()) * TOPK + N_QUERIES * 5
     rerank_s = res.seconds["zt"] + res.seconds["score"]
     print(f"[main] metrics {json.dumps(res.metrics)}", flush=True)
@@ -522,28 +567,11 @@ def main_path():
 
     # re-score a few queries' pairs in fp32: card (kernels) vs CPU (plain)
     bank, names = build_index(corpus, s2.embed_images, 16, device="cuda")
-    sel = [i for i in range(N_QUERIES) if not skip[i]][:N_CHECK_QUERIES]
-    sub = dict(captions=[queries[i]["caption"] for i in sel],
-               reference_names=[queries[i]["reference_name"] for i in sel],
-               topk_names=np.stack([queries[i]["topk_names"] for i in sel]),
-               index_names=names, text_len=TEXT_LEN,
-               group_members=[queries[i]["group_members"] for i in sel],
-               zt_batch=N_CHECK_QUERIES)
-    logits = {}
-    for tag, dtype, device in (("bf16 card", torch.bfloat16, "cuda"),
-                               ("fp32 card", torch.float32, "cuda"),
-                               ("fp32 cpu", torch.float32, "cpu")):
-        m1 = RetrievalModel(cfg1, dtype=dtype, device=device)
-        m1.load_state_dict(s1.state_dict())
-        m2 = RerankerModel(cfg2, dtype=dtype, device=device)
-        m2.load_state_dict(s2.state_dict())
-        t0 = time.perf_counter()
-        r = rerank_candidate_major(m1, None, m2, None, tok, device=device,
-                                   index_feats=bank.to(device), **sub)
-        logits[tag] = np.concatenate([r.logits, r.group_logits], axis=1)
-        print(f"[check] {tag}: {logits[tag].size} pairs in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-        del m1, m2
+    logits = {tag: rescore(s1, s2, tok, bank, names, queries, skip, dtype,
+                           device)
+              for tag, dtype, device in (("bf16 card", torch.bfloat16, "cuda"),
+                                         ("fp32 card", torch.float32, "cuda"),
+                                         ("fp32 cpu", torch.float32, "cpu"))}
     d_fp32 = float(np.abs(logits["fp32 card"] - logits["fp32 cpu"]).max())
     d_bf16 = float(np.abs(logits["bf16 card"] - logits["fp32 cpu"]).max())
     spread = float(logits["fp32 cpu"].std())
@@ -572,8 +600,10 @@ def kernel_family(name: str) -> str:
     if "attn_train_bwd_tc_rows_kernel" in name \
             or "attn_train_bwd_tc_keys_kernel" in name:
         return TC_K7_FAMILY
+    if "attn_train_fwd_folded_tc_kernel" in name:
+        return TC_K8_FAMILY
     if "attn_train_fwd_folded_kernel" in name:
-        return "train attention forward, folded (K8)"
+        return FMA_K8_FAMILY
     if "attn_bwd_tc_rows_kernel" in name or "attn_bwd_tc_keys_kernel" in name:
         return TC_K9_FAMILY
     if "attn_bwd_rows_folded_kernel" in name \
@@ -598,7 +628,7 @@ def profile_device(label: str, run):
     """Device time by kernel family over one run of ``run`` (torch.profiler,
     CUPTI), and the device's idle share of its wall time. Every profiled
     run is bf16: it fails if an eval attention ran on the fp32-FMA kernel,
-    or a K6, K7 or K9 on its fp32-FMA body, instead of the tensor-core
+    or a K6, K7, K8 or K9 on its fp32-FMA body, instead of the tensor-core
     ones."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1001,22 +1031,24 @@ def run_folded_kernel_cases(dtype, lq: int) -> dict:
                    q, k, v, None, seed, gout, rate, num_heads=h),
                sdpa_fwd_bwd, (3 * q.numel() + 4 * k.numel()) * isz, 10),
     }
-    k9_route = "tensor cores" if tat.bwd_uses_tensor_cores(dtype, None, True) \
-        else "fp32 FMA"
+    routes = {"K8": tat.fwd_uses_tensor_cores(dtype, None, True),
+              "K9": tat.bwd_uses_tensor_cores(dtype, None, True)}
     for kid, (kernel, plain, sdpa, n_bytes, ops) in cases.items():
         b_ms, b_by = bound(n_bytes, ops * e * h * lq * m * d, dtype)
         recs[kid] = {"name": kid, "dtype": name, "shape": shape,
                      "max_abs_err": max(v[kid == "K9"] for v in errs.values()),
-                     "ms": time_ms(kernel), "plain_ms": time_ms(plain, 3),
-                     "library_ms": None, "sdpa_own_mask_ms": time_ms(sdpa),
+                     "ms": time_ms(kernel), "device_ms": graph_ms(kernel),
+                     "plain_ms": time_ms(plain, 3), "library_ms": None,
+                     "sdpa_own_mask_ms": time_ms(sdpa),
                      "bound_ms": b_ms, "bound_by": b_by}
         r = recs[kid]
-        route = f" ({k9_route})" if kid == "K9" else ""
-        print(f"[kernel] {kid} {name}{route} {shape} rate {rate}: kernel "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"sdpa(dropout_p={rate}{', fwd+bwd' if kid == 'K9' else ''}; "
-              f"same work, its own mask) {r['sdpa_own_mask_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+        route = "tensor cores" if routes[kid] else "fp32 FMA"
+        print(f"[kernel] {kid} {name} ({route}) {shape} rate {rate}: kernel "
+              f"{r['ms']:.4f} ms, device only {r['device_ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, sdpa(dropout_p={rate}"
+              f"{', fwd+bwd' if kid == 'K9' else ''}; same work, its own "
+              f"mask) {r['sdpa_own_mask_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
     return recs
 
 
@@ -1214,6 +1246,7 @@ def build_libraries() -> None:
     register and spill lines of every kernel (the tensor-core kernels'
     must be among them when a library was built), and the tensor-core
     kernels' dynamic shared memory."""
+    from candidate_reranking_cir_tpu_torch.ops import attention_train as tat
     from candidate_reranking_cir_tpu_torch.ops.build import (
         build,
         load_attention_library,
@@ -1231,6 +1264,7 @@ def build_libraries() -> None:
                 print(f"[build] {line.strip()}", flush=True)
         wanted = {"attention": ("attn_fwd_tc_kernel",),
                   "attention_train": ("attn_train_fwd_tc_kernel",
+                                      "attn_train_fwd_folded_tc_kernel",
                                       "attn_train_bwd_tc_rows_kernel",
                                       "attn_train_bwd_tc_keys_kernel",
                                       "attn_bwd_tc_rows_kernel",
@@ -1245,12 +1279,19 @@ def build_libraries() -> None:
           f"over more, {lib.crc_attention_tc_smem_bytes(2, 577)} B with 2",
           flush=True)
     smem = load_attention_train_library().crc_attention_train_tc_smem_bytes
-    print("[build] train tensor-core kernels' dynamic shared memory: K6 "
-          f"attn_train_fwd_tc_kernel {smem(2)} B with 1 warpgroup over more "
-          f"than one key tile, {smem(3)} B with 2; K7 and K9 row passes "
-          f"(attn_train_bwd_tc_rows_kernel, attn_bwd_tc_rows_kernel) "
-          f"{smem(0)} B; key passes (attn_train_bwd_tc_keys_kernel, "
-          f"attn_bwd_tc_keys_kernel) {smem(1)} B", flush=True)
+    print("[build] train tensor-core kernels' dynamic shared memory, over "
+          "more than one key tile: K6 attn_train_fwd_tc_kernel "
+          f"{smem(2)} B with 1 warpgroup, {smem(3)} B with 2; K8 "
+          f"attn_train_fwd_folded_tc_kernel {smem(4)} B with 1, {smem(5)} B "
+          "with 2; K7 and K9 row passes (attn_train_bwd_tc_rows_kernel, "
+          f"attn_bwd_tc_rows_kernel) {smem(0)} B; key passes "
+          f"(attn_train_bwd_tc_keys_kernel, attn_bwd_tc_keys_kernel) "
+          f"{smem(1)} B", flush=True)
+    m = S1_SHAPE[1]
+    print(f"[build] K8 attn_train_fwd_folded_tc_kernel blocks an SM at "
+          f"{m} keys: " + ", ".join(
+              f"{tat.folded_forward_blocks_per_sm(lq, m)} at {lq} rows"
+              for lq in S1_WIDTHS), flush=True)
 
 
 def main():

@@ -1,7 +1,7 @@
 """CUDA kernels K1-K9 against their plain PyTorch versions, on the card
 (bf16 K1-K4 on the tensor-core eval kernel, fp32 on the fp32-FMA one; bf16
-K6, K7 and K9 without a bias on the tensor-core train kernels; K8, and the
-fp32 and bias launches of K6, K7 and K9, on fp32-FMA kernels).
+K6-K9 without a bias on the tensor-core train kernels; the fp32 and bias
+launches of K6-K9 on fp32-FMA kernels).
 
 Marked ``cuda``: they skip where no card is present. On a machine with a
 card (which need not have JAX), run them without the repository's conftest:
@@ -12,6 +12,8 @@ card (which need not have JAX), run them without the repository's conftest:
 Tolerances: fp32 atol 2e-5 forward and 3e-5 gradients, bf16 atol 2e-2
 (tests/test_pallas_attention*); the K5 mask bit for bit.
 """
+import ctypes
+
 import pytest
 import torch
 
@@ -27,6 +29,11 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    # built and loaded before any test captures a graph
+    from candidate_reranking_cir_tpu_torch.ops import build
+
+    build.load_attention_library()
+    build.load_attention_train_library()
     return torch.device("cuda")
 
 
@@ -41,15 +48,67 @@ def _mask_bias(dev, e, m):
     return tattn.make_additive_mask(mask.to(dev))      # [E, 1, 1, M]
 
 
-def _kernel_names(fn) -> set:
-    """Names of the device kernels one call of ``fn`` launched."""
-    from torch.profiler import ProfilerActivity, profile
+def _demangle(name: bytes) -> str:
+    demangle = ctypes.CDLL("libstdc++.so.6")["__cxa_demangle"]
+    demangle.restype = ctypes.c_void_p
+    demangle.argtypes = [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p,
+                         ctypes.POINTER(ctypes.c_int)]
+    status = ctypes.c_int(1)
+    out = demangle(name, None, None, ctypes.byref(status))
+    return ctypes.string_at(out).decode() if status.value == 0 and out \
+        else name.decode()
 
+
+def _graph_kernel_names(graph: int) -> set:
+    """The demangled names of a cudaGraph_t's kernel nodes, from libcuda
+    (cuGraphKernelNodeGetParams_v2: the node's CUfunction at offset 0 of
+    its params, or its CUkernel at offset 56)."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+
+    def check(err):
+        assert err == 0, f"libcuda error {err}"
+
+    count = ctypes.c_size_t(0)
+    check(cuda.cuGraphGetNodes(ctypes.c_void_p(graph), None,
+                               ctypes.byref(count)))
+    nodes = (ctypes.c_void_p * count.value)()
+    check(cuda.cuGraphGetNodes(ctypes.c_void_p(graph), nodes,
+                               ctypes.byref(count)))
+    names = set()
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cuda.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                      ctypes.byref(kind)))
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        params = (ctypes.c_uint64 * 16)()
+        check(cuda.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
+                                                 params))
+        name = ctypes.c_char_p()
+        if params[0]:
+            check(cuda.cuFuncGetName(ctypes.byref(name),
+                                     ctypes.c_void_p(params[0])))
+        else:
+            check(cuda.cuKernelGetName(ctypes.byref(name),
+                                       ctypes.c_void_p(params[7])))
+        names.add(_demangle(name.value))
+    return names
+
+
+def _kernel_names(fn) -> set:
+    """Names of the device kernels one call of ``fn`` launches: the call is
+    captured in a CUDA graph, whose kernel nodes libcuda names, and the
+    graph is replayed once, so that what ``fn`` returns holds its results.
+    (Not the profiler: on the card it loses a kernel's record now and
+    then.)"""
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
         fn()
-        torch.cuda.synchronize()
-    return {evt.key for evt in prof.key_averages()}
+    names = _graph_kernel_names(graph.raw_cuda_graph())
+    graph.replay()
+    torch.cuda.synchronize()
+    return names
 
 
 def _launched(names: set, kernel: str) -> bool:
@@ -628,6 +687,126 @@ def test_k6_k7_tensor_cores_autograd(dev):
     torch.testing.assert_close(out.float(), ref.float(), rtol=0,
                                atol=TOL[torch.bfloat16])
     refs = tat.attention_train_bwd_plain(q, k, v, None, seed, g, rate)
+    for a, b in zip(grads, refs):
+        torch.testing.assert_close(a.float(), b.float(), rtol=0,
+                                   atol=GRAD_TOL[torch.bfloat16])
+
+
+# ---------------------------------------------------------------------------
+# K8 on the tensor cores (bf16, no bias)
+
+
+def _k8_inputs(dev, e, lq, m, h, seed):
+    return [_rand(dev, torch.bfloat16, e, n, h * 64, seed=seed + i)
+            for i, n in enumerate((lq, m, m))]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("m", [64, 577, 640])
+@pytest.mark.parametrize("lq", [1, 8, 32, 40, 64, 65, 100])
+def test_k8_tensor_cores_match_plain(dev, lq, m, rate):
+    """One key tile (64: the one-step form), the MED's 577 keys and ten
+    full tiles (640); 1-64 rows in one warpgroup (idle warp halves at 1,
+    8, 32 and 40 rows), 65 and 100 in two; four one-warpgroup blocks an
+    SM, as the kernel's design has it."""
+    e, h, seed = 6, 12, 2024
+    q, k, v = _k8_inputs(dev, e, lq, m, h, seed=1000 + lq + m)
+    if lq <= 64:
+        assert tat.folded_forward_blocks_per_sm(lq, m) == 4
+    outs = []
+    before = dict(tat.LAUNCHES)
+    names = _kernel_names(lambda: outs.append(tat._kernel_fwd(
+        *(tat._heads(x, h) for x in (q, k, v)), None, seed, rate,
+        folded=True)))
+    assert tat.LAUNCHES["K8"] == before["K8"] + 1
+    assert tat.LAUNCHES["K6"] == before["K6"]
+    assert _launched(names, "attn_train_fwd_folded_tc_kernel<"
+                     + ("1>" if lq <= 64 else "2>"))
+    assert not _launched(names, "attn_train_fwd_folded_kernel<")
+    assert not _launched(names, "attn_train_fwd_tc_kernel<")   # K6's
+    out = outs[0]
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+    ref = tat.attention_train_folded_plain(q, k, v, None, seed, rate,
+                                           num_heads=h)
+    torch.testing.assert_close(out.flatten(-2).float(), ref.float(), rtol=0,
+                               atol=TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("lq,m", [(32, 577), (40, 577), (64, 640), (1, 130),
+                                  (40, 700), (100, 577), (32, 64)])
+def test_k8_equals_k6_bit_for_bit(dev, lq, m):
+    """K8 on [E, L, H*D] and K6 on the [E, L, H, D] copy of the same data
+    give the same bits: K8's two-stage ring, its L2 hints and the folded
+    stride change no output (K6 runs a three-stage ring)."""
+    e, h, seed, rate = 8, 12, -31337, 0.1
+    q, k, v = _k8_inputs(dev, e, lq, m, h, seed=1100 + lq + m)
+    k8 = tat._kernel_fwd(*(tat._heads(x, h) for x in (q, k, v)), None, seed,
+                         rate, folded=True)
+    q4, k4, v4 = (tat._heads(x, h).contiguous() for x in (q, k, v))
+    k6 = tat._kernel_fwd(q4, k4, v4, None, seed, rate)
+    assert torch.equal(k8, k6)
+
+
+def test_k8_tensor_cores_refuse_misaligned_views(dev):
+    """A base pointer 8 bytes off: the entry point refuses it (before any
+    launch), and the wrapper raises a ValueError and counts none."""
+    e, lq, m, h = 2, 40, 577, 12
+    x = _rand(dev, torch.bfloat16, e, lq, h * 64 + 8)[..., 4:4 + h * 64]
+    k, v = (_rand(dev, torch.bfloat16, e, m, h * 64, seed=s) for s in (1, 2))
+    heads = [tat._heads(t, h) for t in (x, k, v)]
+    before = dict(tat.LAUNCHES)
+    with pytest.raises(ValueError, match="K8.*aligned"):
+        tat._kernel_fwd(*heads, None, 0, 0.1, folded=True)
+    assert tat.LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype,with_bias", [(torch.float32, False),
+                                             (torch.float32, True),
+                                             (torch.bfloat16, True)])
+def test_k8_fp32_and_bias_stay_on_the_fma_body(dev, dtype, with_bias):
+    e, lq, m, h, seed, rate = 8, 40, 577, 12, 5, 0.1
+    q = _rand(dev, dtype, e, lq, h * 64, seed=1300)
+    k = _rand(dev, dtype, e, m, h * 64, seed=1301)
+    v = _rand(dev, dtype, e, m, h * 64, seed=1302)
+    bias = tat._train_bias3(_mask_bias(dev, e, m), e, lq, m) \
+        if with_bias else None
+    assert not tat.fwd_uses_tensor_cores(dtype, bias, True)
+    outs = []
+    names = _kernel_names(lambda: outs.append(tat._kernel_fwd(
+        *(tat._heads(x, h) for x in (q, k, v)), bias, seed, rate,
+        folded=True)))
+    assert _launched(names, "attn_train_fwd_folded_kernel<")
+    assert not _launched(names, "attn_train_fwd_folded_tc_kernel")
+    ref = tat.attention_train_folded_plain(q, k, v, bias, seed, rate,
+                                           num_heads=h)
+    torch.testing.assert_close(outs[0].flatten(-2).float(), ref.float(),
+                               rtol=0, atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("lq", [32, 40])
+def test_k8_k9_tensor_cores_gradient(dev, lq):
+    """fused_attention_train_folded in bf16 without a bias at the stage-I
+    MED's shape: K8 on the tensor cores forward, K9 backward, against the
+    plain forward and backward."""
+    e, m, h, seed, rate = 16, 577, 12, 99, 0.1
+    q, k, v = _k8_inputs(dev, e, lq, m, h, seed=1400 + lq)
+    g = _rand(dev, torch.bfloat16, e, lq, h * 64, seed=1410 + lq)
+    x = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(tat.LAUNCHES)
+    res = {}
+    names = _kernel_names(lambda: res.update(
+        out=tat.fused_attention_train_folded(*x, None, seed, rate,
+                                             num_heads=h)))
+    assert _launched(names, "attn_train_fwd_folded_tc_kernel")
+    grads = torch.autograd.grad(res["out"], x, g)
+    assert tat.LAUNCHES["K8"] == before["K8"] + 1
+    assert tat.LAUNCHES["K9"] == before["K9"] + 1
+    ref = tat.attention_train_folded_plain(q, k, v, None, seed, rate,
+                                           num_heads=h)
+    torch.testing.assert_close(res["out"].float(), ref.float(), rtol=0,
+                               atol=TOL[torch.bfloat16])
+    refs = tat.attention_train_folded_bwd_plain(q, k, v, None, seed, g, rate,
+                                                num_heads=h)
     for a, b in zip(grads, refs):
         torch.testing.assert_close(a.float(), b.float(), rtol=0,
                                    atol=GRAD_TOL[torch.bfloat16])

@@ -126,7 +126,7 @@ def test_k7_tc_order_matches_pallas(dtype, rate, lq, m):
     (torch.bfloat16, None, False, True),             # K6 on the tensor cores
     (torch.bfloat16, torch.zeros(1, 4, 4), False, False),
     (torch.float32, None, False, False),
-    (torch.bfloat16, None, True, False),             # K8 keeps its FMA body
+    (torch.bfloat16, None, True, True),              # K8 on the tensor cores too
 ])
 def test_k6_route_predicate(dtype, bias, folded, tc):
     assert tat.fwd_uses_tensor_cores(dtype, bias, folded) == tc
