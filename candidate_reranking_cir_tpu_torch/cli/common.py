@@ -1,7 +1,215 @@
-"""Shared trainer plumbing (own copies of the JAX package's
-``cli/common.py`` helpers that the ported train steps use): static
-per-batch text-width buckets."""
+"""Shared CLI plumbing (own copy of the JAX package's ``cli/common.py``):
+the common flags, model, tokenizer and transform construction, checkpoint
+loading, and the trainers' text-width buckets.
+
+The flag surface follows the JAX package's CLIs, with one flag of the
+port's own: ``--device`` (default 'cuda'; 'cpu' runs the kernels' plain
+versions). ``--fused-attention`` and ``--mesh`` are accepted for
+compatibility only: the port always routes attention through its kernels
+(so ``off`` is refused on the card) and runs on one device (so ``--mesh
+auto`` with several cards visible is refused).
+"""
 from __future__ import annotations
+
+import argparse
+import json
+import os
+from pathlib import Path
+
+import torch
+
+from candidate_reranking_cir_tpu_torch.config import (
+    RerankerModelConfig,
+    RetrievalModelConfig,
+    TextEncoderConfig,
+    ViTConfig,
+    vit_config,
+)
+from candidate_reranking_cir_tpu_torch.data.preprocessing import make_transform
+from candidate_reranking_cir_tpu_torch.models.tokenizer import load_tokenizer
+from candidate_reranking_cir_tpu_torch.runtime.device import resolve_device
+from candidate_reranking_cir_tpu_torch.runtime.weights import (
+    load_reference_state_dict,
+)
+
+
+def add_common_flags(parser: argparse.ArgumentParser):
+    parser.add_argument("--dataset", type=str, required=True,
+                        help="'CIRR' or 'fashionIQ'")
+    parser.add_argument("--data-root", type=str, default=".",
+                        help="directory containing cirr_dataset/ or "
+                             "fashionIQ_dataset/")
+    parser.add_argument("--target-ratio", default=1.25, type=float,
+                        help="TargetPad target ratio")
+    parser.add_argument("--transform", default="targetpad", type=str,
+                        help="'squarepad' or 'targetpad'")
+    parser.add_argument("--vocab", type=str, default="",
+                        help="path to bert-base-uncased vocab.txt")
+    parser.add_argument("--allow-test-vocab", action="store_true",
+                        help="run with the ~90-token unit-test vocabulary "
+                             "instead of a real vocab file; outputs are "
+                             "meaningless; for smoke tests only (env: "
+                             "CIR_ALLOW_TEST_VOCAB=1)")
+    parser.add_argument("--vit", type=str, default="base")
+    parser.add_argument("--image-size", type=int, default=384)
+    parser.add_argument("--text-len", type=int, default=40,
+                        help="static text bucket length")
+    parser.add_argument("--text-overflow", type=str, default="error",
+                        choices=["error", "warn", "truncate"],
+                        help="what to do when a caption exceeds --text-len: "
+                             "fail (default), truncate with a counted "
+                             "warning, or silently clip")
+    parser.add_argument("--bf16", action="store_true", default=True)
+    parser.add_argument("--no-bf16", dest="bf16", action="store_false")
+    parser.add_argument("--fused-attention", type=str, default="auto",
+                        choices=["auto", "on", "off"],
+                        help="accepted for compatibility with the JAX "
+                             "package's CLIs: 'auto' and 'on' are the same "
+                             "(the kernels on the card, their plain versions "
+                             "on the CPU); 'off' is the same as 'auto' on "
+                             "the CPU and refused on the card")
+    parser.add_argument("--mesh", type=str, default="auto",
+                        choices=["auto", "off"],
+                        help="accepted for compatibility with the JAX "
+                             "package's CLIs: 'auto' and 'off' are the same "
+                             "on one card; 'auto' with several cards visible "
+                             "is refused (the mesh paths are not ported)")
+    parser.add_argument("--model-config", type=str, default="",
+                        help="JSON overriding model dims: "
+                             '{"vit": {...}, "text": {...}, "embed_dim": N}')
+    parser.add_argument("--device", type=str, default="cuda",
+                        choices=["cuda", "cpu"],
+                        help="where the models run (default: the CUDA card; "
+                             "'cpu' runs the kernels' plain versions)")
+    return parser
+
+
+def _model_overrides(args) -> dict:
+    if not getattr(args, "model_config", ""):
+        return {}
+    return json.loads(Path(args.model_config).read_text())
+
+
+def get_device(args) -> torch.device:
+    """Resolve --device (raises for 'cuda' without a card), checking
+    --fused-attention and --mesh against what the port runs."""
+    device = resolve_device(args.device)
+    if args.fused_attention == "off" and device.type == "cuda":
+        raise NotImplementedError(
+            "--fused-attention off: the port has no attention route on the "
+            "card that skips its kernels")
+    if args.mesh == "auto" and device.type == "cuda" \
+            and torch.cuda.device_count() > 1:
+        raise NotImplementedError(
+            "--mesh auto over several cards is not ported; pass --mesh off "
+            "to run on one card")
+    return device
+
+
+def _dtype(args):
+    return torch.bfloat16 if args.bf16 else torch.float32
+
+
+def build_stage1(args):
+    """The port's stage-I ``RetrievalModel`` on --device, and its config."""
+    from candidate_reranking_cir_tpu_torch.models.blip_retrieval import (
+        RetrievalModel,
+    )
+
+    ov = _model_overrides(args)
+    vit = (ViTConfig(**ov["vit"]) if "vit" in ov
+           else vit_config(args.vit, args.image_size))
+    cfg = RetrievalModelConfig(vit=vit,
+                               text=TextEncoderConfig(**ov.get("text", {})),
+                               embed_dim=ov.get("embed_dim", 256),
+                               text_len=args.text_len)
+    return RetrievalModel(cfg, dtype=_dtype(args),
+                          device=get_device(args)), cfg
+
+
+def build_stage2(args):
+    """The port's stage-II ``RerankerModel`` on --device, and its config."""
+    from candidate_reranking_cir_tpu_torch.models.blip_reranker import (
+        RerankerModel,
+    )
+
+    ov = _model_overrides(args)
+    vit = (ViTConfig(**ov["vit"]) if "vit" in ov
+           else vit_config(args.vit, args.image_size, drop_path_rate=0.1))
+    cfg = RerankerModelConfig(vit=vit,
+                              text=TextEncoderConfig(**ov.get("text", {})),
+                              text_len=args.text_len)
+    return RerankerModel(cfg, dtype=_dtype(args),
+                         device=get_device(args)), cfg
+
+
+def load_params(path: str, stage: int, cfg) -> dict[str, torch.Tensor]:
+    """A reference-format ``.pt``/``.pth`` checkpoint (the reference's own,
+    or one ``runtime/convert.py::save_torch_checkpoint`` wrote) -> the
+    port's state dict for ``cfg``. ``stage`` (1 or 2) is checked against
+    the config."""
+    want = {1: RetrievalModelConfig, 2: RerankerModelConfig}[stage]
+    if not isinstance(cfg, want):
+        raise TypeError(f"stage {stage} needs a {want.__name__}")
+    if "://" in str(path):
+        raise NotImplementedError(
+            "checkpoint URLs are not supported; download the file and pass "
+            "its path")
+    if Path(path).is_dir():
+        raise ValueError(
+            f"{path} is a directory (an Orbax checkpoint of the JAX "
+            "package?); convert it to a reference .pt file with `python -m "
+            "candidate_reranking_cir_tpu.cli.export_checkpoint`")
+    return load_reference_state_dict(path, cfg)
+
+
+def get_transform(args):
+    return make_transform(args.transform, args.image_size, args.target_ratio)
+
+
+def get_tokenizer(args):
+    allow_test = (getattr(args, "allow_test_vocab", False)
+                  or os.environ.get("CIR_ALLOW_TEST_VOCAB") == "1")
+    tok = load_tokenizer(args.vocab or None, allow_test_vocab=allow_test)
+    if allow_test and not args.vocab:
+        print("WARNING: running with the unit-test toy vocabulary "
+              "(--allow-test-vocab); all text-derived outputs are "
+              "meaningless", flush=True)
+    tok.overflow = getattr(args, "text_overflow", "error")
+    return tok
+
+
+def prescan_captions(tokenizer, dataset, text_len: int, dataset_name: str):
+    """Apply the caption-overflow policy to a whole train split before the
+    first step, so that an over-long caption fails at start-up, not hours
+    into an epoch. For Fashion-IQ the longest random compositions (both
+    two-caption orders) are scanned."""
+    if dataset_name == "cirr":
+        caps = [t["caption"] for t in dataset.triplets]
+    else:
+        from candidate_reranking_cir_tpu_torch.data.captions import (
+            fiq_longest_compositions,
+        )
+
+        caps = fiq_longest_compositions(
+            [t["captions"] for t in dataset.triplets])
+    if caps:
+        tokenizer.encode(caps, text_len)
+
+
+def parse_l_buckets(spec: str):
+    """--l-buckets value -> the schedulers' l_buckets argument: 'auto',
+    'off' (None, the single --text-len bucket), or '16,24,40'."""
+    if spec == "auto":
+        return "auto"
+    if spec in ("off", "none"):
+        return None
+    return tuple(int(b) for b in spec.split(","))
+
+
+def print_metrics(metrics: dict):
+    for k, v in metrics.items():
+        print(f"{k} = {v:.2f}")
 
 
 def parse_text_buckets(spec: str, text_len: int) -> tuple[int, ...]:

@@ -1,5 +1,5 @@
-"""CIRR dataset manifest and sample iteration (an own copy of the JAX
-package's ``data/datasets.py``; Fashion-IQ is not ported yet).
+"""CIRR and Fashion-IQ dataset manifests and sample iteration (an own copy
+of the JAX package's ``data/datasets.py``).
 
 Directory layout, JSON formats, split names and sample tuples mirror the
 reference datasets (data_utils.py:104-371):
@@ -9,6 +9,11 @@ reference datasets (data_utils.py:104-371):
              images under <root>/cirr_dataset/<relpath from split json>
   splits: train / val / test1; triplets carry reference, target_hard, caption,
   img_set.members (6-image subset groups), pairid.
+- FashionIQ: <root>/fashionIQ_dataset/captions/cap.{dress_type}.{split}.json
+             <root>/fashionIQ_dataset/image_splits/split.{dress_type}.{split}.json
+             images at <root>/fashionIQ_dataset/images/{name}.jpg
+  splits: train / val / test; categories dress / shirt / toptee; triplets carry
+  candidate, target, captions (two strings).
 
 Modes: 'classic' iterates the index corpus as (name, image); 'relative' iterates
 query triplets. ``force_validate`` makes the train split act as a val set
@@ -125,3 +130,88 @@ class CIRRDataset:
                 return None
             raise
 
+
+class FashionIQDataset:
+    def __init__(self, root: str | Path, split: str, dress_types: list[str],
+                 mode: str, transform: Callable | None = None, *,
+                 force_validate: bool = False,
+                 load_topk: str | Path | None = None, k: int | None = None):
+        if split not in ("train", "val", "test"):
+            raise ValueError("split should be in ['test', 'train', 'val']")
+        if mode not in ("relative", "classic"):
+            raise ValueError("mode should be in ['relative', 'classic']")
+        for d in dress_types:
+            if d not in ("dress", "shirt", "toptee"):
+                raise ValueError(
+                    "dress_type should be in ['dress', 'shirt', 'toptee']")
+        self.root = Path(root)
+        self.split = split
+        self.dress_types = list(dress_types)
+        self.mode = mode
+        self.transform = transform
+        self.force_validate = force_validate
+
+        base = self.root / "fashionIQ_dataset"
+        self.triplets: list[dict] = []
+        self.image_names: list[str] = []
+        for d in dress_types:
+            with open(base / "captions" / f"cap.{d}.{split}.json") as f:
+                self.triplets.extend(json.load(f))
+            with open(base / "image_splits" / f"split.{d}.{split}.json") as f:
+                self.image_names.extend(json.load(f))
+
+        self.topk = None
+        if load_topk is not None:
+            assert k is not None, "K value required with load_topk"
+            t = load_topk_file(load_topk)
+            assert k <= t["sorted_index_names"].shape[-1]
+            assert t["split"] == split
+            # reference asserts against the *last* dress type in its loop
+            # (data_utils.py:170); here: the stored tag must cover our types
+            stored = set(str(t["dress_types"]).split(","))
+            assert stored.issuperset(dress_types) or stored & set(dress_types), (
+                "top-k file dress types do not match")
+            self.topk = {
+                "sorted_index_names": np.asarray(t["sorted_index_names"])[:, :k],
+                "labels": np.asarray(t["labels"])[:, :k],
+            }
+            self.k = k
+
+    @property
+    def index_names(self) -> list[str]:
+        return list(self.image_names)
+
+    def image_path(self, name: str) -> Path:
+        return self.root / "fashionIQ_dataset" / "images" / f"{name}.jpg"
+
+    def open_image(self, name: str):
+        path = self.image_path(name)
+        if getattr(self.transform, "wants_path", False):
+            return self.transform(path)  # native decode+preprocess pipeline
+        img = load_image(path)
+        return self.transform(img) if self.transform else img
+
+    def __len__(self) -> int:
+        return len(self.triplets) if self.mode == "relative" \
+            else len(self.image_names)
+
+    def __getitem__(self, index: int) -> dict[str, Any]:
+        if self.mode == "classic":
+            name = self.image_names[index]
+            return {"name": name, "image": self.open_image(name)}
+        t = self.triplets[index]
+        s: dict[str, Any] = {
+            "reference_name": t["candidate"],
+            "captions": list(t["captions"]),
+        }
+        if self.split != "test":
+            s["target_name"] = t["target"]
+        if self.split == "train" and not self.force_validate:
+            s["reference_image"] = self.open_image(t["candidate"])
+            s["target_image"] = self.open_image(t["target"])
+        elif self.split == "test":
+            s["reference_image"] = self.open_image(t["candidate"])
+        if self.topk is not None:
+            s["topk_names"] = self.topk["sorted_index_names"][index]
+            s["topk_labels"] = self.topk["labels"][index]
+        return s

@@ -22,6 +22,17 @@ _STRING_KEYS = ("split", "dress_types")
 _LIST_KEYS = ("target_names", "index_names")
 
 
+def resolve_fiq_topk_path(path: str | Path, dress_type: str) -> str:
+    """Resolve a Fashion-IQ per-category top-k path template: this
+    package's ``{dress}`` convention, or the reference's literal ``DTYPE``
+    placeholder (utils.py:195, substituted at validate_stage2.py:144), so a
+    reference-produced file set loads without renaming."""
+    s = str(path)
+    if "DTYPE" in s:
+        return s.replace("DTYPE", dress_type)
+    return s.format(dress=dress_type)
+
+
 def save_topk_file(path: str | Path, data: dict) -> None:
     path = Path(path)
     if path.suffix == ".pt":

@@ -55,15 +55,19 @@ class RetrievalModel(nn.Module):
 
     def fuse(self, ref_image_feats, input_ids, attention_mask, *,
              return_raw: bool = False, deterministic: bool = True,
-             seeds=None):
+             seeds=None, query_group: int = 1):
         """Text cross-attends to the reference image tokens.
 
         return_raw=True -> last_hidden_state z_t [B, L, D] (stage-II input);
         otherwise the normalized projected prediction [B, embed_dim].
         ``seeds``: the MED's seed table (``text_encoder.seed_shape``) when
-        not deterministic."""
+        not deterministic. ``query_group`` Q > 1: image-major fusion,
+        input_ids / attention_mask [G*Q, L] (Q queries per image,
+        image-contiguous) against ref_image_feats [G, M, D]; each layer's
+        image K/V projections run once per image (the same function)."""
         hidden = self.text_encoder(input_ids, attention_mask, ref_image_feats,
-                                   deterministic=deterministic, seeds=seeds)
+                                   deterministic=deterministic, seeds=seeds,
+                                   query_group=query_group)
         if return_raw:
             return hidden
         return l2_normalize(self.text_proj(hidden[:, 0]))

@@ -103,7 +103,14 @@ class BertFFN(nn.Module):
 
 class MedLayer(nn.Module):
     """One MED layer; its cross-attention runs only in 'multimodal' mode.
-    ``seeds``: the layer's row of the seed table, or None at eval."""
+    ``seeds``: the layer's row of the seed table, or None at eval.
+
+    ``query_group`` Q > 1: image-major fusion. ``x`` holds Q queries per
+    image ([G*Q, L, D] against ``image_kv`` [G, M, W]) and the
+    cross-attention folds them into its row axis ([G, Q*L, D]), so each
+    image's K/V projections run once per image, not once per query. The
+    self-attention and the FFN stay per query; the residual and post-LN
+    inside the block are row-wise, so running them folded is exact."""
 
     def __init__(self, cfg: TextEncoderConfig, multimodal: bool,
                  dtype=torch.float32, device=None):
@@ -115,15 +122,19 @@ class MedLayer(nn.Module):
         self.ffn = BertFFN(cfg, dtype, device)
 
     def forward(self, x, text_bias, image_kv=None, image_bias=None,
-                seeds=None):
+                seeds=None, query_group: int = 1):
         det = seeds is None
         gen = None if det else seeded_generator(seeds[0], x.device)
         x = self.self_attn(x, None, text_bias, deterministic=det,
                            seed=None if det else seeds[1], generator=gen)
         if image_kv is not None:
-            x = self.cross_attn(x, image_kv, image_bias, deterministic=det,
-                                seed=None if det else seeds[2],
-                                generator=gen)
+            b, l, d = x.shape
+            # [G*Q, L, D] -> [G, Q*L, D]: a view of contiguous rows
+            xg = x.view(b // query_group, query_group * l, d)
+            xg = self.cross_attn(xg, image_kv, image_bias, deterministic=det,
+                                 seed=None if det else seeds[2],
+                                 generator=gen)
+            x = xg.view(b, l, d)
         return self.ffn(x, deterministic=det, generator=gen)
 
 
@@ -133,6 +144,9 @@ class TextEncoder(nn.Module):
     mode='text': self-attention only; 'multimodal': every layer also
     cross-attends to ``image_embeds`` [B, M, W] (``image_mask`` [B, M]
     optional; image tokens are never padded on the ported paths).
+    ``query_group`` Q > 1 (eval, multimodal): ``input_ids`` [G*Q, L] holds Q
+    queries per image of ``image_embeds`` [G, M, W], image-contiguous
+    (image-major fusion, see ``MedLayer``).
     ``cfg.remat`` recomputes each layer in backward when gradients are on
     (``torch.utils.checkpoint``, remat policy '')."""
 
@@ -159,7 +173,8 @@ class TextEncoder(nn.Module):
 
     def forward(self, input_ids, attention_mask, image_embeds=None,
                 image_mask=None, *, mode: str | None = None,
-                deterministic: bool = True, seeds=None):
+                deterministic: bool = True, seeds=None,
+                query_group: int = 1):
         multimodal = (mode if mode is not None else self.mode) == "multimodal"
         if multimodal and self.mode != "multimodal":
             raise ValueError("this encoder was built without cross-attention")
@@ -174,11 +189,15 @@ class TextEncoder(nn.Module):
         if multimodal:
             if image_embeds is None:
                 raise ValueError("multimodal mode needs image_embeds")
+            if query_group > 1 and \
+                    input_ids.shape[0] != image_embeds.shape[0] * query_group:
+                raise ValueError("query_group fusion needs input_ids [G*Q, L] "
+                                 "with image_embeds [G, M, W]")
             image_embeds = image_embeds.to(self.dtype)
             if image_mask is not None:
                 image_bias = make_additive_mask(image_mask)
         else:
-            image_embeds = None
+            image_embeds, query_group = None, 1
         remat = self.cfg.remat and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
             row = None if deterministic else seeds[i + 1]
@@ -186,8 +205,9 @@ class TextEncoder(nn.Module):
                 # the layer seeds its own generator, so no global RNG
                 # state needs saving for the recomputation
                 x = checkpoint(layer, x, text_bias, image_embeds, image_bias,
-                               row, use_reentrant=False,
+                               row, query_group, use_reentrant=False,
                                preserve_rng_state=False)
             else:
-                x = layer(x, text_bias, image_embeds, image_bias, row)
+                x = layer(x, text_bias, image_embeds, image_bias, row,
+                          query_group)
         return x

@@ -245,3 +245,26 @@ def build_test_vocab(extra_words: list[str] | None = None) -> dict[str, int]:
         if t not in seen:
             seen[t] = len(seen)
     return seen
+
+
+def load_tokenizer(vocab_path: str | Path | None = None, *,
+                   allow_test_vocab: bool = False) -> WordPieceTokenizer:
+    """The tokenizer of a bert-base-uncased ``vocab.txt``.
+
+    No vocab is an error unless ``allow_test_vocab=True`` opts into the
+    unit-test vocabulary (``build_test_vocab``), whose outputs are
+    meaningless for real text; a path that does not exist is an error too,
+    so a typo never falls back to it."""
+    if vocab_path:
+        vocab_path = Path(vocab_path)
+        if not vocab_path.exists():
+            raise FileNotFoundError(
+                f"vocab file not found: {vocab_path}; point --vocab at a "
+                "copy of bert-base-uncased's vocab.txt")
+        return WordPieceTokenizer.from_vocab_file(vocab_path)
+    if not allow_test_vocab:
+        raise ValueError(
+            "no vocab file given: pass --vocab <path to bert-base-uncased "
+            "vocab.txt>, or opt into the unit-test toy vocabulary with "
+            "--allow-test-vocab (metrics computed with it are meaningless)")
+    return WordPieceTokenizer(build_test_vocab())

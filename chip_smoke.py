@@ -11,10 +11,11 @@ Phases, each printing its own lines:
    K6, K8, and K7's and K9's two backward passes) registers, spills and
    shared memory, and the blocks of K8's kernel an SM holds at the
    stage-I widths.
-3. kernels K1-K4 at the eval path's shapes, bf16 and fp32 (bf16 runs the
+3. kernels K1-K4 at the eval paths' shapes, bf16 and fp32 (bf16 runs the
    tensor-core kernel, with or without a bias, fp32 the fp32-FMA one; K3
-   also at the eval path's narrowest call): max |error| against the plain
-   PyTorch version,
+   also at the stage-II eval path's narrowest call; K1 also at the stage-I
+   eval path's ViT batch and at its most-launched and widest image-major
+   MED shapes): max |error| against the plain PyTorch version,
    kernel / plain / SDPA times over back-to-back calls (CUDA events, as
    for every kernel) and the kernel/SDPA ratio (SDPA is a yardstick only;
    the port never calls it), the kernel's and SDPA's device-only times
@@ -32,7 +33,12 @@ Phases, each printing its own lines:
    ``evaluate_cirr_stage2`` entry at full ViT-B/16@384 + MED + dual-encoder
    width in bf16, random weights from a seed, on a synthetic CIRR-shaped
    corpus held in memory; launch counts per kernel (K1-K3 must be > 0);
-   then a few hundred pairs re-scored in fp32 on the card and on the CPU;
+   then a few hundred pairs re-scored in fp32 on the card and on the CPU,
+   and in bf16 on the card and on the CPU (the card's bf16 logits held to
+   the CPU's bf16 eager path within a share of the fp32 logits' spread; the
+   bf16 re-rank order's top-1 and top-5 agreement with the fp32 order;
+   the same check read against planted faults, noise in one K1, K2 or K3
+   launch, which it must catch from a stated share of the launch's std);
    a profile of one scoring pass, which fails if any eval attention ran
    on the fp32-FMA kernel, or any K6-K9 on its fp32-FMA body (every
    profile is bf16; the training profiles fail alike).
@@ -65,18 +71,31 @@ Phases, each printing its own lines:
    of one step; then one fp32 step at B = 4 on the card and on the CPU
    with attention dropout 0.1 through the kernels' hash mask at every
    MED attention site.
-9. a JSON line of kernel figures, then the card's name and power limit,
-   then the last line ``{"ok": true, "device": {...}}``.
+9. stage-I eval path (last, so that its 4 GB corpus is not in the
+   training paths' way): ``evaluate_cirr_stage1`` at CIRR-val scale (2,297
+   corpus images, 4,181 queries, about 1.8 a reference image) at full
+   width in bf16: the corpus embedded at batch 32, every query fused
+   image-major (``q_batch`` 256, 'auto' text buckets, caption lengths of
+   ``bench.py``'s CIRR model) and ranked over the whole corpus; seconds
+   for index, fusion and ranking, stage-I queries/s, launches (K1 and K2
+   > 0, K3 = 0), the fusion batches by (query group, width); the top-50
+   file saved, read back and re-ranked by the stage-II engine on a few
+   hundred queries; a few queries' fp32 predictions and top-50 lists on
+   the card against the CPU; a profile of one fusion pass.
+10. a JSON line of kernel figures, then the card's name and power limit,
+    then the last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero without the last line.
 Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -93,6 +112,25 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 GRAD_REL_TOL = {torch.bfloat16: 2e-2, torch.float32: 3e-5}
 FP32_CARD_VS_CPU_TOL = 1e-3    # summation order through 12+12 layers
 BF16_VS_FP32_TOL = 0.1         # bf16 compute vs fp32 on the same weights
+# bf16 card vs the bf16 eager path on the CPU (same weights, the pairs of
+# the first BF16_CPU_QUERIES scored queries; bf16 on the CPU runs about 3x
+# slower than fp32 there): max |logit diff| within this share of the fp32
+# logits' std. Two correct bf16 paths differ by about a third of that std
+# at these random weights (PERF.md section 6), near the bf16 error itself.
+BF16_CARD_VS_CPU_REL_TOL = 0.5
+BF16_CPU_QUERIES = 2
+# controls for that check: the bf16 card re-score again with Gaussian noise
+# of each share of a launch's output std added to the first launch, or to
+# every launch, of K1, K2 and K3 (PERF.md section 6). The sound run reads
+# 0.28-0.33 of the std; the check must fail the planted faults listed in
+# BF16_CONTROL_CAUGHT as (every launch, kernel, share), which read 0.6 or
+# more. Smaller faults (a tenth of the std in every K1 launch reads 0.497)
+# pass it: it catches gross faults only.
+BF16_CONTROL_SHARES_FIRST = (0.1, 0.3, 1.0)
+BF16_CONTROL_SHARES_EVERY = (0.01, 0.03, 0.1)
+BF16_CONTROL_CAUGHT = ((False, "K1", 1.0), (False, "K2", 1.0),
+                       (False, "K3", 1.0), (True, "K2", 0.1),
+                       (True, "K3", 0.1))
 TRAIN_B, TRAIN_STEPS = 16, 5   # stage-II batch (B x B pairs), counted steps
 TRAIN_SHAPE = (16, 640, 577, 12, 64)   # K6/K7 on the path: [E, Lq, M, H, D]
 TRAIN_RATE, TRAIN_SEED = 0.1, 20261016
@@ -103,6 +141,14 @@ S1_POOL = 256                  # in-memory image pool of the stage-I triplets
 S1_SHAPE = (512, 577, 12, 64)          # K8/K9 on the path: [E, M, H, D]
 S1_WIDTHS = (32, 40)           # Lq: the 'auto' buckets stage-I batches take
 S1_CHECK_B = 4                 # fp32 stage-I step, card vs CPU
+# stage-I eval at CIRR-val scale, the JAX benchmark's sizes (bench.py:549)
+S1E_IMAGES, S1E_QUERIES = 2297, 4181
+S1E_EMBED_BATCH, S1E_Q_BATCH = 32, 256
+S1E_WARMUP = (64, 128)         # images, queries of the warm-up run
+S1E_STAGE2_QUERIES = 256       # re-ranked by stage II from the top-K file
+S1E_CHECK_QUERIES = 8          # fp32 predictions, card vs CPU
+S1E_PRED_TOL = 1e-4            # fp32 predictions, card vs CPU
+S1E_TIE_GAP = 1e-6             # top-50 lists may differ only at such gaps
 CSRC = "candidate_reranking_cir_tpu_torch/csrc"
 # the records are bf16: K1-K4 on the tensor-core eval kernel, K6-K9 (no
 # bias) on the tensor-core train kernels
@@ -218,13 +264,16 @@ def bound(n_bytes: float, n_ops: float, dtype) -> tuple[float, str]:
 
 
 # ---------------------------------------------------------------------------
-# phase 3: kernels at the eval path's shapes
+# phase 3: kernels at the eval paths' shapes
 
-def kernel_cases():
-    """(kernel id, label, e, lq, m, heads, folded, with key-mask bias)."""
+def kernel_cases(stage1_cases: list):
+    """(kernel id, label, e, lq, m, heads, folded, with key-mask bias);
+    ``stage1_cases``: the stage-I eval path's K1 cases
+    (``stage1_k1_cases``)."""
     return [
         ("K1", "ViT self-attention", 16, 577, 577, 12, True, False),
         ("K1", "MED cross-attention", 32, 40, 577, 12, True, False),
+        *stage1_cases,
         ("K2", "masked text self-attention", 256, 40, 40, 12, False, True),
         ("K3", "candidate-major cross-attention", 8, 32 * 40, 577, 12,
          False, False),
@@ -412,11 +461,15 @@ def run_train_kernel_cases(dtype) -> dict:
 
 class Corpus:
     """'classic' dataset over in-memory [H, W, 3] images (CLIP-normalised
-    scale), made from a seed."""
+    scale), made from a seed; ``float32_draw`` draws them in float32
+    directly (no float64 copy: the stage-I eval's stack is 4 GB)."""
 
-    def __init__(self, n: int, size: int, rng):
+    def __init__(self, n: int, size: int, rng, float32_draw: bool = False):
         self.index_names = [f"img{i:04d}" for i in range(n)]
-        self.images = rng.normal(size=(n, size, size, 3)).astype(np.float32)
+        shape = (n, size, size, 3)
+        self.images = (rng.standard_normal(shape, dtype=np.float32)
+                       if float32_draw
+                       else rng.normal(size=shape).astype(np.float32))
 
     def __len__(self):
         return len(self.index_names)
@@ -489,15 +542,16 @@ def eval_workload(image_size: int):
     return corpus, queries, WordPieceTokenizer(vocab), skip
 
 
-def rescore(s1, s2, tok, bank, names, queries, skip, dtype, device):
-    """The first N_CHECK_QUERIES scored queries' pairs re-scored by copies
+def rescore(s1, s2, tok, bank, names, queries, skip, dtype, device,
+            n_queries: int = N_CHECK_QUERIES):
+    """The first ``n_queries`` scored queries' pairs re-scored by copies
     of s1 and s2 in ``dtype`` on ``device``: their logits and group
     logits, one row a query."""
     from candidate_reranking_cir_tpu_torch.retrieval.rerank import (
         rerank_candidate_major,
     )
 
-    sel = [i for i in range(len(queries)) if not skip[i]][:N_CHECK_QUERIES]
+    sel = [i for i in range(len(queries)) if not skip[i]][:n_queries]
     m1 = type(s1)(s1.cfg, dtype=dtype, device=device)
     m1.load_state_dict(s1.state_dict())
     m2 = type(s2)(s2.cfg, dtype=dtype, device=device)
@@ -510,7 +564,7 @@ def rescore(s1, s2, tok, bank, names, queries, skip, dtype, device):
         topk_names=np.stack([queries[i]["topk_names"] for i in sel]),
         index_names=names, text_len=TEXT_LEN,
         group_members=[queries[i]["group_members"] for i in sel],
-        zt_batch=N_CHECK_QUERIES)
+        zt_batch=n_queries)
     logits = np.concatenate([r.logits, r.group_logits], axis=1)
     print(f"[check] {str(dtype).split('.')[-1]} {device}: {logits.size} "
           f"pairs in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -568,10 +622,12 @@ def main_path():
     # re-score a few queries' pairs in fp32: card (kernels) vs CPU (plain)
     bank, names = build_index(corpus, s2.embed_images, 16, device="cuda")
     logits = {tag: rescore(s1, s2, tok, bank, names, queries, skip, dtype,
-                           device)
-              for tag, dtype, device in (("bf16 card", torch.bfloat16, "cuda"),
-                                         ("fp32 card", torch.float32, "cuda"),
-                                         ("fp32 cpu", torch.float32, "cpu"))}
+                           device, n)
+              for tag, dtype, device, n in (
+                  ("bf16 card", torch.bfloat16, "cuda", N_CHECK_QUERIES),
+                  ("fp32 card", torch.float32, "cuda", N_CHECK_QUERIES),
+                  ("fp32 cpu", torch.float32, "cpu", N_CHECK_QUERIES),
+                  ("bf16 cpu", torch.bfloat16, "cpu", BF16_CPU_QUERIES))}
     d_fp32 = float(np.abs(logits["fp32 card"] - logits["fp32 cpu"]).max())
     d_bf16 = float(np.abs(logits["bf16 card"] - logits["fp32 cpu"]).max())
     spread = float(logits["fp32 cpu"].std())
@@ -583,6 +639,10 @@ def main_path():
         fail("fp32 card logits disagree with the CPU")
     if not d_bf16 <= BF16_VS_FP32_TOL:
         fail("bf16 card logits disagree with fp32 on the CPU")
+    bf16_vs_bf16(logits, spread)
+    bf16_controls(logits, spread, lambda: rescore(
+        s1, s2, tok, bank, names, queries, skip, torch.bfloat16, "cuda",
+        BF16_CPU_QUERIES))
 
     profile_device("scoring pass", lambda: rerank_candidate_major(
         s1, None, s2, None, tok, device="cuda", index_feats=bank,
@@ -592,6 +652,110 @@ def main_path():
         index_names=names, text_len=TEXT_LEN, skip_mask=skip,
         group_members=[q["group_members"] for q in queries]))
     return launches
+
+
+def bf16_vs_bf16(logits: dict, spread: float) -> None:
+    """The bf16 card logits against the port's bf16 eager path on the CPU
+    (the same weights, the pairs of the first BF16_CPU_QUERIES queries)
+    within BF16_CARD_VS_CPU_REL_TOL of the fp32 logits' std, with the
+    max and root-mean-square differences of each bf16 path from fp32 and
+    from each other printed beside it; and how far the bf16 re-rank order
+    agrees with the fp32 order: per query, the top-1 candidate and the
+    top-5 set."""
+    n = len(logits["bf16 cpu"])
+    rows = {tag: x[:n] for tag, x in logits.items()}
+
+    def diff(a: str, b: str) -> tuple[float, float]:
+        d = rows[a] - rows[b]
+        return float(np.abs(d).max()), float(np.sqrt(np.mean(d * d)))
+
+    parts = []
+    for a, b in (("bf16 card", "bf16 cpu"), ("bf16 card", "fp32 cpu"),
+                 ("bf16 cpu", "fp32 cpu")):
+        mx, rms = diff(a, b)
+        parts.append(f"{a} vs {b} max {mx:.3e} ({mx / spread:.3f} std), "
+                     f"rms {rms:.3e} ({rms / spread:.3f} std)")
+    d = diff("bf16 card", "bf16 cpu")[0]
+    tol = BF16_CARD_VS_CPU_REL_TOL * spread
+    print(f"[check] bf16 logits over the first {n} queries' "
+          f"{rows['bf16 cpu'].size} pairs: {'; '.join(parts)}; tol on bf16 "
+          f"card vs bf16 cpu max "
+          f"{BF16_CARD_VS_CPU_REL_TOL} x std = {tol:.3e}", flush=True)
+    # the first TOPK columns are each query's re-ranked top-K candidates
+    order = {tag: np.argsort(-x[:, :TOPK], axis=1, kind="stable")
+             for tag, x in logits.items()}
+    for tag in ("bf16 card", "bf16 cpu"):
+        ref = order["fp32 cpu"][:len(order[tag])]
+        top1 = int((order[tag][:, 0] == ref[:, 0]).sum())
+        top5 = [len(set(a[:5]) & set(b[:5])) for a, b in zip(order[tag], ref)]
+        print(f"[check] {tag} re-rank order vs fp32 cpu: top-1 equal in "
+              f"{top1} of {len(ref)} queries; top-5 sets share "
+              f"{top5} of 5", flush=True)
+    if not d <= tol:
+        fail("bf16 card logits disagree with the bf16 path on the CPU")
+
+
+@contextlib.contextmanager
+def planted_fault(kid: str, share: float, seed: int, every: bool):
+    """Inside the block, the first launch of ``kid`` (or, with ``every``,
+    each of its launches) returns its output plus Gaussian noise of
+    ``share`` x that output's std: a known fault for a check to catch."""
+    from candidate_reranking_cir_tpu_torch.ops import cuda_attention as ck
+
+    real = ck._kernel_forward
+    planted = []
+
+    def faulty(k, q4, k4, v4, bias3):
+        out = real(k, q4, k4, v4, bias3)
+        if k != kid or (planted and not every):
+            return out
+        gen = torch.Generator(device=out.device).manual_seed(
+            seed + len(planted))
+        planted.append(k)
+        x = out.float()
+        noise = torch.randn(x.shape, generator=gen, device=out.device)
+        return (x + share * x.std() * noise).to(out.dtype)
+
+    ck._kernel_forward = faulty
+    try:
+        yield planted
+    finally:
+        ck._kernel_forward = real
+    if not planted:
+        fail(f"planted fault: {kid} was not launched")
+
+
+def bf16_controls(logits: dict, spread: float, rescore_bf16_card) -> None:
+    """The bf16 card-vs-CPU check against planted faults: the bf16 card
+    re-score again with noise in the first launch, or in every launch, of
+    K1, K2 or K3, read as the check reads the sound run (max |card - CPU|
+    in fp32 logit std, the rms beside it); fails unless every fault of
+    BF16_CONTROL_CAUGHT reads above the check's tolerance."""
+    ref = logits["bf16 cpu"]
+    readings = {}
+    for every, shares in ((False, BF16_CONTROL_SHARES_FIRST),
+                          (True, BF16_CONTROL_SHARES_EVERY)):
+        for kid in ("K1", "K2", "K3"):
+            for share in shares:
+                with planted_fault(kid, share, SEED + 7, every):
+                    x = rescore_bf16_card()
+                d = x[:len(ref)] - ref
+                readings[(every, kid, share)] = (
+                    float(np.abs(d).max()) / spread,
+                    float(np.sqrt(np.mean(d * d))) / spread)
+    for every in (False, True):
+        print(f"[check] bf16 card vs bf16 cpu with a planted fault in "
+              f"{'every' if every else 'the first'} launch (noise of a "
+              f"share of the launch's output std; max, rms |diff| in fp32 "
+              f"logit std; tol on the max {BF16_CARD_VS_CPU_REL_TOL}): "
+              + "; ".join(
+                  f"{kid} x {share}: {mx:.3f}, {rms:.3f}"
+                  for (ev, kid, share), (mx, rms) in readings.items()
+                  if ev == every), flush=True)
+    missed = [key for key in BF16_CONTROL_CAUGHT
+              if not readings[key][0] > BF16_CARD_VS_CPU_REL_TOL]
+    if missed:
+        fail(f"the bf16 check passed planted faults {missed}")
 
 
 def kernel_family(name: str) -> str:
@@ -1241,6 +1405,230 @@ def stage1_fp32_check(tok, words):
     card_vs_cpu("fp32 stage-I step", results)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the stage-I eval path
+
+def stage1_eval_queries(names: list[str], n_q: int, rng,
+                        vocab_words: list[str]) -> list[dict]:
+    """CIRR-val-shaped queries: the reference drawn uniformly from the
+    corpus (4,181 over 2,297 images: about 1.8 queries an image, as in
+    CIRR val), a 6-member group of the reference, the target and four
+    more, and a caption of ``caption_lengths``' token count (one toy word
+    a token; [ENC] and [SEP] take two)."""
+    n = len(names)
+    refs = rng.integers(0, n, size=n_q)
+    n_words = caption_lengths(n_q, TEXT_LEN, rng) - 2
+    out = []
+    for q in range(n_q):
+        others = rng.choice(n - 1, size=5, replace=False)
+        others = others + (others >= refs[q])        # never the reference
+        members = [names[refs[q]]] + [names[i] for i in others]
+        out.append({"reference_name": members[0], "target_name": members[1],
+                    "caption": " ".join(rng.choice(vocab_words, n_words[q])),
+                    "group_members": members})
+    return out
+
+
+def fusion_families(tok, queries: list[dict], names: list[str]) -> dict:
+    """The fusion scheduler's batches of these queries, as the engine makes
+    them (image-major, q_batch S1E_Q_BATCH, 'auto' text buckets):
+    {(query group Q, width w, images G): batches}. Each batch launches K1
+    once a MED layer at [G, Q*w] rows x the image tokens."""
+    from candidate_reranking_cir_tpu_torch.retrieval.validate_engine import (
+        resolve_buckets,
+        schedule_fusion_batches,
+    )
+
+    pos = {nm: i for i, nm in enumerate(names)}
+    ref_idx = np.asarray([pos[q["reference_name"]] for q in queries],
+                         np.int32)
+    _, _, bucket_of = resolve_buckets(tok, [q["caption"] for q in queries],
+                                      TEXT_LEN, "auto")
+    fams: dict = {}
+    for q, w, _, refs_rows, _ in schedule_fusion_batches(
+            ref_idx, bucket_of, S1E_Q_BATCH, True):
+        key = (q, w, len(refs_rows))
+        fams[key] = fams.get(key, 0) + 1
+    return fams
+
+
+def stage1_k1_cases(fams: dict) -> list:
+    """K1 at the stage-I eval path's shapes: the ViT at the embed batch,
+    the MED cross-attention of the most-launched fusion family, and the
+    widest one the scheduler can make (8 queries an image x 40 tokens)."""
+    (q, w, g), _ = max(fams.items(), key=lambda kv: kv[1])
+    return [
+        ("K1", "ViT self-attention, stage-I embed batch", S1E_EMBED_BATCH,
+         577, 577, 12, True, False),
+        ("K1", f"MED fusion cross-attention, most launched ({q} queries an "
+         f"image x {w} tokens)", g, q * w, 577, 12, True, False),
+        ("K1", "MED image-major cross-attention, widest (8 queries an image "
+         f"x {TEXT_LEN} tokens)", S1E_Q_BATCH // 8, 8 * TEXT_LEN, 577, 12,
+         True, False),
+    ]
+
+
+def stage1_eval_path(tok, words, queries: list[dict]) -> dict:
+    """``evaluate_cirr_stage1`` at CIRR-val scale in bf16, its top-K file
+    handed to the stage-II engine, the fp32 card-vs-CPU check and a
+    profile of one fusion pass. Returns the counted run's launches."""
+    from candidate_reranking_cir_tpu_torch.data.topk_io import (
+        load_topk_file,
+        save_topk_file,
+    )
+    from candidate_reranking_cir_tpu_torch.ops import cuda_attention as ck
+    from candidate_reranking_cir_tpu_torch.retrieval.index import build_index
+    from candidate_reranking_cir_tpu_torch.retrieval.validate2_engine import (
+        evaluate_cirr_stage2_datasets,
+    )
+    from candidate_reranking_cir_tpu_torch.retrieval.validate_engine import (
+        evaluate_cirr_stage1,
+        make_stage1_fns,
+        predict_queries,
+    )
+
+    s1, s2 = eval_models()
+    size = s1.cfg.vit.image_size
+    kw = dict(text_len=TEXT_LEN, batch_size=S1E_EMBED_BATCH,
+              save_topk_k=TOPK, q_batch=S1E_Q_BATCH, device="cuda")
+    # warm-up on a small corpus of its own (allocator, cuBLAS), then the
+    # counted run
+    rng = np.random.default_rng(SEED + 12)
+    small = Corpus(S1E_WARMUP[0], size, rng, float32_draw=True)
+    evaluate_cirr_stage1(s1, None, small, stage1_eval_queries(
+        small.index_names, S1E_WARMUP[1], rng, words), tok, **kw)
+    t0 = time.perf_counter()
+    corpus = Corpus(S1E_IMAGES, size, np.random.default_rng(SEED + 13),
+                    float32_draw=True)
+    print(f"[stage1_eval] {S1E_IMAGES} corpus images "
+          f"{list(corpus.images.shape)} float32 "
+          f"({corpus.images.nbytes / 2 ** 30:.2f} GiB) made in "
+          f"{time.perf_counter() - t0:.1f} s; {len(queries)} queries",
+          flush=True)
+    gc.collect()
+    ck.reset_launch_counts()
+    res, payload = evaluate_cirr_stage1(s1, None, corpus, queries, tok, **kw)
+    launches = dict(ck.LAUNCHES)
+    sec = res.seconds
+    print(f"[stage1_eval] seconds {json.dumps(sec)} (index: corpus embed "
+          f"at batch {S1E_EMBED_BATCH}, the host-to-card copy of the images "
+          f"included; fusion: {len(queries)} queries, image-major, q_batch "
+          f"{S1E_Q_BATCH}; ranking: the whole corpus)", flush=True)
+    print(f"[stage1_eval] stage-I queries/s {len(queries) / sec['total']:.1f} "
+          "(queries over the total wall time, the images' host-to-card copy "
+          "included)", flush=True)
+    print(f"[stage1_eval] launches {json.dumps(launches)}", flush=True)
+    fams = fusion_families(tok, queries, corpus.index_names)
+    print("[stage1_eval] fusion batches by (query group Q, width w): "
+          + ", ".join(f"Q {q} w {w}: {n} of [{g} images, {q * w} rows]"
+                      for (q, w, g), n in sorted(fams.items())), flush=True)
+    print(f"[stage1_eval] metrics {json.dumps(res.metrics)}", flush=True)
+    if not (launches["K1"] > 0 and launches["K2"] > 0
+            and launches["K3"] == 0):
+        fail(f"stage-I eval launches {launches}: K1 and K2 must run, K3 not")
+    for key, val in res.metrics.items():
+        if not 0.0 <= val <= 100.0:
+            fail(f"stage-I metric {key} = {val} out of range")
+    if payload["sorted_index_names"].shape != (len(queries), TOPK) or \
+            payload["labels"].shape != (len(queries), TOPK) or \
+            payload["group_labels"].shape != (len(queries), 5):
+        fail("unexpected top-K payload shapes")
+
+    # the stage-I -> stage-II handoff: the file written, read back and
+    # re-ranked by the stage-II engine on the first queries
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/cirr_top_{TOPK}_val.npz"
+        save_topk_file(path, payload)
+        saved = load_topk_file(path)
+    if saved.keys() != payload.keys() or not all(
+            np.array_equal(saved[k], payload[k]) for k in payload):
+        fail("the top-K file read back differs from the payload")
+    relative = [dict(queries[i], topk_names=saved["sorted_index_names"][i],
+                     topk_labels=saved["labels"][i])
+                for i in range(S1E_STAGE2_QUERIES)]
+    t0 = time.perf_counter()
+    res2 = evaluate_cirr_stage2_datasets(
+        s1, None, s2, None, tok, corpus, relative, k=TOPK,
+        text_len=TEXT_LEN, batch_size=16, device="cuda")
+    logits = res2.rerank.logits
+    print(f"[stage1_eval] stage II on {S1E_STAGE2_QUERIES} queries of the "
+          f"file in {time.perf_counter() - t0:.1f} s: metrics "
+          f"{json.dumps(res2.metrics)}", flush=True)
+    if logits.shape != (S1E_STAGE2_QUERIES, TOPK) \
+            or not np.isfinite(logits).all():
+        fail("stage II on the stage-I top-K file gave bad logits")
+    del s2, res2
+
+    # a fusion pass over the corpus bank, profiled; then the fp32 check
+    embed, fuse = make_stage1_fns(s1, None, "cuda")
+    bank, pooled, names = build_index(corpus, embed, S1E_EMBED_BATCH,
+                                      pooled=True, device="cuda")
+    fuse_args = (tok, [q["caption"] for q in queries],
+                 [q["reference_name"] for q in queries], bank, names,
+                 TEXT_LEN, S1E_Q_BATCH)
+    profile_device("stage-I fusion pass",
+                   lambda: predict_queries(fuse, *fuse_args))
+    del bank, fuse_args
+    stage1_fp32_eval_check(s1, tok, queries, corpus, pooled)
+    return launches
+
+
+def stage1_fp32_eval_check(s1, tok, queries: list[dict], corpus: Corpus,
+                           pooled) -> None:
+    """S1E_CHECK_QUERIES queries, two from each of the first reference
+    images that hold two or more (so they fuse image-major, Q = 2),
+    through fp32 copies of ``s1`` on
+    the card and on the CPU: reference features, fused predictions (within
+    S1E_PRED_TOL) and top-50 lists over the same pooled index (equal
+    wherever the two candidates' distances differ by more than
+    S1E_TIE_GAP)."""
+    from candidate_reranking_cir_tpu_torch.retrieval.validate_engine import (
+        make_stage1_fns,
+        predict_queries,
+        ranked_slices,
+    )
+
+    by_ref: dict = {}
+    for q in queries:
+        by_ref.setdefault(q["reference_name"], []).append(q)
+    sel = [q for rows in by_ref.values() if len(rows) >= 2
+           for q in rows[:2]][:S1E_CHECK_QUERIES]
+    refs = sorted({q["reference_name"] for q in sel})
+    pos = {nm: i for i, nm in enumerate(corpus.index_names)}
+    images = torch.from_numpy(corpus.images[[pos[r] for r in refs]])
+    preds, tops, index = {}, {}, pooled.float().cpu()
+    for dev in ("cuda", "cpu"):
+        model = type(s1)(s1.cfg, dtype=torch.float32, device=dev)
+        model.load_state_dict(s1.state_dict())
+        embed, fuse = make_stage1_fns(model, None, dev)
+        t0 = time.perf_counter()
+        raw = embed(images.to(dev))[0]
+        preds[dev] = predict_queries(
+            fuse, tok, [q["caption"] for q in sel],
+            [q["reference_name"] for q in sel], raw, refs, TEXT_LEN,
+            S1E_CHECK_QUERIES)
+        tops[dev], _ = ranked_slices(preds[dev], index.to(dev), TOPK)
+        preds[dev] = preds[dev].cpu()
+        print(f"[check] fp32 stage-I fusion of {len(sel)} queries over "
+              f"{len(refs)} reference images on {dev} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        del model
+    d_pred = float((preds["cuda"] - preds["cpu"]).abs().max())
+    dist = (1.0 - preds["cpu"] @ index.T).numpy()
+    rows = np.arange(len(sel))[:, None]
+    differ = tops["cuda"] != tops["cpu"]
+    gaps = np.abs(dist[rows, tops["cuda"]] - dist[rows, tops["cpu"]])[differ]
+    print(f"[check] fp32 stage-I card vs cpu: max |prediction diff| "
+          f"{d_pred:.3e} (tol {S1E_PRED_TOL}); top-{TOPK} lists differ at "
+          f"{int(differ.sum())} of {differ.size} places, largest distance "
+          f"gap there {float(gaps.max()) if gaps.size else 0.0:.3e} (tol "
+          f"{S1E_TIE_GAP})", flush=True)
+    if not d_pred <= S1E_PRED_TOL:
+        fail("fp32 stage-I predictions on the card disagree with the CPU")
+    if gaps.size and not gaps.max() <= S1E_TIE_GAP:
+        fail("fp32 stage-I top-50 lists on the card disagree with the CPU")
+
+
 def build_libraries() -> None:
     """Both kernel libraries, one nvcc each, started together; ptxas's
     register and spill lines of every kernel (the tensor-core kernels'
@@ -1301,9 +1689,22 @@ def main():
     print(f"[device] {smi}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
     build_libraries()
+    from candidate_reranking_cir_tpu_torch.models.tokenizer import (
+        WordPieceTokenizer,
+        build_test_vocab,
+    )
+
+    vocab = build_test_vocab()
+    words = [w for w in vocab if w.isalpha() and len(w) > 1]
+    tok = WordPieceTokenizer(vocab)
+    s1e_names = [f"img{i:04d}" for i in range(S1E_IMAGES)]
+    s1e_queries = stage1_eval_queries(
+        s1e_names, S1E_QUERIES, np.random.default_rng(SEED + 11), words)
 
     records = {}
-    for case in kernel_cases():
+    cases = kernel_cases(stage1_k1_cases(
+        fusion_families(tok, s1e_queries, s1e_names)))
+    for case in cases:
         for dtype in (torch.float32, torch.bfloat16):
             rec = run_kernel_case(*case, dtype)
             # the JSON line keeps each kernel's first main-path shape, bf16
@@ -1315,14 +1716,6 @@ def main():
             records.update(recs)
 
     launches = main_path()
-    from candidate_reranking_cir_tpu_torch.models.tokenizer import (
-        WordPieceTokenizer,
-        build_test_vocab,
-    )
-
-    vocab = build_test_vocab()
-    words = [w for w in vocab if w.isalpha() and len(w) > 1]
-    tok = WordPieceTokenizer(vocab)
     train = train_path(tok, words)
     train_fp32_check(tok, words)
 
@@ -1334,15 +1727,20 @@ def main():
                 records.update(recs)
     stage1 = stage1_train_path(tok, words)
     stage1_fp32_check(tok, words)
+    s1e_launches = stage1_eval_path(tok, words, s1e_queries)
 
     kernels = []
     for kid in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9"):
         rec = records[kid]
-        # K1-K4: launches on the eval path; K6/K7 on the stage-II training
-        # path; K8/K9 on the stage-I one; K5 runs inside every K6-K9 launch
-        # that applies the mask, on both training paths
+        # K1-K4: launches on the two eval paths (stage II, then stage I);
+        # K6/K7 on the stage-II training path; K8/K9 on the stage-I one; K5
+        # runs inside every K6-K9 launch that applies the mask, on both
+        # training paths
+        by_path = {}
         if kid in launches:
-            n = launches[kid]
+            by_path = {"stage2_eval": launches[kid],
+                       "stage1_eval": s1e_launches[kid]}
+            n = sum(by_path.values())
         elif kid == "K5":
             n = train["launches"]["K5"] + stage1["launches"]["K5"]
         elif kid in ("K8", "K9"):
@@ -1356,6 +1754,7 @@ def main():
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "shape": rec["shape"], "dtype": rec["dtype"],
+            **({"launches_by_path": by_path} if by_path else {}),
             **{key: rec[key] for key in ("device_ms", "library_device_ms",
                                          "sdpa_own_mask_ms") if key in rec}})
     print(json.dumps({"kernels": kernels}))

@@ -14,6 +14,7 @@ Tolerances: fp32 atol 2e-5 forward and 3e-5 gradients, bf16 atol 2e-2
 """
 import ctypes
 
+import numpy as np
 import pytest
 import torch
 
@@ -810,3 +811,124 @@ def test_k8_k9_tensor_cores_gradient(dev, lq):
     for a, b in zip(grads, refs):
         torch.testing.assert_close(a.float(), b.float(), rtol=0,
                                    atol=GRAD_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,rows", [(256, 8), (64, 64), (128, 128),
+                                    (32, 320)])
+def test_k1_image_major_med_shapes_match_plain(dev, dtype, g, rows):
+    """K1 at the stage-I eval's image-major MED cross-attention: Q queries
+    of w tokens fold into Q*w rows (8 to 320) against each image's 577
+    tokens; bf16 on the tensor cores, on a folded view of the rows."""
+    h, m = 12, 577
+    x = _rand(dev, dtype, g * 2, rows // 2, h * 64, seed=1500 + rows)
+    q = x.view(g, rows, h * 64)        # [G*Q, w, D] -> [G, Q*w, D]
+    k = _rand(dev, dtype, g, m, h * 64, seed=1501 + rows)
+    v = _rand(dev, dtype, g, m, h * 64, seed=1502 + rows)
+    res = {}
+    names = _kernel_names(lambda: res.update(
+        out=ck.fused_attention_folded(q, k, v, None, num_heads=h)))
+    if dtype == torch.bfloat16:
+        assert _launched(names, "attn_fwd_tc_kernel")
+    ref = ck.attention_plain(q.unflatten(-1, (h, 64)),
+                             k.unflatten(-1, (h, 64)),
+                             v.unflatten(-1, (h, 64))).flatten(-2)
+    torch.testing.assert_close(res["out"].float(), ref.float(), rtol=0,
+                               atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_ranked_slices_on_the_card_match_the_cpu(dev, ties):
+    """The stage-I ranking on the card against the CPU at CIRR-val's corpus
+    size: the stable top-w indices and the exact entity ranks. Entries are
+    multiples of 2^-8 (with ``ties``: of 1/4, and duplicated corpus rows),
+    so every product and distance is exact whatever the summation order
+    and the two devices must agree bit for bit, ties included."""
+    from candidate_reranking_cir_tpu_torch.retrieval.validate_engine import (
+        ranked_slices,
+    )
+
+    g = torch.Generator().manual_seed(7)
+    n_q, n, e = 300, 2297, 16
+    if ties:
+        idx = torch.randint(-2, 3, (n, e), generator=g).float() / 4
+        idx[100:200] = idx[:100]
+        pred = idx[torch.randint(0, n, (n_q,), generator=g)].clone()
+    else:
+        idx = torch.round(torch.randn(n, e, generator=g) * 64) / 256
+        pred = torch.round(torch.randn(n_q, e, generator=g) * 64) / 256
+    ent = torch.randint(0, n, (n_q, 7), generator=g).numpy()
+    cpu = ranked_slices(pred, idx, 501, ent)
+    card = ranked_slices(pred.to(dev), idx.to(dev), 501, ent)
+    for a, b in zip(card, cpu):
+        np.testing.assert_array_equal(a, b)
+
+
+# head width 64, as the kernels take; 145 image tokens, so the ViT and the
+# MED's cross-attention take the folded route (K1) as at full size
+CARD_MODEL_CONFIG = {
+    "vit": {"image_size": 192, "patch_size": 16, "hidden_size": 128,
+            "num_layers": 1, "num_heads": 2},
+    "text": {"vocab_size": 256, "hidden_size": 128, "num_layers": 2,
+             "num_heads": 2, "intermediate_size": 256, "encoder_width": 128,
+             "hidden_dropout": 0.0, "attention_dropout": 0.0,
+             "merge_mlp_from": 1},
+    "embed_dim": 32,
+}
+
+
+def _run_clis(root, flags, tag: str, capsys) -> dict:
+    """validate -> top-K file -> validate_stage2, and both test1
+    submissions, with ``flags``; their printed metrics and files."""
+    from candidate_reranking_cir_tpu_torch.cli import (
+        cirr_test_submission,
+        cirr_test_submission_stage2,
+        validate,
+        validate_stage2,
+    )
+    from candidate_reranking_cir_tpu_torch.data.topk_io import load_topk_file
+
+    s1, s2 = ["--stage1-path", str(root / "s1.pt")], \
+        ["--stage2-path", str(root / "s2.pt")]
+    topk, t1 = root / f"val_{tag}.npz", root / f"test1_{tag}.npz"
+    sub = root / f"sub_{tag}"
+    validate.main(flags + s1 + ["--save-topk", "--k", "8", "--topk-out",
+                                str(topk), "--q-batch", "4"])
+    validate_stage2.main(flags + s1 + s2 + ["--top-k-path", str(topk),
+                                            "--K-value", "4"])
+    cirr_test_submission.main(flags + s1 + [
+        "--submission-name", "s1", "--out-dir", str(sub), "--save-topk",
+        "--k", "4", "--topk-out", str(t1)])
+    cirr_test_submission_stage2.main(flags + s1 + s2 + [
+        "--top-k-path", str(t1), "--K-value", "4", "--submission-name", "s2",
+        "--out-dir", str(sub)])
+    printed = [line for line in capsys.readouterr().out.splitlines()
+               if " = " in line]
+    return {"printed": printed, "topk": load_topk_file(topk),
+            "files": {p.name: p.read_bytes() for p in sorted(sub.iterdir())}}
+
+
+def test_cli_round_trip_on_the_card(dev, tmp_path, capsys):
+    """The four eval CLIs with --device cuda on a synthetic CIRR split
+    (tests/test_torch_port_cli.py's) and small models of head width 64:
+    in fp32 the same metrics, top-K file and submission files as on the
+    CPU; in bf16 they run through K1-K3 and give metrics in [0, 100]."""
+    pytest.importorskip("PIL")
+    from test_torch_port_cli import common_flags, make_workdir
+
+    make_workdir(tmp_path, CARD_MODEL_CONFIG)
+    size = CARD_MODEL_CONFIG["vit"]["image_size"]
+    runs = {d: _run_clis(tmp_path, common_flags(tmp_path, size, device=d)
+                         + ["--no-bf16"], f"fp32_{d}", capsys)
+            for d in ("cpu", "cuda")}
+    assert runs["cuda"]["printed"] == runs["cpu"]["printed"]
+    assert runs["cuda"]["files"] == runs["cpu"]["files"]
+    for key, val in runs["cpu"]["topk"].items():
+        np.testing.assert_array_equal(runs["cuda"]["topk"][key], val)
+    before = dict(ck.LAUNCHES)
+    bf16 = _run_clis(tmp_path, common_flags(tmp_path, size, device="cuda"),
+                     "bf16", capsys)
+    assert all(ck.LAUNCHES[k] > before[k] for k in ("K1", "K2", "K3")), \
+        (before, ck.LAUNCHES)
+    for line in bf16["printed"]:
+        assert 0.0 <= float(line.split(" = ")[1]) <= 100.0, line

@@ -244,3 +244,30 @@ def test_profile_families_name_the_eval_kernels(name, family):
         "void (anonymous namespace)::attn_fwd_kernel<false>(...)")
     assert fma == chip_smoke.FMA_EVAL_FAMILY != chip_smoke.TC_FAMILY
     assert fma in chip_smoke.FMA_FAMILIES
+
+
+@pytest.mark.parametrize("every", [False, True])
+def test_planted_fault_noises_the_chosen_launches(monkeypatch, every):
+    # chip_smoke.py's control for its bf16 check: noise of the given share
+    # of the output's std on the first launch of one kernel, or on each
+    # of its launches, and on no other kernel's
+    monkeypatch.setattr(ck, "_kernel_forward",
+                        lambda kid, q4, k4, v4, bias3: q4.clone())
+    x = torch.randn(2, 8, 2, 4, generator=torch.Generator().manual_seed(0))
+    with chip_smoke.planted_fault("K2", 0.5, 3, every) as planted:
+        outs = [ck._kernel_forward(kid, x, x, x, None)
+                for kid in ("K1", "K2", "K2")]
+    assert planted == (["K2", "K2"] if every else ["K2"])
+    assert torch.equal(outs[0], x)
+    noise = outs[1] - x
+    assert 0.25 * x.std() < noise.std() < 1.0 * x.std()
+    assert torch.equal(outs[2], x) != every
+    assert ck._kernel_forward("K2", x, x, x, None).equal(x)  # restored
+
+
+def test_planted_fault_fails_when_its_kernel_never_launched(monkeypatch):
+    monkeypatch.setattr(ck, "_kernel_forward",
+                        lambda kid, q4, k4, v4, bias3: q4.clone())
+    with pytest.raises(SystemExit):
+        with chip_smoke.planted_fault("K3", 0.5, 3, False):
+            pass
