@@ -27,10 +27,10 @@ from candidate_reranking_cir_tpu_torch.config import (
 )
 from candidate_reranking_cir_tpu_torch.data.preprocessing import make_transform
 from candidate_reranking_cir_tpu_torch.models.tokenizer import load_tokenizer
-from candidate_reranking_cir_tpu_torch.runtime.device import resolve_device
-from candidate_reranking_cir_tpu_torch.runtime.weights import (
-    load_reference_state_dict,
+from candidate_reranking_cir_tpu_torch.runtime.checkpoint import (
+    load_model_params,
 )
+from candidate_reranking_cir_tpu_torch.runtime.device import resolve_device
 
 
 def add_common_flags(parser: argparse.ArgumentParser):
@@ -61,6 +61,9 @@ def add_common_flags(parser: argparse.ArgumentParser):
                              "warning, or silently clip")
     parser.add_argument("--bf16", action="store_true", default=True)
     parser.add_argument("--no-bf16", dest="bf16", action="store_false")
+    parser.add_argument("--dress-types", type=str, nargs="+",
+                        default=["dress", "shirt", "toptee"],
+                        help="Fashion-IQ categories the trainers train on")
     parser.add_argument("--fused-attention", type=str, default="auto",
                         choices=["auto", "on", "off"],
                         help="accepted for compatibility with the JAX "
@@ -110,57 +113,54 @@ def _dtype(args):
     return torch.bfloat16 if args.bf16 else torch.float32
 
 
-def build_stage1(args):
-    """The port's stage-I ``RetrievalModel`` on --device, and its config."""
+def build_stage1(args, *, remat: bool = False):
+    """The port's stage-I ``RetrievalModel`` on --device, and its config.
+    ``remat`` (the trainer's) recomputes the ViT's blocks and the MED's
+    layers in backward with policy '': at stage I's B = 512, keeping the
+    products' outputs ('dots') would hold the cross-attention K/V
+    projections of every layer."""
     from candidate_reranking_cir_tpu_torch.models.blip_retrieval import (
         RetrievalModel,
     )
 
     ov = _model_overrides(args)
-    vit = (ViTConfig(**ov["vit"]) if "vit" in ov
-           else vit_config(args.vit, args.image_size))
-    cfg = RetrievalModelConfig(vit=vit,
-                               text=TextEncoderConfig(**ov.get("text", {})),
+    vit = (ViTConfig(**{"remat": remat, **ov["vit"]}) if "vit" in ov
+           else vit_config(args.vit, args.image_size, remat=remat))
+    text = TextEncoderConfig(**{"remat": remat, **ov.get("text", {})})
+    cfg = RetrievalModelConfig(vit=vit, text=text,
                                embed_dim=ov.get("embed_dim", 256),
                                text_len=args.text_len)
     return RetrievalModel(cfg, dtype=_dtype(args),
                           device=get_device(args)), cfg
 
 
-def build_stage2(args):
-    """The port's stage-II ``RerankerModel`` on --device, and its config."""
+def build_stage2(args, *, remat: bool = False):
+    """The port's stage-II ``RerankerModel`` on --device, and its config.
+    ``remat`` (the trainer's) recomputes the ViT's blocks and the dual
+    encoder's layers in backward with policy 'dots', as the JAX package's
+    stage-II trainer does."""
     from candidate_reranking_cir_tpu_torch.models.blip_reranker import (
         RerankerModel,
     )
 
     ov = _model_overrides(args)
-    vit = (ViTConfig(**ov["vit"]) if "vit" in ov
-           else vit_config(args.vit, args.image_size, drop_path_rate=0.1))
-    cfg = RerankerModelConfig(vit=vit,
-                              text=TextEncoderConfig(**ov.get("text", {})),
-                              text_len=args.text_len)
+    policy = "dots" if remat else ""
+    vit = (ViTConfig(**{"remat": remat, "remat_policy": policy,
+                        **ov["vit"]}) if "vit" in ov
+           else vit_config(args.vit, args.image_size, drop_path_rate=0.1,
+                           remat=remat, remat_policy=policy))
+    text = TextEncoderConfig(**{"remat": remat, "remat_policy": policy,
+                                **ov.get("text", {})})
+    cfg = RerankerModelConfig(vit=vit, text=text, text_len=args.text_len)
     return RerankerModel(cfg, dtype=_dtype(args),
                          device=get_device(args)), cfg
 
 
 def load_params(path: str, stage: int, cfg) -> dict[str, torch.Tensor]:
-    """A reference-format ``.pt``/``.pth`` checkpoint (the reference's own,
-    or one ``runtime/convert.py::save_torch_checkpoint`` wrote) -> the
-    port's state dict for ``cfg``. ``stage`` (1 or 2) is checked against
-    the config."""
-    want = {1: RetrievalModelConfig, 2: RerankerModelConfig}[stage]
-    if not isinstance(cfg, want):
-        raise TypeError(f"stage {stage} needs a {want.__name__}")
-    if "://" in str(path):
-        raise NotImplementedError(
-            "checkpoint URLs are not supported; download the file and pass "
-            "its path")
-    if Path(path).is_dir():
-        raise ValueError(
-            f"{path} is a directory (an Orbax checkpoint of the JAX "
-            "package?); convert it to a reference .pt file with `python -m "
-            "candidate_reranking_cir_tpu.cli.export_checkpoint`")
-    return load_reference_state_dict(path, cfg)
+    """``runtime/checkpoint.py::load_model_params``: a checkpoint directory
+    of the port's trainers or a reference-format ``.pt`` -> the port's
+    state dict for ``cfg``."""
+    return load_model_params(path, stage, cfg)
 
 
 def get_transform(args):

@@ -30,7 +30,10 @@ class TextEncoderConfig:
     merge_mlp_from: int = 6
     # recompute each encoder layer in backward (torch.utils.checkpoint)
     remat: bool = False
-    # '' recomputes everything; 'dots' (save matmul outputs) is not ported
+    # checkpoint policy under remat (models/layers.py::resolve_remat_policy):
+    # '' recomputes everything (least memory); 'dots' keeps the outputs of
+    # the products without batch dimensions (the Dense projections and the
+    # FFN) and recomputes attention and the elementwise work
     remat_policy: str = ""
 
     @property
@@ -52,6 +55,8 @@ class ViTConfig:
     dropout: float = 0.0
     attention_dropout: float = 0.0
     drop_path_rate: float = 0.0      # stage-II uses 0.1 (reference blip_stage2.py:37)
+    remat: bool = False              # recompute each block in backward
+    remat_policy: str = ""           # '' | 'dots' (see TextEncoderConfig)
 
     @property
     def num_patches(self) -> int:

@@ -135,7 +135,8 @@ class FashionIQDataset:
     def __init__(self, root: str | Path, split: str, dress_types: list[str],
                  mode: str, transform: Callable | None = None, *,
                  force_validate: bool = False,
-                 load_topk: str | Path | None = None, k: int | None = None):
+                 load_topk: str | Path | None = None, k: int | None = None,
+                 skip_target_image: bool = False):
         if split not in ("train", "val", "test"):
             raise ValueError("split should be in ['test', 'train', 'val']")
         if mode not in ("relative", "classic"):
@@ -150,6 +151,8 @@ class FashionIQDataset:
         self.mode = mode
         self.transform = transform
         self.force_validate = force_validate
+        # as CIRRDataset's: the stage-I trainer's cached target features
+        self.skip_target_image = skip_target_image
 
         base = self.root / "fashionIQ_dataset"
         self.triplets: list[dict] = []
@@ -208,7 +211,8 @@ class FashionIQDataset:
             s["target_name"] = t["target"]
         if self.split == "train" and not self.force_validate:
             s["reference_image"] = self.open_image(t["candidate"])
-            s["target_image"] = self.open_image(t["target"])
+            if not self.skip_target_image:
+                s["target_image"] = self.open_image(t["target"])
         elif self.split == "test":
             s["reference_image"] = self.open_image(t["candidate"])
         if self.topk is not None:

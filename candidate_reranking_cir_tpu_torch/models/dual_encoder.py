@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from candidate_reranking_cir_tpu_torch.config import TextEncoderConfig
 from candidate_reranking_cir_tpu_torch.models.layers import (
@@ -36,6 +35,8 @@ from candidate_reranking_cir_tpu_torch.models.layers import (
     Dropout,
     LayerNorm,
     MultiHeadAttention,
+    remat,
+    resolve_remat_policy,
     seeded_generator,
 )
 from candidate_reranking_cir_tpu_torch.models.med import (
@@ -129,17 +130,15 @@ class DualStreamEncoder(nn.Module):
     'shared': input_ids, attention_mask [Q, L] and z_t [Q, L, D] per query;
     cand_feats [C, M, W] shared by all queries. Returns [Q, C, 2D].
 
-    ``cfg.remat`` recomputes each layer in backward
-    (``torch.utils.checkpoint``, everything recomputed: remat policy '')."""
+    ``cfg.remat`` recomputes each layer in backward when gradients are on,
+    under ``cfg.remat_policy`` (``models/layers.py::remat``)."""
 
     def __init__(self, cfg: TextEncoderConfig, dtype=torch.float32,
                  device=None):
         super().__init__()
-        if cfg.remat_policy:
-            raise NotImplementedError(
-                f"remat_policy {cfg.remat_policy!r} is not ported; '' "
-                "(recompute everything) is")
         self.cfg = cfg
+        self.remat_policy = (resolve_remat_policy(cfg.remat_policy)
+                             if cfg.remat else None)
         self.dtype = dtype
         self.embeddings = BertEmbeddings(cfg, dtype, device)
         self.layers = nn.ModuleList(
@@ -172,15 +171,12 @@ class DualStreamEncoder(nn.Module):
             h0 = z_t.to(self.dtype)[:, None].expand(shape)
             h1 = text_emb[:, None].expand(shape)
             text_bias = text_bias[:, None]           # [Q, 1, 1, 1, L]
-        remat = self.cfg.remat and torch.is_grad_enabled()
+        recompute = self.cfg.remat and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
             row = None if deterministic else seeds[i + 1]
-            if remat:
-                # the layer seeds its own generator, so no global RNG
-                # state needs saving for the recomputation
-                h0, h1 = checkpoint(layer, h0, h1, text_bias, cand, row,
-                                    layout, use_reentrant=False,
-                                    preserve_rng_state=False)
+            if recompute:
+                h0, h1 = remat(layer, h0, h1, text_bias, cand, row, layout,
+                               policy=self.remat_policy)
             else:
                 h0, h1 = layer(h0, h1, text_bias, cand, row, layout)
         return torch.cat([h0[..., 0, :], h1[..., 0, :]], dim=-1)

@@ -17,6 +17,11 @@ import math
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from candidate_reranking_cir_tpu_torch.ops import attention_train
 from candidate_reranking_cir_tpu_torch.ops.attention import (
@@ -24,6 +29,69 @@ from candidate_reranking_cir_tpu_torch.ops.attention import (
     dot_product_attention_folded,
     dot_product_attention_folded_train,
 )
+
+
+class DotsPolicy:
+    """Remat policy 'dots', JAX's ``dots_with_no_batch_dims_saveable``: the
+    outputs of the products without batch dimensions are kept for the
+    backward pass, everything else is recomputed.
+
+    Which ops those are was read on the CPU under a dispatch mode: the
+    port's ``Dense`` (``F.linear`` of a [.., in] input, without a bias)
+    reaches ``aten.mm`` and nothing else of the matmul family, every
+    attention product (the plain versions' and the dual encoder's pair
+    grid) reaches ``aten.bmm``, with batch dimensions, and the CUDA
+    kernels are no aten op at all. So 'dots' saves ``aten.mm`` outputs:
+    the Dense projections and the FFN, as JAX saves them; the attention,
+    its kernels' ``autograd.Function``s (K6/K8 run again) and the
+    elementwise work are recomputed.
+
+    ``saved`` / ``recomputed`` count the forward's decisions (policy
+    '' would recompute ``saved + recomputed`` ops)."""
+
+    SAVE = frozenset({torch.ops.aten.mm.default})
+
+    def __init__(self):
+        self.saved = 0
+        self.recomputed = 0
+
+    def __call__(self, ctx, op, *args, **kwargs):
+        save = op in self.SAVE
+        if not ctx.is_recompute:
+            if save:
+                self.saved += 1
+            else:
+                self.recomputed += 1
+        return CheckpointPolicy.MUST_SAVE if save \
+            else CheckpointPolicy.PREFER_RECOMPUTE
+
+    def context_fn(self):
+        return create_selective_checkpoint_contexts(self)
+
+
+REMAT_POLICIES = {"dots": DotsPolicy}
+
+
+def resolve_remat_policy(name: str):
+    """A config's ``remat_policy`` -> None ('': recompute everything, the
+    least memory) or a policy object for ``remat``. Unknown names raise,
+    as in the JAX package."""
+    if not name:
+        return None
+    if name not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {name!r}; expected one of "
+                         f"{('',) + tuple(REMAT_POLICIES)}")
+    return REMAT_POLICIES[name]()
+
+
+def remat(fn, *args, policy=None):
+    """``fn(*args)``, recomputed in backward (``torch.utils.checkpoint``,
+    non-reentrant) under ``policy`` (None: recompute everything). The RNG
+    state is not saved: every layer seeds its own generators from its
+    seed-table row, so the recomputation redraws the same masks."""
+    extra = {} if policy is None else {"context_fn": policy.context_fn}
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False, **extra)
 
 
 def exact_gelu(x):

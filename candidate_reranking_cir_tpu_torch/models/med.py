@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from candidate_reranking_cir_tpu_torch.config import TextEncoderConfig
 from candidate_reranking_cir_tpu_torch.models.layers import (
@@ -29,6 +28,8 @@ from candidate_reranking_cir_tpu_torch.models.layers import (
     MultiHeadAttention,
     _normal_,
     exact_gelu,
+    remat,
+    resolve_remat_policy,
     seeded_generator,
 )
 from candidate_reranking_cir_tpu_torch.ops.attention import make_additive_mask
@@ -147,19 +148,17 @@ class TextEncoder(nn.Module):
     ``query_group`` Q > 1 (eval, multimodal): ``input_ids`` [G*Q, L] holds Q
     queries per image of ``image_embeds`` [G, M, W], image-contiguous
     (image-major fusion, see ``MedLayer``).
-    ``cfg.remat`` recomputes each layer in backward when gradients are on
-    (``torch.utils.checkpoint``, remat policy '')."""
+    ``cfg.remat`` recomputes each layer in backward when gradients are on,
+    under ``cfg.remat_policy`` (``models/layers.py::remat``)."""
 
     def __init__(self, cfg: TextEncoderConfig, mode: str = "multimodal",
                  dtype=torch.float32, device=None):
         super().__init__()
         if mode not in ("text", "multimodal"):
             raise ValueError(f"unknown mode {mode!r}")
-        if cfg.remat_policy:
-            raise NotImplementedError(
-                f"remat_policy {cfg.remat_policy!r} is not ported; '' "
-                "(recompute everything) is")
         self.cfg = cfg
+        self.remat_policy = (resolve_remat_policy(cfg.remat_policy)
+                             if cfg.remat else None)
         self.mode = mode
         self.dtype = dtype
         self.embeddings = BertEmbeddings(cfg, dtype, device)
@@ -198,15 +197,12 @@ class TextEncoder(nn.Module):
                 image_bias = make_additive_mask(image_mask)
         else:
             image_embeds, query_group = None, 1
-        remat = self.cfg.remat and torch.is_grad_enabled()
+        recompute = self.cfg.remat and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
             row = None if deterministic else seeds[i + 1]
-            if remat:
-                # the layer seeds its own generator, so no global RNG
-                # state needs saving for the recomputation
-                x = checkpoint(layer, x, text_bias, image_embeds, image_bias,
-                               row, query_group, use_reentrant=False,
-                               preserve_rng_state=False)
+            if recompute:
+                x = remat(layer, x, text_bias, image_embeds, image_bias, row,
+                          query_group, policy=self.remat_policy)
             else:
                 x = layer(x, text_bias, image_embeds, image_bias, row,
                           query_group)

@@ -22,6 +22,8 @@ from candidate_reranking_cir_tpu_torch.models.layers import (
     MultiHeadAttention,
     _normal_,
     drop_path,
+    remat,
+    resolve_remat_policy,
     seeded_generator,
 )
 
@@ -78,11 +80,19 @@ class ViTBlock(nn.Module):
 
 
 class VisionTransformer(nn.Module):
-    """ViT encoder returning all token states [B, 1 + num_patches, D]."""
+    """ViT encoder returning all token states [B, 1 + num_patches, D].
+
+    ``cfg.remat`` recomputes each block in backward when gradients are on
+    (the frozen ViT's no-grad embeds never pay for it), under
+    ``cfg.remat_policy``; a block seeds its own generator, so stochastic
+    depth and its kernel seed redraw the same masks in the
+    recomputation."""
 
     def __init__(self, cfg: ViTConfig, dtype=torch.float32, device=None):
         super().__init__()
         self.cfg = cfg
+        self.remat_policy = (resolve_remat_policy(cfg.remat_policy)
+                             if cfg.remat else None)
         self.dtype = dtype
         d = cfg.hidden_size
         self.patch_embed = PatchEmbed(cfg.patch_size, d, dtype, device)
@@ -113,6 +123,9 @@ class VisionTransformer(nn.Module):
         if not deterministic:
             x = self.drop(x, deterministic=False,
                           generator=seeded_generator(seeds[0][0], x.device))
+        recompute = self.cfg.remat and torch.is_grad_enabled()
         for i, block in enumerate(self.blocks):
-            x = block(x, None if deterministic else seeds[i + 1])
+            row = None if deterministic else seeds[i + 1]
+            x = remat(block, x, row, policy=self.remat_policy) if recompute \
+                else block(x, row)
         return self.norm(x)

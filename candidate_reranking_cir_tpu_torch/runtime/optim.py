@@ -88,7 +88,11 @@ class AdamW:
     accumulation, over float32 parameters.
 
     ``step()`` after each micro-step's backward; it returns True when the
-    parameters were updated. ``zero_grad()`` before the next backward."""
+    parameters were updated. ``zero_grad()`` before the next backward.
+    ``state_dict()`` / ``load_state_dict()`` carry the counters and the
+    moments (and, under accumulation, the running mean of the cycle in
+    progress): the port's counterpart of the ``opt_state`` the JAX
+    package saves through ``optax.MultiSteps``."""
 
     B1, B2, EPS = 0.9, 0.999, 1e-8
 
@@ -106,6 +110,39 @@ class AdamW:
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.acc = ([torch.zeros_like(p) for p in self.params]
                     if accumulation > 1 else None)
+
+    @property
+    def micro_steps(self) -> int:
+        """Micro-steps taken (the JAX train state's ``step``)."""
+        return self.count * self.accumulation + self.mini_step
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, "mini_step": self.mini_step,
+                "accumulation": self.accumulation, "mu": list(self.mu),
+                "nu": list(self.nu),
+                "acc": None if self.acc is None else list(self.acc)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy a ``state_dict()`` into this optimizer's tensors (on their
+        devices). Its parameters must have the saved shapes, in order, and
+        the accumulation must be the saved one."""
+        if state["accumulation"] != self.accumulation:
+            raise ValueError(
+                f"the state accumulates over {state['accumulation']} "
+                f"micro-steps, this optimizer over {self.accumulation}")
+        for key in ("mu", "nu") + (("acc",) if self.acc is not None else ()):
+            mine, saved = getattr(self, key), state[key]
+            if len(saved) != len(mine) or any(
+                    a.shape != b.shape for a, b in zip(mine, saved)):
+                raise ValueError(
+                    f"optimizer state {key!r} does not fit the trainable "
+                    f"parameters ({len(saved)} tensors saved, {len(mine)} "
+                    "here)")
+            for a, b in zip(mine, saved):
+                a.copy_(b)
+        self.count = int(state["count"])
+        self.mini_step = int(state["mini_step"])
 
     def zero_grad(self) -> None:
         for p in self.params:

@@ -17,14 +17,18 @@ gradients (unless ``finetune_vit``); then the dual encoder scores the
 B x B pair grid, the loss is the row-wise cross-entropy against the
 diagonal, and one backward and one optimizer step follow.
 
-Randomness is explicit: ``step(batch, generator)`` draws, before any layer
-runs, the int32 seed tables of the step from ``generator`` (where the JAX
-package folds the step count into its dropout key). Kernel dropout sites
-take their seeds from the tables; every other dropout comes from a device
-generator that its layer seeds from them.
+Randomness is explicit: ``step(batch, seed)`` draws, before any layer
+runs, the int32 seed tables of the step from a generator seeded with the
+run's ``seed`` and the optimizer's micro-step count (``step_generator``),
+as the JAX package folds its step count into one constant dropout key. So
+the tables are a pure function of (seed, micro-step), and a run resumed
+from a checkpoint draws what the uninterrupted run draws. Kernel dropout
+sites take their seeds from the tables; every other dropout comes from a
+device generator that its layer seeds from them.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from candidate_reranking_cir_tpu_torch.parallel.contrastive import (
@@ -32,6 +36,15 @@ from candidate_reranking_cir_tpu_torch.parallel.contrastive import (
 )
 
 INT32_MIN, INT32_MAX = -2 ** 31, 2 ** 31 - 1
+
+
+def step_generator(seed: int, micro_step: int) -> torch.Generator:
+    """The CPU generator of micro-step ``micro_step`` of a run seeded with
+    ``seed`` (both >= 0): the two mixed by numpy's ``SeedSequence``."""
+    mixed = np.random.SeedSequence([seed, micro_step]).generate_state(
+        2, np.uint32)
+    return torch.Generator().manual_seed(int(mixed[0]) << 32
+                                         | int(mixed[1]))
 
 
 def draw_seeds(generator: torch.Generator,
@@ -110,7 +123,8 @@ def stage1_loss(model, batch, seeds=None, *, finetune_vit: bool,
 
 
 def make_stage1_train_step(model, optimizer, *, finetune_vit: bool = False):
-    """``step(batch, generator) -> loss`` (a 0-dim tensor on the device).
+    """``step(batch, seed) -> loss`` (a 0-dim tensor on the device); the
+    seed tables come from ``step_generator(seed, optimizer.micro_steps)``.
 
     batch: as ``stage1_loss`` takes it (arrays or tensors, moved to the
     model's device). ``optimizer``: the ``runtime.optim.AdamW`` over the
@@ -118,8 +132,9 @@ def make_stage1_train_step(model, optimizer, *, finetune_vit: bool = False):
     ``finetune_vit``)."""
     device = next(model.parameters()).device
 
-    def step(batch, generator: torch.Generator):
+    def step(batch, seed: int):
         b = _to_device(batch, device)
+        generator = step_generator(seed, optimizer.micro_steps)
         seeds = {"text": draw_seeds(generator, model.text_encoder.seed_shape)}
         if finetune_vit:
             seeds["vit"] = draw_seeds(generator,
@@ -148,7 +163,8 @@ def stage2_loss(reranker, z_t, tgt_feats, batch, seeds):
 
 def make_stage2_train_step(stage1, reranker, optimizer, *,
                            finetune_vit: bool = False):
-    """``step(batch, generator) -> loss`` (a 0-dim tensor on the device).
+    """``step(batch, seed) -> loss`` (a 0-dim tensor on the device); the
+    seed tables come from ``step_generator(seed, optimizer.micro_steps)``.
 
     batch: ref_images, target_images [B, H, W, 3] float32; input_ids,
     attention_mask [B, L] (arrays or tensors, moved to the model's device).
@@ -157,8 +173,9 @@ def make_stage2_train_step(stage1, reranker, optimizer, *,
     cls head unless ``finetune_vit``."""
     device = next(reranker.parameters()).device
 
-    def step(batch, generator: torch.Generator):
+    def step(batch, seed: int):
         b = _to_device(batch, device)
+        generator = step_generator(seed, optimizer.micro_steps)
         text_seeds = draw_seeds(generator, reranker.text_encoder.seed_shape)
         if finetune_vit:
             vit_seeds = draw_seeds(generator,

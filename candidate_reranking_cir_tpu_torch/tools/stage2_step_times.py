@@ -98,11 +98,10 @@ def main(argv=None) -> None:
     opt, _ = make_optimizer(TrainConfig(), s2, 1000,
                             freeze_prefixes=("visual_encoder",))
     step = make_stage2_train_step(s1, s2, opt)
-    gen = torch.Generator().manual_seed(cs.SEED)
     batches = cs.train_batches(tok, words, 1 + args.steps + args.profiled,
                                cs.TRAIN_B)
     t0 = time.perf_counter()
-    step(next(batches), gen)
+    step(next(batches), cs.SEED)
     torch.cuda.synchronize()
     print(f"{tag} warm-up step {time.perf_counter() - t0:.4f} s", flush=True)
 
@@ -113,7 +112,7 @@ def main(argv=None) -> None:
         t1 = time.perf_counter()
         r0, c0, a0 = (resource.getrusage(resource.RUSAGE_SELF),
                       time.process_time(), _allocator())
-        step(batch, gen)
+        step(batch, cs.SEED)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         r1, c1, a1 = (resource.getrusage(resource.RUSAGE_SELF),
@@ -136,7 +135,7 @@ def main(argv=None) -> None:
     profiled = []
     for i in range(args.profiled):
         batch = next(batches)
-        rec = _profiled_step(lambda: step(batch, gen))
+        rec = _profiled_step(lambda: step(batch, cs.SEED))
         slow = rec["wall_ms"] > 2e3 * median
         if not slow:
             rec.pop("top_host_ms")

@@ -82,8 +82,22 @@ Phases, each printing its own lines:
    file saved, read back and re-ranked by the stage-II engine on a few
    hundred queries; a few queries' fp32 predictions and top-50 lists on
    the card against the CPU; a profile of one fusion pass.
-10. a JSON line of kernel figures, then the card's name and power limit,
-    then the last line ``{"ok": true, "device": {...}}``.
+10. the trainer CLIs (``cli/stage1_train``, ``cli/validate``,
+    ``cli/stage2_train``) on a CIRR tree of jpegs at 384 px, full width,
+    bf16, through the entry points a user calls: stage I at B = 512 (two
+    steps an epoch, two epochs, validation every epoch) uninterrupted,
+    then cut by SIGTERM after its first step and resumed, which must give
+    the uninterrupted run's step losses, final parameters and moments bit
+    for bit; ``cli/validate`` on its ``blip_mean`` checkpoint to a top-50
+    file; stage II at B = 16 (4 steps, remat 'dots') from that checkpoint,
+    validating on the file. Prints each run's seconds, step losses and
+    validation metrics, the checkpoints' sizes and the launches (K8, K9,
+    K5 in the stage-I runs; K6, K7, K5 in stage II; K1-K3 in the
+    validations, all must be > 0); then the peak memory and step seconds
+    of stage-II steps with remat '' and 'dots'.
+11. a JSON line of kernel figures (``launches_by_path`` adds phase 10's
+    counts as "train_cli"), then the card's name and power limit, then
+    the last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero without the last line.
 Imports nothing of JAX.
@@ -149,6 +163,16 @@ S1E_STAGE2_QUERIES = 256       # re-ranked by stage II from the top-K file
 S1E_CHECK_QUERIES = 8          # fp32 predictions, card vs CPU
 S1E_PRED_TOL = 1e-4            # fp32 predictions, card vs CPU
 S1E_TIE_GAP = 1e-6             # top-50 lists may differ only at such gaps
+# phase 10, the trainer CLIs on a jpeg CIRR tree: stage I at its default
+# B = 512 (S1_B), two steps an epoch, two epochs; stage II at B = 16 over
+# S2T_TRAIN triplets, re-ranking the stage-I top-S2T_K file
+S1T_IMAGE_SIZE, S1T_IMAGES, S1T_TRAIN = 384, 256, 1024
+S1T_VAL_IMAGES, S1T_VAL = 128, 256
+S2T_TRAIN, S2T_B, S2T_K = 64, 16, 50
+# a preempted and resumed stage-I run against the uninterrupted one: no
+# kernel on the path accumulates with atomics (K9's row and key passes
+# write dq and dk/dv once each), so the two must agree bit for bit
+RESUME_TOL = 0.0
 CSRC = "candidate_reranking_cir_tpu_torch/csrc"
 # the records are bf16: K1-K4 on the tensor-core eval kernel, K6-K9 (no
 # bias) on the tensor-core train kernels
@@ -860,7 +884,7 @@ class GcClock:
             self._t0 = None
 
 
-def timed_steps(tag: str, step, batches, gen, n_steps: int):
+def timed_steps(tag: str, step, batches, seed: int, n_steps: int):
     """One warm-up step, then ``n_steps`` counted steps with every launch
     count set to 0 just before them and read just after; prints the
     seconds the cyclic garbage collector took inside each counted step.
@@ -869,7 +893,7 @@ def timed_steps(tag: str, step, batches, gen, n_steps: int):
     from candidate_reranking_cir_tpu_torch.ops import cuda_attention as ck
 
     gc.collect()  # earlier phases' garbage is not this path's
-    loss = step(next(batches), gen)
+    loss = step(next(batches), seed)
     torch.cuda.synchronize()
     print(f"[{tag}] warm-up step: loss {float(loss):.4f}", flush=True)
     ck.reset_launch_counts()
@@ -884,7 +908,7 @@ def timed_steps(tag: str, step, batches, gen, n_steps: int):
             widths.append(batch["input_ids"].shape[1])
             gc0 = clock.seconds
             t0 = time.perf_counter()
-            loss = step(batch, gen)
+            loss = step(batch, seed)
             torch.cuda.synchronize()
             seconds.append(time.perf_counter() - t0)
             gc_seconds.append(clock.seconds - gc0)
@@ -987,7 +1011,8 @@ def train_configs(dropout: bool):
 
     # as the JAX trainer builds them (cli/common.py::build_stage2 with
     # remat): ViT drop-path 0.1 (frozen here), the dual encoder with remat;
-    # remat policy '' (JAX: 'dots', not ported yet)
+    # remat policy '' here, so that this phase's figures compare with
+    # earlier runs' (the trainer CLI of phase 10 runs 'dots')
     rates = {} if dropout else {"hidden_dropout": 0.0,
                                 "attention_dropout": 0.0}
     vit = vit_config("base", 384, drop_path_rate=0.1)
@@ -1043,11 +1068,10 @@ def train_path(tok, words) -> dict:
     vit0 = {k: v.clone() for k, v in s2.visual_encoder.state_dict().items()}
     trained0 = {n: p.detach().clone() for n, p in s2.named_parameters()
                 if p.requires_grad}
-    gen = torch.Generator().manual_seed(SEED)
     batches = train_batches(tok, words, 1 + TRAIN_STEPS + 1, TRAIN_B)
 
     seconds, losses, launches, peak, _ = timed_steps(
-        "train", step, batches, gen, TRAIN_STEPS)
+        "train", step, batches, SEED, TRAIN_STEPS)
     per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
     mean_s = sum(seconds) / len(seconds)
     pairs = TRAIN_B * TRAIN_B
@@ -1069,7 +1093,7 @@ def train_path(tok, words) -> dict:
     print(f"[train] all {len(trained0)} trained parameter tensors changed; "
           "the frozen ViT is bit-identical", flush=True)
     batch = next(batches)
-    profile_device("one train step", lambda: step(batch, gen))
+    profile_device("one train step", lambda: step(batch, SEED))
     return {"launches": launches, "per_step": per_step,
             "triplets_per_s": pairs / mean_s}
 
@@ -1113,7 +1137,7 @@ def train_fp32_check(tok, words):
                                 freeze_prefixes=("visual_encoder",))
         step = make_stage2_train_step(s1, s2, opt)
         t0 = time.perf_counter()
-        loss = float(step(batch, torch.Generator().manual_seed(SEED)))
+        loss = float(step(batch, SEED))
         grads = {n: p.grad.detach().float().cpu()
                  for n, p in s2.named_parameters() if p.grad is not None}
         results[dev] = (loss, grads)
@@ -1308,11 +1332,10 @@ def stage1_train_path(tok, words) -> dict:
     vit0 = {k: v.clone() for k, v in model.visual_encoder.state_dict().items()}
     trained0 = {n: p.detach().clone() for n, p in model.named_parameters()
                 if p.requires_grad}
-    gen = torch.Generator().manual_seed(SEED)
     batches = stage1_batches(tok, words, pool, cache, 1 + S1_STEPS + 1, S1_B)
 
     seconds, losses, launches, peak, widths = timed_steps(
-        "stage1", step, batches, gen, S1_STEPS)
+        "stage1", step, batches, SEED, S1_STEPS)
     per_step = {k: v / S1_STEPS for k, v in launches.items()}
     mean_s = sum(seconds) / len(seconds)
     if not set(widths) <= set(S1_WIDTHS):
@@ -1340,7 +1363,7 @@ def stage1_train_path(tok, words) -> dict:
           "vision_proj's changed; the frozen ViT is bit-identical",
           flush=True)
     batch = next(batches)
-    profile_device("one stage-I step", lambda: step(batch, gen))
+    profile_device("one stage-I step", lambda: step(batch, SEED))
     return {"launches": launches, "per_step": per_step,
             "pairs_per_s": S1_B / mean_s}
 
@@ -1386,7 +1409,7 @@ def stage1_fp32_check(tok, words):
             step = make_stage1_train_step(model, opt)
             tat.reset_launch_counts()
             t0 = time.perf_counter()
-            loss = float(step(batch, torch.Generator().manual_seed(SEED)))
+            loss = float(step(batch, SEED))
             grads = {n: p.grad.detach().float().cpu()
                      for n, p in model.named_parameters()
                      if p.grad is not None}
@@ -1629,6 +1652,358 @@ def stage1_fp32_eval_check(s1, tok, queries: list[dict], corpus: Corpus,
         fail("fp32 stage-I top-50 lists on the card disagree with the CPU")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the training CLIs
+
+def write_cirr_tree(root, n_images: int, n_train: int, n_val_images: int,
+                    n_val: int, words: list[str], rng) -> None:
+    """A synthetic CIRR tree of jpegs at S1T_IMAGE_SIZE px under ``root``
+    (tests/test_trainers.py's layout): train triplets over ``n_images``
+    images, val triplets (6-member groups) over ``n_val_images`` others;
+    captions of toy-vocabulary words at the lengths of ``bench.py``'s CIRR
+    model. The images are smooth (upsampled noise), as photos compress."""
+    import PIL.Image
+
+    base = root / "cirr_dataset"
+    for sub in ("cirr/captions", "cirr/image_splits", "img"):
+        (base / sub).mkdir(parents=True)
+    size = S1T_IMAGE_SIZE
+
+    def images(prefix, n):
+        names = [f"{prefix}{i:04d}" for i in range(n)]
+        for name in names:
+            small = rng.integers(0, 255, size=(12, 12, 3), dtype=np.uint8)
+            PIL.Image.fromarray(small).resize((size, size)).save(
+                base / "img" / f"{name}.jpg", quality=90)
+        return names
+
+    def captions(n):
+        return [" ".join(rng.choice(words, int(w)))
+                for w in caption_lengths(n, TEXT_LEN, rng) - 2]
+
+    def triplets(names, n):
+        out = []
+        for q, cap in enumerate(captions(n)):
+            sel = rng.choice(len(names), size=6, replace=False)
+            out.append({"pairid": q, "reference": names[sel[0]],
+                        "target_hard": names[sel[1]], "caption": cap,
+                        "img_set": {"members": [names[i] for i in sel]}})
+        return out
+
+    for split, prefix, n_img, n_q in (("train", "tr", n_images, n_train),
+                                      ("val", "va", n_val_images, n_val)):
+        names = images(prefix, n_img)
+        (base / "cirr" / "captions" / f"cap.rc2.{split}.json").write_text(
+            json.dumps(triplets(names, n_q)))
+        (base / "cirr" / "image_splits" / f"split.rc2.{split}.json"
+         ).write_text(json.dumps({nm: f"img/{nm}.jpg" for nm in names}))
+
+
+class StepLosses:
+    """Stands in for the trainers' Comet experiment: keeps each step's loss
+    and, after the ``kill_after``-th step, sends this process SIGTERM, as a
+    preemption would."""
+
+    def __init__(self, kill_after: int | None = None):
+        self.losses, self.kill_after = [], kill_after
+
+    def log_metric(self, name, value, **kw):
+        if name == "step_loss":
+            self.losses.append(value)
+            if len(self.losses) == self.kill_after:
+                import os
+                import signal
+
+                os.kill(os.getpid(), signal.SIGTERM)
+
+
+def run_cli(tag: str, module, argv: list[str], kill_after=None) -> dict:
+    """One CLI run with its Comet stand-in; its stdout kept aside (the
+    metric lines and messages are picked from it). Returns the losses,
+    the printed ``key = value`` metrics, the output and the seconds."""
+    import contextlib
+    import io
+
+    comet = StepLosses(kill_after)
+    saved = getattr(module, "make_comet", None)
+    if saved is not None:
+        module.make_comet = lambda *a, **k: comet
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            module.main(argv)
+        torch.cuda.synchronize()
+    except BaseException:
+        print(out.getvalue()[-4000:], flush=True)
+        raise
+    finally:
+        if saved is not None:
+            module.make_comet = saved
+    seconds = time.perf_counter() - t0
+    text = out.getvalue()
+    metrics = dict(line.split(" = ") for line in text.splitlines()
+                   if " = " in line)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[train_cli] {tag}: {seconds:.1f} s; step losses "
+          f"{[round(x, 6) for x in comet.losses]}", flush=True)
+    for line in text.splitlines():
+        if line.startswith(("[epoch", "preempted", "resumed", "saved best",
+                            "top ")):
+            print(f"[train_cli] {tag}: {line}", flush=True)
+    return {"losses": comet.losses, "metrics": metrics, "text": text,
+            "seconds": seconds}
+
+
+def shown_metrics(metrics: dict) -> dict:
+    return {k: v for k, v in metrics.items()
+            if k in ("recall_at1", "recall_at5", "recall_at10", "recall_at50",
+                     "group_recall_at1", "mean_r5_rs1")}
+
+
+def checkpoint_gib(path) -> float:
+    return sum(f.stat().st_size for f in path.iterdir()) / 2 ** 30
+
+
+def compare_train_states(a_dir, b_dir) -> dict:
+    """Max |difference| of the parameters and of the optimizer moments of
+    two checkpoints, and whether their counters agree."""
+    from candidate_reranking_cir_tpu_torch.runtime.checkpoint import (
+        read_train_state,
+    )
+
+    a, b = read_train_state(a_dir), read_train_state(b_dir)
+    if a["params"].keys() != b["params"].keys():
+        fail("the resumed run's checkpoint holds other parameters")
+    params = max(float((a["params"][k].float() - b["params"][k].float())
+                       .abs().max()) for k in a["params"])
+    oa, ob = a["opt_state"], b["opt_state"]
+    moments = max(float((x - y).abs().max()) for key in ("mu", "nu")
+                  for x, y in zip(oa[key], ob[key]))
+    same_counters = (a["step"], oa["count"], oa["mini_step"]) == \
+        (b["step"], ob["count"], ob["mini_step"])
+    return {"params": params, "moments": moments, "counters": same_counters}
+
+
+def launch_counts() -> dict:
+    from candidate_reranking_cir_tpu_torch.ops import attention_train as tat
+    from candidate_reranking_cir_tpu_torch.ops import cuda_attention as ck
+
+    return {**ck.LAUNCHES, **tat.LAUNCHES}
+
+
+def reset_launch_counts() -> None:
+    from candidate_reranking_cir_tpu_torch.ops import attention_train as tat
+    from candidate_reranking_cir_tpu_torch.ops import cuda_attention as ck
+
+    ck.reset_launch_counts()
+    tat.reset_launch_counts()
+
+
+def remat_memory(tok, words) -> dict:
+    """Peak memory and step seconds of stage-II steps (B = 16, bf16, text
+    width 40) with the dual encoder's remat policy '' and 'dots', from the
+    same weights and batches, in turns ('', 'dots', 'dots', ''): 1 warm-up
+    and 2 counted steps each; a profile of one step of each policy."""
+    import dataclasses
+
+    from candidate_reranking_cir_tpu_torch.config import TrainConfig
+    from candidate_reranking_cir_tpu_torch.models.blip_reranker import (
+        RerankerModel,
+    )
+    from candidate_reranking_cir_tpu_torch.models.blip_retrieval import (
+        RetrievalModel,
+    )
+    from candidate_reranking_cir_tpu_torch.runtime.optim import (
+        make_optimizer,
+    )
+    from candidate_reranking_cir_tpu_torch.runtime.train_steps import (
+        make_stage2_train_step,
+    )
+
+    cfg1, cfg2 = train_configs(dropout=True)
+    torch.manual_seed(SEED + 12)
+    s1 = RetrievalModel(cfg1, dtype=torch.bfloat16, device="cuda")
+    weights = RerankerModel(cfg2, dtype=torch.bfloat16,
+                            device="cuda").state_dict()
+    batches = list(train_batches(tok, words, 3, TRAIN_B))
+    out = {}
+    for policy in ("", "dots", "dots", ""):
+        cfg = dataclasses.replace(cfg2, text=dataclasses.replace(
+            cfg2.text, remat_policy=policy))
+        s2 = RerankerModel(cfg, dtype=torch.bfloat16, device="cuda")
+        s2.load_state_dict(weights)
+        opt, _ = make_optimizer(TrainConfig(), s2, 1000,
+                                freeze_prefixes=("visual_encoder",))
+        step = make_stage2_train_step(s1, s2, opt)
+        step(batches[0], SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses = [float(step(b, SEED)) for b in batches[1:]]
+        torch.cuda.synchronize()
+        seconds = (time.perf_counter() - t0) / len(batches[1:])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        name = policy or "''"
+        print(f"[train_cli] stage-II step, remat {name}: peak "
+              f"max_memory_allocated {peak:.2f} GiB, {seconds:.4f} s a step "
+              f"(2 steps after a warm-up), losses "
+              f"{[round(x, 6) for x in losses]}", flush=True)
+        if name not in out:
+            profile_device(f"one stage-II step, remat {name}",
+                           lambda: step(batches[1], SEED))
+        out.setdefault(name, []).append((peak, seconds, losses))
+        del s2, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    if out["''"][0][2] != out["dots"][0][2]:
+        print("[train_cli] note: the two policies' bf16 losses differ "
+              "(they need not be bit-equal on the card)", flush=True)
+    return out
+
+
+def train_cli_path(tok, words) -> dict:
+    """The two trainer CLIs on the card at full width in bf16 (phase 10)."""
+    import shutil
+    from pathlib import Path
+
+    from candidate_reranking_cir_tpu_torch.cli import (
+        stage1_train,
+        stage2_train,
+        validate,
+    )
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_train_")
+    try:
+        root = Path(tmp.name) / "cirr"
+        rng = np.random.default_rng(SEED + 13)
+        t0 = time.perf_counter()
+        write_cirr_tree(root, S1T_IMAGES, S1T_TRAIN, S1T_VAL_IMAGES,
+                        S1T_VAL, words, rng)
+        # stage II trains on the first S2T_TRAIN triplets, validates on
+        # the same val split
+        root2 = Path(tmp.name) / "cirr_s2"
+        base, base2 = root / "cirr_dataset", root2 / "cirr_dataset"
+        (base2 / "cirr").mkdir(parents=True)
+        (base2 / "img").symlink_to(base / "img")
+        shutil.copytree(base / "cirr" / "image_splits",
+                        base2 / "cirr" / "image_splits")
+        (base2 / "cirr" / "captions").mkdir()
+        train = json.loads(
+            (base / "cirr/captions/cap.rc2.train.json").read_text())
+        (base2 / "cirr/captions/cap.rc2.train.json").write_text(
+            json.dumps(train[:S2T_TRAIN]))
+        shutil.copy(base / "cirr/captions/cap.rc2.val.json",
+                    base2 / "cirr/captions/cap.rc2.val.json")
+        free = shutil.disk_usage(tmp.name).free / 2 ** 30
+        print(f"[train_cli] CIRR tree of jpegs at {S1T_IMAGE_SIZE} px: "
+              f"{S1T_TRAIN} train triplets over {S1T_IMAGES} images, "
+              f"{S1T_VAL} val queries over {S1T_VAL_IMAGES}; stage II on "
+              f"the first {S2T_TRAIN}; written in "
+              f"{time.perf_counter() - t0:.1f} s; {free:.0f} GiB free",
+              flush=True)
+        models = Path(tmp.name) / "models"
+        flags = ["--dataset", "CIRR", "--data-root", str(root),
+                 "--allow-test-vocab", "--device", "cuda"]
+        s1 = flags + ["--output-dir", str(models), "--num-epochs", "2",
+                      "--batch-size", str(S1_B), "--validation-frequency",
+                      "1"]
+
+        reset_launch_counts()
+        whole = run_cli("stage I, uninterrupted", stage1_train,
+                        s1 + ["--experiment-name", "whole"])
+        cut = run_cli("stage I, SIGTERM after step 1", stage1_train,
+                      s1 + ["--experiment-name", "cut"], kill_after=1)
+        saved = models / "cut" / "saved_models" / "blip_last"
+        if "preempted (SIGTERM)" not in cut["text"] or not saved.is_dir():
+            fail("the preempted stage-I run saved no resumable blip_last")
+        resumed = run_cli("stage I, --resume", stage1_train,
+                          s1 + ["--experiment-name", "cut", "--resume"])
+        s1_launches = launch_counts()
+        print(f"[train_cli] stage-I runs' launches "
+              f"{json.dumps(s1_launches)}", flush=True)
+        steps = S1T_TRAIN // S1_B
+        if len(whole["losses"]) != 2 * steps:
+            fail(f"the stage-I run took {len(whole['losses'])} steps, "
+                 f"expected {2 * steps}")
+        joined = cut["losses"] + resumed["losses"]
+        d_loss = max(abs(a - b) for a, b in zip(whole["losses"], joined))
+        last = {nm: models / nm / "saved_models" / "blip_last"
+                for nm in ("whole", "cut")}
+        for path in [*last.values(),
+                     models / "whole" / "saved_models" / "blip_mean"]:
+            if not path.is_dir():
+                fail(f"missing checkpoint {path.name}")
+        diff = compare_train_states(last["whole"], last["cut"])
+        print(f"[train_cli] resumed vs uninterrupted: step losses "
+              f"{len(joined)} vs {len(whole['losses'])}, max |diff| "
+              f"{d_loss:.3e}; final parameters max |diff| "
+              f"{diff['params']:.3e}, moments {diff['moments']:.3e}, "
+              f"counters equal {diff['counters']} (tolerance "
+              f"{RESUME_TOL}: bit-equal)", flush=True)
+        if len(joined) != len(whole["losses"]) or d_loss > RESUME_TOL \
+                or diff["params"] > RESUME_TOL \
+                or diff["moments"] > RESUME_TOL or not diff["counters"]:
+            fail("the resumed stage-I run differs from the uninterrupted "
+                 "one")
+        sizes = {nm: checkpoint_gib(path) for nm, path in
+                 (("stage-I blip_last", last["whole"]),)}
+        for key in ("K1", "K2", "K5", "K8", "K9"):
+            if s1_launches[key] <= 0:
+                fail(f"{key} was not launched in the stage-I trainer runs")
+        print(f"[train_cli] stage-I validation (uninterrupted, epoch 1): "
+              f"{json.dumps(shown_metrics(whole['metrics']))}", flush=True)
+        shutil.rmtree(models / "cut")
+
+        ckpt1 = models / "whole" / "saved_models" / "blip_mean"
+        topk = Path(tmp.name) / "top50.npz"
+        reset_launch_counts()
+        run_cli("validate (stage-I blip_mean -> top-50 file)", validate,
+                flags + ["--stage1-path", str(ckpt1), "--save-topk",
+                         "--k", str(S2T_K), "--topk-out", str(topk)])
+        s2 = run_cli("stage II", stage2_train, [
+            "--dataset", "CIRR", "--data-root", str(root2),
+            "--allow-test-vocab", "--device", "cuda", "--output-dir",
+            str(models), "--experiment-name", "s2", "--num-epochs", "1",
+            "--batch-size", str(S2T_B), "--stage1-path", str(ckpt1),
+            "--top-k-path", str(topk), "--K-value", str(S2T_K)])
+        s2_launches = launch_counts()
+        print(f"[train_cli] validate and stage-II runs' launches "
+              f"{json.dumps(s2_launches)}", flush=True)
+        if len(s2["losses"]) != S2T_TRAIN // S2T_B:
+            fail(f"the stage-II run took {len(s2['losses'])} steps")
+        for key in ("K1", "K2", "K3", "K5", "K6", "K7"):
+            if s2_launches[key] <= 0:
+                fail(f"{key} was not launched in the validate and stage-II "
+                     "runs")
+        ckpt2 = models / "s2" / "saved_models"
+        for name in ("blip_last", "blip_mean"):
+            if not (ckpt2 / name / "train_state.pt").is_file():
+                fail(f"the stage-II run saved no {name}")
+        sizes["stage-I blip_mean"] = checkpoint_gib(ckpt1)
+        sizes["stage-II blip_last"] = checkpoint_gib(ckpt2 / "blip_last")
+        print(f"[train_cli] stage-II validation: "
+              f"{json.dumps(shown_metrics(s2['metrics']))}", flush=True)
+        print(f"[train_cli] checkpoint GiB "
+              f"{json.dumps({k: round(v, 3) for k, v in sizes.items()})}",
+              flush=True)
+    finally:
+        tmp.cleanup()
+    memory = remat_memory(tok, words)
+    seconds = {"stage1_whole": whole["seconds"], "stage1_cut": cut["seconds"],
+               "stage1_resume": resumed["seconds"],
+               "stage2": s2["seconds"],
+               "phase": time.perf_counter() - t_phase}
+    print("[train_cli] seconds "
+          f"{json.dumps({k: round(v, 1) for k, v in seconds.items()})}",
+          flush=True)
+    launches = {k: s1_launches[k] + s2_launches[k] for k in s1_launches}
+    return {"launches": launches, "seconds": seconds, "sizes": sizes,
+            "memory": memory}
+
+
 def build_libraries() -> None:
     """Both kernel libraries, one nvcc each, started together; ptxas's
     register and spill lines of every kernel (the tensor-core kernels'
@@ -1728,6 +2103,7 @@ def main():
     stage1 = stage1_train_path(tok, words)
     stage1_fp32_check(tok, words)
     s1e_launches = stage1_eval_path(tok, words, s1e_queries)
+    cli = train_cli_path(tok, words)
 
     kernels = []
     for kid in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9"):
@@ -1736,17 +2112,20 @@ def main():
         # K6/K7 on the stage-II training path; K8/K9 on the stage-I one; K5
         # runs inside every K6-K9 launch that applies the mask, on both
         # training paths
-        by_path = {}
+        # every kernel also counts its launches in the trainer CLIs' runs
+        # (phase 10) under the path key "train_cli"
         if kid in launches:
             by_path = {"stage2_eval": launches[kid],
                        "stage1_eval": s1e_launches[kid]}
-            n = sum(by_path.values())
         elif kid == "K5":
-            n = train["launches"]["K5"] + stage1["launches"]["K5"]
+            by_path = {"stage2_train": train["launches"]["K5"],
+                       "stage1_train": stage1["launches"]["K5"]}
         elif kid in ("K8", "K9"):
-            n = stage1["launches"][kid]
+            by_path = {"stage1_train": stage1["launches"][kid]}
         else:
-            n = train["launches"][kid]
+            by_path = {"stage2_train": train["launches"][kid]}
+        by_path["train_cli"] = cli["launches"][kid]
+        n = sum(by_path.values())
         kernels.append({
             "name": kid, "route": "cuda", "source": SOURCES[kid],
             "replaces": REPLACES[kid], "launches": n,
@@ -1754,7 +2133,7 @@ def main():
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "shape": rec["shape"], "dtype": rec["dtype"],
-            **({"launches_by_path": by_path} if by_path else {}),
+            "launches_by_path": by_path,
             **{key: rec[key] for key in ("device_ms", "library_device_ms",
                                          "sdpa_own_mask_ms") if key in rec}})
     print(json.dumps({"kernels": kernels}))

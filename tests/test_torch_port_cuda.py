@@ -932,3 +932,129 @@ def test_cli_round_trip_on_the_card(dev, tmp_path, capsys):
         (before, ck.LAUNCHES)
     for line in bf16["printed"]:
         assert 0.0 <= float(line.split(" = ")[1]) <= 100.0, line
+
+
+def _train_cli_root(root, text_overrides=None):
+    """tests/test_trainers.py's synthetic CIRR split at the size of
+    CARD_MODEL_CONFIG (with ``text_overrides``), and reference-format
+    pretrains of both stages from the port's seed-0 weights on the CPU,
+    so that every run starts from the same weights whatever its device."""
+    import json
+
+    from _torch_port_train_data import write_cirr
+
+    from candidate_reranking_cir_tpu_torch import config as tcfg
+    from candidate_reranking_cir_tpu_torch.models.blip_reranker import (
+        RerankerModel,
+    )
+    from candidate_reranking_cir_tpu_torch.models.blip_retrieval import (
+        RetrievalModel,
+    )
+    from candidate_reranking_cir_tpu_torch.runtime.convert import (
+        export_stage1,
+        export_stage2,
+        save_torch_checkpoint,
+    )
+
+    config = json.loads(json.dumps(CARD_MODEL_CONFIG))
+    config["text"].update(text_overrides or {})
+    size = config["vit"]["image_size"]
+    write_cirr(root, size=(size + 8, size))
+    (root / "model_config.json").write_text(json.dumps(config))
+    vit = tcfg.ViTConfig(**config["vit"])
+    text = tcfg.TextEncoderConfig(**config["text"])
+    torch.manual_seed(0)
+    s1 = RetrievalModel(tcfg.RetrievalModelConfig(
+        vit=vit, text=text, embed_dim=config["embed_dim"], text_len=10),
+        device="cpu")
+    s2 = RerankerModel(tcfg.RerankerModelConfig(vit=vit, text=text,
+                                                text_len=10), device="cpu")
+    with torch.no_grad():
+        # a cls head whose scores tell the pairs apart (at its init scale
+        # the loss is ln 4 to 1e-6), with logits of a few hundred, whose
+        # float32 rounding stays well inside the tolerance
+        for dense in (s2.cls_dense1, s2.cls_dense2):
+            dense.weight.normal_(0.0, 0.5)
+    save_torch_checkpoint(root / "s1.pt", export_stage1(s1.state_dict()),
+                          "BLIP_Retrieval")
+    save_torch_checkpoint(root / "s2.pt", export_stage2(s2.state_dict()),
+                          "BLIP_NLVR")
+
+
+def _train_cli_runs(root, device: str, tag: str, bf16: bool = False) -> dict:
+    """Both trainer CLIs, one epoch each, on ``_train_cli_root``'s split
+    and from its pretrains: the step losses and the checkpoints'
+    parameter names."""
+    from _torch_port_train_data import RecordingComet, trainer_flags
+
+    from candidate_reranking_cir_tpu_torch.cli import (
+        stage1_train,
+        stage2_train,
+        validate,
+    )
+    from candidate_reranking_cir_tpu_torch.runtime.checkpoint import (
+        read_train_state,
+    )
+
+    size = CARD_MODEL_CONFIG["vit"]["image_size"]
+    flags = trainer_flags(root, size, root / "model_config.json",
+                          device=device, bf16=bf16)
+    out, models = {}, root / f"models_{tag}"
+    common = flags + ["--output-dir", str(models), "--num-epochs", "1",
+                      "--batch-size", "4", "--blip-max-epoch", "2"]
+    topk = root / f"topk_{tag}.npz"
+    for stage, module, extra in (
+            ("stage1", stage1_train, ["--pretrained", str(root / "s1.pt")]),
+            ("stage2", stage2_train, [
+                "--pretrained", str(root / "s2.pt"),
+                "--stage1-path", str(models / "stage1" / "saved_models"
+                                     / "blip_mean"),
+                "--top-k-path", str(topk), "--K-value", "4"])):
+        comet = RecordingComet()
+        saved = module.make_comet
+        module.make_comet = lambda *a, **k: comet
+        try:
+            module.main(common + ["--experiment-name", stage] + extra)
+        finally:
+            module.make_comet = saved
+        state = read_train_state(models / stage / "saved_models"
+                                 / "blip_last")
+        out[stage] = (comet.losses, sorted(state["params"]))
+        if stage == "stage1":
+            validate.main(flags + [
+                "--stage1-path", str(models / "stage1" / "saved_models"
+                                     / "blip_mean"),
+                "--save-topk", "--k", "6", "--topk-out", str(topk),
+                "--batch-size", "4"])
+    return out
+
+
+def test_trainer_clis_on_the_card_match_the_cpu(dev, tmp_path):
+    """The stage-I and stage-II trainer CLIs with --device cuda in fp32
+    (dropout 0), from the same pretrains, take the CPU's step losses within
+    1e-4 and save the same parameters."""
+    pytest.importorskip("PIL")
+    _train_cli_root(tmp_path)
+    runs = {d: _train_cli_runs(tmp_path, d, d) for d in ("cpu", "cuda")}
+    for stage in ("stage1", "stage2"):
+        (cpu_losses, cpu_keys), (card_losses, card_keys) = \
+            runs["cpu"][stage], runs["cuda"][stage]
+        assert len(cpu_losses) == 2 and card_keys == cpu_keys
+        np.testing.assert_allclose(card_losses, cpu_losses, rtol=0,
+                                   atol=1e-4)
+
+
+def test_trainer_clis_in_bf16_launch_k6_to_k9(dev, tmp_path, monkeypatch):
+    """In bf16 with attention dropout 0.1 and the kernels' thresholds at 0,
+    the stage-I trainer runs K8/K9 and the stage-II trainer K6/K7 (K5
+    inside them); the losses are finite."""
+    pytest.importorskip("PIL")
+    _train_cli_root(tmp_path, {"attention_dropout": 0.1})
+    monkeypatch.setattr(tat, "MIN_KV", 0)
+    monkeypatch.setattr(tat, "MIN_ROWS", 0)
+    tat.reset_launch_counts()
+    runs = _train_cli_runs(tmp_path, "cuda", "bf16", bf16=True)
+    assert all(tat.LAUNCHES[k] > 0 for k in ("K5", "K6", "K7", "K8", "K9")), \
+        tat.LAUNCHES
+    for losses, _ in runs.values():
+        assert losses and np.isfinite(losses).all()

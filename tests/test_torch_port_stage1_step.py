@@ -152,7 +152,7 @@ def _run_port(model, batch, finetune_vit, steps=2):
                                          finetune_vit=finetune_vit)
     losses, grads = [], None
     for i in range(steps):
-        losses.append(float(step(batch, torch.Generator().manual_seed(i))))
+        losses.append(float(step(batch, 0)))
         if i == 0:
             grads = {n: p.grad.clone() for n, p in model.named_parameters()
                      if p.grad is not None}

@@ -144,7 +144,7 @@ def _run_port(s1, s2, batch, steps=2):
     step = tsteps.make_stage2_train_step(s1, s2, opt)
     losses, grads = [], None
     for i in range(steps):
-        losses.append(float(step(batch, torch.Generator().manual_seed(i))))
+        losses.append(float(step(batch, 0)))
         if i == 0:
             grads = {n: p.grad.clone() for n, p in s2.named_parameters()
                      if p.grad is not None}
@@ -315,7 +315,7 @@ def test_cpu_train_step_launches_no_kernel():
 def test_finetune_vit_step_trains_the_vit():
     """finetune_vit: the ViT embeds in train mode (stochastic depth from
     the seed table) under autograd and is updated; the step is a pure
-    function of the weights, the batch and the generator's seed."""
+    function of the weights, the batch and the run's seed."""
     s1_cfg, s2_cfg = _configs(TEXT)
     s2_cfg = dataclasses.replace(
         s2_cfg, vit=dataclasses.replace(VIT, num_layers=2,
@@ -328,7 +328,7 @@ def test_finetune_vit_step_trains_the_vit():
         vit0 = {k: v.clone() for k, v in s2.visual_encoder.state_dict().items()}
         opt, _ = make_optimizer(tcfg.TrainConfig(learning_rate=LR), s2, 10)
         step = tsteps.make_stage2_train_step(s1, s2, opt, finetune_vit=True)
-        loss = float(step(_batch(), torch.Generator().manual_seed(5)))
+        loss = float(step(_batch(), 5))
         vit_grads = [p.grad for p in s2.visual_encoder.parameters()]
         assert all(g is not None and torch.isfinite(g).all()
                    for g in vit_grads)

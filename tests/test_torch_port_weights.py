@@ -132,8 +132,18 @@ def test_stage2_loaders_agree_and_match_jax(stage2, tmp_path):
 
 
 def test_reference_loader_rejects_pos_embed_of_another_grid(stage1):
+    """A square grid of another size is resized as the JAX converter
+    resizes it (a BLIP pretrain's 14 x 14 at 224 px); a grid that is not
+    square is refused."""
     cfg, params = stage1
     ref_sd = convert.export_stage1(params, cfg)
-    ref_sd["visual_encoder.pos_embed"] = np.zeros((1, 5, 24), np.float32)
+    pos = np.random.default_rng(5).normal(0, 0.02, (1, 5, 24))
+    ref_sd["visual_encoder.pos_embed"] = pos.astype(np.float32)
+    loaded = load_reference_state_dict(ref_sd, port_cfg(cfg))
+    want = convert.interpolate_pos_embed(pos.astype(np.float32),
+                                         cfg.vit.num_patches)
+    np.testing.assert_allclose(f32(loaded["visual_encoder.pos_embed"]),
+                               want, atol=1e-6)
+    ref_sd["visual_encoder.pos_embed"] = np.zeros((1, 6, 24), np.float32)
     with pytest.raises(ValueError, match="pos_embed"):
         load_reference_state_dict(ref_sd, port_cfg(cfg))
