@@ -5,8 +5,8 @@ cirr_test_submission_stage2.py).
 Global ranking: the test1 top-k file's K candidate names re-sorted by the
 re-ranker's score (cirr_test_submission_stage2.py:93-106); subset ranking:
 the 5 non-reference group members re-scored by the same model.
-Candidate-major schedule only: ``--schedule query_major`` and
-``--shard-index`` raise.
+``--schedule query_major`` (with ``--q-batch``) runs; ``--shard-index``
+raises.
 
 Example:
   python -m candidate_reranking_cir_tpu_torch.cli.cirr_test_submission_stage2 \
@@ -32,16 +32,14 @@ from candidate_reranking_cir_tpu_torch.cli.common import (
 )
 from candidate_reranking_cir_tpu_torch.data.datasets import CIRRDataset
 from candidate_reranking_cir_tpu_torch.retrieval.index import build_index
-from candidate_reranking_cir_tpu_torch.retrieval.rerank import (
-    bind_module,
-    rerank_candidate_major,
-)
+from candidate_reranking_cir_tpu_torch.retrieval.rerank import bind_module
 from candidate_reranking_cir_tpu_torch.retrieval.submission import (
     build_submissions,
     write_submissions,
 )
 from candidate_reranking_cir_tpu_torch.retrieval.validate2_engine import (
     check_stage2_options,
+    run_rerank,
 )
 from candidate_reranking_cir_tpu_torch.runtime.host import (
     limit_numpy_threads,
@@ -65,8 +63,8 @@ def main(argv=None):
     parser.add_argument("--batch-size", type=int, default=16)
     parser.add_argument("--schedule", type=str, default="candidate_major",
                         choices=["candidate_major", "query_major"],
-                        help="re-rank scheduling; only candidate_major is "
-                             "ported")
+                        help="re-rank scheduling: by candidate or by query "
+                             "([Qb, K] chunks)")
     parser.add_argument("--shard-index", action="store_true",
                         help="shard the feature bank over a mesh; not "
                              "ported (raises)")
@@ -76,7 +74,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if args.dataset.lower() != "cirr":
         parser.error("the test1 submission is CIRR's")
-    check_stage2_options(args.schedule, None, args.shard_index, False)
+    check_stage2_options(None, args.shard_index)
 
     tokenizer = get_tokenizer(args)  # cheap fail-fast before ckpt IO
     stage1, s1_cfg = build_stage1(args)
@@ -102,12 +100,12 @@ def main(argv=None):
     groups = [s["group_members"] for s in samples]
     topk_names = np.stack([np.asarray(s["topk_names"]) for s in samples])
 
-    out = rerank_candidate_major(
-        stage1, None, reranker, None, tokenizer,
+    out = run_rerank(
+        args.schedule, stage1, reranker, tokenizer, q_batch=args.q_batch,
+        l_buckets=parse_l_buckets(args.l_buckets), device=device,
         captions=[s["caption"] for s in samples], reference_names=refs,
         topk_names=topk_names, index_feats=raw, index_names=index_names,
-        text_len=args.text_len, group_members=groups,
-        l_buckets=parse_l_buckets(args.l_buckets), device=device)
+        text_len=args.text_len, group_members=groups)
 
     reranked_names = np.take_along_axis(
         np.asarray(topk_names, dtype=object), out.order, axis=1)

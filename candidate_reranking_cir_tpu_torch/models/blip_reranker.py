@@ -3,7 +3,9 @@
 the cls head Linear(2D -> D) -> ReLU -> Linear(D -> 2) whose channel 0 is
 the re-rank score. ``score_grid`` is the candidate-major eval layout,
 ``score_shared`` training's B x B pair grid over one shared candidate
-set."""
+set, ``score_per_query`` and ``score_indexed`` the query-major eval
+layouts (each query with its own K candidates; the indexed one projects
+the K/V of a chunk's unique candidates once)."""
 from __future__ import annotations
 
 import torch
@@ -34,6 +36,18 @@ class RerankerModel(nn.Module):
         self.cls_dense1 = Dense(2 * d, d, dtype, device)
         self.cls_dense2 = Dense(d, 2, dtype, device)
 
+    def forward(self, images, input_ids, attention_mask, z_t, *,
+                deterministic: bool = True, seeds=None):
+        """Embed ``images`` and score the B x B pair grid against them
+        (the JAX module's ``__call__``). ``seeds``: (ViT seed table, text
+        encoder seed table) when not deterministic."""
+        vit_seeds, text_seeds = (None, None) if seeds is None else seeds
+        feats = self.embed_images(images, deterministic=deterministic,
+                                  seeds=vit_seeds)
+        return self.score_shared(z_t, input_ids, attention_mask, feats,
+                                 deterministic=deterministic,
+                                 seeds=text_seeds)
+
     def embed_images(self, images, *, deterministic: bool = True,
                      seeds=None):
         """``seeds``: the ViT's seed table (``visual_encoder.seed_shape``)
@@ -54,6 +68,22 @@ class RerankerModel(nn.Module):
                                      cand_feats, layout="shared",
                                      deterministic=deterministic,
                                      seeds=seeds)
+        return self._cls_scores(cls_pair)
+
+    def score_per_query(self, z_t, input_ids, attention_mask, cand_feats):
+        """[Q, L, D] x [Q, K, M, W] -> [Q, K] scores (per-query
+        candidates)."""
+        cls_pair = self.text_encoder(input_ids, attention_mask, z_t,
+                                     cand_feats, layout="per_pair")
+        return self._cls_scores(cls_pair)
+
+    def score_indexed(self, z_t, input_ids, attention_mask, unique_cand,
+                      pair_map):
+        """[Q, L, D] x unique [U, M, W] + pair_map [Q, K] -> [Q, K] scores:
+        each unique candidate's K/V projected once, gathered per pair.
+        Equal to ``score_per_query(z_t, .., unique_cand[pair_map])``."""
+        cls_pair = self.text_encoder(input_ids, attention_mask, z_t,
+                                     unique_cand, pair_map=pair_map)
         return self._cls_scores(cls_pair)
 
     def score_grid(self, z_t, input_ids, attention_mask, cand_feats):

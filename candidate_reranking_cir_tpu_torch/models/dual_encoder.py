@@ -8,13 +8,19 @@ averaged below ``merge_mlp_from`` and merged by a Linear(2D -> D) from
 there on, a per-stream LayerNorm on the merged residual, and a shared FFN.
 Output: the two streams' CLS states concatenated, [.., 2D].
 
-Two candidate layouts:
+Three candidate layouts:
 - 'cand_major' (eval): axis 0 indexes candidates and axis 1 the queries
   scored against each, so a candidate's cross-attention K/V are projected
   once and shared by all of its queries (``grid_cross_attention``);
 - 'shared' (training's in-batch B x B contrast): queries [Q] x one shared
   candidate set [C]; both streams broadcast over C and the candidates' K/V
-  are shared across the query axis (``pair_cross_attention``).
+  are shared across the query axis (``pair_cross_attention``);
+- 'per_pair' (eval, query-major re-rank and serving): queries [Q] x their
+  own candidates [Q, C]; one K/V per (query, candidate) pair
+  (``dot_product_attention``, K3 at [Q*C, L, H, D] x [Q*C, M, H, D]). With
+  a ``pair_map`` [Q, C] the candidates are a chunk's U unique ones
+  [U, M, W]: K/V are projected once a unique candidate and gathered into
+  the pair grid.
 
 Training (``deterministic=False``) takes a seed table of shape
 ``seed_shape``: row 0 seeds the embedding dropout, row i + 1 layer i as
@@ -44,18 +50,21 @@ from candidate_reranking_cir_tpu_torch.models.med import (
     BertFFN,
 )
 from candidate_reranking_cir_tpu_torch.ops.attention import (
+    dot_product_attention,
     grid_cross_attention,
     make_additive_mask,
     pair_cross_attention,
 )
 
 SEED_SITES = 5  # generator, self-attention 0/1, cross-attention 0/1
-LAYOUTS = ("cand_major", "shared")
+LAYOUTS = ("cand_major", "shared", "per_pair")
 
 
 class DualLayer(nn.Module):
     """One dual-stream layer over h0, h1 [A, B, L, D] with cand [A, M, W]
-    ('cand_major') or h0, h1 [Q, C, L, D] with cand [C, M, W] ('shared')."""
+    ('cand_major'), or h0, h1 [Q, C, L, D] with cand [C, M, W] ('shared'),
+    [Q, C, M, W] ('per_pair') or [U, M, W] and ``pair_map`` [Q, C]
+    ('per_pair', indexed)."""
 
     def __init__(self, cfg: TextEncoderConfig, merge_mlp: bool,
                  dtype=torch.float32, device=None):
@@ -79,7 +88,8 @@ class DualLayer(nn.Module):
         self.drop = Dropout(cfg.hidden_dropout)
         self.ffn = BertFFN(cfg, dtype, device)
 
-    def _cross(self, s: str, h, cand, layout: str, det: bool, seed, gen):
+    def _cross(self, s: str, h, cand, layout: str, det: bool, seed, gen,
+               pair_map=None):
         heads = (self.num_heads, self.head_dim)
         q = getattr(self, f"cross_q{s}")(h).unflatten(-1, heads)
         k = getattr(self, f"cross_k{s}")(cand).unflatten(-1, heads)
@@ -88,15 +98,22 @@ class DualLayer(nn.Module):
             ctx = pair_cross_attention(
                 q, k, v, dropout_rate=self.attention_dropout,
                 deterministic=det, seed=seed, generator=gen)
-        elif det:
+        elif not det:
+            raise NotImplementedError(
+                f"the {layout} layout is eval-only in this port")
+        elif layout == "cand_major":
             ctx = grid_cross_attention(q, k, v)
         else:
-            raise NotImplementedError(
-                "the cand_major layout is eval-only in this port")
+            if pair_map is not None:
+                # K/V of the U unique candidates -> the [Q, C] pair grid
+                flat = pair_map.reshape(-1)
+                k = k.index_select(0, flat).unflatten(0, pair_map.shape)
+                v = v.index_select(0, flat).unflatten(0, pair_map.shape)
+            ctx = dot_product_attention(q, k, v)
         return getattr(self, f"cross_dense{s}")(ctx.flatten(-2))
 
     def forward(self, h0, h1, text_bias, cand, seeds=None,
-                layout: str = "cand_major"):
+                layout: str = "cand_major", pair_map=None):
         det = seeds is None
         gen = None if det else seeded_generator(seeds[0], h0.device)
         site = (lambda i: None) if det else (lambda i: seeds[i])
@@ -108,8 +125,8 @@ class DualLayer(nn.Module):
             ctx = self.drop(ctx, deterministic=det, generator=gen)
             hs.append(getattr(self, f"self_ln{s}")(ctx + h))
         h0, h1 = hs
-        d0 = self._cross("0", h0, cand, layout, det, site(3), gen)
-        d1 = self._cross("1", h1, cand, layout, det, site(4), gen)
+        d0 = self._cross("0", h0, cand, layout, det, site(3), gen, pair_map)
+        d1 = self._cross("1", h1, cand, layout, det, site(4), gen, pair_map)
         if self.merge is not None:
             merged = self.merge(torch.cat([d0, d1], dim=-1))
         else:
@@ -129,6 +146,9 @@ class DualStreamEncoder(nn.Module):
     candidate. Returns [A, B, 2D].
     'shared': input_ids, attention_mask [Q, L] and z_t [Q, L, D] per query;
     cand_feats [C, M, W] shared by all queries. Returns [Q, C, 2D].
+    'per_pair': as 'shared', with cand_feats [Q, C, M, W] (each query's own
+    candidates), or the U unique candidates [U, M, W] and ``pair_map``
+    [Q, C] int (the indexed mode; 'per_pair' is then implied). Eval only.
 
     ``cfg.remat`` recomputes each layer in backward when gradients are on,
     under ``cfg.remat_policy`` (``models/layers.py::remat``)."""
@@ -151,7 +171,9 @@ class DualStreamEncoder(nn.Module):
 
     def forward(self, input_ids, attention_mask, z_t, cand_feats, *,
                 layout: str = "cand_major", deterministic: bool = True,
-                seeds=None):
+                seeds=None, pair_map=None):
+        if pair_map is not None:
+            layout = "per_pair"
         if layout not in LAYOUTS:
             raise ValueError(f"unknown layout {layout!r}; expected one of "
                              f"{LAYOUTS}")
@@ -167,7 +189,10 @@ class DualStreamEncoder(nn.Module):
             h0, h1 = z_t.to(self.dtype), text_emb    # [A, B, L, D]
         else:
             n_q, length, d = z_t.shape
-            shape = (n_q, cand.shape[0], length, d)
+            n_c = (pair_map.shape[1] if pair_map is not None
+                   else cand.shape[0] if layout == "shared"
+                   else cand.shape[1])
+            shape = (n_q, n_c, length, d)
             h0 = z_t.to(self.dtype)[:, None].expand(shape)
             h1 = text_emb[:, None].expand(shape)
             text_bias = text_bias[:, None]           # [Q, 1, 1, 1, L]
@@ -176,7 +201,8 @@ class DualStreamEncoder(nn.Module):
             row = None if deterministic else seeds[i + 1]
             if recompute:
                 h0, h1 = remat(layer, h0, h1, text_bias, cand, row, layout,
-                               policy=self.remat_policy)
+                               pair_map, policy=self.remat_policy)
             else:
-                h0, h1 = layer(h0, h1, text_bias, cand, row, layout)
+                h0, h1 = layer(h0, h1, text_bias, cand, row, layout,
+                               pair_map)
         return torch.cat([h0[..., 0, :], h1[..., 0, :]], dim=-1)

@@ -22,10 +22,15 @@ def cosine_rank(pred: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
                          stable=True)
 
 
-def cosine_topk(pred: torch.Tensor, index: torch.Tensor, k: int):
+def cosine_topk(pred: torch.Tensor, index: torch.Tensor, k: int,
+                valid: torch.Tensor | None = None):
     """Top-k by similarity: (scores [Q, k], indices [Q, k]); equal scores
     keep index order, as ``lax.top_k`` breaks ties by the lowest index
-    (``torch.topk`` promises no order among equal values on the card)."""
-    scores, idx = torch.sort(cosine_scores(pred, index), dim=-1,
-                             descending=True, stable=True)
+    (``torch.topk`` promises no order among equal values on the card).
+    ``valid`` [N] bool: rows where it is False score -inf (a serving
+    index's tombstoned and free slots), below every real candidate."""
+    sims = cosine_scores(pred, index)
+    if valid is not None:
+        sims = sims.masked_fill(~valid[None, :], float("-inf"))
+    scores, idx = torch.sort(sims, dim=-1, descending=True, stable=True)
     return scores[:, :k], idx[:, :k]

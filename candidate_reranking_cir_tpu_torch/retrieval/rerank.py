@@ -1,13 +1,22 @@
-"""Stage-II candidate-major re-rank scheduling on one device (port of the
-JAX package's ``retrieval/rerank.py::rerank_candidate_major``).
+"""Stage-II re-rank scheduling on one device (port of the JAX package's
+``retrieval/rerank.py``: ``rerank`` and ``rerank_candidate_major``).
 
-Pairs (query, candidate) are grouped by candidate, so each candidate's
+Candidate-major (``rerank_candidate_major``, the eval default): pairs
+(query, candidate) are grouped by candidate, so each candidate's
 cross-attention K/V run once and serve every query that ranks it. Queries
 are grouped into text-length buckets; each bucket computes its z_t in
 ``zt_batch`` chunks (the tail chunk repeats row 0), then its pairs in
 calls of A candidates x B queries, where each candidate's pair list is cut
 greedily into the ``q_buckets`` sizes. Skipped queries' top-K pairs are
 never scheduled and keep ``SKIP_LOGIT``; their CIRR groups are scored.
+
+Query-major (``rerank``, serving and ``schedule='query_major'``): fixed
+[q_batch, K(+5)] pair grids, one per chunk of queries, each pair with its
+own K/V (``RerankerModel.score_per_query``), or with ``dedup`` the K/V of
+the chunk's unique candidates gathered per pair (``score_indexed``).
+
+Both gather bank rows through ``ops/quant.take_rows``, so the bank may be
+an ``Int8Bank``.
 """
 from __future__ import annotations
 
@@ -17,6 +26,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from candidate_reranking_cir_tpu_torch.ops.quant import take_rows
 from candidate_reranking_cir_tpu_torch.runtime.device import (
     resolve_device,
     sync_device,
@@ -41,6 +51,127 @@ def bind_module(module, params, device: torch.device):
     if params is not None:
         module.load_state_dict(params, strict=True)
     return module.to(device).eval()
+
+
+def make_rerank_fns(stage1, reranker):
+    """(z_t producer, [Qb, K] scorer, indexed scorer) over the port's
+    models, as the JAX function's triple of jitted programs (whose cache
+    exists for XLA's compiles; PyTorch runs eagerly, so nothing is
+    cached). The models must already be on their device."""
+
+    def produce_zt(ref_feats, ids, mask):
+        return stage1.fuse(ref_feats, ids, mask, return_raw=True)
+
+    def score(z_t, ids, mask, cand_feats):
+        return reranker.score_per_query(z_t, ids, mask, cand_feats)
+
+    def score_indexed(z_t, ids, mask, unique_cand, pair_map):
+        return reranker.score_indexed(z_t, ids, mask, unique_cand, pair_map)
+
+    return produce_zt, score, score_indexed
+
+
+def cluster_queries(cand_idx: np.ndarray, q_batch: int) -> np.ndarray:
+    """Order queries so chunks of q_batch share candidates (the dedup
+    scorer's win): a stable sort by the top-1 candidate, since queries
+    whose best candidate is the same share much of their top-K tail."""
+    return np.argsort(cand_idx[:, 0], kind="stable")
+
+
+@torch.inference_mode()
+def rerank(stage1, s1_params, reranker, s2_params, tokenizer, *,
+           captions: list[str], reference_names: list[str],
+           topk_names: np.ndarray, index_feats, index_names: list[str],
+           text_len: int, q_batch: int = 8,
+           skip_mask: np.ndarray | None = None,
+           group_members: list[list[str]] | None = None,
+           dedup: bool = False, dedup_cap: float = 0.625,
+           mesh=None, device=None) -> RerankOutput:
+    """Score every query's K candidates (and CIRR 5-member groups) in
+    query-major [q_batch, K(+5)] chunks.
+
+    stage1 / reranker: the port's models; s1_params / s2_params: port
+    state dicts to load into them, or None. index_feats: [N_idx, M, W]
+    stage-II bank, or an ``Int8Bank``. topk_names: [N, K] candidate names.
+    skip_mask: [N] bool, True rows get SKIP_LOGIT (computed, then
+    overwritten, as in JAX). The tail chunk is padded with repeats of its
+    first query. CIRR group members ride in the same call as the top-K
+    candidates.
+
+    dedup=True: queries run in ``cluster_queries`` order, and a chunk whose
+    unique candidates fit the ``dedup_cap`` bucket (a multiple of 64) is
+    scored by ``score_indexed``; a chunk that does not compress falls back
+    to the per-pair scorer. Output order is the input's.
+
+    mesh: not ported (raises). Same outputs as the JAX function."""
+    if mesh is not None:
+        raise NotImplementedError("mesh re-ranking is not ported")
+    device = resolve_device(device)
+    stage1 = bind_module(stage1, s1_params, device)
+    reranker = bind_module(reranker, s2_params, device)
+    produce_zt, score, score_indexed = make_rerank_fns(stage1, reranker)
+    feats = index_feats.to(device)
+
+    n = len(captions)
+    k = topk_names.shape[1]
+    pos = {name: i for i, name in enumerate(index_names)}
+    ref_idx = np.asarray([pos[r] for r in reference_names], np.int64)
+    cand_idx = np.asarray(
+        [[pos[nm] for nm in row] for row in topk_names], np.int64)
+    ids_all, mask_all = tokenizer.encode(captions, text_len,
+                                         set_enc_token=True)
+
+    do_groups = group_members is not None
+    if do_groups:
+        members_no_ref = [[m for m in g if m != r][:5]
+                          for g, r in zip(group_members, reference_names)]
+        grp_idx = np.asarray([[pos[m] for m in row] for row in members_no_ref],
+                             np.int64)
+        cand_idx_all = np.concatenate([cand_idx, grp_idx], axis=1)
+    else:
+        cand_idx_all = cand_idx
+
+    logits = np.empty((n, k), np.float32)
+    grp_logits = np.empty((n, 5), np.float32) if do_groups else None
+    order = (cluster_queries(cand_idx, q_batch) if dedup and n > q_batch
+             else np.arange(n))
+    width = cand_idx_all.shape[1]
+    u_cap = max(int(q_batch * width * dedup_cap) // 64 * 64, 64)
+
+    def to_dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    for start in range(0, n, q_batch):
+        rows = order[start:start + q_batch]
+        count = len(rows)
+        if count < q_batch:  # pad the tail chunk with repeats
+            rows = np.concatenate(
+                [rows, np.repeat(rows[:1], q_batch - count)])
+        ids, msk = to_dev(ids_all[rows]), to_dev(mask_all[rows])
+        z_t = produce_zt(take_rows(feats, to_dev(ref_idx[rows])), ids, msk)
+
+        chunk_cand = cand_idx_all[rows]
+        uniq, inv = np.unique(chunk_cand, return_inverse=True)
+        if dedup and len(uniq) <= u_cap:
+            pad_uniq = np.pad(uniq, (0, u_cap - len(uniq)))
+            out = score_indexed(z_t, ids, msk,
+                                take_rows(feats, to_dev(pad_uniq)),
+                                to_dev(inv.reshape(chunk_cand.shape)))
+        else:
+            out = score(z_t, ids, msk, take_rows(feats, to_dev(chunk_cand)))
+        out = out[:count].float().cpu().numpy()
+        logits[rows[:count]] = out[:, :k]
+        if do_groups:
+            grp_logits[rows[:count]] = out[:, k:]
+
+    if skip_mask is not None:
+        logits[np.asarray(skip_mask, bool)] = SKIP_LOGIT
+
+    # descending sort; stable on the negated scores for deterministic ties
+    rank_order = np.argsort(-logits, axis=-1, kind="stable")
+    group_order = (np.argsort(-grp_logits, axis=-1, kind="stable")
+                   if do_groups else None)
+    return RerankOutput(logits, grp_logits, rank_order, group_order)
 
 
 def resolve_l_buckets(l_buckets, lengths: np.ndarray,
@@ -96,8 +227,8 @@ def rerank_candidate_major(stage1, s1_params, reranker, s2_params, tokenizer,
 
     stage1 / reranker: the port's ``RetrievalModel`` / ``RerankerModel``;
     s1_params / s2_params: port state dicts to load into them, or None.
-    index_feats: [N_idx, M, W] bank (``retrieval.index.build_index``).
-    Same outputs as the JAX function of the same name."""
+    index_feats: [N_idx, M, W] bank (``retrieval.index.build_index``), or
+    an ``Int8Bank``. Same outputs as the JAX function of the same name."""
     device = resolve_device(device)
     stage1 = bind_module(stage1, s1_params, device)
     reranker = bind_module(reranker, s2_params, device)
@@ -150,8 +281,8 @@ def rerank_candidate_major(stage1, s1_params, reranker, s2_params, tokenizer,
             real = np.arange(start, min(start + zt_batch, n_lb))
             rows[:len(real)] = real
             r = to_dev(rows)
-            zs.append(stage1.fuse(feats[ref_dev[r]], ids_dev[r], mask_dev[r],
-                                  return_raw=True))
+            zs.append(stage1.fuse(take_rows(feats, ref_dev[r]), ids_dev[r],
+                                  mask_dev[r], return_raw=True))
         zt_all = torch.cat(zs)[:n_lb]
         sync_device(device)
         t1 = time.perf_counter()
@@ -204,7 +335,7 @@ def rerank_candidate_major(stage1, s1_params, reranker, s2_params, tokenizer,
                     zt_all[flat].reshape(a, b, lb, -1),
                     ids_dev[flat].reshape(a, b, lb),
                     mask_dev[flat].reshape(a, b, lb),
-                    feats[cands_dev[ci]]))
+                    take_rows(feats, cands_dev[ci])))
             pending.append((torch.stack(scores), valid, qrow, kind, col))
         sync_device(device)
         seconds["score"] += time.perf_counter() - t1

@@ -1,10 +1,12 @@
 """Stage-II CIRR and Fashion-IQ validation (port of the JAX package's
-``retrieval/validate2_engine.py``, candidate-major schedule, one device).
+``retrieval/validate2_engine.py``, one device).
 
-Builds the stage-II ViT index over the val corpus, re-ranks each query's
-top-K candidates with the candidate-major scorer, and computes the re-ranked
-recalls, plus for CIRR the subset recalls from the re-scored 5-member
-groups. Fashion-IQ runs per dress type, each with its own top-K file.
+Builds the stage-II ViT index over the val corpus (optionally quantized to
+an int8 bank), re-ranks each query's top-K candidates with the
+candidate-major scheduler (the default) or the query-major one, and
+computes the re-ranked recalls, plus for CIRR the subset recalls from the
+re-scored 5-member groups. Fashion-IQ runs per dress type, each with its
+own top-K file.
 """
 from __future__ import annotations
 
@@ -21,12 +23,14 @@ from candidate_reranking_cir_tpu_torch.data.datasets import (
 from candidate_reranking_cir_tpu_torch.data.topk_io import (
     resolve_fiq_topk_path,
 )
+from candidate_reranking_cir_tpu_torch.ops.quant import quantize_bank
 from candidate_reranking_cir_tpu_torch.retrieval import metrics as M
 from candidate_reranking_cir_tpu_torch.retrieval.index import build_index
 from candidate_reranking_cir_tpu_torch.retrieval.rerank import (
     RerankOutput,
     bind_module,
     cirr_group_labels,
+    rerank,
     rerank_candidate_major,
 )
 from candidate_reranking_cir_tpu_torch.runtime.device import (
@@ -39,13 +43,43 @@ from candidate_reranking_cir_tpu_torch.runtime.device import (
 class Stage2Result:
     metrics: dict
     rerank: RerankOutput
-    seconds: dict   # wall seconds: 'index', 'zt', 'score', 'total'
+    seconds: dict   # wall seconds: 'index', 'zt' and 'score' (or 'rerank'
+                    # for the query-major schedule), 'total'
+
+
+def run_rerank(schedule: str, stage1, reranker, tokenizer, *, q_batch: int,
+               l_buckets, device, **kw) -> RerankOutput:
+    """The re-rank scheduler ``schedule`` names (the JAX package's
+    ``_run_rerank``) over bound models: 'candidate_major' groups pairs by
+    candidate, so K/V projections serve the ~90 queries that rank each
+    corpus image; 'query_major' runs fixed [q_batch, K] chunks at the
+    single ``text_len`` bucket."""
+    if schedule == "candidate_major":
+        return rerank_candidate_major(stage1, None, reranker, None, tokenizer,
+                                      l_buckets=l_buckets, device=device,
+                                      **kw)
+    if schedule == "query_major":
+        return rerank(stage1, None, reranker, None, tokenizer,
+                      q_batch=q_batch, device=device, **kw)
+    raise ValueError(f"unknown schedule {schedule!r}")
+
+
+def stage2_bank(reranker, classic, batch_size: int, index_int8: bool,
+                device):
+    """The stage-II ViT bank of ``classic`` and its names; with
+    ``index_int8`` quantized to an ``Int8Bank`` (about half the memory;
+    scores shift by under 1%)."""
+    raw, index_names = build_index(classic, reranker.embed_images, batch_size,
+                                   device=device)
+    return (quantize_bank(raw) if index_int8 else raw), index_names
 
 
 def evaluate_cirr_stage2_datasets(stage1, s1_params, reranker, s2_params,
                                   tokenizer, classic, relative, *, k: int,
                                   text_len: int, batch_size: int = 16,
                                   l_buckets="auto",
+                                  schedule: str = "candidate_major",
+                                  q_batch: int = 8, index_int8: bool = False,
                                   device=None) -> Stage2Result:
     """The evaluation on ready-made datasets: ``classic`` yields
     {'name', 'image' [H, W, 3]} corpus rows, ``relative`` the val triplets
@@ -55,8 +89,8 @@ def evaluate_cirr_stage2_datasets(stage1, s1_params, reranker, s2_params,
     t0 = time.perf_counter()
     stage1 = bind_module(stage1, s1_params, device)
     reranker = bind_module(reranker, s2_params, device)
-    raw, index_names = build_index(classic, reranker.embed_images, batch_size,
-                                   device=device)
+    raw, index_names = stage2_bank(reranker, classic, batch_size, index_int8,
+                                   device)
     sync_device(device)
     t_index = time.perf_counter() - t0
 
@@ -71,12 +105,16 @@ def evaluate_cirr_stage2_datasets(stage1, s1_params, reranker, s2_params,
     hit_rate = 100.0 * topk_labels.any(1).mean()
     print(f"val-split: top-{k} candidate {hit_rate:.2f}%")
 
-    out = rerank_candidate_major(
-        stage1, None, reranker, None, tokenizer,
+    t1 = time.perf_counter()
+    out = run_rerank(
+        schedule, stage1, reranker, tokenizer, q_batch=q_batch,
+        l_buckets=l_buckets, device=device,
         captions=[s["caption"] for s in samples], reference_names=refs,
         topk_names=topk_names, index_feats=raw, index_names=index_names,
         text_len=text_len, skip_mask=~topk_labels.any(axis=1),
-        group_members=groups, l_buckets=l_buckets, device=device)
+        group_members=groups)
+    # candidate-major splits its seconds ('zt', 'score'); query-major not
+    rerank_s = out.seconds or {"rerank": time.perf_counter() - t1}
 
     labels = M.reranked_labels(topk_labels, out.order)
     members_no_ref = [[m for m in g if m != r][:5]
@@ -90,18 +128,15 @@ def evaluate_cirr_stage2_datasets(stage1, s1_params, reranker, s2_params,
         mets[f"group_recall_at{kk}"] = M.recall_at(glabels, kk)
     mets["mean_r5_rs1"] = (mets.get("recall_at5", 0.0)
                            + mets["group_recall_at1"]) / 2
-    seconds = {"index": t_index, **out.seconds,
+    seconds = {"index": t_index, **rerank_s,
                "total": time.perf_counter() - t0}
     return Stage2Result(mets, out, seconds)
 
 
-def check_stage2_options(schedule, mesh, shard_index, index_int8) -> None:
+def check_stage2_options(mesh, shard_index) -> None:
     """Raise NotImplementedError for the stage-II options not ported."""
-    if schedule != "candidate_major":
-        raise NotImplementedError("only schedule='candidate_major' is ported")
-    if mesh is not None or shard_index or index_int8:
-        raise NotImplementedError(
-            "mesh, shard_index and index_int8 are not ported yet")
+    if mesh is not None or shard_index:
+        raise NotImplementedError("mesh and shard_index are not ported yet")
 
 
 def evaluate_cirr_stage2(stage1, s1_params, reranker, s2_params, tokenizer, *,
@@ -113,11 +148,11 @@ def evaluate_cirr_stage2(stage1, s1_params, reranker, s2_params, tokenizer, *,
     """CIRR val stage-II metrics, with the JAX package's signature.
 
     stage1 / reranker are the port's models; s1_params / s2_params port
-    state dicts to load into them, or None. ``q_batch`` belongs to the
-    query-major schedule, which is not ported yet, as are ``mesh``,
-    ``shard_index`` and ``index_int8``: those raise."""
-    del q_batch  # unused by the candidate-major schedule, as in JAX
-    check_stage2_options(schedule, mesh, shard_index, index_int8)
+    state dicts to load into them, or None. ``q_batch`` is the query-major
+    schedule's chunk (unused by the candidate-major one, as in JAX);
+    ``index_int8`` quantizes the stage-II bank. ``mesh`` and
+    ``shard_index`` are not ported: they raise."""
+    check_stage2_options(mesh, shard_index)
     classic = CIRRDataset(data_root, "val", "classic", transform,
                           load_topk=top_k_path, k=k)
     relative = CIRRDataset(data_root, "val", "relative", transform,
@@ -125,6 +160,7 @@ def evaluate_cirr_stage2(stage1, s1_params, reranker, s2_params, tokenizer, *,
     return evaluate_cirr_stage2_datasets(
         stage1, s1_params, reranker, s2_params, tokenizer, classic, relative,
         k=k, text_len=text_len, batch_size=batch_size, l_buckets=l_buckets,
+        schedule=schedule, q_batch=q_batch, index_int8=index_int8,
         device=device).metrics
 
 
@@ -140,8 +176,7 @@ def evaluate_fiq_stage2(stage1, s1_params, reranker, s2_params, tokenizer, *,
     reference's 'DTYPE' placeholder, substituted per category (the
     reference stores one file per type, utils.py:195). Options as
     ``evaluate_cirr_stage2``."""
-    del q_batch  # unused by the candidate-major schedule, as in JAX
-    check_stage2_options(schedule, mesh, shard_index, index_int8)
+    check_stage2_options(mesh, shard_index)
     device = resolve_device(device)
     stage1 = bind_module(stage1, s1_params, device)
     reranker = bind_module(reranker, s2_params, device)
@@ -153,20 +188,20 @@ def evaluate_fiq_stage2(stage1, s1_params, reranker, s2_params, tokenizer, *,
                                    transform, load_topk=path, k=k)
         relative = FashionIQDataset(data_root, "val", [dress], "relative",
                                     transform, load_topk=path, k=k)
-        raw, index_names = build_index(classic, reranker.embed_images,
-                                       batch_size, device=device)
+        raw, index_names = stage2_bank(reranker, classic, batch_size,
+                                       index_int8, device)
         samples = [relative[i] for i in range(len(relative))]
         topk_labels = np.stack([np.asarray(s["topk_labels"], bool)
                                 for s in samples])
-        out = rerank_candidate_major(
-            stage1, None, reranker, None, tokenizer,
+        out = run_rerank(
+            schedule, stage1, reranker, tokenizer, q_batch=q_batch,
+            l_buckets=l_buckets, device=device,
             captions=compose_fiq_eval([s["captions"] for s in samples]),
             reference_names=[s["reference_name"] for s in samples],
             topk_names=np.stack([np.asarray(s["topk_names"])
                                  for s in samples]),
             index_feats=raw, index_names=index_names, text_len=text_len,
-            skip_mask=~topk_labels.any(axis=1), l_buckets=l_buckets,
-            device=device)
+            skip_mask=~topk_labels.any(axis=1))
         labels = M.reranked_labels(topk_labels, out.order)
         n = len(labels)
         r10 = 100.0 * labels[:, :10].sum() / n

@@ -13,7 +13,9 @@ Phases, each printing its own lines:
    stage-I widths.
 3. kernels K1-K4 at the eval paths' shapes, bf16 and fp32 (bf16 runs the
    tensor-core kernel, with or without a bias, fp32 the fp32-FMA one; K3
-   also at the stage-II eval path's narrowest call; K1 also at the stage-I
+   also at the stage-II eval path's narrowest call, and per pair, one K/V
+   a (query, candidate) pair, at serving's [200, 40, 577] and the
+   query-major eval's [440, 40, 577]; K1 also at the stage-I
    eval path's ViT batch and at its most-launched and widest image-major
    MED shapes): max |error| against the plain PyTorch version,
    kernel / plain / SDPA times over back-to-back calls (CUDA events, as
@@ -82,6 +84,22 @@ Phases, each printing its own lines:
    file saved, read back and re-ranked by the stage-II engine on a few
    hundred queries; a few queries' fp32 predictions and top-50 lists on
    the card against the CPU; a profile of one fusion pass.
+11. serving (run after phase 9, on its corpus, before phase 10): the
+    port's ``build_serving_index`` over the 2,297 images at full width in
+    bf16 (both ViTs; seconds and the banks' GiB), the npz cache's round
+    trip on 128 of them, then ``cli/serve.make_http_server`` on an
+    ephemeral port (q_pad 4, a 3 ms window, rerank_k 50, k 50): 8 client
+    threads send 32 /rank requests each (captions at ``bench.py``'s CIRR
+    lengths, every 16th with an uploaded jpeg), one /admin/add of 4 jpegs
+    and one /admin/remove of 4 images mid-stream; requests/s, the
+    batcher's p50/p95/p99 latency and wave occupancy, errors (must be 0),
+    launches (K1-K3 > 0, K4-K9 = 0), a profile of one wave; the same
+    requests against ``index.quantize()`` (the int8 banks must be at most
+    0.55x the bf16 bytes; the re-ranked logits' difference and the top-10
+    overlap are printed); fp32 serving on the card against the CPU (a
+    16-image index, 4 requests, rerank_k 8) and the fp32 query-major
+    ``rerank`` (per pair and with dedup) against
+    ``rerank_candidate_major`` over phase 5's first 32 queries.
 10. the trainer CLIs (``cli/stage1_train``, ``cli/validate``,
     ``cli/stage2_train``) on a CIRR tree of jpegs at 384 px, full width,
     bf16, through the entry points a user calls: stage I at B = 512 (two
@@ -95,9 +113,9 @@ Phases, each printing its own lines:
     K5 in the stage-I runs; K6, K7, K5 in stage II; K1-K3 in the
     validations, all must be > 0); then the peak memory and step seconds
     of stage-II steps with remat '' and 'dots'.
-11. a JSON line of kernel figures (``launches_by_path`` adds phase 10's
-    counts as "train_cli"), then the card's name and power limit, then
-    the last line ``{"ok": true, "device": {...}}``.
+12. a JSON line of kernel figures (``launches_by_path`` adds phase 10's
+    counts as "train_cli" and phase 11's as "serve"), then the card's name
+    and power limit, then the last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero without the last line.
 Imports nothing of JAX.
@@ -107,6 +125,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -173,6 +192,27 @@ S2T_TRAIN, S2T_B, S2T_K = 64, 16, 50
 # kernel on the path accumulates with atomics (K9's row and key passes
 # write dq and dk/dv once each), so the two must agree bit for bit
 RESUME_TOL = 0.0
+# phase 11, serving over the stage-I eval's corpus (CIRR-val scale): the
+# HTTP server at q_pad 4, a 3 ms window, rerank_k 50 and k 50; 8 clients
+# of 32 requests, every 16th with an uploaded jpeg; 4 images added and 4
+# removed mid-stream; then the same requests against the int8 index,
+# whose banks must be at most 0.55x the bf16 ones (int8 + an fp32 scale a
+# 768-wide row: 0.503x)
+SRV_Q_PAD, SRV_WINDOW_MS, SRV_RERANK_K, SRV_K = 4, 3.0, 50, 50
+SRV_CLIENTS, SRV_PER_CLIENT, SRV_UPLOAD_EVERY, SRV_ADMIN = 8, 32, 16, 4
+SRV_CACHE_IMAGES = 128         # the index cache's round trip
+SRV_INT8_BYTES_RATIO = 0.55
+SRV_INT8_COMPARE = 64          # requests re-answered on both indexes
+# fp32 serving, card vs CPU (PERF.md section 2's tolerances): stage-I
+# scores as S1E_PRED_TOL, re-ranked logits as FP32_CARD_VS_CPU_TOL
+SRV_CHECK_IMAGES, SRV_CHECK_REQUESTS, SRV_CHECK_RERANK_K = 16, 4, 8
+SRV_STAGE1_TOL, SRV_TIE_GAP = S1E_PRED_TOL, S1E_TIE_GAP
+SRV_STAGE2_TOL = FP32_CARD_VS_CPU_TOL
+SRV_QM_QUERIES = 32            # fp32 query-major vs candidate-major
+# K3 per pair (one K/V per query-candidate pair): serving's wave and the
+# query-major eval's chunk (q_batch 8 x K + 5 group members)
+K3_PER_PAIR = ((SRV_Q_PAD * SRV_RERANK_K, "serving, q_pad 4 x rerank_k 50"),
+               (8 * (TOPK + 5), "query-major eval, q_batch 8 x (K 50 + 5)"))
 CSRC = "candidate_reranking_cir_tpu_torch/csrc"
 # the records are bf16: K1-K4 on the tensor-core eval kernel, K6-K9 (no
 # bias) on the tensor-core train kernels
@@ -303,6 +343,8 @@ def kernel_cases(stage1_cases: list):
          False, False),
         ("K3", "candidate-major cross-attention, narrowest call",
          *K3_NARROW, 577, 12, False, False),
+        *(("K3", f"per-pair cross-attention, {label}", e, TEXT_LEN, 577, 12,
+           False, False) for e, label in K3_PER_PAIR),
         ("K4", "masked folded attention", 8, 160, 160, 12, True, True),
     ]
 
@@ -1491,10 +1533,11 @@ def stage1_k1_cases(fams: dict) -> list:
     ]
 
 
-def stage1_eval_path(tok, words, queries: list[dict]) -> dict:
+def stage1_eval_path(tok, words, queries: list[dict]) -> tuple:
     """``evaluate_cirr_stage1`` at CIRR-val scale in bf16, its top-K file
     handed to the stage-II engine, the fp32 card-vs-CPU check and a
-    profile of one fusion pass. Returns the counted run's launches."""
+    profile of one fusion pass. Returns the counted run's launches and
+    the corpus (phase 11 serves it)."""
     from candidate_reranking_cir_tpu_torch.data.topk_io import (
         load_topk_file,
         save_topk_file,
@@ -1593,7 +1636,7 @@ def stage1_eval_path(tok, words, queries: list[dict]) -> dict:
                    lambda: predict_queries(fuse, *fuse_args))
     del bank, fuse_args
     stage1_fp32_eval_check(s1, tok, queries, corpus, pooled)
-    return launches
+    return launches, corpus
 
 
 def stage1_fp32_eval_check(s1, tok, queries: list[dict], corpus: Corpus,
@@ -1650,6 +1693,396 @@ def stage1_fp32_eval_check(s1, tok, queries: list[dict], corpus: Corpus,
         fail("fp32 stage-I predictions on the card disagree with the CPU")
     if gaps.size and not gaps.max() <= S1E_TIE_GAP:
         fail("fp32 stage-I top-50 lists on the card disagree with the CPU")
+
+
+# ---------------------------------------------------------------------------
+# phase 11: serving
+
+def write_jpegs(directory, names: list[str], rng) -> list[str]:
+    """Smooth jpegs at S1T_IMAGE_SIZE px (upsampled noise, as photos
+    compress); returns their paths."""
+    import PIL.Image
+
+    paths = []
+    for name in names:
+        small = rng.integers(0, 255, size=(12, 12, 3), dtype=np.uint8)
+        path = f"{directory}/{name}.jpg"
+        PIL.Image.fromarray(small).resize(
+            (S1T_IMAGE_SIZE, S1T_IMAGE_SIZE)).save(path, quality=90)
+        paths.append(path)
+    return paths
+
+
+def serve_requests(names: list[str], words: list[str], uploads: list[str],
+                   rng) -> list[dict]:
+    """SRV_CLIENTS x SRV_PER_CLIENT /rank bodies: captions at the lengths
+    of ``caption_lengths`` (one toy word a token; [ENC] and [SEP] take
+    two), references drawn from ``names``; every SRV_UPLOAD_EVERY-th
+    carries a jpeg's ``reference_path`` instead."""
+    n = SRV_CLIENTS * SRV_PER_CLIENT
+    n_words = caption_lengths(n, TEXT_LEN, rng) - 2
+    out = []
+    for i in range(n):
+        body = {"caption": " ".join(rng.choice(words, n_words[i])),
+                "k": SRV_K}
+        if i % SRV_UPLOAD_EVERY == SRV_UPLOAD_EVERY - 1:
+            body["reference_path"] = uploads[i % len(uploads)]
+        else:
+            body["reference"] = names[int(rng.integers(0, len(names)))]
+        out.append(body)
+    return out
+
+
+def _http(port: int, path: str, body=None) -> tuple[int, dict]:
+    import urllib.error
+    import urllib.request
+
+    url = f"http://127.0.0.1:{port}{path}"
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers={
+        "Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def drive_http(engine, bodies: list[dict], admin=None) -> dict:
+    """``make_http_server`` on an ephemeral port; SRV_CLIENTS threads send
+    SRV_PER_CLIENT /rank requests each. ``admin``: (add body, remove body),
+    posted by one more thread once half the requests are answered.
+    Returns the answers by request, the errors, the wall seconds and the
+    batcher's stats; the server and its worker are stopped."""
+    import threading
+
+    from candidate_reranking_cir_tpu_torch.cli.serve import make_http_server
+
+    server = make_http_server(engine, 0, SRV_WINDOW_MS,
+                              enable_admin=admin is not None)
+    port = server.server_address[1]
+    serving = threading.Thread(target=server.serve_forever, daemon=True)
+    serving.start()
+    answers, errors, admin_out = {}, [], []
+    lock, half = threading.Lock(), threading.Event()
+
+    def client(c: int):
+        for i in range(c, len(bodies), SRV_CLIENTS):
+            code, out = _http(port, "/rank", bodies[i])
+            with lock:
+                if code == 200:
+                    answers[i] = out
+                else:
+                    errors.append((i, code, out))
+                if len(answers) + len(errors) >= len(bodies) // 2:
+                    half.set()
+
+    def admin_thread():
+        half.wait(timeout=600)
+        for path, body in zip(("/admin/add", "/admin/remove"), admin):
+            admin_out.append((path, *_http(port, path, body)))
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(SRV_CLIENTS)]
+    if admin is not None:
+        threads.append(threading.Thread(target=admin_thread))
+    try:
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t0
+        if any(t.is_alive() for t in threads):
+            fail("serving: a client thread did not finish")
+        stats = server.batcher.stats()
+    finally:
+        server.shutdown()
+        server.batcher.close()
+        server.server_close()
+        serving.join(timeout=30)
+    return {"answers": answers, "errors": errors, "wall": wall,
+            "stats": stats, "admin": admin_out}
+
+
+def report_http(tag: str, run: dict, n: int) -> None:
+    st = run["stats"]
+    print(f"[serve] {tag}: {n} /rank requests from {SRV_CLIENTS} clients in "
+          f"{run['wall']:.3f} s: {n / run['wall']:.1f} requests/s; batcher "
+          f"latency p50 {st['latency_p50_s']} s, p95 {st['latency_p95_s']} "
+          f"s, p99 {st['latency_p99_s']} s; {st['waves']} waves, mean "
+          f"occupancy {st['mean_wave_occupancy']} of {SRV_Q_PAD}; errors "
+          f"{len(run['errors'])} (batcher {st['errors']})", flush=True)
+    for path, code, out in run["admin"]:
+        print(f"[serve] {tag}: {path} -> {code} {json.dumps(out)}",
+              flush=True)
+    if run["errors"] or st["errors"]:
+        fail(f"serving {tag}: errors {run['errors'][:4]}")
+    if any(code != 200 for _, code, _ in run["admin"]):
+        fail(f"serving {tag}: an admin request failed: {run['admin']}")
+
+
+def serving_path(tok, words, corpus: Corpus) -> dict:
+    """Phase 11: the serving path at full width in bf16 over the stage-I
+    eval's corpus (CIRR-val scale): the index built, a cache round trip,
+    HTTP traffic with admin updates, the int8 index, then the fp32 checks.
+    Returns the launches of the bf16 HTTP run."""
+    from candidate_reranking_cir_tpu_torch.data.preprocessing import (
+        make_transform,
+    )
+    from candidate_reranking_cir_tpu_torch.runtime.serve import (
+        CIRServingEngine,
+        ServeRequest,
+        ServingIndex,
+        build_serving_index,
+    )
+
+    t_phase = time.perf_counter()
+    s1, s2 = eval_models()
+    size = s1.cfg.vit.image_size
+    t0 = time.perf_counter()
+    index = build_serving_index(s1, None, corpus, reranker=s2,
+                                batch_size=S1E_EMBED_BATCH, device="cuda")
+    torch.cuda.synchronize()
+    bank_bytes = sum(b.numel() * b.element_size()
+                     for b in (index.raw_s1, index.raw_s2))
+    print(f"[serve] index of {len(index.names)} images built in "
+          f"{time.perf_counter() - t0:.1f} s (two ViT passes at batch "
+          f"{S1E_EMBED_BATCH}, the images' host-to-card copy included): "
+          f"banks {list(index.raw_s1.shape)} x 2 {index.raw_s1.dtype}, "
+          f"{bank_bytes / 2 ** 30:.3f} GiB; pooled "
+          f"{list(index.pooled_s1.shape)}", flush=True)
+
+    # the npz cache on a 128-image index
+    n = SRV_CACHE_IMAGES
+    small = ServingIndex(names=index.names[:n],
+                         pooled_s1=index.pooled_s1[:n].clone(),
+                         raw_s1=index.raw_s1[:n].clone(),
+                         raw_s2=index.raw_s2[:n].clone(),
+                         fingerprint={"dataset": "cirr", "seed": SEED})
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        small.save(f"{tmp}/index.npz")
+        t_save = time.perf_counter() - t0
+        mib = os.path.getsize(f"{tmp}/index.npz") / 2 ** 20
+        t0 = time.perf_counter()
+        back = ServingIndex.load(f"{tmp}/index.npz", device="cuda",
+                                 expect_fingerprint={"seed": SEED})
+        t_load = time.perf_counter() - t0
+    same = back.names == small.names and all(
+        torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16
+                    else a, b.view(torch.int16)
+                    if b.dtype == torch.bfloat16 else b)
+        for a, b in ((back.pooled_s1, small.pooled_s1),
+                     (back.raw_s1, small.raw_s1),
+                     (back.raw_s2, small.raw_s2)))
+    print(f"[serve] cache of {n} images: {mib:.1f} MiB saved in "
+          f"{t_save:.2f} s, loaded in {t_load:.2f} s; banks equal bit for "
+          f"bit: {same}", flush=True)
+    if not same:
+        fail("serving: the index cache read back differs")
+    del small, back
+
+    rng = np.random.default_rng(SEED + 31)
+    with tempfile.TemporaryDirectory() as tmp:
+        uploads = write_jpegs(tmp, [f"upload{i}" for i in range(4)], rng)
+        added = [f"added{i}" for i in range(SRV_ADMIN)]
+        add_paths = write_jpegs(tmp, added, rng)
+        removed = index.names[-SRV_ADMIN:]
+        bodies = serve_requests(index.names[:-SRV_ADMIN], words, uploads,
+                                rng)
+        engine = CIRServingEngine(
+            s1, None, tok, index, text_len=TEXT_LEN, q_pad=SRV_Q_PAD,
+            reranker=s2, rerank_k=SRV_RERANK_K,
+            transform=make_transform("targetpad", size), device="cuda")
+        t0 = time.perf_counter()
+        engine.warmup()
+        torch.cuda.synchronize()
+        print(f"[serve] warm-up request in {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        gc.collect()
+        reset_launch_counts()
+        run = drive_http(engine, bodies, admin=(
+            {"names": added, "paths": add_paths}, {"names": removed}))
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        report_http("bf16 index", run, len(bodies))
+        print(f"[serve] launches {json.dumps(launches)}", flush=True)
+        if not all(launches[k] > 0 for k in MAIN_PATH_KERNELS) or any(
+                launches[k] for k in launches if k not in MAIN_PATH_KERNELS):
+            fail(f"serving launches {launches}: K1-K3 must run, K4-K9 not")
+        if index.n_valid != len(corpus) or any(
+                nm in index.pos for nm in removed) or not all(
+                nm in index.pos for nm in added):
+            fail("serving: the admin updates did not take")
+        reranked = [a["reranked"] for i, a in run["answers"].items()
+                    if "reference" in bodies[i]]
+        if len(run["answers"]) != len(bodies) or set(reranked) != {
+                SRV_RERANK_K} or any(len(a["ranking"]) != SRV_K
+                                     or not np.isfinite(a["scores"]).all()
+                                     for a in run["answers"].values()):
+            fail("serving: an answer has the wrong depth or scores")
+        print(f"[serve] index after the admin updates: capacity "
+              f"{index.capacity}, {index.n_valid} live images", flush=True)
+
+        reqs = [ServeRequest(caption=b["caption"], reference=b["reference"],
+                             k=SRV_K) for b in bodies
+                if "reference" in b][:SRV_INT8_COMPARE]
+        profile_device("serving wave", lambda: engine.handle(
+            reqs[:SRV_Q_PAD]))
+        base = engine.handle(reqs)
+        torch.cuda.synchronize()
+
+        # the int8 index: the same requests
+        index.quantize()
+        int8_bytes = index.raw_s1.nbytes + index.raw_s2.nbytes
+        bf16_bytes = sum(int(np.prod(b.shape)) * 2
+                         for b in (index.raw_s1, index.raw_s2))
+        int8_run = drive_http(engine, bodies)
+        report_http("int8 index", int8_run, len(bodies))
+    quant = engine.handle(reqs)
+    d_logit, overlap = 0.0, []
+    for b, q in zip(base, quant):
+        head_b = dict(zip(b.ranking[:b.reranked], b.scores[:b.reranked]))
+        head_q = dict(zip(q.ranking[:q.reranked], q.scores[:q.reranked]))
+        common = head_b.keys() & head_q.keys()
+        d_logit = max([d_logit] + [abs(head_b[k] - head_q[k])
+                                   for k in common])
+        overlap.append(len(set(b.ranking[:10]) & set(q.ranking[:10])))
+    ratio = int8_bytes / bf16_bytes
+    print(f"[serve] int8 banks {int8_bytes / 2 ** 30:.3f} GiB against bf16 "
+          f"{bf16_bytes / 2 ** 30:.3f} GiB at capacity {index.capacity}: "
+          f"{ratio:.4f}x (gate <= {SRV_INT8_BYTES_RATIO}); re-ranked logits "
+          f"of the heads' shared candidates differ by at most {d_logit:.3e} "
+          f"from the bf16 index's; top-10 overlap {np.mean(overlap):.2f} of "
+          f"10 (min {min(overlap)}) over {len(reqs)} requests (recorded, "
+          f"not gated)", flush=True)
+    if not ratio <= SRV_INT8_BYTES_RATIO:
+        fail("serving: the int8 banks are not about half the bf16 banks")
+    del engine, index, base, quant
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    serving_fp32_check(s1, s2, tok, words)
+    query_major_fp32_check(s1, s2)
+    del s1, s2
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[serve] phase seconds {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    return launches
+
+
+def fp32_copy(model, device: str):
+    """``model``'s weights in a float32 model of its class on ``device``."""
+    out = type(model)(model.cfg, dtype=torch.float32, device=device)
+    out.load_state_dict(model.state_dict())
+    return out
+
+
+def serving_fp32_check(s1, s2, tok, words) -> None:
+    """The port's serving in fp32 on the card against the CPU: a
+    SRV_CHECK_IMAGES-image index at full width built on each device, the
+    same SRV_CHECK_REQUESTS requests, rerank_k SRV_CHECK_RERANK_K. Stage-I
+    scores within SRV_STAGE1_TOL, re-ranked logits within SRV_STAGE2_TOL;
+    rankings equal except where two candidates' CPU scores differ by less
+    than SRV_TIE_GAP in the stage-I tail, or by less than twice the
+    largest logit difference read in the re-ranked head."""
+    from candidate_reranking_cir_tpu_torch.runtime.serve import (
+        CIRServingEngine,
+        ServeRequest,
+        build_serving_index,
+    )
+
+    corpus = Corpus(SRV_CHECK_IMAGES, s1.cfg.vit.image_size,
+                    np.random.default_rng(SEED + 41))
+    rng = np.random.default_rng(SEED + 42)
+    reqs = [ServeRequest(
+        caption=" ".join(rng.choice(words, int(w))), reference=nm,
+        k=SRV_CHECK_IMAGES - 1) for nm, w in zip(
+            corpus.index_names, caption_lengths(SRV_CHECK_REQUESTS,
+                                                TEXT_LEN, rng) - 2)]
+    res = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        m1, m2 = fp32_copy(s1, dev), fp32_copy(s2, dev)
+        index = build_serving_index(m1, None, corpus, reranker=m2,
+                                    batch_size=SRV_CHECK_IMAGES, device=dev)
+        engine = CIRServingEngine(
+            m1, None, tok, index, text_len=TEXT_LEN, q_pad=SRV_Q_PAD,
+            reranker=m2, rerank_k=SRV_CHECK_RERANK_K,
+            max_k=SRV_CHECK_IMAGES - 1, device=dev)
+        res[dev] = engine.handle(reqs)
+        print(f"[check] fp32 serving on {dev}: a {SRV_CHECK_IMAGES}-image "
+              f"index and {len(reqs)} requests in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        del m1, m2, index, engine
+    d1 = d2 = 0.0
+    for c, p in zip(res["cuda"], res["cpu"]):
+        if set(c.ranking) != set(p.ranking) or c.reranked != p.reranked:
+            fail("fp32 serving: card and CPU rank different candidates")
+        sc, sp = dict(zip(c.ranking, c.scores)), dict(zip(p.ranking,
+                                                          p.scores))
+        head = p.ranking[:p.reranked]
+        d2 = max([d2] + [abs(sc[k] - sp[k]) for k in head])
+        d1 = max([d1] + [abs(sc[k] - sp[k]) for k in p.ranking[p.reranked:]])
+    swaps, worst_gap = 0, 0.0
+    for c, p in zip(res["cuda"], res["cpu"]):
+        sp = dict(zip(p.ranking, p.scores))
+        for i, (a, b) in enumerate(zip(c.ranking, p.ranking)):
+            if a != b:
+                gap = abs(sp[a] - sp[b])
+                tol = 2 * d2 if i < p.reranked else SRV_TIE_GAP
+                swaps += 1
+                worst_gap = max(worst_gap, gap)
+                if not gap < tol:
+                    fail(f"fp32 serving: rankings differ at a gap of {gap}")
+    print(f"[check] fp32 serving card vs cpu: stage-I scores max |diff| "
+          f"{d1:.3e} (tol {SRV_STAGE1_TOL}), re-ranked logits {d2:.3e} (tol "
+          f"{SRV_STAGE2_TOL}); rankings differ at {swaps} places, largest "
+          f"CPU score gap there {worst_gap:.3e}", flush=True)
+    if not (d1 <= SRV_STAGE1_TOL and d2 <= SRV_STAGE2_TOL):
+        fail("fp32 serving on the card disagrees with the CPU")
+
+
+def query_major_fp32_check(s1, s2) -> None:
+    """fp32 on the card: the query-major ``rerank`` (per-pair, and with
+    dedup) against ``rerank_candidate_major`` over phase 5's first
+    SRV_QM_QUERIES queries, groups and skip mask included: logits within
+    FP32_CARD_VS_CPU_TOL."""
+    from candidate_reranking_cir_tpu_torch.retrieval.index import build_index
+    from candidate_reranking_cir_tpu_torch.retrieval.rerank import (
+        rerank,
+        rerank_candidate_major,
+    )
+
+    corpus, queries, tok, skip = eval_workload(s1.cfg.vit.image_size)
+    queries, skip = queries[:SRV_QM_QUERIES], skip[:SRV_QM_QUERIES]
+    m1, m2 = fp32_copy(s1, "cuda"), fp32_copy(s2, "cuda")
+    bank, names = build_index(corpus, m2.embed_images, 16, device="cuda")
+    kw = dict(captions=[q["caption"] for q in queries],
+              reference_names=[q["reference_name"] for q in queries],
+              topk_names=np.stack([q["topk_names"] for q in queries]),
+              index_feats=bank, index_names=names, text_len=TEXT_LEN,
+              skip_mask=skip,
+              group_members=[q["group_members"] for q in queries],
+              device="cuda")
+    t0 = time.perf_counter()
+    cm = rerank_candidate_major(m1, None, m2, None, tok, **kw)
+    out = {dedup: rerank(m1, None, m2, None, tok, q_batch=8, dedup=dedup,
+                         **kw) for dedup in (False, True)}
+    diffs = {}
+    for dedup, qm in out.items():
+        diffs[dedup] = max(float(np.abs(qm.logits - cm.logits).max()),
+                           float(np.abs(qm.group_logits
+                                        - cm.group_logits).max()))
+    print(f"[check] fp32 query-major vs candidate-major on the card over "
+          f"{len(queries)} queries (K {TOPK} + 5 group members, q_batch 8) "
+          f"in {time.perf_counter() - t0:.1f} s: max |logit diff| per-pair "
+          f"{diffs[False]:.3e}, dedup {diffs[True]:.3e} (tol "
+          f"{FP32_CARD_VS_CPU_TOL})", flush=True)
+    if not max(diffs.values()) <= FP32_CARD_VS_CPU_TOL:
+        fail("fp32 query-major re-rank disagrees with candidate-major")
 
 
 # ---------------------------------------------------------------------------
@@ -2102,7 +2535,10 @@ def main():
                 records.update(recs)
     stage1 = stage1_train_path(tok, words)
     stage1_fp32_check(tok, words)
-    s1e_launches = stage1_eval_path(tok, words, s1e_queries)
+    s1e_launches, corpus = stage1_eval_path(tok, words, s1e_queries)
+    serve_launches = serving_path(tok, words, corpus)
+    del corpus
+    gc.collect()
     cli = train_cli_path(tok, words)
 
     kernels = []
@@ -2113,10 +2549,12 @@ def main():
         # runs inside every K6-K9 launch that applies the mask, on both
         # training paths
         # every kernel also counts its launches in the trainer CLIs' runs
-        # (phase 10) under the path key "train_cli"
+        # (phase 10) under the path key "train_cli", and K1-K3 in the
+        # serving run (phase 11) under "serve"
         if kid in launches:
             by_path = {"stage2_eval": launches[kid],
-                       "stage1_eval": s1e_launches[kid]}
+                       "stage1_eval": s1e_launches[kid],
+                       "serve": serve_launches[kid]}
         elif kid == "K5":
             by_path = {"stage2_train": train["launches"]["K5"],
                        "stage1_train": stage1["launches"]["K5"]}

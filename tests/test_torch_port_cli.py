@@ -316,14 +316,43 @@ def test_unported_flags_raise(workdir):
     both = s1 + ["--stage2-path", str(root / "s2.pt"), "--top-k-path", "x"]
     with pytest.raises(NotImplementedError):
         validate.main(_common(root) + s1 + ["--single-program"])
-    for flag in (["--schedule", "query_major"], ["--shard-index"],
-                 ["--index-int8"]):
-        with pytest.raises(NotImplementedError):
-            validate_stage2.main(_common(root) + both + flag)
-    for flag in (["--schedule", "query_major"], ["--shard-index"]):
-        with pytest.raises(NotImplementedError):
-            cirr_test_submission_stage2.main(
-                _common(root) + both + ["--submission-name", "x"] + flag)
+    with pytest.raises(NotImplementedError):
+        validate_stage2.main(_common(root) + both + ["--shard-index"])
+    with pytest.raises(SystemExit):  # refused by the parser, as in JAX
+        validate_stage2.main(_common(root) + both + ["--shard-index",
+                                                     "--index-int8"])
+    with pytest.raises(NotImplementedError):
+        cirr_test_submission_stage2.main(
+            _common(root) + both + ["--submission-name", "x",
+                                    "--shard-index"])
+
+
+def test_validate_stage2_query_major_int8(workdir, tok, capsys, tmp_path):
+    """``--schedule query_major --q-batch 3 --index-int8`` through the
+    CLI gives the engine's metrics with the same options."""
+    from candidate_reranking_cir_tpu_torch.cli import validate_stage2
+    from candidate_reranking_cir_tpu_torch.data.topk_io import save_topk_file
+
+    root, s1, s2 = workdir
+    _, payload = v1.evaluate_cirr_stage1(
+        s1, None, _cirr(root, "val", "classic"),
+        _cirr(root, "val", "relative"), tok, text_len=TEXT_LEN, batch_size=4,
+        save_topk_k=8, device="cpu")
+    topk = tmp_path / "top.npz"
+    save_topk_file(topk, payload)
+    validate_stage2.main(_common(root) + [
+        "--stage1-path", str(root / "s1.pt"),
+        "--stage2-path", str(root / "s2.pt"), "--top-k-path", str(topk),
+        "--K-value", "4", "--schedule", "query_major", "--q-batch", "3",
+        "--index-int8"])
+    printed = _printed(capsys.readouterr().out)
+    mets = v2.evaluate_cirr_stage2(
+        s1, None, s2, None, tok, data_root=root,
+        transform=make_transform("targetpad", IMG), top_k_path=topk, k=4,
+        text_len=TEXT_LEN, schedule="query_major", q_batch=3,
+        index_int8=True, device="cpu")
+    assert printed.pop("recall_mean") == _as_printed(mets)["mean_r5_rs1"]
+    assert printed == _as_printed(mets)
 
 
 def _args(*extra):

@@ -1058,3 +1058,74 @@ def test_trainer_clis_in_bf16_launch_k6_to_k9(dev, tmp_path, monkeypatch):
         tat.LAUNCHES
     for losses, _ in runs.values():
         assert losses and np.isfinite(losses).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e", [3, 200])
+def test_k3_per_pair_matches_plain(dev, dtype, e):
+    """K3 with one K/V a (query, candidate) pair, as the query-major
+    re-rank and serving launch it ([Q*C, 40, 577]; 200 at serving's q_pad
+    4 x rerank_k 50), reached through ``dot_product_attention`` on
+    [Q, C, ...] views."""
+    q = _rand(dev, dtype, e, 40, 12, 64, seed=1).unflatten(0, (1, e))
+    k = _rand(dev, dtype, e, 577, 12, 64, seed=2).unflatten(0, (1, e))
+    v = _rand(dev, dtype, e, 577, 12, 64, seed=3).unflatten(0, (1, e))
+    before = ck.LAUNCHES["K3"]
+    out = tattn.dot_product_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["K3"] == before + 1
+    ref = ck.attention_plain(q[0], k[0], v[0])
+    torch.testing.assert_close(out[0].float(), ref.float(), rtol=0,
+                               atol=TOL[dtype])
+
+
+def _serve_stdio(root, flags, monkeypatch, capsys) -> list:
+    import io
+    import json
+    import sys
+
+    from candidate_reranking_cir_tpu_torch.cli import serve
+
+    lines = [{"caption": "a red dog", "reference": "im0", "k": 6},
+             {"caption": "blue shirt with a cat", "reference": "im3",
+              "k": 11},
+             {"caption": "uploaded", "reference_path":
+              str(root / "cirr_dataset" / "img" / "im7.jpg"), "k": 4}]
+    monkeypatch.setattr(sys, "stdin", io.StringIO(
+        "".join(json.dumps(x) + "\n" for x in lines)))
+    serve.main(flags + ["--stage1-path", str(root / "s1.pt"),
+                        "--stage2-path", str(root / "s2.pt"),
+                        "--rerank-k", "4", "--q-pad", "2", "--mode",
+                        "stdio"])
+    return [json.loads(x) for x in capsys.readouterr().out.splitlines()
+            if x.startswith("{")]
+
+
+def test_serve_cli_on_the_card_matches_the_cpu(dev, tmp_path, monkeypatch,
+                                               capsys):
+    """``cli/serve --mode stdio`` with --device cuda in fp32: the CPU's
+    rankings, stage-I scores within 1e-4 and re-ranked logits within 1e-3;
+    in bf16 with --index-int8 it runs through K1-K3 and answers every
+    request."""
+    pytest.importorskip("PIL")
+    from test_torch_port_cli import common_flags, make_workdir
+
+    make_workdir(tmp_path, CARD_MODEL_CONFIG)
+    size = CARD_MODEL_CONFIG["vit"]["image_size"]
+    runs = {d: _serve_stdio(tmp_path, common_flags(tmp_path, size, device=d)
+                            + ["--no-bf16"], monkeypatch, capsys)
+            for d in ("cpu", "cuda")}
+    for card, cpu in zip(runs["cuda"], runs["cpu"]):
+        assert card["ranking"] == cpu["ranking"]
+        head = cpu["reranked"]
+        assert card["reranked"] == head
+        np.testing.assert_allclose(card["scores"][:head], cpu["scores"][:head],
+                                   atol=1e-3)
+        np.testing.assert_allclose(card["scores"][head:], cpu["scores"][head:],
+                                   atol=1e-4)
+    ck.reset_launch_counts()
+    bf16 = _serve_stdio(tmp_path, common_flags(tmp_path, size, device="cuda")
+                        + ["--index-int8"], monkeypatch, capsys)
+    assert all(ck.LAUNCHES[k] > 0 for k in ("K1", "K2", "K3")), ck.LAUNCHES
+    assert [len(r["ranking"]) for r in bf16] == [6, 11, 4]
+    assert all(np.isfinite(r["scores"]).all() for r in bf16)

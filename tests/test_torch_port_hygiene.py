@@ -88,8 +88,7 @@ def test_entry_points_require_cuda_by_default(no_cuda):
 
 
 def test_unported_options_raise():
-    for kw in ({"schedule": "query_major"}, {"mesh": object()},
-               {"shard_index": True}, {"index_int8": True}):
+    for kw in ({"mesh": object()}, {"shard_index": True}):
         with pytest.raises(NotImplementedError):
             evaluate_cirr_stage2(None, None, None, None, None, data_root="",
                                  transform=None, top_k_path="", k=1,

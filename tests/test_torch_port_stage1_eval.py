@@ -350,8 +350,7 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         tv.predict_queries(None, None, ["a"], ["x"], torch.zeros(1, 2, 2),
                            ["x"], 8, mesh=object())
-    for kw in ({"schedule": "query_major"}, {"mesh": object()},
-               {"shard_index": True}, {"index_int8": True}):
+    for kw in ({"mesh": object()}, {"shard_index": True}):
         with pytest.raises(NotImplementedError):
             tv2.evaluate_fiq_stage2(None, None, None, None, None, data_root="",
                                     transform=None, top_k_path="", k=1,
