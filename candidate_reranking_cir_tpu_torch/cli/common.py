@@ -61,6 +61,9 @@ def add_common_flags(parser: argparse.ArgumentParser):
                              "warning, or silently clip")
     parser.add_argument("--bf16", action="store_true", default=True)
     parser.add_argument("--no-bf16", dest="bf16", action="store_false")
+    parser.add_argument("--native-pipe", action="store_true",
+                        help="decode and preprocess jpegs with the C++ "
+                             "pipeline (make -C native; JPEG sources only)")
     parser.add_argument("--dress-types", type=str, nargs="+",
                         default=["dress", "shirt", "toptee"],
                         help="Fashion-IQ categories the trainers train on")
@@ -164,6 +167,18 @@ def load_params(path: str, stage: int, cfg) -> dict[str, torch.Tensor]:
 
 
 def get_transform(args):
+    """The datasets' image transform: with --native-pipe the C++ pipeline
+    (``data/native_pipe.py``) where its library is built, else PIL."""
+    if getattr(args, "native_pipe", False):
+        from candidate_reranking_cir_tpu_torch.data.native_pipe import (
+            make_native_transform,
+            native_available,
+        )
+
+        if native_available():
+            return make_native_transform(args.transform, args.image_size,
+                                         args.target_ratio)
+        print("native image pipeline not built; falling back to PIL")
     return make_transform(args.transform, args.image_size, args.target_ratio)
 
 

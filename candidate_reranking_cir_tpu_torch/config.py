@@ -1,9 +1,11 @@
 """Model configuration for the PyTorch port.
 
 An own copy of the fields of the JAX package's configuration tree that the
-port reads. Absent: the attention-kernel switch (the port's attention
-always routes through its kernels, ``ops/attention.py``), attention
-capture, and the options of paths not ported yet.
+port reads. ``RetrievalModelConfig`` also configures the captioner
+(``models/blip_decoder.py``) and ``BlipBase``, as in the JAX package.
+Absent: the attention-kernel switch (the port's attention always routes
+through its kernels, ``ops/attention.py``), attention capture and
+perturbation, and the options of paths not ported yet.
 """
 from __future__ import annotations
 

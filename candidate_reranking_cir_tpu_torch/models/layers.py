@@ -220,7 +220,42 @@ class MultiHeadAttention(nn.Module):
         self.out = Dense(width, out_features, dtype, device)
 
     def forward(self, x, y=None, bias=None, *, deterministic: bool = True,
-                seed: int | None = None, generator=None):
+                seed: int | None = None, generator=None,
+                kv_only: bool = False, precomputed_kv=None, cache=None,
+                cache_index: int | None = None):
+        """Incremental decoding (JAX ``layers.py:190-287``; each off by
+        default, each on the unfolded route):
+
+        kv_only         return (k, v) of ``y`` [.., M, H, D] only: a
+                        decode projects the image K/V once, not per token.
+        precomputed_kv  (k, v) [.., M, H, D] to attend over; their
+                        projections are skipped.
+        cache           (k_cache, v_cache) [.., T, H, D]: ``x`` is one
+                        [.., 1, D] step whose K/V are written at
+                        ``cache_index`` (in place) before it attends over
+                        the whole cache. Returns (out, (k_cache, v_cache)).
+        """
+        heads = (self.num_heads, self.head_dim)
+        if kv_only:
+            y = x if y is None else y
+            return (self.key(y).unflatten(-1, heads),
+                    self.value(y).unflatten(-1, heads))
+        if precomputed_kv is not None or cache is not None:
+            q = self.query(x).unflatten(-1, heads)
+            if precomputed_kv is not None:
+                k, v = precomputed_kv
+            else:
+                k, v = cache
+                k[..., cache_index:cache_index + 1, :, :] = \
+                    self.key(x).unflatten(-1, heads).to(k.dtype)
+                v[..., cache_index:cache_index + 1, :, :] = \
+                    self.value(x).unflatten(-1, heads).to(v.dtype)
+            ctx = dot_product_attention(
+                q, k, v, bias, dropout_rate=self.dropout_rate,
+                deterministic=deterministic, seed=seed,
+                generator=generator).flatten(-2)
+            out = self.out(ctx)
+            return out if cache is None else (out, (k, v))
         is_cross = y is not None
         y = x if y is None else y
         train_drop = not deterministic and self.dropout_rate > 0.0
@@ -241,7 +276,6 @@ class MultiHeadAttention(nn.Module):
             ctx = dot_product_attention_folded(q, k, v, bias,
                                                num_heads=self.num_heads)
         else:
-            heads = (self.num_heads, self.head_dim)
             ctx = dot_product_attention(
                 q.unflatten(-1, heads), k.unflatten(-1, heads),
                 v.unflatten(-1, heads), bias, dropout_rate=self.dropout_rate,

@@ -14,6 +14,12 @@ same masks. At B = 512 the cross-attention to the 577 image tokens takes
 the folded in-kernel-dropout route (K8/K9); the 40-key text self-attention
 is below ``attention_train.MIN_KV`` and drops out from the generator, as
 the JAX package's does from ``jax.random``.
+
+The decoder's modes (JAX ``med.py:195-299``): ``causal=True`` adds a
+lower-triangular mask to the padding mask (teacher-forced captioning);
+``precompute_image_kv`` projects every layer's cross-attention K/V of the
+image tokens once, and ``decode_cache`` runs one token a step against
+per-layer self-attention K/V caches (``models/blip_decoder.py``).
 """
 from __future__ import annotations
 
@@ -53,11 +59,16 @@ class BertEmbeddings(nn.Module):
         self.ln = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, dtype, device)
         self.drop = Dropout(cfg.hidden_dropout)
 
-    def forward(self, input_ids, *, deterministic: bool = True,
-                generator=None):
-        seq_len = input_ids.shape[-1]
-        x = self.word_embeddings[input_ids.long()] \
-            + self.position_embeddings[:seq_len]
+    def forward(self, input_ids, *, position: int | None = None,
+                deterministic: bool = True, generator=None):
+        """``position`` None embeds [.., L] at positions 0..L-1; an int
+        embeds one [.., 1] token at that absolute position (a decode
+        step)."""
+        if position is None:
+            pos = self.position_embeddings[:input_ids.shape[-1]]
+        else:
+            pos = self.position_embeddings[position:position + 1]
+        x = self.word_embeddings[input_ids.long()] + pos
         return self.drop(self.ln(x.to(self.dtype)),
                          deterministic=deterministic, generator=generator)
 
@@ -75,11 +86,19 @@ class BertSelfAttentionBlock(nn.Module):
         self.ln = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, dtype, device)
 
     def forward(self, x, kv=None, bias=None, *, deterministic: bool = True,
-                seed: int | None = None, generator=None):
+                seed: int | None = None, generator=None,
+                precomputed_kv=None, cache=None,
+                cache_index: int | None = None):
+        """``precomputed_kv`` / ``cache`` as ``MultiHeadAttention``'s; with
+        a cache, returns (out, (k_cache, v_cache))."""
         ctx = self.attn(x, kv, bias, deterministic=deterministic, seed=seed,
-                        generator=generator)
+                        generator=generator, precomputed_kv=precomputed_kv,
+                        cache=cache, cache_index=cache_index)
+        if cache is not None:
+            ctx, cache = ctx
         ctx = self.drop(ctx, deterministic=deterministic, generator=generator)
-        return self.ln(ctx + x)
+        out = self.ln(ctx + x)
+        return out if cache is None else (out, cache)
 
 
 class BertFFN(nn.Module):
@@ -138,6 +157,23 @@ class MedLayer(nn.Module):
             x = xg.view(b, l, d)
         return self.ffn(x, deterministic=det, generator=gen)
 
+    def image_kv(self, image_embeds):
+        """This layer's cross-attention (k, v) [B, M, H, D] of the image
+        tokens, projected once a decode."""
+        return self.cross_attn.attn(image_embeds, kv_only=True)
+
+    def decode_step(self, x, text_bias, cache, image_kv,
+                    cache_index: int):
+        """One token ``x`` [B, 1, D] at ``cache_index``: its self-attention
+        K/V are written into ``cache`` (k, v) [B, T, H, D] and it attends
+        over the whole cache (``text_bias`` [B, 1, 1, T] masks the slots not
+        yet written), then over the precomputed ``image_kv``."""
+        x, cache = self.self_attn(x, None, text_bias, cache=cache,
+                                  cache_index=cache_index)
+        if self.cross_attn is not None:
+            x = self.cross_attn(x, precomputed_kv=image_kv)
+        return self.ffn(x), cache
+
 
 class TextEncoder(nn.Module):
     """Single-stream MED encoder returning last_hidden_state [B, L, D].
@@ -172,11 +208,37 @@ class TextEncoder(nn.Module):
 
     def forward(self, input_ids, attention_mask, image_embeds=None,
                 image_mask=None, *, mode: str | None = None,
-                deterministic: bool = True, seeds=None,
-                query_group: int = 1):
+                causal: bool = False, deterministic: bool = True, seeds=None,
+                query_group: int = 1, precompute_image_kv: bool = False,
+                decode_cache=None, cache_index: int | None = None):
+        """``causal`` adds (1 - tril) * -10000 to the padding bias, which
+        becomes [B, 1, L, L] (the reference's decoder mode).
+
+        ``precompute_image_kv``: returns every layer's cross-attention
+        (k_img, v_img) of ``image_embeds``, stacked [n_layers, B, M, H, D];
+        ``input_ids`` and ``attention_mask`` are not read.
+
+        ``decode_cache`` (k_self, v_self, k_img, v_img), each stacked
+        [n_layers, B, T|M, H, D]: one decode step. ``input_ids`` [B, 1] is
+        the token at absolute position ``cache_index``, ``attention_mask``
+        [B, T] the cache slots' validity (the slots after ``cache_index``
+        are 0, so causality needs no mask of its own). The step's self K/V
+        are written into k_self and v_self in place. Returns (hidden
+        [B, 1, D], (k_self, v_self)). Both modes are eval only."""
         multimodal = (mode if mode is not None else self.mode) == "multimodal"
         if multimodal and self.mode != "multimodal":
             raise ValueError("this encoder was built without cross-attention")
+        if precompute_image_kv or decode_cache is not None:
+            if not (multimodal and deterministic):
+                raise ValueError("the decode modes need the multimodal "
+                                 "encoder, deterministic")
+            if precompute_image_kv:
+                kv = [layer.image_kv(image_embeds.to(self.dtype))
+                      for layer in self.layers]
+                return (torch.stack([k for k, _ in kv]),
+                        torch.stack([v for _, v in kv]))
+            return self._decode_step(input_ids, attention_mask, decode_cache,
+                                     cache_index)
         if not deterministic and seeds is None:
             raise ValueError("training needs a seed table")
         emb_gen = None if deterministic else seeded_generator(
@@ -184,6 +246,11 @@ class TextEncoder(nn.Module):
         x = self.embeddings(input_ids, deterministic=deterministic,
                             generator=emb_gen)
         text_bias = make_additive_mask(attention_mask)
+        if causal:
+            length = input_ids.shape[-1]
+            tri = torch.tril(torch.ones(length, length,
+                                        device=text_bias.device))
+            text_bias = text_bias + (1.0 - tri) * -10000.0
         image_bias = None
         if multimodal:
             if image_embeds is None:
@@ -207,3 +274,13 @@ class TextEncoder(nn.Module):
                 x = layer(x, text_bias, image_embeds, image_bias, row,
                           query_group)
         return x
+
+    def _decode_step(self, input_ids, attention_mask, decode_cache,
+                     cache_index: int):
+        k_self, v_self, k_img, v_img = decode_cache
+        x = self.embeddings(input_ids, position=cache_index)
+        text_bias = make_additive_mask(attention_mask)
+        for i, layer in enumerate(self.layers):
+            x, _ = layer.decode_step(x, text_bias, (k_self[i], v_self[i]),
+                                     (k_img[i], v_img[i]), cache_index)
+        return x, (k_self, v_self)

@@ -15,7 +15,8 @@ position 0 of every encoded sequence before fusion (blip_stage1.py:73).
 Encoded output is a fixed-length bucket with the attention mask carrying the
 true length — numerically identical to the reference's pad-to-longest under
 the additive -10000 mask convention. An own copy of the JAX package's
-``models/tokenizer.py`` (its native C++ variant is not ported).
+``models/tokenizer.py``. ``load_tokenizer`` takes the native C++ variant
+(``models/native_tokenizer.py``) when ``native/libwordpiece.so`` is built.
 """
 from __future__ import annotations
 
@@ -248,8 +249,11 @@ def build_test_vocab(extra_words: list[str] | None = None) -> dict[str, int]:
 
 
 def load_tokenizer(vocab_path: str | Path | None = None, *,
-                   allow_test_vocab: bool = False) -> WordPieceTokenizer:
-    """The tokenizer of a bert-base-uncased ``vocab.txt``.
+                   prefer_native: bool = True,
+                   allow_test_vocab: bool = False):
+    """The tokenizer of a bert-base-uncased ``vocab.txt``: the native C++
+    one (``models/native_tokenizer.py``, the same ``encode()`` contract)
+    when ``prefer_native`` and its library is built, else the Python one.
 
     No vocab is an error unless ``allow_test_vocab=True`` opts into the
     unit-test vocabulary (``build_test_vocab``), whose outputs are
@@ -261,6 +265,12 @@ def load_tokenizer(vocab_path: str | Path | None = None, *,
             raise FileNotFoundError(
                 f"vocab file not found: {vocab_path}; point --vocab at a "
                 "copy of bert-base-uncased's vocab.txt")
+        if prefer_native:
+            from candidate_reranking_cir_tpu_torch.models.native_tokenizer \
+                import NativeWordPieceTokenizer, native_available
+
+            if native_available():
+                return NativeWordPieceTokenizer(vocab_path)
         return WordPieceTokenizer.from_vocab_file(vocab_path)
     if not allow_test_vocab:
         raise ValueError(

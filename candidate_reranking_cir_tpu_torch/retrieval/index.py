@@ -18,7 +18,22 @@ from candidate_reranking_cir_tpu_torch.runtime.device import resolve_device
 def iter_batches(dataset, batch_size: int
                  ) -> Iterable[tuple[list[str], np.ndarray]]:
     """Yield (names, [B, H, W, 3] float32) batches from a 'classic' dataset
-    (rows a skip_errors dataset dropped, returned as None, are skipped)."""
+    (rows a skip_errors dataset dropped, returned as None, are skipped).
+
+    Fast path: when the dataset's transform has ``batch_from_paths`` (the
+    native pipeline's thread-pool decode, ``data/native_pipe.py``) and
+    errors raise (the default policy), a whole batch decodes and
+    preprocesses in one native call that releases the GIL, with no
+    ``np.stack``."""
+    batch_fn = getattr(getattr(dataset, "transform", None),
+                       "batch_from_paths", None)
+    if (batch_fn is not None and getattr(dataset, "mode", "") == "classic"
+            and not getattr(dataset, "skip_errors", False)):
+        all_names = dataset.index_names
+        for start in range(0, len(all_names), batch_size):
+            chunk = all_names[start:start + batch_size]
+            yield chunk, batch_fn([dataset.image_path(nm) for nm in chunk])
+        return
     names, images = [], []
     for i in range(len(dataset)):
         sample = dataset[i]

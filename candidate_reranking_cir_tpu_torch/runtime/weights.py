@@ -1,13 +1,17 @@
 """Weights carried across into the port's modules.
 
 Two sources, one result (a state dict that ``load_state_dict`` takes with
-``strict=True`` on the port's ``RetrievalModel`` / ``RerankerModel``):
+``strict=True`` on the port's ``RetrievalModel`` / ``RerankerModel``, or
+``CaptionDecoder`` / ``BlipBase``, whose configs are
+``RetrievalModelConfig`` too):
 
 - ``from_jax_params``: the JAX package's parameter tree as nested dicts of
   numpy arrays, with scan-stacked layer axes (``blocks``, ``layers``,
   ``layers_avg``, ``layers_mlp``), HeadProjection kernels [in, H, D],
   HeadOutProjection kernels [H, D, out], Dense kernels [in, out] and
-  LayerNorm ``scale``/``bias``.
+  LayerNorm ``scale``/``bias``. A ``CaptionDecoder`` tree
+  (``visual_encoder``, ``text_decoder``, ``lm_head`` with ``transform``,
+  ``ln``, ``decoder``) and a ``BlipBase`` tree map by the same rules.
 - ``load_reference_state_dict``: the reference's key format (timm ViT with a
   fused ``qkv``, MED/BERT keys, the NLVR dual-stream keys, ``cls_head.0/2``),
   as a dict or a ``.pt`` file, including the reference's checkpoint wrapper
@@ -19,7 +23,12 @@ Two sources, one result (a state dict that ``load_state_dict`` takes with
   embedding of another grid (``interpolate_pos_embed``), and for stage II
   copies a single-stream pretrain into both streams
   (``duplicate_for_dual_stream``) and zero-initializes the merge layers it
-  lacks.
+  lacks. ``model='caption'`` reads a BLIP_Decoder's keys
+  (``text_decoder.bert.*``, the LM head's ``text_decoder.cls.predictions.*``
+  with the tied ``decoder.bias`` as fallback for ``bias``) and
+  ``model='base'`` a BLIP_Base's (``visual_encoder.*``,
+  ``text_encoder.*``), as JAX's ``convert_caption_decoder`` and
+  ``convert_base`` do.
 """
 from __future__ import annotations
 
@@ -101,8 +110,9 @@ def _index(node: Mapping, i: int) -> dict:
 
 
 def from_jax_params(tree: Mapping, cfg) -> dict[str, torch.Tensor]:
-    """JAX ``RetrievalModel`` / ``RerankerModel`` params (``variables`` or
-    ``variables['params']``) -> the port model's state dict."""
+    """JAX ``RetrievalModel`` / ``RerankerModel`` / ``CaptionDecoder`` /
+    ``BlipBase`` params (``variables`` or ``variables['params']``) -> the
+    port model's state dict."""
     if "params" in tree:
         tree = tree["params"]
     if not isinstance(cfg, (RetrievalModelConfig, RerankerModelConfig)):
@@ -119,7 +129,7 @@ def from_jax_params(tree: Mapping, cfg) -> dict[str, torch.Tensor]:
 
 # reference key -> port key, first match wins; a key no rule matches is not
 # a parameter of the stage's model and is ignored
-_COMMON = [
+_VIT = [
     (r"^visual_encoder\.(cls_token|pos_embed)$", r"visual_encoder.\1"),
     (r"^visual_encoder\.patch_embed\.proj\.", "visual_encoder.patch_embed.proj."),
     (r"^visual_encoder\.blocks\.(\d+)\.(norm1|norm2|mlp\.fc1|mlp\.fc2)\.",
@@ -127,33 +137,63 @@ _COMMON = [
     (r"^visual_encoder\.norm\.", "visual_encoder.norm."),
     (r"^visual_encoder\.blocks\.(\d+)\.attn\.proj\.",
      r"visual_encoder.blocks.\1.attn.out."),
-    (r"^(text_encoder)\.embeddings\.word_embeddings\.weight$",
-     r"\1.embeddings.word_embeddings"),
-    (r"^(text_encoder)\.embeddings\.position_embeddings\.weight$",
-     r"\1.embeddings.position_embeddings"),
-    (r"^(text_encoder)\.embeddings\.LayerNorm\.", r"\1.embeddings.ln."),
-    (r"^text_encoder\.encoder\.layer\.(\d+)\.intermediate\.dense\.",
-     r"text_encoder.layers.\1.ffn.intermediate."),
-    (r"^text_encoder\.encoder\.layer\.(\d+)\.output\.dense\.",
-     r"text_encoder.layers.\1.ffn.output."),
-    (r"^text_encoder\.encoder\.layer\.(\d+)\.output\.LayerNorm\.",
-     r"text_encoder.layers.\1.ffn.ln."),
 ]
+
+
+def _med_shared(src: str, dst: str) -> list:
+    """Embedding and FFN keys of a MED (BertModel) under ``src`` -> the
+    port's encoder ``dst``; both streams of stage II share them."""
+    s, layer = re.escape(src), rf"^{re.escape(src)}\.encoder\.layer\.(\d+)\."
+    return [
+        (rf"^{s}\.embeddings\.word_embeddings\.weight$",
+         f"{dst}.embeddings.word_embeddings"),
+        (rf"^{s}\.embeddings\.position_embeddings\.weight$",
+         f"{dst}.embeddings.position_embeddings"),
+        (rf"^{s}\.embeddings\.LayerNorm\.", f"{dst}.embeddings.ln."),
+        (layer + r"intermediate\.dense\.",
+         rf"{dst}.layers.\1.ffn.intermediate."),
+        (layer + r"output\.dense\.", rf"{dst}.layers.\1.ffn.output."),
+        (layer + r"output\.LayerNorm\.", rf"{dst}.layers.\1.ffn.ln."),
+    ]
+
+
+def _med_attention(src: str, dst: str) -> list:
+    """Self- and cross-attention keys of a single-stream MED under ``src``
+    -> the port's ``dst``."""
+    layer = rf"^{re.escape(src)}\.encoder\.layer\.(\d+)\."
+    return [
+        (layer + r"attention\.self\.", rf"{dst}.layers.\1.self_attn.attn."),
+        (layer + r"attention\.output\.dense\.",
+         rf"{dst}.layers.\1.self_attn.attn.out."),
+        (layer + r"attention\.output\.LayerNorm\.",
+         rf"{dst}.layers.\1.self_attn.ln."),
+        (layer + r"crossattention\.self\.",
+         rf"{dst}.layers.\1.cross_attn.attn."),
+        (layer + r"crossattention\.output\.dense\.",
+         rf"{dst}.layers.\1.cross_attn.attn.out."),
+        (layer + r"crossattention\.output\.LayerNorm\.",
+         rf"{dst}.layers.\1.cross_attn.ln."),
+    ]
+
+
+_MED = _med_shared("text_encoder", "text_encoder")
+_SINGLE_STREAM = _med_attention("text_encoder", "text_encoder")
 _STAGE1 = [
     (r"^(vision_proj|text_proj)\.", r"\1."),
     (r"^temp$", "temp"),
-    (r"^text_encoder\.encoder\.layer\.(\d+)\.attention\.self\.",
-     r"text_encoder.layers.\1.self_attn.attn."),
-    (r"^text_encoder\.encoder\.layer\.(\d+)\.attention\.output\.dense\.",
-     r"text_encoder.layers.\1.self_attn.attn.out."),
-    (r"^text_encoder\.encoder\.layer\.(\d+)\.attention\.output\.LayerNorm\.",
-     r"text_encoder.layers.\1.self_attn.ln."),
-    (r"^text_encoder\.encoder\.layer\.(\d+)\.crossattention\.self\.",
-     r"text_encoder.layers.\1.cross_attn.attn."),
-    (r"^text_encoder\.encoder\.layer\.(\d+)\.crossattention\.output\.dense\.",
-     r"text_encoder.layers.\1.cross_attn.attn.out."),
-    (r"^text_encoder\.encoder\.layer\.(\d+)\.crossattention\.output"
-     r"\.LayerNorm\.", r"text_encoder.layers.\1.cross_attn.ln."),
+]
+# BLIP_Decoder: the MED under text_decoder.bert, the LM head's
+# BertLMPredictionHead under text_decoder.cls.predictions
+_LM_HEAD = "text_decoder.cls.predictions"
+_CAPTION = [
+    *_med_shared("text_decoder.bert", "text_decoder"),
+    *_med_attention("text_decoder.bert", "text_decoder"),
+    (r"^text_decoder\.cls\.predictions\.transform\.dense\.",
+     "lm_head.transform."),
+    (r"^text_decoder\.cls\.predictions\.transform\.LayerNorm\.",
+     "lm_head.ln."),
+    (r"^text_decoder\.cls\.predictions\.decoder\.", "lm_head.decoder."),
+    (r"^text_decoder\.cls\.predictions\.bias$", "lm_head.decoder.bias"),
 ]
 _L = r"^text_encoder\.encoder\.layer\.(\d+)\."
 _STAGE2 = [
@@ -256,7 +296,8 @@ def read_reference_file(path) -> dict[str, np.ndarray]:
     and the ``{'<ClassName>': sd, 'epoch', ...}`` wrapper."""
     raw = torch.load(path, map_location="cpu", weights_only=False)
     if isinstance(raw, dict):
-        for key in ("model", "BLIP_Retrieval", "BLIP_NLVR"):
+        for key in ("model", "BLIP_Retrieval", "BLIP_NLVR", "BLIP_Decoder",
+                    "BLIP_Base"):
             if isinstance(raw.get(key), dict):
                 raw = raw[key]
                 break
@@ -265,16 +306,31 @@ def read_reference_file(path) -> dict[str, np.ndarray]:
             if hasattr(v, "shape")}
 
 
-def load_reference_state_dict(sd, cfg) -> dict[str, torch.Tensor]:
+MODELS = ("retrieval", "caption", "base")
+
+
+def _numpy(val):
+    return val.detach().cpu().numpy() if isinstance(val, torch.Tensor) \
+        else val
+
+
+def load_reference_state_dict(sd, cfg, model: str = "retrieval"
+                              ) -> dict[str, torch.Tensor]:
     """Reference-format state dict (or a path to a ``.pt`` holding one) ->
-    the port model's state dict, for ``RetrievalModelConfig`` (stage I) or
-    ``RerankerModelConfig`` (stage II)."""
+    the port model's state dict, for ``RerankerModelConfig`` (stage II) or
+    ``RetrievalModelConfig``, whose ``model`` is 'retrieval' (stage I),
+    'caption' (``CaptionDecoder``) or 'base' (``BlipBase``)."""
     if not isinstance(sd, Mapping):
         sd = read_reference_file(sd)
     if isinstance(cfg, RetrievalModelConfig):
-        rules = _COMMON + _STAGE1
+        if model not in MODELS:
+            raise ValueError(f"unknown model {model!r}; expected one of "
+                             f"{MODELS}")
+        rules = _VIT + {"retrieval": _MED + _SINGLE_STREAM + _STAGE1,
+                        "caption": _CAPTION,
+                        "base": _MED + _SINGLE_STREAM}[model]
     elif isinstance(cfg, RerankerModelConfig):
-        rules = _COMMON + _STAGE2
+        rules = _VIT + _MED + _STAGE2
         if "text_encoder.encoder.layer.0.attention.self0.query.weight" \
                 not in sd:
             sd = duplicate_for_dual_stream(sd)
@@ -284,8 +340,7 @@ def load_reference_state_dict(sd, cfg) -> dict[str, torch.Tensor]:
     vit = cfg.vit
     out: dict[str, torch.Tensor] = {}
     for key, val in sd.items():
-        a = np.asarray(val.detach().cpu().numpy() if isinstance(
-            val, torch.Tensor) else val, np.float32)
+        a = np.asarray(_numpy(val), np.float32)
         if key == "visual_encoder.patch_embed.proj.weight":
             # conv [D, 3, P, P] -> space-to-depth dense [D, P*P*3]
             a = a.transpose(0, 2, 3, 1).reshape(a.shape[0], -1)
@@ -308,6 +363,11 @@ def load_reference_state_dict(sd, cfg) -> dict[str, torch.Tensor]:
         if name == "temp":
             a = a.reshape(())
         out[name] = _to_tensor(a)
+    if model == "caption" and f"{_LM_HEAD}.bias" in sd:
+        # the reference ties decoder.bias to this parameter; JAX's
+        # convert_lm_head reads it first
+        out["lm_head.decoder.bias"] = _to_tensor(np.asarray(
+            _numpy(sd[f"{_LM_HEAD}.bias"]), np.float32))
     if isinstance(cfg, RerankerModelConfig):
         # a pretrain has no merge layers: zero, as the JAX package starts
         # them (the reference leaves them at their random init)

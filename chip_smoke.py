@@ -6,7 +6,10 @@
 Phases, each printing its own lines:
 1. device: requires CUDA; prints ``nvidia-smi`` name and power limit.
 2. build: compiles the eval (K1-K4) and train (K5-K9) attention libraries
-   from ``csrc/`` (one nvcc each, started together; sm_90a) and prints
+   from ``csrc/`` (one nvcc each, started together with ``make -B -C
+   native`` for the native host libraries where g++ and the libjpeg
+   headers are present, else a ``[native] unavailable: ...`` line; sm_90a)
+   and prints
    ptxas's register and spill lines, and the tensor-core kernels' (eval,
    K6, K8, and K7's and K9's two backward passes) registers, spills and
    shared memory, and the blocks of K8's kernel an SM holds at the
@@ -17,7 +20,10 @@ Phases, each printing its own lines:
    a (query, candidate) pair, at serving's [200, 40, 577] and the
    query-major eval's [440, 40, 577]; K1 also at the stage-I
    eval path's ViT batch and at its most-launched and widest image-major
-   MED shapes): max |error| against the plain PyTorch version,
+   MED shapes; K2 and K3 also at the caption decoder's shapes: a cached
+   step's one query row over 20 cache slots with their mask and over the
+   577 image tokens, a recompute step's causal [E, 1, L, L] bias): max
+   |error| against the plain PyTorch version,
    kernel / plain / SDPA times over back-to-back calls (CUDA events, as
    for every kernel) and the kernel/SDPA ratio (SDPA is a yardstick only;
    the port never calls it), the kernel's and SDPA's device-only times
@@ -111,11 +117,30 @@ Phases, each printing its own lines:
     validating on the file. Prints each run's seconds, step losses and
     validation metrics, the checkpoints' sizes and the launches (K8, K9,
     K5 in the stage-I runs; K6, K7, K5 in stage II; K1-K3 in the
-    validations, all must be > 0); then the peak memory and step seconds
-    of stage-II steps with remat '' and 'dots'.
+    validations, all must be > 0); the PIL loader's split of one stage-I
+    batch (decode plus transform, ``np.stack``, the trainer's cast, the
+    host-to-card copy); with the native libraries built, ``[native]``
+    lines: the native loader's split and batch decode, native pixels
+    against PIL (tests/test_native_pipe.py's bounds), one stage-I epoch
+    with ``--native-pipe`` beside the PIL run's, ``cli/validate
+    --native-pipe``'s index seconds beside PIL's; then the peak memory and
+    step seconds of stage-II steps with remat '' and 'dots'.
+13. captioning: a ``CaptionDecoder`` at full width (ViT-B/16 @ 384, the
+    12-layer MED with cross-attention, vocab 30,524) in bf16 with random
+    weights from the seed over 16 images, through greedy and beam (3
+    beams) decoding, recomputed and KV-cached, at max_len 20, cached
+    nucleus sampling at max_len 30 (min_len 10, top-p 0.9, penalty 1.1)
+    and a greedy decode with a 3-token prompt: seconds, ms a step and
+    tokens/s of each, launches (K1-K3 > 0, K4-K9 = 0), bf16 cached vs
+    recompute agreement (printed, not gated), one profiled cached step;
+    fp32 at 2 images on the card and on the CPU: cached ids equal to
+    recompute ids, card ids equal to the CPU's but after a step whose
+    top-2 logit gap is under 1e-5 (named), step logits within 1e-3; then
+    ``BlipBase`` in each mode, fp32 card vs CPU.
 12. a JSON line of kernel figures (``launches_by_path`` adds phase 10's
-    counts as "train_cli" and phase 11's as "serve"), then the card's name
-    and power limit, then the last line ``{"ok": true, "device": {...}}``.
+    counts as "train_cli", phase 11's as "serve" and phase 13's as
+    "caption"), then the card's name and power limit, then the last line
+    ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero without the last line.
 Imports nothing of JAX.
@@ -213,6 +238,23 @@ SRV_QM_QUERIES = 32            # fp32 query-major vs candidate-major
 # query-major eval's chunk (q_batch 8 x K + 5 group members)
 K3_PER_PAIR = ((SRV_Q_PAD * SRV_RERANK_K, "serving, q_pad 4 x rerank_k 50"),
                (8 * (TOPK + 5), "query-major eval, q_batch 8 x (K 50 + 5)"))
+# phase 13, captioning at full width (ViT-B/16 @ 384, the 12-layer MED
+# with cross-attention, vocab 30,524) in bf16 over CAP_B images, at the
+# reference's decoding defaults (blip.py:119-151): max_len 20 and 3 beams;
+# sampling at max_len 30, min_len 10, top-p 0.9, penalty 1.1; a 3-token
+# prompt. fp32 checks at CAP_CHECK_B images, card vs CPU: ids equal but
+# after a step whose top-2 logit gap is under CAP_TIE_GAP, step logits
+# within FP32_CARD_VS_CPU_TOL
+CAP_B, CAP_MAX_LEN, CAP_BEAMS = 16, 20, 3
+CAP_SAMPLE = {"max_len": 30, "min_len": 10, "top_p": 0.9,
+              "repetition_penalty": 1.1}
+CAP_PROMPT = "a dog with"      # three words of the toy vocabulary
+CAP_CHECK_B, CAP_TIE_GAP = 2, 1e-5
+# phase 10's native lines: native pixels against PIL within
+# tests/test_native_pipe.py's bounds (8-bit units), on a few jpegs
+NATIVE_MEAN_TOL, NATIVE_MAX_TOL, NATIVE_PIXEL_IMAGES = 0.5, 10.0, 8
+NATIVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "native")
 CSRC = "candidate_reranking_cir_tpu_torch/csrc"
 # the records are bf16: K1-K4 on the tensor-core eval kernel, K6-K9 (no
 # bias) on the tensor-core train kernels
@@ -346,10 +388,24 @@ def kernel_cases(stage1_cases: list):
         *(("K3", f"per-pair cross-attention, {label}", e, TEXT_LEN, 577, 12,
            False, False) for e, label in K3_PER_PAIR),
         ("K4", "masked folded attention", 8, 160, 160, 12, True, True),
+        # the caption decoder (phase 13): a cached beam step's one query
+        # row over its 20 cache slots (the slots not yet written masked)
+        # and over one layer's precomputed image K/V; a recompute step's
+        # causal self-attention
+        ("K2", "caption cached step, self-attention over the cache slots",
+         CAP_B * CAP_BEAMS, 1, CAP_MAX_LEN, 12, False, True),
+        ("K2", "caption recompute step, causal self-attention", CAP_B,
+         CAP_MAX_LEN, CAP_MAX_LEN, 12, False, "causal"),
+        ("K3", "caption cached step, cross-attention over the image K/V",
+         CAP_B * CAP_BEAMS, 1, 577, 12, False, False),
     ]
 
 
 def run_kernel_case(kid, label, e, lq, m, h, folded, with_bias, dtype):
+    """``with_bias``: False, True (a key mask [E, 1, 1, M], row stride 0
+    in the kernel) or 'causal' (the key mask plus (1 - tril) * -10000,
+    [E, 1, Lq, M] with row stride M, as the caption decoder's recompute
+    step builds it)."""
     from candidate_reranking_cir_tpu_torch.ops import cuda_attention as ck
     from candidate_reranking_cir_tpu_torch.ops.attention import (
         make_additive_mask,
@@ -368,6 +424,9 @@ def run_kernel_case(kid, label, e, lq, m, h, folded, with_bias, dtype):
         lens = torch.randint(1, m + 1, (e,), generator=g, device="cuda")
         mask = (torch.arange(m, device="cuda")[None] < lens[:, None])
         bias = make_additive_mask(mask)                       # [E, 1, 1, M]
+        if with_bias == "causal":
+            tri = torch.tril(torch.ones(lq, m, device="cuda"))
+            bias = bias + (1.0 - tri) * -10000.0              # [E, 1, Lq, M]
 
     def as4(x):
         return x.unflatten(-1, (h, d)) if folded else x
@@ -405,8 +464,10 @@ def run_kernel_case(kid, label, e, lq, m, h, folded, with_bias, dtype):
     ratio = rec["ms"] / rec["library_ms"]
     device_ratio = rec["device_ms"] / rec["library_device_ms"]
     route = "tensor cores" if ck.uses_tensor_cores(dtype) else "fp32 FMA"
+    bias_tag = {False: "", True: " +mask", "causal": " +causal mask"}[
+        with_bias]
     print(f"[kernel] {kid} {label} {rec['dtype']} ({route}) q/k/v "
-          f"{list(shape_q)} x {m} keys{' +mask' if with_bias else ''}: "
+          f"{list(shape_q)} x {m} keys{bias_tag}: "
           f"max|err| {err:.3e} (tol {TOL[dtype]}), kernel {rec['ms']:.4f} "
           f"ms, plain {rec['plain_ms']:.4f} ms, sdpa "
           f"{rec['library_ms']:.4f} ms, kernel/sdpa {ratio:.2f}x; device "
@@ -2296,8 +2357,142 @@ def remat_memory(tok, words) -> dict:
     return out
 
 
-def train_cli_path(tok, words) -> dict:
-    """The two trainer CLIs on the card at full width in bf16 (phase 10)."""
+@contextlib.contextmanager
+def validate_seconds(store: list):
+    """Within the block, each ``cli/validate`` run appends its stage-I
+    engine's seconds ({'index', 'fusion', 'ranking', 'total'}) to
+    ``store``."""
+    from candidate_reranking_cir_tpu_torch.cli import validate
+
+    inner = validate.evaluate_cirr_stage1
+
+    def recorded(*args, **kw):
+        result, payload = inner(*args, **kw)
+        store.append(dict(result.seconds))
+        return result, payload
+
+    validate.evaluate_cirr_stage1 = recorded
+    try:
+        yield store
+    finally:
+        validate.evaluate_cirr_stage1 = inner
+
+
+def loader_split(root, transform, prefix: str, tag: str) -> dict:
+    """One stage-I batch as the trainer CLI loads it (S1_B triplets'
+    reference images; the targets come from the feature cache), split:
+    decode plus transform on the loader's 8 threads, ``np.stack``, the
+    trainer's ``astype`` copy and the pageable host-to-card copy; printed
+    under ``prefix``."""
+    from candidate_reranking_cir_tpu_torch.data.datasets import CIRRDataset
+
+    ds = CIRRDataset(root, "train", "relative", transform,
+                     skip_target_image=True)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:   # BatchLoader's workers
+        samples = list(pool.map(ds.__getitem__, range(S1_B), chunksize=4))
+    t1 = time.perf_counter()
+    stacked = np.stack([x["reference_image"] for x in samples])
+    t2 = time.perf_counter()
+    host = stacked.astype(np.float32)
+    t3 = time.perf_counter()
+    torch.as_tensor(host).to("cuda", non_blocking=True)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    out = {"decode_transform": t1 - t0, "stack": t2 - t1, "astype": t3 - t2,
+           "copy": t4 - t3, "gib": host.nbytes / 2 ** 30}
+    print(f"{prefix} loader split, {tag}: {S1_B} reference jpegs at "
+          f"{S1T_IMAGE_SIZE} px on 8 threads: decode+transform "
+          f"{out['decode_transform']:.3f} s, np.stack {out['stack']:.3f} s, "
+          f"the trainer's astype copy {out['astype']:.3f} s, host-to-card "
+          f"copy {out['copy']:.3f} s ({out['gib']:.2f} GiB, pageable)",
+          flush=True)
+    return out
+
+
+def epoch_seconds(text: str) -> list[float]:
+    """The seconds of each ``[epoch N] ... (Xs)`` line of a trainer run."""
+    import re
+
+    return [float(x) for x in re.findall(r"^\[epoch \d+\] .*\(([\d.]+)s\)$",
+                                         text, flags=re.M)]
+
+
+def native_lines(root, flags: list[str], s1: list[str], models, whole: dict,
+                 ckpt1, pil_validate: dict) -> dict:
+    """Phase 10's ``[native]`` lines: the loader's split with the native
+    pipeline (PIL's is printed in every run), native pixels against PIL,
+    one stage-I epoch with ``--native-pipe`` beside the PIL run's, and
+    ``cli/validate --native-pipe``'s index seconds beside the PIL
+    run's."""
+    import shutil
+    from pathlib import Path
+
+    from candidate_reranking_cir_tpu_torch.cli import stage1_train, validate
+    from candidate_reranking_cir_tpu_torch.data import native_pipe
+    from candidate_reranking_cir_tpu_torch.data.preprocessing import (
+        CLIP_STD,
+        load_image,
+        make_transform,
+    )
+
+    t_native = time.perf_counter()
+    pil = make_transform("targetpad", S1T_IMAGE_SIZE, 1.25)
+    nat = native_pipe.make_native_transform("targetpad", S1T_IMAGE_SIZE, 1.25)
+    split = loader_split(root, nat, "[native]", "native")
+    paths = sorted((Path(root) / "cirr_dataset" / "img").glob("tr*.jpg"))
+    t0 = time.perf_counter()
+    nat.batch_from_paths(paths[:S1_B])
+    batch_s = time.perf_counter() - t0
+    print(f"[native] batch path (iter_batches, one native call): "
+          f"{min(S1_B, len(paths))} jpegs in {batch_s:.3f} s", flush=True)
+    worst_mean = worst_max = 0.0
+    for path in paths[:NATIVE_PIXEL_IMAGES]:
+        diff = np.abs(nat(path) - pil(load_image(path))) \
+            * CLIP_STD[None, None] * 255
+        worst_mean = max(worst_mean, float(diff.mean()))
+        worst_max = max(worst_max, float(diff.max()))
+    print(f"[native] pixels vs PIL on {NATIVE_PIXEL_IMAGES} jpegs (8-bit "
+          f"units): mean |diff| up to {worst_mean:.4f} (tol "
+          f"{NATIVE_MEAN_TOL}), max {worst_max:.3f} (tol {NATIVE_MAX_TOL})",
+          flush=True)
+    if worst_mean >= NATIVE_MEAN_TOL or worst_max >= NATIVE_MAX_TOL:
+        fail("the native pipeline's pixels are off PIL's")
+
+    epochs_at = s1.index("--num-epochs")
+    run = run_cli("stage I, --native-pipe, 1 epoch", stage1_train,
+                  s1[:epochs_at] + ["--num-epochs", "1"] + s1[epochs_at + 2:]
+                  + ["--experiment-name", "native", "--native-pipe"])
+    if "falling back to PIL" in run["text"]:
+        fail("--native-pipe fell back to PIL with the library built")
+    steps = S1T_TRAIN // S1_B
+    pil_epochs = epoch_seconds(whole["text"])
+    nat_epochs = epoch_seconds(run["text"])
+    rate = [round(steps * S1_B / x, 1) for x in pil_epochs + nat_epochs]
+    print(f"[native] stage-I CLI epochs of {steps} steps at B={S1_B}: PIL "
+          f"{pil_epochs} s ({rate[:len(pil_epochs)]} pairs/s), native "
+          f"{nat_epochs} s ({rate[len(pil_epochs):]} pairs/s); step losses "
+          f"PIL {[round(x, 6) for x in whole['losses'][:steps]]}, native "
+          f"{[round(x, 6) for x in run['losses']]}", flush=True)
+    shutil.rmtree(models / "native")
+    with validate_seconds([]) as nat_validate:
+        run_cli("validate --native-pipe", validate,
+                flags + ["--stage1-path", str(ckpt1), "--native-pipe"])
+    print(f"[native] cli/validate index seconds: PIL "
+          f"{pil_validate['index']:.3f}, native "
+          f"{nat_validate[0]['index']:.3f} (total "
+          f"{pil_validate['total']:.3f} vs {nat_validate[0]['total']:.3f})",
+          flush=True)
+    return {"split": split, "batch_s": batch_s,
+            "epochs": {"PIL": pil_epochs, "native": nat_epochs},
+            "validate_index": {"PIL": pil_validate["index"],
+                               "native": nat_validate[0]["index"]},
+            "seconds": time.perf_counter() - t_native}
+
+
+def train_cli_path(tok, words, native_ok: bool) -> dict:
+    """The two trainer CLIs on the card at full width in bf16 (phase 10);
+    with the native libraries built, the ``[native]`` lines."""
     import shutil
     from pathlib import Path
 
@@ -2305,6 +2500,9 @@ def train_cli_path(tok, words) -> dict:
         stage1_train,
         stage2_train,
         validate,
+    )
+    from candidate_reranking_cir_tpu_torch.data.preprocessing import (
+        make_transform,
     )
 
     t_phase = time.perf_counter()
@@ -2393,9 +2591,10 @@ def train_cli_path(tok, words) -> dict:
         ckpt1 = models / "whole" / "saved_models" / "blip_mean"
         topk = Path(tmp.name) / "top50.npz"
         reset_launch_counts()
-        run_cli("validate (stage-I blip_mean -> top-50 file)", validate,
-                flags + ["--stage1-path", str(ckpt1), "--save-topk",
-                         "--k", str(S2T_K), "--topk-out", str(topk)])
+        with validate_seconds([]) as pil_validate:
+            run_cli("validate (stage-I blip_mean -> top-50 file)", validate,
+                    flags + ["--stage1-path", str(ckpt1), "--save-topk",
+                             "--k", str(S2T_K), "--topk-out", str(topk)])
         s2 = run_cli("stage II", stage2_train, [
             "--dataset", "CIRR", "--data-root", str(root2),
             "--allow-test-vocab", "--device", "cuda", "--output-dir",
@@ -2422,26 +2621,340 @@ def train_cli_path(tok, words) -> dict:
         print(f"[train_cli] checkpoint GiB "
               f"{json.dumps({k: round(v, 3) for k, v in sizes.items()})}",
               flush=True)
+        pil_split = loader_split(
+            root, make_transform("targetpad", S1T_IMAGE_SIZE, 1.25),
+            "[train_cli]", "PIL")
+        native = native_lines(root, flags, s1, models, whole, ckpt1,
+                              pil_validate[0]) if native_ok else None
     finally:
         tmp.cleanup()
     memory = remat_memory(tok, words)
     seconds = {"stage1_whole": whole["seconds"], "stage1_cut": cut["seconds"],
                "stage1_resume": resumed["seconds"],
                "stage2": s2["seconds"],
+               "native": native["seconds"] if native else 0.0,
                "phase": time.perf_counter() - t_phase}
     print("[train_cli] seconds "
           f"{json.dumps({k: round(v, 1) for k, v in seconds.items()})}",
           flush=True)
     launches = {k: s1_launches[k] + s2_launches[k] for k in s1_launches}
     return {"launches": launches, "seconds": seconds, "sizes": sizes,
-            "memory": memory}
+            "memory": memory, "loader_split": pil_split, "native": native}
 
 
-def build_libraries() -> None:
-    """Both kernel libraries, one nvcc each, started together; ptxas's
-    register and spill lines of every kernel (the tensor-core kernels'
-    must be among them when a library was built), and the tensor-core
-    kernels' dynamic shared memory."""
+# ---------------------------------------------------------------------------
+# phase 13: captioning
+
+def caption_config():
+    from candidate_reranking_cir_tpu_torch.config import (
+        RetrievalModelConfig,
+        TextEncoderConfig,
+        vit_config,
+    )
+
+    return RetrievalModelConfig(vit=vit_config("base", 384),
+                                text=TextEncoderConfig())
+
+
+def top2_gaps(logits) -> np.ndarray:
+    """[B, L] top-2 gaps of teacher-forced logits [B, L, V]."""
+    top2 = torch.topk(logits.float(), 2, dim=-1).values
+    return (top2[..., 0] - top2[..., 1]).cpu().numpy()
+
+
+def same_ids(label: str, ref, out, gaps) -> bool:
+    """Whether ``out`` equals ``ref`` row by row, but after a step whose
+    top-2 logit gap (``gaps``: along ``ref``) is under CAP_TIE_GAP, which
+    a line names. Prints and returns False at another difference."""
+    ref, out = ref.cpu().numpy(), out.cpu().numpy()
+    ok = True
+    for r in range(ref.shape[0]):
+        diff = np.nonzero(ref[r] != out[r])[0]
+        if diff.size == 0:
+            continue
+        step = diff[0] - 1
+        near_tie = gaps[r, step] < CAP_TIE_GAP
+        print(f"[caption] {label}: row {r} differs from position {diff[0]} "
+              f"on; the top-2 logit gap at step {step} is "
+              f"{gaps[r, step]:.3e} "
+              f"({'a near tie' if near_tie else 'not a near tie'})",
+              flush=True)
+        ok = ok and near_tie
+    return ok
+
+
+def caption_decodes(decoder, feats, tok, prompt_ids) -> dict:
+    """Every decode of phase 13 on ``feats``, timed (wall, synchronised):
+    name -> (ids, seconds, decode steps)."""
+    from candidate_reranking_cir_tpu_torch.models import blip_decoder as bd
+
+    ids = {"bos_id": tok.dec_token_id, "eos_id": tok.sep_id,
+           "pad_id": tok.pad_id}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    runs = {
+        "greedy": (bd.greedy_caption, {"max_len": CAP_MAX_LEN}),
+        "greedy_cached": (bd.greedy_caption_cached,
+                          {"max_len": CAP_MAX_LEN}),
+        "beam": (bd.beam_caption, {"max_len": CAP_MAX_LEN,
+                                   "num_beams": CAP_BEAMS}),
+        "beam_cached": (bd.beam_caption_cached,
+                        {"max_len": CAP_MAX_LEN, "num_beams": CAP_BEAMS}),
+        "sample_cached": (lambda d, f, **kw: bd.sample_caption_cached(
+            d, f, gen, **kw), CAP_SAMPLE),
+        "greedy_cached_prompt": (bd.greedy_caption_cached,
+                                 {"max_len": CAP_MAX_LEN,
+                                  "prompt_ids": prompt_ids}),
+    }
+    out = {}
+    for name, (fn, kw) in runs.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn(decoder, feats, **ids, **kw)
+        torch.cuda.synchronize()
+        out[name] = (result, time.perf_counter() - t0, kw["max_len"] - 1)
+    return out
+
+
+def caption_fp32_check(decoder, images, tok) -> None:
+    """fp32 at CAP_CHECK_B images, the card against the CPU from the same
+    weights: greedy (recompute and cached) and cached beam ids, cached
+    equal to recompute on the card (beam too), card equal to the CPU but
+    after near ties, and the step logits (teacher-forced and cached, along
+    the CPU's greedy ids) within FP32_CARD_VS_CPU_TOL."""
+    from candidate_reranking_cir_tpu_torch.models import blip_decoder as bd
+
+    cfg = caption_config()
+    state = {k: v.detach().cpu() for k, v in decoder.state_dict().items()}
+    models = {}
+    for dev in ("cuda", "cpu"):
+        models[dev] = bd.CaptionDecoder(cfg, device=dev).eval()
+        models[dev].load_state_dict(state)
+    del state
+    kw = {"bos_id": tok.dec_token_id, "eos_id": tok.sep_id,
+          "pad_id": tok.pad_id, "max_len": CAP_MAX_LEN}
+    out, feats = {}, {}
+    t0 = time.perf_counter()
+    for dev, model in models.items():
+        with torch.inference_mode():
+            feats[dev] = model.visual_encoder(
+                images[:CAP_CHECK_B].float().to(dev))
+        out[dev] = {
+            "greedy": bd.greedy_caption(model, feats[dev], **kw),
+            "greedy_cached": bd.greedy_caption_cached(model, feats[dev], **kw),
+            "beam_cached": bd.beam_caption_cached(
+                model, feats[dev], num_beams=CAP_BEAMS, **kw)}
+        if dev == "cuda":
+            out[dev]["beam"] = bd.beam_caption(model, feats[dev],
+                                               num_beams=CAP_BEAMS, **kw)
+    ref = out["cpu"]["greedy"]
+    ones = torch.ones_like(ref)
+    with torch.inference_mode():
+        logits = {dev: models[dev].logits(feats[dev], ref.to(dev),
+                                          ones.to(dev)).cpu()
+                  for dev in models}
+        gaps = {dev: top2_gaps(v) for dev, v in logits.items()}
+        beam_gaps = {dev: top2_gaps(models[dev].logits(
+            feats[dev], out[dev]["beam_cached"], torch.ones_like(
+                out[dev]["beam_cached"])).cpu()) for dev in models}
+        step_err = 0.0
+        caches = {}
+        for dev, model in models.items():
+            k_img, v_img = model.precompute_kv(feats[dev])
+            k_self, v_self = bd._self_cache(model, CAP_CHECK_B, CAP_MAX_LEN,
+                                            dev)
+            caches[dev] = (k_self, v_self, k_img, v_img)
+        mask = torch.zeros_like(ref)
+        for t in range(CAP_MAX_LEN - 1):
+            mask[:, t] = 1
+            step = [models[dev].decode_step(
+                ref[:, t:t + 1].to(dev), mask.to(dev), caches[dev], t)[0]
+                .cpu() for dev in ("cuda", "cpu")]
+            step_err = max(step_err, float((step[0] - step[1]).abs().max()))
+    feat_err = float((feats["cuda"].cpu() - feats["cpu"]).abs().max())
+    logit_err = float((logits["cuda"] - logits["cpu"]).abs().max())
+    print(f"[check] fp32 captions, card vs CPU ({CAP_CHECK_B} images, "
+          f"{time.perf_counter() - t0:.1f} s): image features max |diff| "
+          f"{feat_err:.3e}; teacher-forced logits along the CPU's greedy "
+          f"ids {logit_err:.3e}, cached step logits {step_err:.3e} (tol "
+          f"{FP32_CARD_VS_CPU_TOL})", flush=True)
+    ok = logit_err <= FP32_CARD_VS_CPU_TOL and step_err <= FP32_CARD_VS_CPU_TOL
+    card = out["cuda"]
+    checks = [
+        ("card greedy cached vs recompute", card["greedy"],
+         card["greedy_cached"], None),
+        ("card beam cached vs recompute", card["beam"], card["beam_cached"],
+         None),
+        ("card vs CPU greedy", ref, card["greedy"], gaps["cpu"]),
+        ("card vs CPU greedy cached", ref, card["greedy_cached"],
+         gaps["cpu"]),
+        ("card vs CPU beam cached", out["cpu"]["beam_cached"],
+         card["beam_cached"], beam_gaps["cpu"]),
+        ("CPU greedy cached vs recompute", ref,
+         out["cpu"]["greedy_cached"], gaps["cpu"]),
+    ]
+    for label, a, b, g in checks:
+        if g is None:   # gaps along the card's own decode
+            with torch.inference_mode():
+                g = top2_gaps(models["cuda"].logits(
+                    feats["cuda"], a, torch.ones_like(a)).cpu())
+        equal = same_ids(label, a, b, g)
+        print(f"[check] fp32 captions, {label}: "
+              f"{'equal' if torch.equal(a.cpu(), b.cpu()) else 'differ'}"
+              f"{'' if equal else ' (not at a near tie)'}", flush=True)
+        ok = ok and equal
+    if not ok:
+        fail("fp32 captions: the card is off the CPU, or cached off "
+             "recompute")
+
+
+def blip_base_check(tok) -> None:
+    """BlipBase in each mode once, fp32, card vs CPU from the same random
+    weights (CAP_CHECK_B images)."""
+    from candidate_reranking_cir_tpu_torch.models.blip_base import BlipBase
+
+    cfg = caption_config()
+    torch.manual_seed(SEED + 16)
+    cpu = BlipBase(cfg, device="cpu").eval()
+    card = BlipBase(cfg, device="cuda").eval()
+    card.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(SEED + 17)
+    images = torch.randn(CAP_CHECK_B, 384, 384, 3, generator=g)
+    ids, mask = (torch.from_numpy(x) for x in tok.encode(
+        ["a red dress with the same dog", "the blue shirt"], TEXT_LEN,
+        set_enc_token=True))
+    errs = {}
+    with torch.inference_mode():
+        for mode in ("image", "text", "multimodal"):
+            ref = cpu(images, ids, mask, mode=mode)
+            out = card(images.cuda(), ids.cuda(), mask.cuda(), mode=mode)
+            errs[mode] = float((out.cpu() - ref).abs().max())
+    print(f"[check] fp32 BlipBase, card vs CPU: max |diff| "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})} "
+          f"(tol {FP32_CARD_VS_CPU_TOL})", flush=True)
+    if max(errs.values()) > FP32_CARD_VS_CPU_TOL:
+        fail("fp32 BlipBase: the card is off the CPU")
+
+
+def caption_path(tok) -> dict:
+    """Phase 13: a CaptionDecoder at full width in bf16 with random weights
+    from the seed over CAP_B images through every decoding entry point;
+    launches (K1-K3 > 0, K4-K9 = 0), tokens/s and ms a step, one profiled
+    cached step; then the fp32 checks and BlipBase."""
+    from candidate_reranking_cir_tpu_torch.models import blip_decoder as bd
+
+    t_phase = time.perf_counter()
+    cfg = caption_config()
+    torch.manual_seed(SEED + 14)
+    decoder = bd.CaptionDecoder(cfg, dtype=torch.bfloat16,
+                                device="cuda").eval()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    images = torch.randn(CAP_B, 384, 384, 3, generator=g, device="cuda")
+    # the reference's prompt handling: [CLS] becomes bos, [SEP] is dropped
+    prompt = tok.encode([CAP_PROMPT], 8)[0][0]
+    prompt_ids = tuple(int(x) for x in prompt[1:4])
+    common = {"bos_id": tok.dec_token_id, "eos_id": tok.sep_id,
+              "pad_id": tok.pad_id}
+    with torch.inference_mode():   # warm-up: allocator, cuBLAS handles
+        warm = decoder.visual_encoder(images[:2])
+        bd.greedy_caption_cached(decoder, warm, max_len=3, **common)
+        bd.beam_caption(decoder, warm, max_len=3, num_beams=2, **common)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        feats = decoder.visual_encoder(images)
+    torch.cuda.synchronize()
+    vit_s = time.perf_counter() - t0
+    runs = caption_decodes(decoder, feats, tok, prompt_ids)
+    launches = launch_counts()
+    print(f"[caption] CaptionDecoder ViT-B/16 @ 384 + 12-layer MED + vocab "
+          f"{cfg.text.vocab_size}, bf16, {CAP_B} images: ViT {vit_s:.3f} s; "
+          f"launches {json.dumps(launches)}", flush=True)
+    for name, (ids, seconds, steps) in runs.items():
+        print(f"[caption] {name}: {seconds:.3f} s, {steps} steps, "
+              f"{1e3 * seconds / steps:.2f} ms a step, "
+              f"{CAP_B * steps / seconds:.1f} tokens/s ({CAP_B} rows x "
+              f"{steps} steps); ids {list(ids.shape)}, first row "
+              f"{ids[0].tolist()}", flush=True)
+    for kid in ("K1", "K2", "K3"):
+        if launches[kid] <= 0:
+            fail(f"{kid} was not launched on the caption path")
+    for kid in ("K4", "K5", "K6", "K7", "K8", "K9"):
+        if launches[kid] != 0:
+            fail(f"{kid} was launched on the caption path")
+    for a, b in (("greedy", "greedy_cached"), ("beam", "beam_cached")):
+        same = (runs[a][0] == runs[b][0]).all(dim=1)
+        print(f"[caption] bf16 {b} vs {a}: {int(same.sum())} of {CAP_B} "
+              "rows equal (not gated: different kernels at random "
+              "weights)", flush=True)
+    prompt = runs["greedy_cached_prompt"][0]
+    if not (prompt[:, 1:4] == torch.tensor(prompt_ids, device="cuda")).all():
+        fail("the prompted decode did not keep its prompt")
+    sample = runs["sample_cached"][0]
+    eos_at = (sample == tok.sep_id).int().argmax(dim=1)
+    if ((sample == tok.sep_id).any(dim=1)
+            & (eos_at < CAP_SAMPLE["min_len"])).any():
+        fail("sampling emitted eos below min_len")
+
+    with torch.inference_mode():   # one cached step, profiled
+        k_img, v_img = decoder.precompute_kv(feats)
+        k_self, v_self = bd._self_cache(decoder, CAP_B, CAP_MAX_LEN, "cuda")
+        ids = runs["greedy_cached"][0]
+        mask = torch.zeros_like(ids)
+        mask[:, :6] = 1
+        cache = (k_self, v_self, k_img, v_img)
+        profile_device("one cached caption step (greedy, step 5)",
+                       lambda: decoder.decode_step(ids[:, 5:6], mask, cache,
+                                                   5))
+    caption_fp32_check(decoder, images, tok)
+    del decoder, feats, runs, k_img, v_img, k_self, v_self, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    blip_base_check(tok)
+    seconds = time.perf_counter() - t_phase
+    print(f"[caption] phase seconds {seconds:.1f}", flush=True)
+    return {"launches": launches, "seconds": seconds}
+
+
+def native_missing() -> str | None:
+    """What the native libraries' build (``make -C native``: g++ and the
+    libjpeg headers) lacks on this machine, or None."""
+    import shutil
+
+    cxx = os.environ.get("CXX", "g++")
+    for tool in ("make", cxx):
+        if shutil.which(tool) is None:
+            return f"{tool} not found"
+    probe = subprocess.run([cxx, "-E", "-x", "c++", "-"],
+                           input="#include <cstdio>\n#include <jpeglib.h>\n",
+                           capture_output=True, text=True, timeout=60)
+    if probe.returncode != 0:
+        return "jpeglib.h not found (the libjpeg headers)"
+    return None
+
+
+def build_native() -> tuple[str | None, float]:
+    """``make -B -C native`` (rebuilt from the checkout's sources) where
+    the toolchain has what it needs: (what is missing or None, seconds).
+    A failed build with the toolchain present fails the script."""
+    missing = native_missing()
+    if missing is not None:
+        return missing, 0.0
+    t0 = time.perf_counter()
+    proc = subprocess.run(["make", "-B", "-C", NATIVE_DIR],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"make -C native failed:\n{proc.stdout}\n{proc.stderr}")
+    return None, time.perf_counter() - t0
+
+
+def build_libraries() -> bool:
+    """Both kernel libraries, one nvcc each, and the native host libraries
+    (``make -C native``), started together; ptxas's register and spill
+    lines of every kernel (the tensor-core kernels' must be among them
+    when a library was built), and the tensor-core kernels' dynamic shared
+    memory. Returns whether the native libraries were built; if not, a
+    ``[native] unavailable`` line says what is missing."""
     from candidate_reranking_cir_tpu_torch.ops import attention_train as tat
     from candidate_reranking_cir_tpu_torch.ops.build import (
         build,
@@ -2450,8 +2963,15 @@ def build_libraries() -> None:
     )
 
     names = ("attention", "attention_train")
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
+        native = pool.submit(build_native)
         built = list(pool.map(build, names))
+        native_missing_what, native_s = native.result()
+    if native_missing_what is None:
+        print(f"[build] native/ (make -B -C native: libimagepipe.so, "
+              f"libwordpiece.so): {native_s:.1f} s", flush=True)
+    else:
+        print(f"[native] unavailable: {native_missing_what}", flush=True)
     for name, (path, seconds, log) in zip(names, built):
         print(f"[build] {path.name}: {seconds:.1f} s", flush=True)
         for line in log.splitlines():
@@ -2488,6 +3008,7 @@ def build_libraries() -> None:
           f"{m} keys: " + ", ".join(
               f"{tat.folded_forward_blocks_per_sm(lq, m)} at {lq} rows"
               for lq in S1_WIDTHS), flush=True)
+    return native_missing_what is None
 
 
 def main():
@@ -2496,7 +3017,7 @@ def main():
     smi = smi_name_and_limit()
     print(f"[device] {smi}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
-    build_libraries()
+    native_ok = build_libraries()
     from candidate_reranking_cir_tpu_torch.models.tokenizer import (
         WordPieceTokenizer,
         build_test_vocab,
@@ -2539,7 +3060,8 @@ def main():
     serve_launches = serving_path(tok, words, corpus)
     del corpus
     gc.collect()
-    cli = train_cli_path(tok, words)
+    cli = train_cli_path(tok, words, native_ok)
+    caption = caption_path(tok)
 
     kernels = []
     for kid in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9"):
@@ -2549,8 +3071,9 @@ def main():
         # runs inside every K6-K9 launch that applies the mask, on both
         # training paths
         # every kernel also counts its launches in the trainer CLIs' runs
-        # (phase 10) under the path key "train_cli", and K1-K3 in the
-        # serving run (phase 11) under "serve"
+        # (phase 10) under the path key "train_cli" and in the caption
+        # decodes (phase 13, K1-K3 > 0 and the others 0) under "caption",
+        # and K1-K3 in the serving run (phase 11) under "serve"
         if kid in launches:
             by_path = {"stage2_eval": launches[kid],
                        "stage1_eval": s1e_launches[kid],
@@ -2563,6 +3086,7 @@ def main():
         else:
             by_path = {"stage2_train": train["launches"][kid]}
         by_path["train_cli"] = cli["launches"][kid]
+        by_path["caption"] = caption["launches"][kid]
         n = sum(by_path.values())
         kernels.append({
             "name": kid, "route": "cuda", "source": SOURCES[kid],

@@ -36,6 +36,7 @@ from candidate_reranking_cir_tpu_torch.models.blip_retrieval import (
 from candidate_reranking_cir_tpu_torch.models.tokenizer import (
     WordPieceTokenizer,
     build_test_vocab,
+    load_tokenizer,
 )
 from candidate_reranking_cir_tpu_torch.retrieval import metrics as M
 from candidate_reranking_cir_tpu_torch.retrieval import validate2_engine as v2
@@ -413,7 +414,13 @@ def test_small_helpers(workdir, tok, capsys):
     vocab = root / "vocab.txt"
     vocab.write_text("\n".join(build_test_vocab()) + "\n")
     loaded = common.get_tokenizer(_args("--vocab", str(vocab)))
-    assert loaded.vocab == tok.vocab
+    # the native tokenizer where native/libwordpiece.so is built: the same
+    # ids and masks as the Python one
+    caps = [t["caption"] for t in _cirr(root, "val", "relative").triplets]
+    for got, want in zip(loaded.encode(caps, TEXT_LEN),
+                         tok.encode(caps, TEXT_LEN)):
+        np.testing.assert_array_equal(got, want)
+    assert load_tokenizer(vocab, prefer_native=False).vocab == tok.vocab
 
 
 def test_entry_points_require_cuda_by_default(workdir, monkeypatch):

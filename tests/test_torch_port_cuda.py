@@ -1129,3 +1129,114 @@ def test_serve_cli_on_the_card_matches_the_cpu(dev, tmp_path, monkeypatch,
     assert all(ck.LAUNCHES[k] > 0 for k in ("K1", "K2", "K3")), ck.LAUNCHES
     assert [len(r["ranking"]) for r in bf16] == [6, 11, 4]
     assert all(np.isfinite(r["scores"]).all() for r in bf16)
+
+
+# ---------------------------------------------------------------------------
+# the caption decoder's shapes: one query row, causal and cache-slot biases
+
+
+def _decode_case(dev, dtype, e, lq, m, bias, seed):
+    """K2 (with ``bias``) or K3 (without) on [E, Lq, 12, 64] queries over
+    [E, M, 12, 64] keys against the plain version."""
+    q = _rand(dev, dtype, e, lq, 12, 64, seed=seed)
+    k = _rand(dev, dtype, e, m, 12, 64, seed=seed + 1)
+    v = _rand(dev, dtype, e, m, 12, 64, seed=seed + 2)
+    kid = "K3" if bias is None else "K2"
+    before = ck.LAUNCHES[kid]
+    out = ck.fused_attention(q, k, v, bias)
+    assert ck.LAUNCHES[kid] == before + 1
+    b3 = None if bias is None else bias[:, 0].expand(e, lq, m)
+    ref = ck.attention_plain(q, k, v, b3)
+    assert out.dtype == dtype and torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=TOL[dtype])
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t_slots", [20, 30])
+def test_k2_one_row_over_cache_slots(dev, dtype, t_slots):
+    """A cached decode step: one query row over T cache slots, the slots
+    not yet written masked by an [E, 1, 1, T] bias, also with a row stride
+    of 0."""
+    e = 48
+    valid = torch.arange(e, device=dev) % t_slots + 1
+    mask = (torch.arange(t_slots, device=dev)[None] < valid[:, None]).int()
+    bias = tattn.make_additive_mask(mask)                  # [E, 1, 1, T]
+    out = _decode_case(dev, dtype, e, 1, t_slots, bias, seed=600 + t_slots)
+    stride0 = bias.as_strided(bias.shape, (t_slots, t_slots, 0, 1))
+    assert ck._bias3(stride0, e, 1, t_slots).stride(1) == 0
+    torch.testing.assert_close(
+        _decode_case(dev, dtype, e, 1, t_slots, stride0, seed=600 + t_slots),
+        out, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("length", [8, 20])
+def test_k2_causal_bias(dev, dtype, length):
+    """The recompute decode's self-attention: the padding bias plus
+    (1 - tril) * -10000, [E, 1, L, L] with row stride L."""
+    e = 16
+    valid = torch.arange(e, device=dev) % length + 1
+    mask = (torch.arange(length, device=dev)[None] < valid[:, None]).int()
+    tri = torch.tril(torch.ones(length, length, device=dev))
+    bias = tattn.make_additive_mask(mask) + (1.0 - tri) * -10000.0
+    assert bias.shape == (e, 1, length, length)
+    assert ck._bias3(bias, e, length, length).stride(1) == length
+    _decode_case(dev, dtype, e, length, length, bias, seed=700 + length)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_one_row_over_precomputed_image_kv(dev, dtype):
+    """The cached step's cross-attention: one query row over one layer's
+    slice of the stacked [n_layers, E, 577, 12, 64] image K/V."""
+    e, m = 48, 577
+    _decode_case(dev, dtype, e, 1, m, None, seed=800)
+    q = _rand(dev, dtype, e, 1, 12, 64, seed=801)
+    kv = _rand(dev, dtype, 2, 3, e, m, 12, 64, seed=802)
+    k, v = kv[0, 1], kv[1, 1]
+    ref = ck.attention_plain(q, k, v)
+    torch.testing.assert_close(ck.fused_attention(q, k, v).float(),
+                               ref.float(), rtol=0, atol=TOL[dtype])
+
+
+def test_caption_decoder_on_the_card_matches_the_cpu(dev):
+    """A two-layer CaptionDecoder in fp32: the cached and recompute greedy
+    ids on the card equal the CPU's, step logits within 1e-3; in bf16 the
+    ViT (145 tokens: K1) and the cached decode (K2, K3) never launch
+    K4."""
+    from candidate_reranking_cir_tpu_torch import config as tcfg
+    from candidate_reranking_cir_tpu_torch.models import blip_decoder as bd
+
+    cfg = tcfg.RetrievalModelConfig(
+        vit=tcfg.ViTConfig(image_size=192, patch_size=16, hidden_size=768,
+                           num_layers=2, num_heads=12),
+        text=tcfg.TextEncoderConfig(vocab_size=500, num_layers=2))
+    torch.manual_seed(0)
+    cpu = bd.CaptionDecoder(cfg, device="cpu").eval()
+    card = bd.CaptionDecoder(cfg, device=dev).eval()
+    card.load_state_dict(cpu.state_dict())
+    images = _rand("cpu", torch.float32, 3, 192, 192, 3, seed=900)
+    kw = dict(bos_id=1, eos_id=2, pad_id=0, max_len=10)
+    with torch.no_grad():
+        feats = cpu.visual_encoder(images)
+        ids = {}
+        for name, model, x in (("cpu", cpu, feats), ("card", card,
+                                                     feats.to(dev))):
+            ids[name] = [bd.greedy_caption(model, x, **kw).cpu(),
+                         bd.greedy_caption_cached(model, x, **kw).cpu()]
+        torch.testing.assert_close(ids["card"][0], ids["cpu"][0])
+        torch.testing.assert_close(ids["card"][1], ids["cpu"][0])
+        torch.testing.assert_close(ids["cpu"][1], ids["cpu"][0])
+        mask = torch.ones_like(ids["cpu"][0])
+        ref = cpu.logits(feats, ids["cpu"][0], mask)
+        got = card.logits(feats.to(dev), ids["cpu"][0].to(dev), mask.to(dev))
+        torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-3)
+    bf16 = bd.CaptionDecoder(cfg, dtype=torch.bfloat16, device=dev).eval()
+    bf16.load_state_dict(cpu.state_dict())
+    ck.reset_launch_counts()
+    out = bd.greedy_caption_cached(bf16, bf16.visual_encoder(images.to(dev)),
+                                   **kw)
+    assert out.shape == (3, 10)
+    assert all(ck.LAUNCHES[k] > 0 for k in ("K1", "K2", "K3")), ck.LAUNCHES
+    assert ck.LAUNCHES["K4"] == 0

@@ -14,6 +14,8 @@ import pytest
 import torch
 
 from candidate_reranking_cir_tpu_torch import config as tcfg
+from candidate_reranking_cir_tpu_torch.models import blip_decoder
+from candidate_reranking_cir_tpu_torch.models.blip_base import BlipBase
 from candidate_reranking_cir_tpu_torch.models.blip_reranker import (
     RerankerModel,
 )
@@ -85,6 +87,28 @@ def test_entry_points_require_cuda_by_default(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA"):
         evaluate_cirr_stage2_datasets(None, None, None, None, None, [], [],
                                       k=1, text_len=8)
+
+
+@pytest.mark.parametrize("cls", [blip_decoder.CaptionDecoder, BlipBase])
+def test_caption_models_require_cuda_by_default(no_cuda, cls):
+    cfg = tcfg.RetrievalModelConfig(vit=TINY_VIT, text=TINY_TEXT)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cls(cfg)
+    assert isinstance(cls(cfg, device="cpu"), cls)
+
+
+def test_caption_decode_on_cpu_counts_no_launches():
+    """Both decoding paths on the CPU run the plain versions only."""
+    ck.reset_launch_counts()
+    torch.manual_seed(0)
+    dec = blip_decoder.CaptionDecoder(tcfg.RetrievalModelConfig(
+        vit=TINY_VIT, text=TINY_TEXT), device="cpu").eval()
+    feats = dec.visual_encoder(torch.zeros(2, 16, 16, 3))
+    kw = dict(bos_id=1, eos_id=2, pad_id=0, max_len=5)
+    for fn in (blip_decoder.greedy_caption,
+               blip_decoder.greedy_caption_cached):
+        assert fn(dec, feats, **kw).shape == (2, 5)
+    assert ck.LAUNCHES == {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
 
 
 def test_unported_options_raise():
