@@ -213,12 +213,14 @@ def run_validation(args, stage1, reranker, optimizer, tokenizer, transform,
     if dataset_name == "cirr":
         mets = evaluate_cirr_stage2(stage1, None, reranker, None, tokenizer,
                                     **common)
-        selection = mets["mean_r5_rs1"]
+        # a Python float: the checkpoint's metadata must load with
+        # torch.load(weights_only=True), which refuses numpy scalars
+        selection = float(mets["mean_r5_rs1"])
         ckpt_name = "blip_mean"
     else:
         mets = evaluate_fiq_stage2(stage1, None, reranker, None, tokenizer,
                                    **common)
-        selection = mets["average_recall"]
+        selection = float(mets["average_recall"])
         ckpt_name = "blip"
 
     print_metrics(mets)

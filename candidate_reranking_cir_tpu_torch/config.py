@@ -4,8 +4,8 @@ An own copy of the fields of the JAX package's configuration tree that the
 port reads. ``RetrievalModelConfig`` also configures the captioner
 (``models/blip_decoder.py``) and ``BlipBase``, as in the JAX package.
 Absent: the attention-kernel switch (the port's attention always routes
-through its kernels, ``ops/attention.py``), attention capture and
-perturbation, and the options of paths not ported yet.
+through its kernels, ``ops/attention.py``) and the options of paths not
+ported yet.
 """
 from __future__ import annotations
 
@@ -30,6 +30,17 @@ class TextEncoderConfig:
     # dual-stream re-ranker only: layers >= merge_mlp_from merge the twin
     # cross-attention outputs with an MLP; earlier layers average them
     merge_mlp_from: int = 6
+    # record every MED layer's attention probabilities (the reference's
+    # save_attention_map hooks, med.py:129-133) into the caller's
+    # ``intermediates`` dict (models/med.py::TextEncoder). Forces
+    # query-major fusion so the records keep the per-query [B, H, L, M]
+    # layout.
+    capture_attention: bool = False
+    # additionally add the caller's ``perturbations`` (zero tensors with
+    # requires_grad) to the probabilities (the reference's
+    # save_attn_gradients backward hook): their gradient is
+    # dLoss/dAttnProbs. Same query-major forcing as capture.
+    perturb_attention: bool = False
     # recompute each encoder layer in backward (torch.utils.checkpoint)
     remat: bool = False
     # checkpoint policy under remat (models/layers.py::resolve_remat_policy):

@@ -6,8 +6,10 @@
 // optional additive bias.
 //
 // Per (entry e, head h): out = softmax(q*d^-1/2 . k^T + bias) . v with
-//   - the scale folded into q (exact: d = 64 makes it a power of two),
-//   - fp32 scores, max-subtracted exp, a sum, and a DIVIDE (not a
+//   - fp32 scores times the scale (the JAX package folds a power-of-two
+//     scale into q, which gives the same bits; the kernels take d = 64,
+//     and the wrappers zero-pad narrower heads and pass their own scale),
+//   - max-subtracted exp, a sum, and a DIVIDE (not a
 //     reciprocal multiply), as pallas_attention.py:_head_attention does,
 //   - the probabilities rounded to the input type before P.V,
 //   - fp32 accumulation of P.V and the output rounded to the input type.

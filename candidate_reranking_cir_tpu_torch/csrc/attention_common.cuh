@@ -15,7 +15,8 @@
 
 namespace crc {
 
-constexpr int kHeadDim = 64;   // the only head width the kernels take
+constexpr int kHeadDim = 64;   // the head width the kernels take (the
+                               // wrappers zero-pad narrower heads to it)
 constexpr int kRows = 32;      // query rows per forward block
 constexpr int kKeys = 64;      // keys per K/V tile in shared memory
 constexpr int kThreads = 128;  // 4 warps
@@ -122,8 +123,10 @@ struct Dropout {
 // Forward body. Grid: (ceil(lq / kRows), heads, entries). Dynamic shared
 // memory: q tile [kRows][kHeadDim], one K or V tile [kKeys][kTileStride],
 // and the score rows [kRows][m], all fp32.
-//   - the scale folded into q (exact: d = 64 makes it a power of two),
-//   - fp32 scores, max-subtracted exp, a sum, and a DIVIDE,
+//   - fp32 scores q . k^T, then times the scale (for a power-of-two scale
+//     the same bits as the JAX package's fold into q; for any other its
+//     fp32 multiply of the scores), then + the bias, without contraction,
+//   - max-subtracted exp, a sum, and a DIVIDE,
 //   - (kDropout) the K5 mask: kept probabilities times inv, dropped ones 0,
 //   - the probabilities rounded to the input type before P.V,
 //   - fp32 accumulation of P.V and the output rounded to the input type.
@@ -147,12 +150,11 @@ __device__ __forceinline__ void attn_fwd_body(
   T* ob = out + e * st.o[0] + h * st.o[2];
   const float* bb = kHasBias ? bias + e * st.b[0] : nullptr;
 
-  // q tile with the scale folded in (exact for a power-of-two scale);
-  // rows past lq read as zeros and are never stored
+  // q tile; rows past lq read as zeros and are never stored
   for (int i = tid; i < kRows * kHeadDim; i += kThreads) {
     const int r = i / kHeadDim, d = i % kHeadDim;
     const int row = row0 + r;
-    qs[i] = row < lq ? to_f(qb[row * st.q[1] + d]) * scale : 0.f;
+    qs[i] = row < lq ? to_f(qb[row * st.q[1] + d]) : 0.f;
   }
 
   // ---- scores: thread owns key column `col` of each tile, 16 rows ------
@@ -181,10 +183,10 @@ __device__ __forceinline__ void attn_fwd_body(
       }
 #pragma unroll
       for (int r = 0; r < kRowsPerThread; ++r) {
-        float s = acc[r];
+        float s = __fmul_rn(acc[r], scale);
         if (kHasBias) {
           const int row = row0 + rbase + r;
-          if (row < lq) s += bb[row * st.b[1] + key];
+          if (row < lq) s = __fadd_rn(s, bb[row * st.b[1] + key]);
         }
         sc[(rbase + r) * m + key] = s;
       }

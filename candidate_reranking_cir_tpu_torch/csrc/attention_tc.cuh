@@ -12,18 +12,20 @@
 // its dropout switch on.
 //
 // The function, per (entry, head), is the one the plain version and the
-// Pallas kernels compute: q scaled by 1/8, fp32 scores, (+ the bias, added
-// to the scaled score in fp32), max-subtracted exp, a sum, a DIVIDE by the
+// Pallas kernels compute: fp32 scores times the scale 1/sqrt(d) (folded
+// into q by JAX where it is a power of two, 1/8 at d = 64; the wrappers
+// zero-pad narrower heads to 64 and pass their own scale), (+ the bias,
+// added to the scaled score in fp32), max-subtracted exp, a sum, a DIVIDE
+// by the
 // sum, probabilities rounded to bf16 before P.V, fp32 accumulation of P.V,
 // output in bf16. How the kernel computes it on the CUDA cores, where the
 // time between the products goes:
-//   - without a bias the scale (exact for d = 64: a power of two) moves
-//     from q onto the fp32 scores and, with log2(e), into one FMA:
-//     exp(scale * (s - max)) = 2^(c*s - c*max), on the special-function
-//     unit. With a bias that would be another function: the kernel forms
-//     t = fl(scale * s + bias) first (one FMA; scale * s is exact), as JAX
-//     adds the bias to the scaled score, and takes max and exp of t (c =
-//     log2(e)). The bias is read in fp32 through its (entry, row) strides;
+//   - q reaches wgmma as bf16, unscaled; without a bias the scale goes
+//     onto the fp32 scores with log2(e), in one FMA: exp(scale * (s -
+//     max)) = 2^(c*s - c*max), on the special-function unit. With a bias
+//     that would be another function: the kernel forms t = fl(fl(s *
+//     scale) + bias) first, as JAX adds the bias to the scaled score, and
+//     takes max and exp of t (c = log2(e)). The bias is read in fp32 through its (entry, row) strides;
 //     a row stride of 0 broadcasts a key mask over the rows. A masked key
 //     (-10000) gives 2^(-14427 + ...) = 0 exactly (ex2.approx.ftz);
 //   - the divide is the correctly rounded quotient, from one correctly
@@ -284,9 +286,10 @@ __device__ __forceinline__ float divide(float p, float sum, float inv) {
   return __fmaf_rn(__fmaf_rn(-q0, sum, p), inv, q0);
 }
 
-// The bias variant's scores: t = fl(scale * s + bias), the bias added to
-// the scaled score in fp32 (scale * s is exact for a power-of-two scale,
-// so the FMA rounds once, as JAX's add does). rows[h]: the query row of
+// The bias variant's scores: t = fl(fl(s * scale) + bias), the bias added
+// to the scaled score in fp32, as JAX adds it (two roundings, no FMA: at
+// a scale that is not a power of two, s * scale is not exact). rows[h]:
+// the query row of
 // the thread's half h. Rows at or past lq and keys at or past m (kMask)
 // read no bias: the former are never stored, the latter become -inf in
 // tile_stats.
@@ -308,7 +311,7 @@ __device__ __forceinline__ void add_bias(float (&s)[32],
         const int key = key0 + 8 * i + 2 * quad + b;
         float& x = s[4 * i + 2 * hh + b];
         const bool read = row < lq && (!kMask || key < m);
-        x = __fmaf_rn(x, scale, read ? __ldg(brow + key) : 0.f);
+        x = __fadd_rn(__fmul_rn(x, scale), read ? __ldg(brow + key) : 0.f);
       }
   }
 }

@@ -134,7 +134,7 @@ static_assert(kThreads == 4 * kKeyTile, "four row groups of one key each");
 static_assert(kRowChunk == 4 * 8, "eight rows per row group");
 
 // Row pass. Grid: (ceil(lq / kBwdRows), heads, entries). Dynamic shared
-// memory: q tile (scaled) and g tile [kBwdRows][kHeadDim], one K or V tile
+// memory: q tile and g tile [kBwdRows][kHeadDim], one K or V tile
 // [kKeys][kTileStride], then P and DD [kBwdRows][m] (fp32 probabilities,
 // and g . v^T turned in place into d_scores).
 template <typename T, bool kHasBias>
@@ -168,7 +168,7 @@ __device__ __forceinline__ void bwd_rows_body(
   for (int i = tid; i < kBwdRows * kHeadDim; i += kThreads) {
     const int r = i / kHeadDim, d = i % kHeadDim;
     const int row = row0 + r;
-    qs[i] = row < lq ? to_f(qb[row * st.q[1] + d]) * scale : 0.f;
+    qs[i] = row < lq ? to_f(qb[row * st.q[1] + d]) : 0.f;
     gs[i] = row < lq ? to_f(gb[row * st.g[1] + d]) : 0.f;
   }
 
@@ -204,9 +204,12 @@ __device__ __forceinline__ void bwd_rows_body(
 #pragma unroll
         for (int r = 0; r < kBwdRowsPerThread; ++r) {
           float s = acc[r];
-          if (pass == 0 && kHasBias) {
+          if (pass == 0) {
+            // the forward's score: times the scale, then + the bias
+            s = __fmul_rn(s, scale);
             const int row = row0 + rbase + r;
-            if (row < lq) s += bb[row * st.b[1] + key];
+            if (kHasBias && row < lq)
+              s = __fadd_rn(s, bb[row * st.b[1] + key]);
           }
           dst[(rbase + r) * m + key] = s;
         }
@@ -350,11 +353,11 @@ __device__ __forceinline__ void bwd_keys_body(
       if (row < lq && key < m) {
         float s = 0.f, dd = 0.f;
         for (int d = 0; d < kHeadDim; ++d)
-          s = fmaf(Qs[r * kTileStride + d] * scale, Ks[j * kTileStride + d],
-                   s);
+          s = fmaf(Qs[r * kTileStride + d], Ks[j * kTileStride + d], s);
         for (int d = 0; d < kHeadDim; ++d)
           dd = fmaf(Gs[r * kTileStride + d], Vs[j * kTileStride + d], dd);
-        if (kHasBias) s += bb[row * st.b[1] + key];
+        s = __fmul_rn(s, scale);
+        if (kHasBias) s = __fadd_rn(s, bb[row * st.b[1] + key]);
         const float p = expf(s - mstat[row]) / lstat[row];
         const bool kept = keep_elem(salt, row, m, key, drop.rate);
         dropped = kept ? p * drop.inv : 0.f;

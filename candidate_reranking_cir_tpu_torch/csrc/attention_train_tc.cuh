@@ -18,7 +18,7 @@
 // attention_train.cu (the tensor cores would round fp32 to TF32; no path
 // launches K6-K9 with a bias).
 //
-// K6's and K8's function: p = softmax(fl((q * scale) . k^T)) in fp32 with
+// K6's and K8's function: p = softmax(fl(q . k^T) * scale) in fp32 with
 // a divide; at rate > 0, kept ? fl(p * inv) : 0; rounded to bf16; P.V
 // with fp32 sums. The same steps in the same order for both, so K8 on
 // [E, L, H*D] gives K6's bits on the [E, L, H, D] copy.
@@ -45,7 +45,7 @@
 //
 // The backward's function, per (entry b, head h), with the K5 mask
 // keep(seed, b, h, row, col = key) and inv = 1 / (1 - rate):
-//   p = softmax(fl((q * scale) . k^T)) in fp32, with a divide;
+//   p = softmax(fl(q . k^T) * scale) in fp32, with a divide;
 //   dropped = keep ? p * inv : 0 (fp32);
 //   dv = dropped^T . g, with fp32 dropped and g upcast from bf16;
 //   d_dropped = g . v^T; d_probs = keep ? d_dropped * inv : 0;

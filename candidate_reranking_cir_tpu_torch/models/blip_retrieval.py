@@ -53,9 +53,30 @@ class RetrievalModel(nn.Module):
         """Raw [B, M, D] -> normalized projected CLS."""
         return l2_normalize(self.vision_proj(feats[:, 0]))
 
+    def forward(self, images, input_ids, attention_mask, *,
+                deterministic: bool = True, seeds=None,
+                intermediates: dict | None = None,
+                perturbations: dict | None = None):
+        """JAX's convenience ``__call__``: embed ``images``, fuse them with
+        the text, contrast the prediction with the pooled images; [B, B]
+        logits. ``seeds``: (the ViT's seed table, the MED's) when not
+        deterministic; ``intermediates`` / ``perturbations`` as
+        ``fuse``'s."""
+        vit_seeds, text_seeds = (None, None) if seeds is None else seeds
+        feats, pooled = self.embed_images(
+            images, pool_and_normalize=True, deterministic=deterministic,
+            seeds=vit_seeds)
+        pred = self.fuse(feats, input_ids, attention_mask,
+                         deterministic=deterministic, seeds=text_seeds,
+                         intermediates=intermediates,
+                         perturbations=perturbations)
+        return self.contrastive_logits(pred, pooled)
+
     def fuse(self, ref_image_feats, input_ids, attention_mask, *,
              return_raw: bool = False, deterministic: bool = True,
-             seeds=None, query_group: int = 1):
+             seeds=None, query_group: int = 1,
+             intermediates: dict | None = None,
+             perturbations: dict | None = None):
         """Text cross-attends to the reference image tokens.
 
         return_raw=True -> last_hidden_state z_t [B, L, D] (stage-II input);
@@ -64,10 +85,15 @@ class RetrievalModel(nn.Module):
         not deterministic. ``query_group`` Q > 1: image-major fusion,
         input_ids / attention_mask [G*Q, L] (Q queries per image,
         image-contiguous) against ref_image_feats [G, M, D]; each layer's
-        image K/V projections run once per image (the same function)."""
+        image K/V projections run once per image (the same function).
+        ``intermediates`` / ``perturbations``: the MED's attention capture
+        and perturbation (``TextEncoder.forward``; the config's
+        ``capture_attention`` / ``perturb_attention``)."""
         hidden = self.text_encoder(input_ids, attention_mask, ref_image_feats,
                                    deterministic=deterministic, seeds=seeds,
-                                   query_group=query_group)
+                                   query_group=query_group,
+                                   intermediates=intermediates,
+                                   perturbations=perturbations)
         if return_raw:
             return hidden
         return l2_normalize(self.text_proj(hidden[:, 0]))

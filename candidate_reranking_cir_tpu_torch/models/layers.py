@@ -25,10 +25,12 @@ from torch.utils.checkpoint import (
 
 from candidate_reranking_cir_tpu_torch.ops import attention_train
 from candidate_reranking_cir_tpu_torch.ops.attention import (
+    _dropout_probs,
     dot_product_attention,
     dot_product_attention_folded,
     dot_product_attention_folded_train,
 )
+from candidate_reranking_cir_tpu_torch.ops.cuda_attention import scaled_scores
 
 
 class DotsPolicy:
@@ -204,16 +206,25 @@ class MultiHeadAttention(nn.Module):
     >= 128 keys; the unfolded [.., L, H, D] kernels otherwise. Train with
     attention dropout: the folded in-kernel-dropout route where
     ``attention_train.eligible`` holds (with ``seed``), else the unfolded
-    route, whose dropout comes from ``generator``."""
+    route, whose dropout comes from ``generator``.
+
+    ``capture_attention`` / ``perturb_attention`` (JAX ``layers.py:178-187,
+    303-323``): every call takes the plain introspection route
+    (``_introspect``), never a folded one, after the ``cache`` and
+    ``precomputed_kv`` branches too, as in JAX."""
 
     def __init__(self, num_heads: int, head_dim: int, out_features: int,
                  kv_features: int | None = None, dtype=torch.float32,
-                 device=None, dropout_rate: float = 0.0):
+                 device=None, dropout_rate: float = 0.0,
+                 capture_attention: bool = False,
+                 perturb_attention: bool = False):
         super().__init__()
         width = num_heads * head_dim
         kv_features = out_features if kv_features is None else kv_features
         self.num_heads, self.head_dim = num_heads, head_dim
         self.dropout_rate = dropout_rate
+        self.capture_attention = capture_attention
+        self.perturb_attention = perturb_attention
         self.query = Dense(out_features, width, dtype, device)
         self.key = Dense(kv_features, width, dtype, device)
         self.value = Dense(kv_features, width, dtype, device)
@@ -222,8 +233,15 @@ class MultiHeadAttention(nn.Module):
     def forward(self, x, y=None, bias=None, *, deterministic: bool = True,
                 seed: int | None = None, generator=None,
                 kv_only: bool = False, precomputed_kv=None, cache=None,
-                cache_index: int | None = None):
-        """Incremental decoding (JAX ``layers.py:190-287``; each off by
+                cache_index: int | None = None, record=None,
+                perturbation=None):
+        """``record`` (with ``capture_attention``): called with each call's
+        fp32 probabilities [.., H, Lq, M], before the perturbation and the
+        dropout. ``perturbation`` (with ``perturb_attention``): a tensor of
+        that shape added to them (zeros with ``requires_grad``: its
+        gradient is dLoss/dProbs).
+
+        Incremental decoding (JAX ``layers.py:190-287``; each off by
         default, each on the unfolded route):
 
         kv_only         return (k, v) of ``y`` [.., M, H, D] only: a
@@ -236,6 +254,7 @@ class MultiHeadAttention(nn.Module):
                         the whole cache. Returns (out, (k_cache, v_cache)).
         """
         heads = (self.num_heads, self.head_dim)
+        introspect = self.capture_attention or self.perturb_attention
         if kv_only:
             y = x if y is None else y
             return (self.key(y).unflatten(-1, heads),
@@ -250,14 +269,24 @@ class MultiHeadAttention(nn.Module):
                     self.key(x).unflatten(-1, heads).to(k.dtype)
                 v[..., cache_index:cache_index + 1, :, :] = \
                     self.value(x).unflatten(-1, heads).to(v.dtype)
-            ctx = dot_product_attention(
-                q, k, v, bias, dropout_rate=self.dropout_rate,
-                deterministic=deterministic, seed=seed,
-                generator=generator).flatten(-2)
-            out = self.out(ctx)
+            if introspect:
+                ctx = self._introspect(q, k, v, bias, deterministic,
+                                       generator, record, perturbation)
+            else:
+                ctx = dot_product_attention(
+                    q, k, v, bias, dropout_rate=self.dropout_rate,
+                    deterministic=deterministic, seed=seed,
+                    generator=generator)
+            out = self.out(ctx.flatten(-2))
             return out if cache is None else (out, (k, v))
         is_cross = y is not None
         y = x if y is None else y
+        if introspect:
+            q, k, v = (proj(t).unflatten(-1, heads) for proj, t in
+                       ((self.query, x), (self.key, y), (self.value, y)))
+            return self.out(self._introspect(
+                q, k, v, bias, deterministic, generator, record,
+                perturbation).flatten(-2))
         train_drop = not deterministic and self.dropout_rate > 0.0
         if train_drop:
             folded = ((bias is None
@@ -282,6 +311,30 @@ class MultiHeadAttention(nn.Module):
                 deterministic=deterministic, seed=seed,
                 generator=generator).flatten(-2)
         return self.out(ctx)
+
+    def _introspect(self, q, k, v, bias, deterministic: bool, generator,
+                    record, perturbation):
+        """The capture / perturbation route, JAX's XLA einsums in JAX's
+        order (no kernel, as in JAX): the plain version's fp32 scores
+        (``scaled_scores``) plus the fp32 bias; an fp32 softmax
+        (max-subtracted exp and a divide); the record; the perturbation;
+        dropout from ``generator``; the probabilities cast to the compute
+        dtype for P.V with fp32 accumulation; the context in that dtype.
+        q [.., Lq, H, D]; k, v [.., M, H, D]; returns [.., Lq, H, D]."""
+        dtype = q.dtype
+        scores = scaled_scores(q, k)
+        if bias is not None:
+            scores = scores + bias.float()
+        scores = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+        probs = scores / scores.sum(dim=-1, keepdim=True)
+        if self.capture_attention and record is not None:
+            record(probs)
+        if self.perturb_attention and perturbation is not None:
+            probs = probs + perturbation
+        if not deterministic and self.dropout_rate > 0.0:
+            probs = _dropout_probs(probs, self.dropout_rate, generator)
+        return torch.einsum("...hqk,...khd->...qhd", probs.to(dtype).float(),
+                            v.float()).to(dtype)
 
 
 class Mlp(nn.Module):

@@ -52,10 +52,13 @@ import torch
 
 from candidate_reranking_cir_tpu_torch.ops.cuda_attention import (
     DTYPE_CODES,
+    KERNEL_HEAD_DIM,
     _bias3,
     bias_args,
     check_kernel_inputs,
+    pad_heads,
     raise_on_error,
+    scaled_scores,
 )
 
 LAUNCHES = {"K5": 0, "K6": 0, "K7": 0, "K8": 0, "K9": 0}
@@ -66,7 +69,6 @@ MIN_ROWS = 128
 MAX_ENTRIES_FWD = 8
 MAX_ENTRIES_BWD = 4
 
-HEAD_DIM = 64  # the only head width the kernels take
 _U32 = 0xFFFFFFFF
 _INT32_MIN, _INT32_MAX = -2 ** 31, 2 ** 31 - 1
 
@@ -179,10 +181,9 @@ def _acc_dtype(dtype):
 
 def _probs(q, k, bias3, acc):
     """fp32 softmax probabilities [E, H, Lq, M] (``_head_scores`` and
-    ``_softmax_fp32``), the scale folded into q in q's dtype (exact, as in
-    the JAX package, for the power-of-two scales of d = 4^n)."""
-    scale = q.shape[-1] ** -0.5
-    scores = torch.einsum("elhd,emhd->ehlm", (q * scale).to(acc), k.to(acc))
+    ``_softmax_fp32``), the scale applied by the JAX package's rule
+    (``scaled_scores``: the accumulated scores times the scale)."""
+    scores = scaled_scores(q, k, acc)
     if bias3 is not None:
         scores = scores + bias3.to(acc).unsqueeze(1)
     scores = scores - scores.amax(dim=-1, keepdim=True)
@@ -214,8 +215,9 @@ def attention_train_plain(q, k, v, bias3, seed: int, rate: float):
 def attention_train_bwd_plain(q, k, v, bias3, seed: int, g, rate: float):
     """K7's plain version: (dq, dk, dv) of ``attention_train_plain`` for
     the output cotangent g [E, Lq, H, D], with the Pallas kernel's
-    precisions (fp32 dropped and g in dv; d_scores cast to q's dtype
-    before dq and dk)."""
+    precisions (fp32 dropped and g in dv; d_scores times the scale in
+    fp32, then cast to q's dtype before dq and dk, at every scale, as
+    ``_bwd_kernel`` does)."""
     acc = _acc_dtype(q.dtype)
     scale = q.shape[-1] ** -0.5
     inv = 1.0 / (1.0 - rate) if rate > 0.0 else 1.0
@@ -273,14 +275,21 @@ def _stream(device):
 
 def _kernel_fwd(q, k, v, bias3, seed: int, rate: float, *,
                 folded: bool = False):
-    """K6 on [E, L, H, D] views, or K8 (``folded``) on the [E, L, H, D]
-    views of [E, L, H*D] tensors (head stride ``HEAD_DIM``)."""
+    """K6 on [E, L, H, d] views, or K8 (``folded``) on the [E, L, H, d]
+    views of [E, L, H*d] tensors. Heads narrower than the kernels' width
+    run zero-padded (``pad_heads``: the padded copy of a folded tensor has
+    the head stride ``KERNEL_HEAD_DIM`` that K8 takes) at their own scale,
+    and the output is sliced back to d."""
     from candidate_reranking_cir_tpu_torch.ops.build import (
         load_attention_train_library,
     )
 
     lib = load_attention_train_library()
-    e, lq, h, d, m = check_kernel_inputs({"q": q, "k": k, "v": v}, HEAD_DIM,
+    d = q.shape[-1]
+    scale = d ** -0.5
+    q, k, v = pad_heads(q, k, v)
+    e, lq, h, _, m = check_kernel_inputs({"q": q, "k": k, "v": v},
+                                         KERNEL_HEAD_DIM,
                                          lib.crc_attention_train_max_keys())
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     bias_ptr, bias_strides = bias_args(bias3, q.device)
@@ -292,12 +301,12 @@ def _kernel_fwd(q, k, v, bias3, seed: int, rate: float, *,
     err = launch(
         DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         bias_ptr, out.data_ptr(), (ctypes.c_longlong * 14)(*strides), e, h,
-        lq, m, d ** -0.5, seed, rate, 1.0 / (1.0 - rate), _stream(q.device))
+        lq, m, scale, seed, rate, 1.0 / (1.0 - rate), _stream(q.device))
     raise_on_error(err, kid, {"q": q, "k": k, "v": v, "out": out})
     LAUNCHES[kid] += 1
     if rate > 0.0:
         LAUNCHES["K5"] += 1
-    return out
+    return out if d == KERNEL_HEAD_DIM else out[..., :d]
 
 
 def fwd_uses_tensor_cores(dtype, bias3, folded: bool) -> bool:
@@ -328,14 +337,18 @@ def bwd_uses_tensor_cores(dtype, bias3, folded: bool) -> bool:
 
 def _kernel_bwd(q, k, v, bias3, seed: int, g, rate: float, *,
                 folded: bool = False):
-    """K7, or K9 (``folded``), on [E, L, H, D] views as ``_kernel_fwd``."""
+    """K7, or K9 (``folded``), on [E, L, H, d] views as ``_kernel_fwd``,
+    narrow heads zero-padded and dq, dk, dv sliced back to d."""
     from candidate_reranking_cir_tpu_torch.ops.build import (
         load_attention_train_library,
     )
 
     lib = load_attention_train_library()
-    e, lq, h, d, m = check_kernel_inputs(
-        {"q": q, "k": k, "v": v, "g": g}, HEAD_DIM,
+    d = q.shape[-1]
+    scale = d ** -0.5
+    q, k, v, g = pad_heads(q, k, v, g)
+    e, lq, h, _, m = check_kernel_inputs(
+        {"q": q, "k": k, "v": v, "g": g}, KERNEL_HEAD_DIM,
         lib.crc_attention_train_max_keys())
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
@@ -353,13 +366,15 @@ def _kernel_bwd(q, k, v, bias3, seed: int, g, rate: float, *,
         DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         bias_ptr, g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         stats.data_ptr(), (ctypes.c_longlong * 23)(*strides), e, h, lq, m,
-        d ** -0.5, seed, rate, inv, _stream(q.device))
+        scale, seed, rate, inv, _stream(q.device))
     raise_on_error(err, kid, {"q": q, "k": k, "v": v, "g": g, "dq": dq,
                               "dk": dk, "dv": dv})
     LAUNCHES[kid] += 1
     if rate > 0.0:
         LAUNCHES["K5"] += 1
-    return dq, dk, dv
+    if d == KERNEL_HEAD_DIM:
+        return dq, dk, dv
+    return dq[..., :d], dk[..., :d], dv[..., :d]
 
 
 class _TrainAttention(torch.autograd.Function):

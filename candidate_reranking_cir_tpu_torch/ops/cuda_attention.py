@@ -26,6 +26,14 @@ ViT's 577 x 577 by a hair, the MED's 40 x 577 clearly) and for K2/K4
 rows per candidate, bytes at its narrowest call of 32 rows (``PERF.md``
 has each bound).
 
+Head widths and the scale: the kernels are built for d = 64 (ViT-B/16's
+and the MED's heads). A narrower head (the tiny configs' 6 or 8) runs
+zero-padded to 64 (``pad_heads``) with its own scale d ** -0.5, and the
+output is sliced back; a wider one raises. The scale follows the JAX
+package's rule (``scaled_scores``): the fp32 scores times the scale, at
+every width, in the kernels and the plain versions alike (bit-equal to
+JAX's fold of a power-of-two scale into q).
+
 A tensor on the CPU goes to the plain version; a tensor on the card goes to
 the kernel or the wrapper raises. ``LAUNCHES`` counts kernel launches per
 kernel id; only a launch adds to it.
@@ -42,11 +50,13 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_YZ = 65535
+KERNEL_HEAD_DIM = 64  # the head width the kernels are built for (kHeadDim)
 
 
 def reset_launch_counts() -> None:
@@ -54,17 +64,29 @@ def reset_launch_counts() -> None:
         LAUNCHES[key] = 0
 
 
+def scaled_scores(q, k, acc=torch.float32):
+    """Scores [.., H, Lq, M] = q.k^T * d ** -0.5 in ``acc`` (q [.., Lq, H,
+    D], k [.., M, H, D]): the accumulated
+    scores times the scale, as the kernels do. This is the JAX package's
+    rule (``_head_attention``, ``_head_scores``) in one path: JAX folds an
+    exact power of two (d = 4^n, 64 on every path) into q, which only
+    shifts exponents and so rounds as the product does, and multiplies
+    the scores by any other scale."""
+    return torch.einsum("...lhd,...mhd->...hlm", q.to(acc), k.to(acc)) \
+        * q.shape[-1] ** -0.5
+
+
 def attention_plain(q, k, v, bias=None):
     """Plain version of the kernels' function.
 
     q [E, Lq, H, D]; k, v [E, M, H, D]; bias None or fp32 broadcastable to
-    [E, Lq, M] (head-independent). Scale folded into q in q's dtype, fp32
-    scores, max-subtracted exp, a divide, probabilities cast to v's dtype
-    before P.V, fp32 P.V accumulation, output in q's dtype.
+    [E, Lq, M] (head-independent). fp32 scores with the scale applied by
+    ``scaled_scores``' rule, max-subtracted exp, a divide, probabilities
+    cast to v's dtype before P.V, fp32 P.V accumulation, output in q's
+    dtype.
     """
     dtype = q.dtype
-    scale = q.shape[-1] ** -0.5
-    scores = torch.einsum("elhd,emhd->ehlm", (q * scale).float(), k.float())
+    scores = scaled_scores(q, k)
     if bias is not None:
         scores = scores + bias.float().unsqueeze(1)
     scores = scores - scores.amax(dim=-1, keepdim=True)
@@ -116,6 +138,22 @@ def check_kernel_inputs(tensors: dict, head_dim: int,
     return e, lq, h, d, m
 
 
+def pad_heads(*tensors):
+    """[.., H, d] views -> zero-padded to the kernels' head width
+    [.., H, KERNEL_HEAD_DIM] (the same tensors at d = KERNEL_HEAD_DIM).
+    Padded lanes add exact zeros to every score and every gradient, and
+    the outputs' padded lanes are zeros that the caller slices off; the
+    caller launches at the true scale d ** -0.5. Widths above the kernels'
+    raise."""
+    d = tensors[0].shape[-1]
+    if d > KERNEL_HEAD_DIM:
+        raise ValueError(f"head width {d} exceeds the attention kernels' "
+                         f"{KERNEL_HEAD_DIM}")
+    if d == KERNEL_HEAD_DIM:
+        return tensors
+    return tuple(F.pad(t, (0, KERNEL_HEAD_DIM - d)) for t in tensors)
+
+
 def bias_args(bias3, device) -> tuple[int | None, list[int]]:
     """(pointer, [entry, row] strides) of an fp32 [E, Lq, M] bias view, or
     (None, [0, 0]) without one."""
@@ -160,8 +198,9 @@ def raise_on_error(err: int, kid: str, tensors: dict) -> None:
                            f"cudaError {err}")
 
 
-def _launch(kid: str, q4, k4, v4, bias3, out4) -> None:
-    """Launch the CUDA kernel on 4-D [E, L, H, D] views (strided)."""
+def _launch(kid: str, q4, k4, v4, bias3, out4, scale: float) -> None:
+    """Launch the CUDA kernel on 4-D [E, L, H, KERNEL_HEAD_DIM] views
+    (strided) at ``scale``."""
     from candidate_reranking_cir_tpu_torch.ops.build import (
         load_attention_library,
     )
@@ -175,17 +214,21 @@ def _launch(kid: str, q4, k4, v4, bias3, out4) -> None:
     c_strides = (ctypes.c_longlong * 14)(*strides)
     err = lib.crc_attention_forward(
         DTYPE_CODES[q4.dtype], q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
-        bias_ptr, out4.data_ptr(), c_strides, e, h, lq, m, d ** -0.5,
+        bias_ptr, out4.data_ptr(), c_strides, e, h, lq, m, scale,
         torch.cuda.current_stream(out4.device).cuda_stream)
     raise_on_error(err, kid, {"q": q4, "k": k4, "v": v4, "out": out4})
     LAUNCHES[kid] += 1
 
 
 def _kernel_forward(kid: str, q4, k4, v4, bias3):
-    """The kernel's output [E, Lq, H, D] for 4-D views q4, k4, v4."""
+    """The kernel's output [E, Lq, H, d] for 4-D views q4, k4, v4; heads
+    narrower than the kernels' width run zero-padded (``pad_heads``) at
+    their own scale, and the output is sliced back to d."""
+    d = q4.shape[-1]
+    q4, k4, v4 = pad_heads(q4, k4, v4)
     out = torch.empty(q4.shape, dtype=q4.dtype, device=q4.device)
-    _launch(kid, q4, k4, v4, bias3, out)
-    return out
+    _launch(kid, q4, k4, v4, bias3, out, d ** -0.5)
+    return out if d == KERNEL_HEAD_DIM else out[..., :d]
 
 
 class _EvalAttention(torch.autograd.Function):

@@ -42,6 +42,7 @@ from candidate_reranking_cir_tpu_torch.config import (
     RerankerModelConfig,
     RetrievalModelConfig,
 )
+from candidate_reranking_cir_tpu_torch.ops.resize import resize_matrix
 
 # HeadOutProjection module names: kernel [H, D, out] (all other 3-D kernels
 # are HeadProjection [in, H, D])
@@ -221,33 +222,6 @@ _STAGE2 = [
 ]
 
 
-def _keys_cubic(x: np.ndarray) -> np.ndarray:
-    """Keys' cubic convolution kernel with a = -0.5 (``jax.image``'s
-    'bicubic'; torch's bicubic takes a = -0.75)."""
-    x = np.abs(x)
-    out = ((1.5 * x - 2.5) * x) * x + 1.0
-    out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
-    return np.where(x >= 2.0, 0.0, out)
-
-
-def resize_matrix(n_in: int, n_out: int) -> np.ndarray:
-    """[n_out, n_in] weights of ``jax.image.resize(..., 'bicubic')`` along
-    one axis (``jax._src.image.scale.compute_weight_mat``): half-pixel
-    centres, the kernel widened by the scale when shrinking (antialias),
-    each output's weights over the input normalized to sum 1 (so the
-    border renormalizes rather than clamps)."""
-    inv_scale = n_in / n_out
-    sample = (np.arange(n_out) + 0.5) * inv_scale - 0.5
-    dist = np.abs(sample[None, :] - np.arange(n_in)[:, None]) \
-        / max(inv_scale, 1.0)
-    w = _keys_cubic(dist)                                  # [n_in, n_out]
-    total = w.sum(axis=0, keepdims=True)
-    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
-                 w / np.where(total != 0, total, 1), 0.0)
-    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
-    return np.where(inside[None, :], w, 0.0).T
-
-
 def interpolate_pos_embed(pos: np.ndarray, num_patches: int) -> np.ndarray:
     """Resize a checkpoint's position embeddings [1, 1 + old_patches, D] to
     a grid of ``num_patches`` (reference vit.py:281-305; the JAX package's
@@ -378,3 +352,52 @@ def load_reference_state_dict(sd, cfg, model: str = "retrieval"
             out.setdefault(f"text_encoder.layers.{i}.merge.bias",
                            torch.zeros(d))
     return out
+
+
+def convert_vit_npz(path_or_dict, num_layers: int, num_patches: int, *,
+                    prefix: str = "") -> dict[str, torch.Tensor]:
+    """An original JAX/Flax ViT checkpoint (a ``.npz`` of
+    google-research/vision_transformer, or a dict of its arrays) -> the
+    port ``VisionTransformer``'s state dict, its keys under ``prefix``
+    ('visual_encoder.' inside a ``RetrievalModel``); the JAX package's
+    ``runtime/convert.py::convert_vit_npz``, the capability of the
+    reference's ``_load_weights`` (vit.py:201-278). The npz keeps the
+    multi-head layout ([in, heads, head_dim] kernels), so this is a key
+    map and the position embeddings resized to ``num_patches``
+    (``interpolate_pos_embed``)."""
+    if isinstance(path_or_dict, Mapping):
+        w = dict(path_or_dict)
+    else:
+        with np.load(path_or_dict) as f:
+            w = dict(f)
+    a = lambda key: np.asarray(w[key], np.float32)
+    conv = a("embedding/kernel")                     # [P, P, 3, D]
+    out = {"patch_embed.proj.weight": conv.reshape(-1, conv.shape[-1]).T,
+           "patch_embed.proj.bias": a("embedding/bias"),
+           "cls_token": a("cls"),
+           "pos_embed": interpolate_pos_embed(
+               a("Transformer/posembed_input/pos_embedding"), num_patches),
+           "norm.weight": a("Transformer/encoder_norm/scale"),
+           "norm.bias": a("Transformer/encoder_norm/bias")}
+    for i in range(num_layers):
+        src = f"Transformer/encoderblock_{i}/"
+        att = src + "MultiHeadDotProductAttention_1/"
+        dst = f"blocks.{i}."
+        for part in ("query", "key", "value"):
+            kernel = a(att + f"{part}/kernel")       # [in, H, D]
+            out[dst + f"attn.{part}.weight"] = \
+                kernel.reshape(kernel.shape[0], -1).T
+            out[dst + f"attn.{part}.bias"] = a(att + f"{part}/bias") \
+                .reshape(-1)
+        kernel = a(att + "out/kernel")               # [H, D, out]
+        out[dst + "attn.out.weight"] = kernel.reshape(-1, kernel.shape[-1]).T
+        out[dst + "attn.out.bias"] = a(att + "out/bias")
+        for norm, name in (("norm1", "LayerNorm_0"),
+                           ("norm2", "LayerNorm_2")):
+            out[dst + f"{norm}.weight"] = a(src + f"{name}/scale")
+            out[dst + f"{norm}.bias"] = a(src + f"{name}/bias")
+        for fc, name in (("fc1", "Dense_0"), ("fc2", "Dense_1")):
+            out[dst + f"mlp.{fc}.weight"] = \
+                a(src + f"MlpBlock_3/{name}/kernel").T
+            out[dst + f"mlp.{fc}.bias"] = a(src + f"MlpBlock_3/{name}/bias")
+    return {prefix + k: _to_tensor(v) for k, v in out.items()}

@@ -22,7 +22,9 @@ Phases, each printing its own lines:
    eval path's ViT batch and at its most-launched and widest image-major
    MED shapes; K2 and K3 also at the caption decoder's shapes: a cached
    step's one query row over 20 cache slots with their mask and over the
-   577 image tokens, a recompute step's causal [E, 1, L, L] bias): max
+   577 image tokens, a recompute step's causal [E, 1, L, L] bias; and, in
+   bf16, heads narrower than the kernels' 64, which the wrappers pad: K2
+   and K3 at the demo's 6-wide heads, K1 at 8-wide ones): max
    |error| against the plain PyTorch version,
    kernel / plain / SDPA times over back-to-back calls (CUDA events, as
    for every kernel) and the kernel/SDPA ratio (SDPA is a yardstick only;
@@ -137,10 +139,29 @@ Phases, each printing its own lines:
     recompute ids, card ids equal to the CPU's but after a step whose
     top-2 logit gap is under 1e-5 (named), step logits within 1e-3; then
     ``BlipBase`` in each mode, fp32 card vs CPU.
+14. attention capture, device preprocessing and the glue modules, at
+    full width (a stage-I ``RetrievalModel``: ViT-B/16 @ 384, the
+    12-layer MED, ``text_len`` 40, random weights from the seed):
+    ``[image_ops]`` 32 uint8 480 x 640 images padded on the host (bit for
+    bit the PIL ``target_pad``) and preprocessed on the card (against the
+    CPU, and a smooth image against PIL), ms a batch and the bytes a
+    loader copies, then the ViT embeds them (K1 > 0); ``[capture]`` 4
+    reference images' 4 captions each at query_group 4 with
+    ``capture_attention`` and ``perturb_attention``, fp32 and bf16: the
+    records' shapes and row sums, the fp32 captured z_t against the kernel
+    route, card against CPU (probabilities, z_t, dLoss/dProbs), ms and
+    peak GiB of a captured and an uncaptured fusion batch and the
+    perturbation backward; ``[trace]`` a captured batch between
+    ``start_trace`` and ``stop_trace`` (the phases and a kernel record in
+    the trace; the ``PhaseTimer`` summary); ``[export]`` the model and its
+    AdamW saved, ``cli/export_checkpoint --stage 1``, the ``.pt`` loaded
+    back bit for bit; ``[entry]`` ``entry()`` ([2, 4] finite scores, K1 >
+    0); ``[demo]`` ``demo.main --device cuda`` (every artifact of the JAX
+    package's demo, K2 and K3 > 0 at 6-wide heads).
 12. a JSON line of kernel figures (``launches_by_path`` adds phase 10's
-    counts as "train_cli", phase 11's as "serve" and phase 13's as
-    "caption"), then the card's name and power limit, then the last line
-    ``{"ok": true, "device": {...}}``.
+    counts as "train_cli", phase 11's as "serve", phase 13's as
+    "caption" and phase 14's as "glue"), then the card's name and power
+    limit, then the last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero without the last line.
 Imports nothing of JAX.
@@ -250,6 +271,18 @@ CAP_SAMPLE = {"max_len": 30, "min_len": 10, "top_p": 0.9,
               "repetition_penalty": 1.1}
 CAP_PROMPT = "a dog with"      # three words of the toy vocabulary
 CAP_CHECK_B, CAP_TIE_GAP = 2, 1e-5
+# phase 14: device preprocessing of IMG_B uint8 images of IMG_HW (H, W)
+# against the CPU (fp32) and, on a smooth image, PIL
+# (tests/test_image_ops.py's bound); capture over CAP_G reference images'
+# CAP_Q captions each (query_group CAP_Q): fp32 card vs CPU probabilities
+# CAP_PROB_TOL, z_t CAP_Z_TOL, dLoss/dProbs CAP_GRAD_REL_TOL of the
+# largest; bf16 probabilities gated at bf16's tolerance; the captured
+# fp32 fusion against the kernel route CAP_ROUTE_TOL
+IMG_B, IMG_HW = 32, (480, 640)
+IMAGE_OPS_TOL, IMAGE_OPS_PIL_MEAN = 1e-4, 0.12
+CAP_G, CAP_Q = 4, 4
+CAP_PROB_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+CAP_Z_TOL, CAP_GRAD_REL_TOL, CAP_ROUTE_TOL = 1e-3, 1e-3, 1e-4
 # phase 10's native lines: native pixels against PIL within
 # tests/test_native_pipe.py's bounds (8-bit units), on a few jpegs
 NATIVE_MEAN_TOL, NATIVE_MAX_TOL, NATIVE_PIXEL_IMAGES = 0.5, 10.0, 8
@@ -401,11 +434,28 @@ def kernel_cases(stage1_cases: list):
     ]
 
 
-def run_kernel_case(kid, label, e, lq, m, h, folded, with_bias, dtype):
+# heads narrower than the kernels' 64, which the wrappers zero-pad: the
+# demo's (hidden 24 over 4 heads: 6 wide) at the MED's self-attention and
+# the candidate-major cross-attention, and the one-card entry's tiny
+# config's (32 over 4: 8 wide) at the ViT's 577 tokens; bf16, each a
+# (case, head width)
+NARROW_CASES = (
+    (("K2", "masked text self-attention, the demo's 6-wide heads", 256, 40,
+      40, 4, False, True), 6),
+    (("K3", "candidate-major cross-attention, the demo's 6-wide heads", 8,
+      32 * 40, 577, 4, False, False), 6),
+    (("K1", "ViT self-attention, 8-wide heads", 16, 577, 577, 4, True,
+      False), 8),
+)
+
+
+def run_kernel_case(kid, label, e, lq, m, h, folded, with_bias, dtype,
+                    d: int = 64):
     """``with_bias``: False, True (a key mask [E, 1, 1, M], row stride 0
     in the kernel) or 'causal' (the key mask plus (1 - tril) * -10000,
     [E, 1, Lq, M] with row stride M, as the caption decoder's recompute
-    step builds it)."""
+    step builds it). ``d``: the head width (below 64 the wrapper pads the
+    heads to the kernels' 64; the bound counts the true width)."""
     from candidate_reranking_cir_tpu_torch.ops import cuda_attention as ck
     from candidate_reranking_cir_tpu_torch.ops.attention import (
         make_additive_mask,
@@ -413,7 +463,6 @@ def run_kernel_case(kid, label, e, lq, m, h, folded, with_bias, dtype):
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    d = 64
     shape_q = (e, lq, h * d) if folded else (e, lq, h, d)
     shape_kv = (e, m, h * d) if folded else (e, m, h, d)
     q = torch.randn(shape_q, generator=g, device="cuda").to(dtype)
@@ -2916,6 +2965,416 @@ def caption_path(tok) -> dict:
     return {"launches": launches, "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: attention capture and perturbation, device-side preprocessing
+# and the glue modules
+
+
+def image_ops_lines(model):
+    """``[image_ops]``: IMG_B synthetic uint8 images of IMG_HW, padded on
+    the host (bit for bit the PIL ``target_pad``), preprocessed on the card
+    (against the same function on the CPU) and, on a smooth image, against
+    the PIL transform; ms a batch, the bytes a loader would copy; then the
+    ViT of ``model`` embeds the batch. Returns the preprocessed batch and
+    the launches of that embedding."""
+    import PIL.Image
+
+    from candidate_reranking_cir_tpu_torch.data.preprocessing import (
+        make_transform,
+        target_pad,
+    )
+    from candidate_reranking_cir_tpu_torch.ops import image_ops
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 21)
+    raw = rng.integers(0, 256, size=(IMG_B, *IMG_HW, 3), dtype=np.uint8)
+    padded = []
+    for img in raw:
+        out = image_ops.pad_to_target_ratio(torch.from_numpy(img), 1.25)
+        host = np.asarray(target_pad(PIL.Image.fromarray(img), 1.25))
+        if not np.array_equal(out.numpy(), host):
+            fail("[image_ops] pad_to_target_ratio differs from target_pad")
+        padded.append(out)
+    batch = torch.stack(padded)
+    dim = model.cfg.vit.image_size
+    dev = batch.to("cuda")
+    out = image_ops.preprocess_batch_uniform(dev, dim)
+    ref = image_ops.preprocess_batch_uniform(batch, dim)
+    err = (out.cpu() - ref).abs().max().item()
+    ms = time_ms(lambda: image_ops.preprocess_batch_uniform(dev, dim))
+    yy, xx = np.mgrid[0:IMG_HW[0], 0:IMG_HW[1]]
+    base = (np.stack([yy, xx, yy + xx], -1) % 255).astype(np.float32)
+    smooth = (0.8 * base + 10).astype(np.uint8)
+    pil = make_transform("targetpad", dim, 1.25)(PIL.Image.fromarray(smooth))
+    card = image_ops.preprocess_image(
+        torch.from_numpy(smooth).to("cuda"), dim, 1.25).cpu().numpy()
+    pil_err = float(np.abs(card - pil).mean())
+    print(f"[image_ops] {IMG_B} uint8 images {list(IMG_HW)} -> padded "
+          f"{list(batch.shape[1:3])} on the host (= target_pad), "
+          f"preprocess_batch_uniform({dim}) on the card: max|card - CPU| "
+          f"{err:.3e} (tol {IMAGE_OPS_TOL}), {ms:.3f} ms a batch (CUDA "
+          f"events); copy to the card {batch.numel() / 2 ** 20:.1f} MiB as "
+          f"uint8 against {out.numel() * 4 / 2 ** 20:.1f} MiB of fp32 "
+          f"pixels; smooth image vs PIL mean|diff| {pil_err:.4f} (bound "
+          f"{IMAGE_OPS_PIL_MEAN})", flush=True)
+    if not torch.isfinite(out).all() or err > IMAGE_OPS_TOL:
+        fail(f"[image_ops] card vs CPU {err:.3e}")
+    if pil_err >= IMAGE_OPS_PIL_MEAN:
+        fail(f"[image_ops] mean |card - PIL| {pil_err:.4f}")
+    reset_launch_counts()
+    with torch.inference_mode():
+        feats = model.embed_images(out)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    k1 = launches["K1"]
+    print(f"[image_ops] the ViT embeds the batch: {list(feats.shape)}, K1 "
+          f"launches {k1}; {time.perf_counter() - t0:.1f} s", flush=True)
+    if not torch.isfinite(feats).all() or k1 <= 0:
+        fail("[image_ops] the ViT did not run on K1")
+    return out, launches
+
+
+def capture_inputs(tok, words):
+    """CAP_G reference images' CAP_Q captions each (3-30 words, the toy
+    vocabulary), tokenized to TEXT_LEN, and unit target features, from the
+    seed."""
+    rng = np.random.default_rng(SEED + 22)
+    captions = [" ".join(rng.choice(words, size=int(rng.integers(3, 31))))
+                for _ in range(CAP_G * CAP_Q)]
+    ids, mask = tok.encode(captions, TEXT_LEN, overflow="truncate")
+    target = torch.from_numpy(rng.normal(size=(CAP_G * CAP_Q, 256)).astype(
+        np.float32))
+    return (torch.from_numpy(ids), torch.from_numpy(mask),
+            target / target.norm(dim=-1, keepdim=True))
+
+
+def captured_fusion(model, feats, ids, mask, target):
+    """One captured fusion with zero perturbations: (z_t, records, the
+    perturbations' gradients of the prediction's cosine with ``target``)
+    at query_group CAP_Q."""
+    from candidate_reranking_cir_tpu_torch.models.blip_retrieval import (
+        l2_normalize,
+    )
+
+    dev = feats.device
+    rec = {}
+    perts = model.text_encoder.zero_perturbations(
+        ids.shape[0], ids.shape[1], feats.shape[1], device=dev)
+    hidden = model.fuse(feats, ids.to(dev), mask.to(dev), return_raw=True,
+                        query_group=CAP_Q, intermediates=rec,
+                        perturbations=perts)
+    pred = l2_normalize(model.text_proj(hidden[:, 0])).float()
+    loss = (pred * target.to(dev)).sum()
+    grads = torch.autograd.grad(loss, list(perts.values()))
+    return hidden.detach(), rec, dict(zip(perts, grads))
+
+
+def compare_captures(label: str, card, cpu, prob_tol: float,
+                     gated: bool) -> None:
+    """Card against CPU: probabilities, z_t and the gradients (each
+    against its largest magnitude); gated at ``prob_tol`` on the
+    probabilities and, where ``gated``, at CAP_Z_TOL and CAP_GRAD_REL_TOL
+    on z_t and the gradients."""
+    (z_a, rec_a, g_a), (z_b, rec_b, g_b) = card, cpu
+    p_err = max((rec_a[k].cpu() - rec_b[k]).abs().max().item() for k in rec_b)
+    z_err = (z_a.float().cpu() - z_b.float()).abs().max().item()
+    g_rel = max((g_a[k].cpu() - g_b[k]).abs().max().item()
+                / g_b[k].abs().max().item() for k in g_b)
+    print(f"[capture] {label}: probabilities max|diff| {p_err:.3e} (tol "
+          f"{prob_tol}), z_t {z_err:.3e}, dLoss/dProbs {g_rel:.3e} of the "
+          f"largest" + (f" (tols {CAP_Z_TOL}, {CAP_GRAD_REL_TOL})" if gated
+                        else " (reported)"), flush=True)
+    if p_err > prob_tol or (gated and (z_err > CAP_Z_TOL
+                                       or g_rel > CAP_GRAD_REL_TOL)):
+        fail(f"[capture] {label} is off the CPU")
+
+
+def capture_lines(models: dict, images, tok, words) -> None:
+    """``[capture]``: the MED's records and perturbation gradients at full
+    width, fp32 and bf16, card against the CPU, and the captured fusion
+    against the kernel route; ms and peak GiB of a captured batch, an
+    uncaptured one and the perturbation backward (bf16)."""
+    from candidate_reranking_cir_tpu_torch.models.med import (
+        CROSS_PROBS,
+        SELF_PROBS,
+    )
+
+    t0 = time.perf_counter()
+    ids, mask, target = capture_inputs(tok, words)
+    refs = images[:CAP_G]
+    for dtype in (torch.float32, torch.bfloat16):
+        cap, plain = models[dtype]
+        with torch.inference_mode():
+            feats = cap.embed_images(refs)
+        feats = feats.clone()
+        card = captured_fusion(cap, feats, ids, mask, target)
+        rec = card[1]
+        shapes = {k: list(v.shape) for k, v in rec.items()}
+        row_err = max((v.sum(-1) - 1).abs().max().item() for v in rec.values())
+        text = cap.cfg.text
+        shape = [text.num_layers, CAP_G * CAP_Q, text.num_heads, TEXT_LEN]
+        want = {SELF_PROBS: shape + [TEXT_LEN],
+                CROSS_PROBS: shape + [cap.cfg.vit.num_tokens]}
+        print(f"[capture] {str(dtype)[6:]} records {json.dumps(shapes)}, "
+              f"max|row sum - 1| {row_err:.3e}", flush=True)
+        if shapes != want or row_err > 1e-5:
+            fail(f"[capture] records {shapes}, row sums off by {row_err}")
+        if dtype == torch.float32:
+            with torch.inference_mode():
+                routed = plain.fuse(feats, ids.to("cuda"),
+                                    mask.to("cuda"), return_raw=True,
+                                    query_group=CAP_Q)
+            err = (card[0] - routed).abs().max().item()
+            print(f"[capture] fp32 z_t captured vs the kernel route "
+                  f"(image-major, K1/K2): max|diff| {err:.3e} (tol "
+                  f"{CAP_ROUTE_TOL})", flush=True)
+            if err > CAP_ROUTE_TOL:
+                fail("[capture] the captured fusion is off the kernel route")
+        # the CPU at the same inputs; bf16 over the first image's queries
+        n = CAP_G if dtype == torch.float32 else 1
+        cpu_model = type(cap)(cap.cfg, dtype=dtype, device="cpu")
+        cpu_model.load_state_dict(cap.state_dict())
+        sub = slice(0, n * CAP_Q)
+        cpu = captured_fusion(cpu_model, feats[:n].cpu(), ids[sub],
+                              mask[sub], target[sub])
+        card_sub = (card[0][sub], {k: v[:, sub] for k, v in rec.items()},
+                    {k: v[:, sub] for k, v in card[2].items()})
+        if n < CAP_G:   # the card's own run at the CPU's size
+            card_sub = captured_fusion(cap, feats[:n], ids[sub], mask[sub],
+                                       target[sub])
+        compare_captures(f"{str(dtype)[6:]} card vs CPU ({n * CAP_Q} "
+                         "queries)", card_sub, cpu,
+                         CAP_PROB_TOL[dtype], dtype == torch.float32)
+        del cpu_model, cpu, card, card_sub
+    cap, plain = models[torch.bfloat16]
+    with torch.inference_mode():
+        feats = cap.embed_images(refs)
+    feats = feats.clone()
+    dev_ids, dev_mask = ids.to("cuda"), mask.to("cuda")
+
+    def fuse(model, **kw):
+        with torch.inference_mode():
+            return model.fuse(feats, dev_ids, dev_mask, return_raw=True,
+                              query_group=CAP_Q, **kw)
+
+    cost = {}
+    for name, run in (("captured", lambda: fuse(cap, intermediates={})),
+                      ("uncaptured", lambda: fuse(plain))):
+        cost[name] = (time_ms(run, iters=5), peak_gib(run))
+    def perturbed():
+        perts = cap.text_encoder.zero_perturbations(
+            CAP_G * CAP_Q, TEXT_LEN, feats.shape[1], device="cuda")
+        hidden = cap.fuse(feats, dev_ids, dev_mask, return_raw=True,
+                          query_group=CAP_Q, perturbations=perts)
+        return hidden.float().sum(), list(perts.values())
+
+    back_ms = []
+    for _ in range(3):
+        loss, perts = perturbed()
+        back_ms.append(time_ms(
+            lambda: torch.autograd.grad(loss, perts, retain_graph=True),
+            iters=1))
+    del loss, perts
+    back_gib = peak_gib(lambda: torch.autograd.grad(*perturbed()))
+    print("[capture] bf16, " + ", ".join(
+        f"{k} fusion batch {v[0]:.2f} ms (peak {v[1]:.2f} GiB)"
+        for k, v in cost.items()) + f", perturbation backward "
+        f"{min(back_ms):.2f}-{max(back_ms):.2f} ms (peak of the forward "
+        f"and backward {back_gib:.2f} GiB); "
+        f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def peak_gib(run) -> float:
+    """The card's peak allocated GiB during one ``run``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def trace_lines(cap, images, tok, words, root: str) -> None:
+    """``[trace]``: one captured batch between ``start_trace`` and
+    ``stop_trace``, each step a ``PhaseTimer`` phase; the trace must name
+    the phases and hold a kernel record."""
+    from candidate_reranking_cir_tpu_torch.runtime import tracing
+
+    t0 = time.perf_counter()
+    ids, mask, target = capture_inputs(tok, words)
+    timer = tracing.PhaseTimer()
+    phases = ("capture_embed", "capture_fuse", "capture_backward")
+    tracing.start_trace(os.path.join(root, "trace"))
+    try:
+        with timer.phase(phases[0]):
+            with torch.no_grad():
+                feats = cap.embed_images(images[:CAP_G])
+        with timer.phase(phases[1]):
+            perts = cap.text_encoder.zero_perturbations(
+                CAP_G * CAP_Q, TEXT_LEN, feats.shape[1], device="cuda")
+            hidden = cap.fuse(feats, ids.to("cuda"),
+                              mask.to("cuda"), return_raw=True,
+                              query_group=CAP_Q, intermediates={},
+                              perturbations=perts)
+        with timer.phase(phases[2]):
+            torch.autograd.grad(hidden.float().sum(), list(perts.values()))
+            torch.cuda.synchronize()
+    finally:
+        path = tracing.stop_trace()
+    events = json.loads(open(path).read())["traceEvents"]
+    names = {e.get("name") for e in events}
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    print(f"[trace] {os.path.basename(path)}: {len(events)} events, "
+          f"{kernels} kernel records, phases "
+          f"{[p for p in phases if p in names]}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for line in timer.summary().splitlines():
+        print(f"[trace] {line}", flush=True)
+    if not set(phases) <= names or kernels == 0:
+        fail("[trace] the trace lacks a phase or a kernel record")
+    gc.collect()
+
+
+def export_lines(model, root: str) -> None:
+    """``[export]``: the full-width stage-I model and its AdamW saved as a
+    trainer checkpoint, ``cli/export_checkpoint --stage 1`` on it, and
+    ``load_params`` of the ``.pt`` equal to the state dict bit for bit."""
+    from candidate_reranking_cir_tpu_torch.cli import export_checkpoint
+    from candidate_reranking_cir_tpu_torch.cli.common import load_params
+    from candidate_reranking_cir_tpu_torch.runtime.checkpoint import (
+        save_checkpoint,
+    )
+    from candidate_reranking_cir_tpu_torch.runtime.optim import AdamW
+
+    from pathlib import Path
+
+    t0 = time.perf_counter()
+    ckpt, out = os.path.join(root, "blip_mean"), os.path.join(root, "s1.pt")
+    save_checkpoint(ckpt, model, AdamW(model.parameters(), lambda n: 2e-5,
+                                       0.05), metadata={"epoch": 0})
+    t_save = time.perf_counter() - t0
+    cfg = model.cfg
+    config = os.path.join(root, "model_config.json")
+    with open(config, "w") as f:
+        json.dump({"vit": {k: getattr(cfg.vit, k) for k in (
+            "image_size", "patch_size", "hidden_size", "num_layers",
+            "num_heads")}, "text": {k: getattr(cfg.text, k) for k in (
+                "vocab_size", "hidden_size", "num_layers", "num_heads",
+                "intermediate_size", "encoder_width")},
+            "embed_dim": cfg.embed_dim}, f)
+    with contextlib.redirect_stdout(sys.stderr):
+        export_checkpoint.main([
+            "--stage", "1", "--checkpoint", ckpt, "--out", out,
+            "--model-config", config, "--image-size",
+            str(cfg.vit.image_size), "--text-len", str(cfg.text_len),
+            "--device", "cuda"])
+    t_export = time.perf_counter() - t0 - t_save
+    loaded = load_params(out, 1, model.cfg)
+    want = {k: v.cpu() for k, v in model.state_dict().items()}
+    same = sorted(loaded) == sorted(want) and all(
+        torch.equal(loaded[k], want[k]) for k in want)
+    print(f"[export] checkpoint {checkpoint_gib(Path(ckpt)):.3f} GiB in "
+          f"{t_save:.1f} s; cli/export_checkpoint --stage 1: "
+          f"{os.path.getsize(out) / 2 ** 30:.3f} GiB in {t_export:.1f} s; "
+          f"load_params of the .pt equals the state dict bit for bit: "
+          f"{same} ({len(want)} tensors)", flush=True)
+    if not same:
+        fail("[export] the exported checkpoint does not load back equal")
+
+
+def entry_lines() -> dict:
+    """``[entry]``: the one-card check of the scoring path, at full width.
+    Returns the launches of its one call (not of the timing runs)."""
+    from candidate_reranking_cir_tpu_torch.entry import entry
+
+    t0 = time.perf_counter()
+    fn, args = entry("cuda")
+    reset_launch_counts()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    ms = time_ms(lambda: fn(*args), iters=5)
+    print(f"[entry] entry(): scores {list(out.shape)}, finite "
+          f"{bool(torch.isfinite(out).all())}, {ms:.2f} ms a call (CUDA "
+          f"events), launches {json.dumps(launches)}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if list(out.shape) != [2, 4] or not torch.isfinite(out).all() \
+            or launches["K1"] <= 0:
+        fail("[entry] the scoring path failed")
+    return launches
+
+
+def demo_lines(root: str) -> dict:
+    """``[demo]``: the port's quickstart on the card (its tiny models'
+    6-wide heads run the kernels padded); every artifact of the JAX
+    package's demo must be there, and K2 and K3 launched."""
+    from candidate_reranking_cir_tpu_torch import demo
+
+    t0 = time.perf_counter()
+    workdir = os.path.join(root, "demo")
+    reset_launch_counts()
+    with contextlib.redirect_stdout(sys.stderr):
+        res = demo.main(["--workdir", workdir, "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    missing = [a for a in demo.ARTIFACTS
+               if not os.path.isfile(os.path.join(workdir, a))]
+    print(f"[demo] demo.main --device {"cuda"}: "
+          f"{time.perf_counter() - t0:.1f} "
+          f"s, {len(demo.ARTIFACTS) - len(missing)} of "
+          f"{len(demo.ARTIFACTS)} artifacts, served top-{len(res.ranking)} "
+          f"(re-scored {res.reranked}); launches {json.dumps(launches)}",
+          flush=True)
+    if missing or launches["K2"] <= 0 or launches["K3"] <= 0:
+        fail(f"[demo] missing {missing} or no K2/K3 launch")
+    return launches
+
+
+def glue_path(tok, words) -> dict:
+    """Phase 14: ``[image_ops]``, ``[capture]``, ``[trace]``, ``[export]``,
+    ``[entry]`` and ``[demo]`` at full width (ViT-B/16 @ 384, the 12-layer
+    MED, ``text_len`` 40), random weights from the seed. Returns the
+    launches of the image_ops embedding, the one entry() call and the
+    demo, summed."""
+    from candidate_reranking_cir_tpu_torch.config import (
+        RetrievalModelConfig,
+        TextEncoderConfig,
+        vit_config,
+    )
+    from candidate_reranking_cir_tpu_torch.models.blip_retrieval import (
+        RetrievalModel,
+    )
+
+    t_phase = time.perf_counter()
+    cfg, cap_cfg = (RetrievalModelConfig(
+        vit=vit_config("base", 384), text=TextEncoderConfig(
+            capture_attention=flag, perturb_attention=flag),
+        text_len=TEXT_LEN) for flag in (False, True))
+    models = {}
+    torch.manual_seed(SEED + 20)
+    for dtype in (torch.bfloat16, torch.float32):
+        plain = RetrievalModel(cfg, dtype=dtype, device="cuda").eval()
+        if models:
+            plain.load_state_dict(models[torch.bfloat16][1].state_dict())
+        cap = RetrievalModel(cap_cfg, dtype=dtype, device="cuda").eval()
+        cap.load_state_dict(plain.state_dict())
+        for p in cap.parameters():
+            p.requires_grad_(False)
+        models[dtype] = (cap, plain)
+    images, launches = image_ops_lines(models[torch.bfloat16][1])
+    capture_lines(models, images, tok, words)
+    with tempfile.TemporaryDirectory() as root:
+        trace_lines(models[torch.bfloat16][0], images, tok, words, root)
+        export_lines(models[torch.bfloat16][1], root)
+        del models, images
+        gc.collect()
+        torch.cuda.empty_cache()
+        runs = [entry_lines(), demo_lines(root)]
+    launches = {k: v + sum(r[k] for r in runs) for k, v in launches.items()}
+    seconds = time.perf_counter() - t_phase
+    print(f"[glue] phase seconds {seconds:.1f}", flush=True)
+    return {"launches": launches, "seconds": seconds}
+
+
 def native_missing() -> str | None:
     """What the native libraries' build (``make -C native``: g++ and the
     libjpeg headers) lacks on this machine, or None."""
@@ -3039,6 +3498,8 @@ def main():
             # the JSON line keeps each kernel's first main-path shape, bf16
             if dtype == torch.bfloat16 and case[0] not in records:
                 records[case[0]] = rec
+    for case, d in NARROW_CASES:
+        run_kernel_case(*case, torch.bfloat16, d=d)
     for dtype in (torch.float32, torch.bfloat16):
         recs = run_train_kernel_cases(dtype)
         if dtype == torch.bfloat16:
@@ -3062,6 +3523,7 @@ def main():
     gc.collect()
     cli = train_cli_path(tok, words, native_ok)
     caption = caption_path(tok)
+    glue = glue_path(tok, words)
 
     kernels = []
     for kid in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9"):
@@ -3087,6 +3549,7 @@ def main():
             by_path = {"stage2_train": train["launches"][kid]}
         by_path["train_cli"] = cli["launches"][kid]
         by_path["caption"] = caption["launches"][kid]
+        by_path["glue"] = glue["launches"][kid]
         n = sum(by_path.values())
         kernels.append({
             "name": kid, "route": "cuda", "source": SOURCES[kid],

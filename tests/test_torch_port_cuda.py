@@ -240,8 +240,9 @@ def test_tc_kernel_refuses_misaligned_views(dev):
 
 
 def test_wrappers_raise_on_what_the_kernel_does_not_take(dev):
-    q = _rand(dev, torch.float32, 2, 8, 2, 32)
-    with pytest.raises(ValueError, match="head_dim"):
+    # heads up to 64 wide run (zero-padded below 64); wider ones raise
+    q = _rand(dev, torch.float32, 2, 8, 2, 128)
+    with pytest.raises(ValueError, match="head width 128"):
         ck.fused_attention(q, q, q)
     q = _rand(dev, torch.float16, 2, 8, 2, 64)
     with pytest.raises(ValueError, match="dtype"):
@@ -440,8 +441,8 @@ def test_train_attention_autograd_on_the_card(dev):
 
 
 def test_train_wrappers_raise_on_what_the_kernels_do_not_take(dev):
-    q = _rand(dev, torch.float32, 2, 8, 2, 32)
-    with pytest.raises(ValueError, match="head_dim"):
+    q = _rand(dev, torch.float32, 2, 8, 2, 128)
+    with pytest.raises(ValueError, match="head width 128"):
         tat.fused_attention_train(q, q, q, None, 0, 0.1)
     q = _rand(dev, torch.float16, 2, 8, 2, 64)
     with pytest.raises(ValueError, match="dtype"):
@@ -532,6 +533,129 @@ def test_folded_train_attention_autograd_on_the_card(dev, with_bias):
         q.detach(), k.detach(), v.detach(), b3, -3, g, 0.1, num_heads=h)
     for a, b in zip(grads, refs):
         torch.testing.assert_close(a, b, rtol=0, atol=3e-5)
+
+
+# ---------------------------------------------------------------------------
+# heads narrower than the kernels' 64 (the tiny configs' 6 and 8): every
+# eval and train kernel runs them zero-padded to 64 at their own scale
+# d ** -0.5, which is not a power of two at d = 6, 8 and 32
+
+NARROW = [6, 8, 16, 32]
+
+
+def _rel_close(a, b, rel):
+    """|a - b| within ``rel`` of b's largest magnitude (a gradient summed
+    over many rows, as the K6/K7 checks hold it)."""
+    assert torch.isfinite(a).all()
+    err = (a.float() - b.float()).abs().max().item()
+    assert err <= rel * b.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", NARROW)
+def test_eval_kernels_at_narrow_heads(dev, dtype, d):
+    """K1-K4 forward against the plain version, and their backward (the
+    plain recompute) against autograd of the plain version."""
+    e, lq, m, h = 3, 40, 77, 4
+    for kid in ("K1", "K2", "K3", "K4"):
+        folded = kid in ("K1", "K4")
+        bias = _mask_bias(dev, e, m) if kid in ("K2", "K4") else None
+        shape_q = (e, lq, h * d) if folded else (e, lq, h, d)
+        shape_kv = (e, m, h * d) if folded else (e, m, h, d)
+        q, k, v, g = (_rand(dev, dtype, *s, seed=40 + i).requires_grad_(
+            i < 3) for i, s in enumerate((shape_q, shape_kv, shape_kv,
+                                          shape_q)))
+        before = ck.LAUNCHES[kid]
+        out = ck.fused_attention_folded(q, k, v, bias, num_heads=h) \
+            if folded else ck.fused_attention(q, k, v, bias)
+        grads = torch.autograd.grad(out, (q, k, v), g)
+        assert ck.LAUNCHES[kid] == before + 1
+        assert out.shape == q.shape and out.dtype == dtype
+
+        def as4(x):
+            return x.unflatten(-1, (h, d)) if folded else x
+
+        b3 = None if bias is None else bias[:, 0].expand(e, lq, m)
+        ref = ck.attention_plain(as4(q), as4(k), as4(v), b3)
+        refs = torch.autograd.grad(ref, (q, k, v), as4(g))
+        torch.testing.assert_close(as4(out).float(), ref.float(), rtol=0,
+                                   atol=TOL[dtype])
+        for a, b in zip(grads, refs):
+            _rel_close(a, b, GRAD_TOL[dtype]) if dtype == torch.bfloat16 \
+                else torch.testing.assert_close(a, b, rtol=0, atol=3e-5)
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", NARROW)
+def test_train_kernels_at_narrow_heads(dev, dtype, d, with_bias):
+    """K6/K7 (unfolded) and K8/K9 (folded) at rate 0.1 through their
+    autograd wrappers, against the plain versions; bf16 launches without
+    a bias take the tensor-core kernels, as at d = 64, the others the FMA
+    bodies (the bias added to the scaled score)."""
+    seed, rate = 77, 0.1
+    for folded, (e, lq, m, h) in ((False, (2, 130, 300, 4)),
+                                  (True, (8, 40, 577, 4))):
+        bias = _mask_bias(dev, e, m) if with_bias else None
+        shape_q = (e, lq, h * d) if folded else (e, lq, h, d)
+        shape_kv = (e, m, h * d) if folded else (e, m, h, d)
+        q, k, v, g = (_rand(dev, dtype, *s, seed=50 + i).requires_grad_(
+            i < 3) for i, s in enumerate((shape_q, shape_kv, shape_kv,
+                                          shape_q)))
+        before = dict(tat.LAUNCHES)
+        outs, grads = [], []
+
+        def run():
+            if folded:
+                outs.append(tat.fused_attention_train_folded(
+                    q, k, v, bias, seed, rate, num_heads=h))
+            else:
+                outs.append(tat.fused_attention_train(q, k, v, bias, seed,
+                                                      rate))
+            grads.extend(torch.autograd.grad(outs[-1], (q, k, v), g))
+
+        names = _kernel_names(run)
+        fwd, bwd = ("K8", "K9") if folded else ("K6", "K7")
+        assert tat.LAUNCHES[fwd] == before[fwd] + 1
+        assert tat.LAUNCHES[bwd] == before[bwd] + 1
+        tc = dtype == torch.bfloat16 and not with_bias
+        fwd_tc = "attn_train_fwd_folded_tc_kernel" if folded \
+            else "attn_train_fwd_tc_kernel<"
+        rows_tc = "attn_bwd_tc_rows_kernel" if folded \
+            else "attn_train_bwd_tc_rows_kernel"
+        assert _launched(names, fwd_tc) == tc
+        assert _launched(names, rows_tc) == tc
+        plain = (tat.attention_train_folded_plain,
+                 tat.attention_train_folded_bwd_plain) if folded else \
+            (tat.attention_train_plain, tat.attention_train_bwd_plain)
+        kw = {"num_heads": h} if folded else {}
+        qd, kd, vd = (x.detach() for x in (q, k, v))
+        b3 = None if bias is None else tat._train_bias3(bias, e, lq, m)
+        ref = plain[0](qd, kd, vd, b3, seed, rate, **kw)
+        torch.testing.assert_close(outs[0].float(), ref.float(), rtol=0,
+                                   atol=TOL[dtype])
+        refs = plain[1](qd, kd, vd, b3, seed, g, rate, **kw)
+        for a, b in zip(grads, refs):
+            _rel_close(a, b, GRAD_TOL[dtype]) if dtype == torch.bfloat16 \
+                else torch.testing.assert_close(a, b, rtol=0, atol=3e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_padding_is_exact(dev, dtype):
+    """At d = 64 the wrapper launches on the caller's views (no padded
+    copy), bit-equal to a direct launch; at d = 32 it equals a launch on
+    the explicitly zero-padded views at the scale 32 ** -0.5, sliced."""
+    e, lq, m, h = 2, 40, 577, 4
+    for d in (64, 32):
+        q, k, v = (_rand(dev, dtype, e, n, h, d, seed=60 + i)
+                   for i, n in enumerate((lq, m, m)))
+        padded = ck.pad_heads(q, k, v)
+        assert (padded[0] is q) == (d == 64)
+        direct = torch.empty(padded[0].shape, dtype=dtype, device=dev)
+        ck._launch("K3", *padded, None, direct, d ** -0.5)
+        out = ck.fused_attention(q, k, v)
+        assert torch.equal(out, direct[..., :d])
+        assert not direct[..., d:].any()
 
 
 # ---------------------------------------------------------------------------
