@@ -96,6 +96,13 @@ def _model_overrides(args) -> dict:
     return json.loads(Path(args.model_config).read_text())
 
 
+def mesh_requested(args) -> bool:
+    """Whether the JAX package's CLIs would build a mesh for these flags
+    (``--mesh auto`` with several devices visible)."""
+    return args.mesh == "auto" and args.device == "cuda" \
+        and torch.cuda.device_count() > 1
+
+
 def get_device(args) -> torch.device:
     """Resolve --device (raises for 'cuda' without a card), checking
     --fused-attention and --mesh against what the port runs."""
@@ -104,8 +111,7 @@ def get_device(args) -> torch.device:
         raise NotImplementedError(
             "--fused-attention off: the port has no attention route on the "
             "card that skips its kernels")
-    if args.mesh == "auto" and device.type == "cuda" \
-            and torch.cuda.device_count() > 1:
+    if mesh_requested(args):
         raise NotImplementedError(
             "--mesh auto over several cards is not ported; pass --mesh off "
             "to run on one card")

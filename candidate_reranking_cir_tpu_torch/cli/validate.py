@@ -19,6 +19,7 @@ from candidate_reranking_cir_tpu_torch.cli.common import (
     get_tokenizer,
     get_transform,
     load_params,
+    mesh_requested,
     print_metrics,
 )
 from candidate_reranking_cir_tpu_torch.data.datasets import (
@@ -56,9 +57,13 @@ def main(argv=None):
                              "scheduler (the same function; for debugging "
                              "and A-B timing)")
     parser.add_argument("--single-program", action="store_true",
-                        help="the JAX package's one-launch eval; not "
-                             "ported (raises)")
+                        help="run the whole evaluation (corpus embed, "
+                             "fusion, ranking) as one program: on the card "
+                             "one CUDA-graph replay; needs the whole corpus "
+                             "on the device; one device only")
     args = parser.parse_args(argv)
+    if args.single_program and mesh_requested(args):
+        parser.error("--single-program is single-device (drop --mesh)")
 
     tokenizer = get_tokenizer(args)  # cheap fail-fast before ckpt IO
     model, cfg = build_stage1(args)

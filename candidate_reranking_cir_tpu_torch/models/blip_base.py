@@ -35,17 +35,22 @@ class BlipBase(nn.Module):
         self.text_encoder = TextEncoder(cfg.text, "multimodal", dtype, device)
 
     def forward(self, images, input_ids, attention_mask, *,
-                mode: str = "multimodal", deterministic: bool = True):
+                mode: str = "multimodal", deterministic: bool = True,
+                seeds=None):
+        """``seeds``: (the ViT's seed table, the MED's) when not
+        deterministic; a mode reads only its encoders' tables."""
         if mode not in MODES:
             raise ValueError("mode parameter must be image, text, or "
                              "multimodal")  # blip.py:48
-        if not deterministic:
-            raise NotImplementedError(
-                "BlipBase with dropout is not ported (no trainer of the JAX "
-                "package takes it)")
-        if mode == "image":
-            return self.visual_encoder(images)
+        vit_seeds, text_seeds = (None, None) if seeds is None else seeds
         if mode == "text":
-            return self.text_encoder(input_ids, attention_mask, mode="text")
-        return self.text_encoder(input_ids, attention_mask,
-                                 self.visual_encoder(images))
+            return self.text_encoder(input_ids, attention_mask, mode="text",
+                                     deterministic=deterministic,
+                                     seeds=text_seeds)
+        feats = self.visual_encoder(images, deterministic=deterministic,
+                                    seeds=vit_seeds)
+        if mode == "image":
+            return feats
+        return self.text_encoder(input_ids, attention_mask, feats,
+                                 deterministic=deterministic,
+                                 seeds=text_seeds)

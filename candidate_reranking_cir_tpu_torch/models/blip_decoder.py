@@ -15,6 +15,14 @@ Two decoding paths with the same output:
   a decode and each layer's self-attention K/V written into a cache, one
   token a step (the reference's cache, med.py:179-190, 647-666).
 
+The teacher-forced forward also runs with dropout (``deterministic=False``
+and the ViT's and the MED's seed tables), through the attention routes of
+``models/layers.py``: the in-kernel-dropout kernels where
+``attention_train.eligible`` holds (K8/K9 for the ViT's 577-token
+self-attention), plain attention with dropout from a layer's generator
+elsewhere (the MED's caption-length self- and cross-attention at the
+default thresholds). The decodes are eval only, as in the JAX package.
+
 Every loop runs in Python under ``torch.inference_mode()``, one step at a
 time, on the device of the image features: on the card the steps run the
 attention kernels (K1 in the ViT and the recompute path's cross-attention,
@@ -72,18 +80,23 @@ class CaptionDecoder(nn.Module):
                                   cfg.text.layer_norm_eps, dtype, device)
 
     def forward(self, images, input_ids, attention_mask, *,
-                deterministic: bool = True):
-        """Teacher-forced logits [B, L, V] (fp32)."""
-        if not deterministic:
-            raise NotImplementedError(
-                "teacher-forced captioning with dropout is not ported (no "
-                "trainer of the JAX package takes it)")
-        return self.logits(self.visual_encoder(images), input_ids,
-                           attention_mask)
+                deterministic: bool = True, seeds=None):
+        """Teacher-forced logits [B, L, V] (fp32). ``seeds``: (the ViT's
+        seed table, ``visual_encoder.seed_shape``; the MED's,
+        ``text_decoder.seed_shape``) when not deterministic."""
+        vit_seeds, text_seeds = (None, None) if seeds is None else seeds
+        feats = self.visual_encoder(images, deterministic=deterministic,
+                                    seeds=vit_seeds)
+        return self.logits(feats, input_ids, attention_mask,
+                           deterministic=deterministic, seeds=text_seeds)
 
-    def logits(self, image_feats, input_ids, attention_mask):
+    def logits(self, image_feats, input_ids, attention_mask, *,
+               deterministic: bool = True, seeds=None):
+        """The causal MED over ``image_feats`` and the LM head; ``seeds``
+        the MED's seed table when not deterministic."""
         hidden = self.text_decoder(input_ids, attention_mask, image_feats,
-                                   causal=True)
+                                   causal=True, deterministic=deterministic,
+                                   seeds=seeds)
         return self.lm_head(hidden)
 
     def precompute_kv(self, image_feats):

@@ -70,24 +70,33 @@ class RerankerModel(nn.Module):
                                      seeds=seeds)
         return self._cls_scores(cls_pair)
 
-    def score_per_query(self, z_t, input_ids, attention_mask, cand_feats):
+    def score_per_query(self, z_t, input_ids, attention_mask, cand_feats, *,
+                        deterministic: bool = True, seeds=None):
         """[Q, L, D] x [Q, K, M, W] -> [Q, K] scores (per-query
-        candidates)."""
+        candidates). ``seeds`` as ``score_shared``'s."""
         cls_pair = self.text_encoder(input_ids, attention_mask, z_t,
-                                     cand_feats, layout="per_pair")
+                                     cand_feats, layout="per_pair",
+                                     deterministic=deterministic,
+                                     seeds=seeds)
         return self._cls_scores(cls_pair)
 
     def score_indexed(self, z_t, input_ids, attention_mask, unique_cand,
-                      pair_map):
+                      pair_map, *, deterministic: bool = True, seeds=None):
         """[Q, L, D] x unique [U, M, W] + pair_map [Q, K] -> [Q, K] scores:
         each unique candidate's K/V projected once, gathered per pair.
-        Equal to ``score_per_query(z_t, .., unique_cand[pair_map])``."""
+        Equal to ``score_per_query(z_t, .., unique_cand[pair_map])``.
+        ``seeds`` as ``score_shared``'s."""
         cls_pair = self.text_encoder(input_ids, attention_mask, z_t,
-                                     unique_cand, pair_map=pair_map)
+                                     unique_cand, pair_map=pair_map,
+                                     deterministic=deterministic,
+                                     seeds=seeds)
         return self._cls_scores(cls_pair)
 
-    def score_grid(self, z_t, input_ids, attention_mask, cand_feats):
-        """Candidate-major grid: [A, B, L, D] x [A, M, W] -> [A, B] scores."""
+    def score_grid(self, z_t, input_ids, attention_mask, cand_feats, *,
+                   deterministic: bool = True, seeds=None):
+        """Candidate-major grid: [A, B, L, D] x [A, M, W] -> [A, B] scores.
+        ``seeds`` as ``score_shared``'s."""
         cls_pair = self.text_encoder(input_ids, attention_mask, z_t,
-                                     cand_feats)
+                                     cand_feats, deterministic=deterministic,
+                                     seeds=seeds)
         return self._cls_scores(cls_pair)

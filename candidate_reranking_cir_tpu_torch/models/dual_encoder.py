@@ -22,6 +22,12 @@ Three candidate layouts:
   [U, M, W]: K/V are projected once a unique candidate and gathered into
   the pair grid.
 
+Every layout also runs with dropout (``deterministic=False``), through the
+JAX package's train routes: the cross-attention K6/K7 where
+``attention_train.eligible`` holds (candidate-major and shared on their
+[A|C, B*Lq] folds, per pair on its [Q*C, L] entries), else plain
+attention with dropout from the layer's generator.
+
 Training (``deterministic=False``) takes a seed table of shape
 ``seed_shape``: row 0 seeds the embedding dropout, row i + 1 layer i as
 ``SEED_SITES`` int32 seeds (its generator for the non-kernel dropouts,
@@ -94,22 +100,19 @@ class DualLayer(nn.Module):
         q = getattr(self, f"cross_q{s}")(h).unflatten(-1, heads)
         k = getattr(self, f"cross_k{s}")(cand).unflatten(-1, heads)
         v = getattr(self, f"cross_v{s}")(cand).unflatten(-1, heads)
+        drop = dict(dropout_rate=self.attention_dropout, deterministic=det,
+                    seed=seed, generator=gen)
         if layout == "shared":
-            ctx = pair_cross_attention(
-                q, k, v, dropout_rate=self.attention_dropout,
-                deterministic=det, seed=seed, generator=gen)
-        elif not det:
-            raise NotImplementedError(
-                f"the {layout} layout is eval-only in this port")
+            ctx = pair_cross_attention(q, k, v, **drop)
         elif layout == "cand_major":
-            ctx = grid_cross_attention(q, k, v)
+            ctx = grid_cross_attention(q, k, v, **drop)
         else:
             if pair_map is not None:
                 # K/V of the U unique candidates -> the [Q, C] pair grid
                 flat = pair_map.reshape(-1)
                 k = k.index_select(0, flat).unflatten(0, pair_map.shape)
                 v = v.index_select(0, flat).unflatten(0, pair_map.shape)
-            ctx = dot_product_attention(q, k, v)
+            ctx = dot_product_attention(q, k, v, **drop)
         return getattr(self, f"cross_dense{s}")(ctx.flatten(-2))
 
     def forward(self, h0, h1, text_bias, cand, seeds=None,
@@ -148,7 +151,7 @@ class DualStreamEncoder(nn.Module):
     cand_feats [C, M, W] shared by all queries. Returns [Q, C, 2D].
     'per_pair': as 'shared', with cand_feats [Q, C, M, W] (each query's own
     candidates), or the U unique candidates [U, M, W] and ``pair_map``
-    [Q, C] int (the indexed mode; 'per_pair' is then implied). Eval only.
+    [Q, C] int (the indexed mode; 'per_pair' is then implied).
 
     ``cfg.remat`` recomputes each layer in backward when gradients are on,
     under ``cfg.remat_policy`` (``models/layers.py::remat``)."""

@@ -131,15 +131,30 @@ def dot_product_attention_folded_train(q, k, v, bias=None, *, num_heads: int,
     return out.reshape(*batch_shape, lq, hd)
 
 
-def grid_cross_attention(q, k, v):
+def grid_cross_attention(q, k, v, *, dropout_rate: float = 0.0,
+                         deterministic: bool = True, seed: int | None = None,
+                         generator=None):
     """Candidate-major cross-attention with per-candidate shared K/V.
 
     q [A, B, Lq, H, D] (candidate a x its b-th query); k, v [A, M, H, D].
-    The B queries fold into the row axis, so each candidate's K/V serve
-    B*Lq rows in one kernel entry (K3). Returns [A, B, Lq, H, D]."""
+    Returns [A, B, Lq, H, D]. Eval: the B queries fold into the row axis,
+    so each candidate's K/V serve B*Lq rows in one kernel entry (K3).
+    Train: the same fold (entry = candidate, row = query*Lq + token)
+    through K6/K7 with ``seed`` where ``attention_train.eligible``, else
+    plain attention with dropout from ``generator`` (the JAX package's
+    routes, ``ops/attention.py::grid_cross_attention``)."""
     a, b, lq, h, d = q.shape
-    out = fused_attention(q.reshape(a, b * lq, h, d), k, v, None)
-    return out.reshape(a, b, lq, h, d)
+    train = not deterministic and dropout_rate > 0.0
+    if not train or attention_train.eligible(b * lq, None, k.shape[-3]):
+        qf = q.reshape(a, b * lq, h, d)
+        if train:
+            out = attention_train.fused_attention_train(
+                qf, k, v, None, seed, dropout_rate)
+        else:
+            out = fused_attention(qf, k, v, None)
+        return out.reshape(a, b, lq, h, d)
+    return _plain_attention("ablhd,akhd->abhlk", "abhlk,akhd->ablhd",
+                            q, k, v, None, dropout_rate, generator)
 
 
 def pair_cross_attention(q, k, v, *, dropout_rate: float = 0.0,

@@ -92,7 +92,31 @@ Phases, each printing its own lines:
    file saved, read back and re-ranked by the stage-II engine on a few
    hundred queries; a few queries' fp32 predictions and top-50 lists on
    the card against the CPU; a profile of one fusion pass.
-11. serving (run after phase 9, on its corpus, before phase 10): the
+15. (run after phase 9, before phase 11) (a) the single-program stage-I
+    eval: ``evaluate_cirr_stage1(single_program=True)`` on phase 9's
+    corpus, queries and model (the whole eval as one CUDA graph, captured
+    once and replayed): the host's and the host-to-card copy's seconds,
+    the capture's seconds, the graph pool's and the static inputs' GiB,
+    the launches the capture recorded (K1 and K2 > 0, K3 = 0), the median
+    and spread of three timed replays, stage-I queries/s over a replay
+    beside phase 9's, a profiled replay (its idle share and its eval
+    attention kernels by name); the replay's top-K and ranks bit-equal to
+    phase 9's multi-launch run's (else the top-50 lists equal but at
+    distance gaps under 1e-6, with the predictions' max |diff|), two
+    replays bit-equal, weights from SEED + 1 loaded in place replayed from
+    the cache and equal to a multi-launch run with them, and the model
+    moved to the CPU and back captured again (on phase 9's 64-image
+    warm-up corpus). (b) the 12-layer re-ranker at attention dropout 0.1
+    in fp32: ``score_per_query`` over 2 queries x 4 candidates and
+    ``score_grid`` over 4 candidates x 2 queries, a
+    forward and a backward on the card and on the CPU with the kernel
+    thresholds ``MIN_KV``/``MIN_ROWS`` at 0 (every dropout from the K5
+    hash: logits 1e-3, gradients 1e-3 of the largest), then timed on the
+    card at the default thresholds. (c) a ``CaptionDecoder``'s
+    teacher-forced caption loss with attention dropout 0.1 over 2 images,
+    the same way. The card runs of (b) and (c) must launch K5-K9.
+11. serving (run after phases 9 and 15, on phase 9's corpus, before
+    phase 10): the
     port's ``build_serving_index`` over the 2,297 images at full width in
     bf16 (both ViTs; seconds and the banks' GiB), the npz cache's round
     trip on 128 of them, then ``cli/serve.make_http_server`` on an
@@ -160,8 +184,9 @@ Phases, each printing its own lines:
     package's demo, K2 and K3 > 0 at 6-wide heads).
 12. a JSON line of kernel figures (``launches_by_path`` adds phase 10's
     counts as "train_cli", phase 11's as "serve", phase 13's as
-    "caption" and phase 14's as "glue"), then the card's name and power
-    limit, then the last line ``{"ok": true, "device": {...}}``.
+    "caption", phase 14's as "glue" and phase 15's as "single_program"
+    and "dropout_layouts"), then the card's name and power limit, then the
+    last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero without the last line.
 Imports nothing of JAX.
@@ -228,6 +253,18 @@ S1E_STAGE2_QUERIES = 256       # re-ranked by stage II from the top-K file
 S1E_CHECK_QUERIES = 8          # fp32 predictions, card vs CPU
 S1E_PRED_TOL = 1e-4            # fp32 predictions, card vs CPU
 S1E_TIE_GAP = 1e-6             # top-50 lists may differ only at such gaps
+# phase 15: the single-program stage-I eval on phase 9's corpus and
+# queries, SP_REPLAYS replays timed (the recapture of a moved model on the
+# warm-up's small corpus); the dropout layouts at full width in fp32 with
+# attention dropout DL_RATE: score_per_query over DL_PQ (queries,
+# candidates), score_grid over DL_GRID (candidates, queries), a
+# teacher-forced caption loss over DL_CAP_B images, card vs CPU within
+# DL_LOGIT_TOL and DL_GRAD_REL_TOL of the largest gradient (as the fp32
+# train steps); the sizes keep the CPU legs, whose plain attention
+# computes the K5 hash on int64 tensors, to a few seconds each
+SP_REPLAYS = 3
+DL_RATE, DL_PQ, DL_GRID, DL_CAP_B = 0.1, (2, 4), (4, 2), 2
+DL_LOGIT_TOL, DL_GRAD_REL_TOL = FP32_CARD_VS_CPU_TOL, TRAIN_GRAD_REL_TOL
 # phase 10, the trainer CLIs on a jpeg CIRR tree: stage I at its default
 # B = 512 (S1_B), two steps an epoch, two epochs; stage II at B = 16 over
 # S2T_TRAIN triplets, re-ranking the stage-I top-S2T_K file
@@ -563,13 +600,17 @@ def run_train_kernel_cases(dtype) -> dict:
     # element (one lowbias32 hash, the index, the compare), counted against
     # the CUDA cores' fp32 rate, the table's nearest non-tensor peak
     b_ms, b_by = bound(lq * m, 14 * lq * m, torch.float32)
+    k5 = lambda: tat.write_keep_mask(buf, seed, 0, 0, rate)
     recs["K5"] = {"name": "K5", "dtype": name, "shape": [lq, m],
-                  "max_abs_err": float(mismatches),
-                  "ms": time_ms(lambda: tat.write_keep_mask(buf, seed, 0, 0,
-                                                            rate)),
+                  "max_abs_err": float(mismatches), "ms": time_ms(k5),
                   "plain_ms": time_ms(lambda: tat.keep_mask(
                       seed, 0, 0, lq, m, rate, device="cuda")),
-                  "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+                  "library_ms": None, "device_ms": graph_ms(k5),
+                  "bound_ms": b_ms, "bound_by": b_by}
+    print(f"[kernel] K5 keep-mask [{lq}, {m}]: kernel "
+          f"{recs['K5']['ms']:.4f} ms, plain {recs['K5']['plain_ms']:.4f} "
+          f"ms; device only: kernel {recs['K5']['device_ms']:.4f} ms; bound "
+          f"{b_ms:.4f} ms ({b_by})", flush=True)
 
     # K6
     fwd = lambda: tat._kernel_fwd(q, k, v, None, seed, rate)
@@ -964,12 +1005,12 @@ def kernel_family(name: str) -> str:
     return "elementwise, norms, gathers, optimizer"
 
 
-def profile_device(label: str, run):
+def profile_device(label: str, run) -> dict:
     """Device time by kernel family over one run of ``run`` (torch.profiler,
     CUPTI), and the device's idle share of its wall time. Every profiled
     run is bf16: it fails if an eval attention ran on the fp32-FMA kernel,
     or a K6, K7, K8 or K9 on its fp32-FMA body, instead of the tensor-core
-    ones."""
+    ones. Returns {kernel name: device us} (empty without records)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -996,7 +1037,7 @@ def profile_device(label: str, run):
     if busy == 0.0:
         print(f"[profile] {label}: the profiler reported no device time: "
               "device breakdown not measured", flush=True)
-        return
+        return {}
     parts = ", ".join(f"{k} {v / 1e3:.1f} ms ({100 * v / busy:.1f}%)"
                       for k, v in sorted(families.items(),
                                          key=lambda kv: -kv[1]))
@@ -1016,6 +1057,7 @@ def profile_device(label: str, run):
         if families.get(fam, 0.0) > 0.0:
             fail(f"{label}: {families[fam] / 1e3:.1f} ms of bf16 attention "
                  f"ran on an fp32-FMA kernel ({fam})")
+    return kernels
 
 
 # ---------------------------------------------------------------------------
@@ -1643,11 +1685,13 @@ def stage1_k1_cases(fams: dict) -> list:
     ]
 
 
-def stage1_eval_path(tok, words, queries: list[dict]) -> tuple:
+def stage1_eval_path(tok, words, queries: list[dict]) -> dict:
     """``evaluate_cirr_stage1`` at CIRR-val scale in bf16, its top-K file
     handed to the stage-II engine, the fp32 card-vs-CPU check and a
-    profile of one fusion pass. Returns the counted run's launches and
-    the corpus (phase 11 serves it)."""
+    profile of one fusion pass. Returns {"launches": the counted run's,
+    "corpus" (phase 11 serves it), "result", "model": the stage-I model,
+    "pred": the profiled fusion pass's predictions, "pooled": the pooled
+    index} (phase 15 replays the same eval as one program)."""
     from candidate_reranking_cir_tpu_torch.data.topk_io import (
         load_topk_file,
         save_topk_file,
@@ -1742,11 +1786,13 @@ def stage1_eval_path(tok, words, queries: list[dict]) -> tuple:
     fuse_args = (tok, [q["caption"] for q in queries],
                  [q["reference_name"] for q in queries], bank, names,
                  TEXT_LEN, S1E_Q_BATCH)
+    preds = []
     profile_device("stage-I fusion pass",
-                   lambda: predict_queries(fuse, *fuse_args))
+                   lambda: preds.append(predict_queries(fuse, *fuse_args)))
     del bank, fuse_args
     stage1_fp32_eval_check(s1, tok, queries, corpus, pooled)
-    return launches, corpus
+    return {"launches": launches, "corpus": corpus, "result": res,
+            "model": s1, "pred": preds[0], "pooled": pooled}
 
 
 def stage1_fp32_eval_check(s1, tok, queries: list[dict], corpus: Corpus,
@@ -1803,6 +1849,359 @@ def stage1_fp32_eval_check(s1, tok, queries: list[dict], corpus: Corpus,
         fail("fp32 stage-I predictions on the card disagree with the CPU")
     if gaps.size and not gaps.max() <= S1E_TIE_GAP:
         fail("fp32 stage-I top-50 lists on the card disagree with the CPU")
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the single-program stage-I eval and the dropout layouts
+
+def single_program_path(tok, words, queries: list[dict], s1e: dict) -> dict:
+    """Phase 15 (a): ``evaluate_cirr_stage1(single_program=True)`` on phase
+    9's corpus, queries and model: the host's and the copy's seconds, the
+    capture, SP_REPLAYS timed replays, queries/s beside phase 9's, a
+    profiled replay, the graph's pool; the replay held to phase 9's
+    multi-launch top-K and ranks bit for bit (else the stated fallback),
+    two replays bit-equal, weights from SEED + 1 loaded in place replayed
+    from the cache against a multi-launch run with them, and a model moved
+    to the CPU and back captured again (on a small corpus). Returns the
+    launches the first call made (its eager pass and its capture; a
+    replay adds none)."""
+    from candidate_reranking_cir_tpu_torch.models.blip_retrieval import (
+        RetrievalModel,
+    )
+    from candidate_reranking_cir_tpu_torch.retrieval.validate_engine import (
+        evaluate_cirr_stage1,
+        make_single_program_eval,
+    )
+
+    s1, corpus, multi = s1e["model"], s1e["corpus"], s1e["result"]
+    kw = dict(text_len=TEXT_LEN, batch_size=S1E_EMBED_BATCH,
+              save_topk_k=TOPK, q_batch=S1E_Q_BATCH, device="cuda")
+    n_q = len(queries)
+    gc.collect()
+    reset_launch_counts()
+    res, _ = evaluate_cirr_stage1(s1, None, corpus, queries, tok,
+                                  single_program=True, **kw)
+    launches = launch_counts()
+    run = make_single_program_eval(s1)
+    cap = run.capture
+    sec = res.seconds
+    in_gib = sum(x.numel() * x.element_size() for x in cap.inputs) / 2 ** 30
+    print(f"[single_program] first call seconds {json.dumps(sec)} (load: "
+          f"the dataset's batches on the host; copy: host to card, "
+          f"{S1E_IMAGES} images; plan: tokenize, schedule, upload; "
+          f"program: an eager pass, the capture and one replay)",
+          flush=True)
+    print(f"[single_program] capture {cap.seconds:.3f} s; graph pool "
+          f"{cap.pool_bytes / 2 ** 30:.2f} GiB, static inputs "
+          f"{in_gib:.2f} GiB (the corpus images and the plan); launches "
+          f"recorded by the capture {json.dumps(cap.launches)}; the first "
+          f"call's launches (eager pass and capture) "
+          f"{json.dumps(launches)}", flush=True)
+    if not (cap.launches["K1"] > 0 and cap.launches["K2"] > 0
+            and cap.launches["K3"] == 0):
+        fail(f"the single program's launches {cap.launches}: K1 and K2 "
+             "must run, K3 not")
+    same = (np.array_equal(res.topk, multi.topk)
+            and np.array_equal(res.ranks, multi.ranks))
+    d_pred = float((run.pred - s1e["pred"]).abs().max())
+    print(f"[single_program] replay vs phase 9's multi-launch path: topk "
+          f"and ranks bit-equal {same}; metrics equal "
+          f"{res.metrics == multi.metrics}; max |prediction diff| "
+          f"{d_pred:.3e}", flush=True)
+    if not same:
+        top_gap_check("single-program replay", res.topk, multi.topk,
+                      run.pred, s1e["pooled"])
+
+    walls, events, outs = [], [], []
+    for _ in range(SP_REPLAYS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        outs.append(run.replay())
+        end.record()
+        end.synchronize()
+        walls.append(time.perf_counter() - t0)
+        events.append(start.elapsed_time(end) / 1e3)
+    wall = float(np.median(walls))
+    multi_qps = n_q / multi.seconds["total"]
+    print(f"[single_program] {SP_REPLAYS} replays: wall median {wall:.4f} s "
+          f"(spread {min(walls):.4f}-{max(walls):.4f}), CUDA events median "
+          f"{float(np.median(events)):.4f} s; stage-I queries/s over a "
+          f"replay {n_q / wall:.1f} against phase 9's multi-launch "
+          f"{multi_qps:.1f} (its whole call) and "
+          f"{n_q / (multi.seconds['total'] - multi.seconds['index']):.1f} "
+          f"(fusion and ranking only)", flush=True)
+    equal = all(np.array_equal(a, b) for out in outs[1:]
+                for a, b in zip(outs[0], out))
+    print(f"[single_program] replays bit-equal: {equal}", flush=True)
+    if not equal:
+        fail("two replays of the single program differ")
+    kernels = profile_device("single-program replay", run.replay)
+    attn = sorted({nm[:80] for nm in kernels if "attn_fwd_tc_kernel" in nm})
+    print(f"[single_program] eval attention kernels in the profiled "
+          f"replay: {attn if attn else 'not measured (no records)'}",
+          flush=True)
+    if kernels and not any("true>" in nm for nm in attn):
+        fail("the profiled replay shows no K2 (attn_fwd_tc_kernel<., "
+             "true>)")
+
+    # weights from SEED + 1 loaded in place: the cache's graph replays them
+    t0 = time.perf_counter()
+    torch.manual_seed(SEED + 1)
+    other = RetrievalModel(s1.cfg, dtype=torch.bfloat16, device="cuda")
+    s1.load_state_dict(other.state_dict())
+    del other
+    captures = run.captures
+    swapped, _ = evaluate_cirr_stage1(s1, None, corpus, queries, tok,
+                                      single_program=True, **kw)
+    eager, _ = evaluate_cirr_stage1(s1, None, corpus, queries, tok, **kw)
+    hit = run.captures == captures
+    same = (np.array_equal(swapped.topk, eager.topk)
+            and np.array_equal(swapped.ranks, eager.ranks))
+    print(f"[single_program] weights of seed {SEED + 1} loaded in place: "
+          f"cache hit {hit}, replay vs a multi-launch run with them: topk "
+          f"and ranks bit-equal {same}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if not hit or np.array_equal(swapped.ranks, res.ranks):
+        fail("the weight swap did not replay the cached graph with the "
+             "new weights")
+    if not same:
+        fail("the replay with swapped weights disagrees with the "
+             "multi-launch path")
+
+    # a model moved off the card and back has new addresses: captured
+    # again (on the warm-up's small corpus, a plan of its own)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 12)
+    small = Corpus(S1E_WARMUP[0], s1.cfg.vit.image_size, rng,
+                   float32_draw=True)
+    small_q = stage1_eval_queries(small.index_names, S1E_WARMUP[1], rng,
+                                  words)
+    before, _ = evaluate_cirr_stage1(s1, None, small, small_q, tok,
+                                     single_program=True, **kw)
+    captures = run.captures
+    s1.to("cpu")
+    s1.to("cuda")
+    moved, _ = evaluate_cirr_stage1(s1, None, small, small_q, tok,
+                                    single_program=True, **kw)
+    eager, _ = evaluate_cirr_stage1(s1, None, small, small_q, tok, **kw)
+    same = all(np.array_equal(getattr(moved, k), getattr(r, k))
+               for r in (before, eager) for k in ("topk", "ranks"))
+    print(f"[single_program] moved to the CPU and back ({S1E_WARMUP[0]} "
+          f"images, {S1E_WARMUP[1]} queries): captures {captures} -> "
+          f"{run.captures}; equal to the replay before the move and to a "
+          f"multi-launch run: {same}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if run.captures != captures + 1 or not same:
+        fail("a moved model was not captured again, or its replay differs")
+    run.release()
+    return launches
+
+
+def top_gap_check(label: str, topk, ref_topk, pred, pooled) -> None:
+    """The card rule of PERF.md section 2 for two top-K lists over one
+    index: equal but where the two candidates' distances (from ``pred``
+    [N_q, E] and ``pooled`` [N, E]) differ by under S1E_TIE_GAP."""
+    a, b = topk[:, :TOPK], ref_topk[:, :TOPK]
+    dist = (1.0 - pred.float() @ pooled.float().T).cpu().numpy()
+    rows = np.arange(a.shape[0])[:, None]
+    differ = a != b
+    gaps = np.abs(dist[rows, a] - dist[rows, b])[differ]
+    print(f"[single_program] {label}: top-{TOPK} lists differ at "
+          f"{int(differ.sum())} of {differ.size} places, largest distance "
+          f"gap there {float(gaps.max()) if gaps.size else 0.0:.3e} (tol "
+          f"{S1E_TIE_GAP})", flush=True)
+    if gaps.size and not gaps.max() <= S1E_TIE_GAP:
+        fail(f"{label}: the top-{TOPK} lists differ beyond ties")
+
+
+@contextlib.contextmanager
+def kernel_thresholds(zero: bool):
+    """``ops/attention_train``'s MIN_KV and MIN_ROWS at 0 (every attention
+    site with dropout takes the kernels' hash mask, so the card and the
+    CPU draw the same) or left at their defaults."""
+    from candidate_reranking_cir_tpu_torch.ops import attention_train as tat
+
+    saved = tat.MIN_KV, tat.MIN_ROWS
+    if zero:
+        tat.MIN_KV = tat.MIN_ROWS = 0
+    try:
+        yield
+    finally:
+        tat.MIN_KV, tat.MIN_ROWS = saved
+
+
+def seed_table(shape: tuple[int, int], base: int) -> list[list[int]]:
+    return [[base + i * shape[1] + j for j in range(shape[1])]
+            for i in range(shape[0])]
+
+
+def loss_and_grads(model, run, device: str) -> tuple:
+    """(output on the CPU, {name: grad on the CPU}, seconds) of one
+    forward and backward: ``run()`` returns (loss, output)."""
+    model.zero_grad(set_to_none=True)
+    t0 = time.perf_counter()
+    loss, out = run()
+    loss.backward()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    grads = {n: p.grad.detach().float().cpu()
+             for n, p in model.named_parameters() if p.grad is not None}
+    return out.detach().float().cpu(), grads, seconds
+
+
+def card_vs_cpu_grads(label: str, card: tuple, cpu: tuple) -> None:
+    """Outputs within DL_LOGIT_TOL and gradients within DL_GRAD_REL_TOL of
+    the largest, fp32 card against CPU."""
+    d_out = float((card[0] - cpu[0]).abs().max())
+    g_max = max(float(g.abs().max()) for g in cpu[1].values())
+    d_grad = max(float((card[1][n] - g).abs().max())
+                 for n, g in cpu[1].items())
+    print(f"[dropout] {label}: card {card[2]:.2f} s, cpu {cpu[2]:.2f} s; "
+          f"max |output diff| {d_out:.3e} (tol {DL_LOGIT_TOL}); max |grad "
+          f"diff| {d_grad:.3e} over {len(cpu[1])} tensors, largest |grad| "
+          f"{g_max:.3e} (tol {DL_GRAD_REL_TOL} x largest)", flush=True)
+    if set(card[1]) != set(cpu[1]) or not d_out <= DL_LOGIT_TOL \
+            or not d_grad <= DL_GRAD_REL_TOL * g_max:
+        fail(f"{label}: the card disagrees with the CPU")
+
+
+def dropout_layouts_path(tok) -> dict:
+    """Phase 15 (b) and (c), fp32 at full width, attention dropout
+    DL_RATE (hidden dropout and drop-path 0): the 12-layer re-ranker's
+    ``score_per_query`` over DL_PQ (queries, candidates) and
+    ``score_grid`` over DL_GRID (candidates, queries), and a
+    ``CaptionDecoder``'s teacher-forced caption loss over DL_CAP_B images,
+    each a forward and a backward on the card and on the CPU with the
+    kernel thresholds at 0 (card vs CPU within DL_LOGIT_TOL and
+    DL_GRAD_REL_TOL), then timed on the card at the default thresholds.
+    Returns the card runs' launches."""
+    from candidate_reranking_cir_tpu_torch.config import (
+        RerankerModelConfig,
+        RetrievalModelConfig,
+        TextEncoderConfig,
+        vit_config,
+    )
+    from candidate_reranking_cir_tpu_torch.models.blip_decoder import (
+        CaptionDecoder,
+    )
+    from candidate_reranking_cir_tpu_torch.models.blip_reranker import (
+        RerankerModel,
+    )
+
+    rng = np.random.default_rng(SEED + 40)
+    text = TextEncoderConfig(hidden_dropout=0.0, attention_dropout=DL_RATE)
+    vit = vit_config("base", 384, attention_dropout=DL_RATE)
+    width = text.hidden_size
+
+    def texts(lead: tuple) -> tuple:
+        n = int(np.prod(lead))
+        lens = caption_lengths(n, TEXT_LEN, rng).reshape(lead)
+        ids = rng.integers(1000, 30000, (*lead, TEXT_LEN)).astype(np.int32)
+        mask = (np.arange(TEXT_LEN) < lens[..., None]).astype(np.int32)
+        return ids, mask
+
+    (q, c), (a, b) = DL_PQ, DL_GRID
+    m = vit.num_tokens
+    cases = {
+        "score_per_query": (
+            rng.standard_normal((q, TEXT_LEN, width), np.float32),
+            *texts((q,)),
+            rng.standard_normal((q, c, m, width), np.float32),
+            f"{q} queries x {c} candidates"),
+        "score_grid": (
+            rng.standard_normal((a, b, TEXT_LEN, width), np.float32),
+            *texts((a, b)),
+            rng.standard_normal((a, m, width), np.float32),
+            f"{a} candidates x {b} queries")}
+    torch.manual_seed(SEED + 41)
+    models = {"cpu": RerankerModel(RerankerModelConfig(
+        vit=vit, text=text, text_len=TEXT_LEN), device="cpu")}
+    models["cuda"] = RerankerModel(models["cpu"].cfg, device="cuda")
+    models["cuda"].load_state_dict(models["cpu"].state_dict())
+    seeds = seed_table(models["cpu"].text_encoder.seed_shape, SEED + 42)
+    reset_launch_counts()
+
+    def layout_run(dev, method, arrays):
+        model = models[dev]
+        x = [torch.from_numpy(arr).to(dev) for arr in arrays]
+        w = torch.from_numpy(np.random.default_rng(SEED + 43).standard_normal(
+            arrays[0].shape[:-2] if method == "score_grid"
+            else arrays[3].shape[:2]).astype(np.float32)).to(dev)
+
+        def run():
+            out = getattr(model, method)(*x, deterministic=False,
+                                         seeds=seeds)
+            return (out * w).mean(), out
+
+        return loss_and_grads(model, run, dev)
+
+    for method, (*arrays, what) in cases.items():
+        with kernel_thresholds(zero=True):
+            runs = {dev: layout_run(dev, method, arrays)
+                    for dev in ("cuda", "cpu")}
+        card_vs_cpu_grads(f"{method} [{what}] fp32, thresholds 0",
+                          runs["cuda"], runs["cpu"])
+        t = layout_run("cuda", method, arrays)[2]
+        print(f"[dropout] {method} [{what}] fp32 on the card at the default "
+              f"thresholds: {t:.3f} s a forward and backward", flush=True)
+    del models
+
+    # (c) captioning
+    cfg = RetrievalModelConfig(vit=vit, text=text, text_len=TEXT_LEN)
+    torch.manual_seed(SEED + 44)
+    cap = {"cpu": CaptionDecoder(cfg, device="cpu")}
+    cap["cuda"] = CaptionDecoder(cfg, device="cuda")
+    cap["cuda"].load_state_dict(cap["cpu"].state_dict())
+    seeds = (seed_table(cap["cpu"].visual_encoder.seed_shape, SEED + 45),
+             seed_table(cap["cpu"].text_decoder.seed_shape, SEED + 46))
+    images = rng.standard_normal((DL_CAP_B, vit.image_size, vit.image_size,
+                                  3), np.float32)
+    ids, mask = texts((DL_CAP_B,))
+
+    def caption_run(dev):
+        model = cap[dev]
+        x, i, k = (torch.from_numpy(arr).to(dev) for arr in (images, ids,
+                                                             mask))
+
+        def run():
+            logits = model(x, i, k, deterministic=False, seeds=seeds)
+            logp = torch.log_softmax(logits[:, :-1], dim=-1)
+            nll = -logp.gather(-1, i[:, 1:, None].long())[..., 0]
+            valid = k[:, 1:].float()
+            return (nll * valid).sum() / valid.sum(), logits
+
+        return loss_and_grads(model, run, dev)
+
+    with kernel_thresholds(zero=True):
+        runs = {dev: caption_run(dev) for dev in ("cuda", "cpu")}
+    card_vs_cpu_grads(f"CaptionDecoder caption loss [{DL_CAP_B} images] "
+                      "fp32, thresholds 0", runs["cuda"], runs["cpu"])
+    t = caption_run("cuda")[2]
+    print(f"[dropout] CaptionDecoder caption loss fp32 on the card at the "
+          f"default thresholds: {t:.3f} s a forward and backward",
+          flush=True)
+    launches = launch_counts()
+    print(f"[dropout] launches of the card runs {json.dumps(launches)}",
+          flush=True)
+    if not all(launches[k] > 0 for k in ("K5", "K6", "K7", "K8", "K9")):
+        fail(f"the dropout layouts' launches {launches}: K5-K9 must run")
+    del cap
+    gc.collect()
+    return launches
+
+
+def phase15(tok, words, queries: list[dict], s1e: dict) -> dict:
+    """Phase 15: (a) the single-program eval, (b) and (c) the dropout
+    layouts. Returns each part's launches and the phase's seconds."""
+    t0 = time.perf_counter()
+    out = {"single_program": single_program_path(tok, words, queries, s1e),
+           "dropout_layouts": dropout_layouts_path(tok)}
+    seconds = time.perf_counter() - t0
+    print(f"[phase15] phase seconds {seconds:.1f}", flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3517,9 +3916,11 @@ def main():
                 records.update(recs)
     stage1 = stage1_train_path(tok, words)
     stage1_fp32_check(tok, words)
-    s1e_launches, corpus = stage1_eval_path(tok, words, s1e_queries)
-    serve_launches = serving_path(tok, words, corpus)
-    del corpus
+    s1e = stage1_eval_path(tok, words, s1e_queries)
+    s1e_launches = s1e["launches"]
+    p15 = phase15(tok, words, s1e_queries, s1e)
+    serve_launches = serving_path(tok, words, s1e["corpus"])
+    del s1e
     gc.collect()
     cli = train_cli_path(tok, words, native_ok)
     caption = caption_path(tok)
@@ -3535,11 +3936,16 @@ def main():
         # every kernel also counts its launches in the trainer CLIs' runs
         # (phase 10) under the path key "train_cli" and in the caption
         # decodes (phase 13, K1-K3 > 0 and the others 0) under "caption",
-        # and K1-K3 in the serving run (phase 11) under "serve"
+        # and K1-K3 in the serving run (phase 11) under "serve"; K1-K4 the
+        # single-program eval's first call (phase 15 (a): its eager pass and
+        # its capture; a replay adds none) under "single_program", K5-K9
+        # the dropout layouts' card runs (phase 15 (b), (c)) under
+        # "dropout_layouts"
         if kid in launches:
             by_path = {"stage2_eval": launches[kid],
                        "stage1_eval": s1e_launches[kid],
-                       "serve": serve_launches[kid]}
+                       "serve": serve_launches[kid],
+                       "single_program": p15["single_program"][kid]}
         elif kid == "K5":
             by_path = {"stage2_train": train["launches"]["K5"],
                        "stage1_train": stage1["launches"]["K5"]}
@@ -3547,6 +3953,8 @@ def main():
             by_path = {"stage1_train": stage1["launches"][kid]}
         else:
             by_path = {"stage2_train": train["launches"][kid]}
+        if kid not in launches:
+            by_path["dropout_layouts"] = p15["dropout_layouts"][kid]
         by_path["train_cli"] = cli["launches"][kid]
         by_path["caption"] = caption["launches"][kid]
         by_path["glue"] = glue["launches"][kid]

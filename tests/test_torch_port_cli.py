@@ -305,7 +305,7 @@ def test_submissions(workdir, tok):
         assert set(sub2[str(s["pair_id"])]) == set(sub[str(s["pair_id"])][:4])
 
 
-def test_unported_flags_raise(workdir):
+def test_unported_flags_raise(workdir, capsys, monkeypatch):
     from candidate_reranking_cir_tpu_torch.cli import (
         cirr_test_submission_stage2,
         validate,
@@ -315,8 +315,18 @@ def test_unported_flags_raise(workdir):
     root, _, _ = workdir
     s1 = ["--stage1-path", str(root / "s1.pt")]
     both = s1 + ["--stage2-path", str(root / "s2.pt"), "--top-k-path", "x"]
-    with pytest.raises(NotImplementedError):
-        validate.main(_common(root) + s1 + ["--single-program"])
+    # --single-program is ported: the same printed metrics as without it
+    printed = []
+    for flag in ([], ["--single-program"]):
+        validate.main(_common(root) + s1 + ["--q-batch", "4"] + flag)
+        printed.append(_printed(capsys.readouterr().out))
+    assert printed[0] == printed[1] and printed[0]
+    # ... and refused by the parser with a mesh, as in JAX
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(SystemExit):
+        validate.main(common_flags(root, IMG, device="cuda") + s1
+                      + ["--single-program", "--mesh", "auto"])
+    monkeypatch.undo()
     with pytest.raises(NotImplementedError):
         validate_stage2.main(_common(root) + both + ["--shard-index"])
     with pytest.raises(SystemExit):  # refused by the parser, as in JAX

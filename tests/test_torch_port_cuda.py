@@ -1364,3 +1364,120 @@ def test_caption_decoder_on_the_card_matches_the_cpu(dev):
     assert out.shape == (3, 10)
     assert all(ck.LAUNCHES[k] > 0 for k in ("K1", "K2", "K3")), ck.LAUNCHES
     assert ck.LAUNCHES["K4"] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grid_cross_attention_with_dropout_runs_k6_k7(dev, dtype):
+    """The candidate-major layout's train route: each candidate's B
+    queries fold into [A, B*Lq] rows, through K6/K7 with the hash mask,
+    against the plain versions on the same fold (forward and gradients)."""
+    a, b, lq, m, h, seed, rate = 3, 8, 40, 577, 12, 11, 0.1
+    q = _rand(dev, dtype, a, b, lq, h, 64, seed=950).requires_grad_()
+    k = _rand(dev, dtype, a, m, h, 64, seed=951).requires_grad_()
+    v = _rand(dev, dtype, a, m, h, 64, seed=952).requires_grad_()
+    g = _rand(dev, dtype, a, b, lq, h, 64, seed=953)
+    before = dict(tat.LAUNCHES)
+    out = tattn.grid_cross_attention(q, k, v, dropout_rate=rate,
+                                     deterministic=False, seed=seed)
+    grads = torch.autograd.grad(out, (q, k, v), g)
+    assert tat.LAUNCHES["K6"] == before["K6"] + 1
+    assert tat.LAUNCHES["K7"] == before["K7"] + 1
+    fold = (a, b * lq, h, 64)
+    qf, kd, vd = q.detach().reshape(fold), k.detach(), v.detach()
+    ref = tat.attention_train_plain(qf, kd, vd, None, seed, rate)
+    torch.testing.assert_close(out.reshape(fold).float(), ref.float(),
+                               rtol=0, atol=TOL[dtype])
+    refs = tat.attention_train_bwd_plain(qf, kd, vd, None, seed,
+                                         g.reshape(fold), rate)
+    for x, y in zip(grads, refs):
+        torch.testing.assert_close(x.reshape(y.shape).float(), y.float(),
+                                   rtol=0, atol=GRAD_TOL[dtype])
+
+
+class _Images:
+    """A 'classic' dataset of in-memory [H, W, 3] images."""
+
+    def __init__(self, images):
+        self.images = images
+        self.index_names = [f"im{i}" for i in range(len(images))]
+
+    def __len__(self):
+        return len(self.images)
+
+    def __getitem__(self, i):
+        return {"name": self.index_names[i], "image": self.images[i]}
+
+
+def test_single_program_replays_equal_the_multi_launch_path(dev):
+    """evaluate_cirr_stage1(single_program=True) on the card: one CUDA
+    graph whose replay gives the multi-launch path's top-K and ranks bit
+    for bit (bf16; the last embed chunk ragged); a second call replays the
+    cached graph; weights loaded in place replay it too and equal the
+    multi-launch path with those weights; a model moved off the card and
+    back is captured again."""
+    from candidate_reranking_cir_tpu_torch import config as tcfg
+    from candidate_reranking_cir_tpu_torch.models.blip_retrieval import (
+        RetrievalModel,
+    )
+    from candidate_reranking_cir_tpu_torch.models.tokenizer import (
+        WordPieceTokenizer,
+        build_test_vocab,
+    )
+    from candidate_reranking_cir_tpu_torch.retrieval import (
+        validate_engine as tv,
+    )
+
+    cfg = tcfg.RetrievalModelConfig(
+        vit=tcfg.ViTConfig(image_size=192, patch_size=16, hidden_size=128,
+                           num_layers=2, num_heads=2),
+        text=tcfg.TextEncoderConfig(vocab_size=500, hidden_size=128,
+                                    num_layers=2, num_heads=2,
+                                    intermediate_size=256,
+                                    encoder_width=128),
+        embed_dim=64, text_len=16)
+    rng = np.random.default_rng(0)
+    classic = _Images(rng.standard_normal((12, 192, 192, 3),
+                                          dtype=np.float32))
+    vocab = build_test_vocab()
+    words = [w for w in vocab if w.isalpha() and len(w) > 1]
+    names = classic.index_names
+    relative = []
+    for i in range(20):
+        ref = names[i % 7]
+        members = [ref] + [n for n in names if n != ref][i % 6:i % 6 + 5]
+        relative.append({"caption": " ".join(rng.choice(words, 2 + i % 9)),
+                         "reference_name": ref, "target_name": members[1],
+                         "group_members": members})
+    tok = WordPieceTokenizer(vocab)
+    torch.manual_seed(0)
+    model = RetrievalModel(cfg, dtype=torch.bfloat16, device=dev).eval()
+    kw = dict(text_len=16, batch_size=5, q_batch=8, save_topk_k=6,
+              device="cuda")
+    run = tv.make_single_program_eval(model)
+
+    def check(captures):
+        multi, _ = tv.evaluate_cirr_stage1(model, None, classic, relative,
+                                           tok, **kw)
+        single, _ = tv.evaluate_cirr_stage1(model, None, classic, relative,
+                                            tok, single_program=True, **kw)
+        assert run.captures == captures
+        np.testing.assert_array_equal(single.topk, multi.topk)
+        np.testing.assert_array_equal(single.ranks, multi.ranks)
+        assert single.metrics == multi.metrics
+        return single
+
+    first = check(1)
+    assert run.capture.launches["K1"] > 0 and run.capture.launches["K2"] > 0
+    assert run.capture.pool_bytes > 0
+    again = check(1)                                  # the cached graph
+    np.testing.assert_array_equal(again.topk, first.topk)
+    torch.manual_seed(1)
+    other = RetrievalModel(cfg, dtype=torch.bfloat16, device="cpu")
+    model.load_state_dict(other.state_dict())         # in place
+    swapped = check(1)
+    assert not np.array_equal(swapped.ranks, first.ranks)
+    model.to("cpu")
+    model.to(dev)                                     # new addresses
+    check(2)
+    run.release()
+    assert run.capture is None

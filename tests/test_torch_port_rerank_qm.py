@@ -174,11 +174,15 @@ def test_score_indexed_equals_score_per_query(models):
     ref = jax.jit(functools.partial(j2.apply, method=JReranker.score_indexed))(
         p2, z_t, ids, mask, unique, pair_map)
     np.testing.assert_allclose(f32(indexed), f32(ref), atol=1e-5)
-    with pytest.raises(NotImplementedError):
-        t2.text_encoder(tids, tmask, tz, torch.from_numpy(unique[pair_map]),
-                        layout="per_pair", deterministic=False,
-                        seeds=np.zeros(t2.text_encoder.seed_shape,
-                                       np.int64).tolist())
+    # the per-pair layout also runs with dropout (this model's rates are
+    # 0, so a seed table gives the eval scores; the rates at 0.1 are held
+    # to JAX in tests/test_torch_port_dropout_layouts.py)
+    seeds = np.zeros(t2.text_encoder.seed_shape, np.int64).tolist()
+    with torch.no_grad():
+        train = t2.score_per_query(tz, tids, tmask,
+                                   torch.from_numpy(unique[pair_map]),
+                                   deterministic=False, seeds=seeds)
+    np.testing.assert_allclose(f32(train), f32(per_pair), atol=1e-6)
 
 
 @pytest.mark.parametrize("dedup", [False, True])

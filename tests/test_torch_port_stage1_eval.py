@@ -338,15 +338,28 @@ def test_full_ranking_and_topk_match_jax(ties):
                                rtol=0, atol=1e-6)
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(cirr_root, models, tokenizers):
     with pytest.raises(NotImplementedError):
         tv.ranked_slices(np.zeros((1, 2)), torch.zeros(3, 2), 2, mesh=object())
     with pytest.raises(NotImplementedError):
         tv.full_ranking(np.zeros((1, 2)), torch.zeros(3, 2), mesh=object())
     for fn in (tv.evaluate_cirr_stage1, tv.evaluate_fiq_stage1):
-        for kw in ({"mesh": object()}, {"single_program": True}):
+        for kw in ({"mesh": object()},
+                   {"mesh": object(), "single_program": True}):
             with pytest.raises(NotImplementedError):
                 fn(None, None, [], [], None, text_len=8, device="cpu", **kw)
+    # the single-program eval is ported: it runs, and ranks as the
+    # multi-launch path does (tests/test_torch_port_single_program.py
+    # holds the two executors equal in full)
+    t1, tt = models[4], tokenizers[1]
+    sets = [CIRRDataset(cirr_root, "val", mode,
+                        make_transform("targetpad", IMG))
+            for mode in ("classic", "relative")]
+    kw = dict(text_len=TEXT_LEN, batch_size=5, q_batch=8, device="cpu")
+    single, _ = tv.evaluate_cirr_stage1(t1, None, *sets, tt,
+                                        single_program=True, **kw)
+    multi, _ = tv.evaluate_cirr_stage1(t1, None, *sets, tt, **kw)
+    assert single.metrics == multi.metrics
     with pytest.raises(NotImplementedError):
         tv.predict_queries(None, None, ["a"], ["x"], torch.zeros(1, 2, 2),
                            ["x"], 8, mesh=object())
