@@ -78,9 +78,6 @@ def parse_args(argv=None):
     parser.add_argument("--batch-size", type=int, default=16)
     parser.add_argument("--report", type=str, default="parity_report.json")
     parser.add_argument("--work-dir", type=str, default="parity_work")
-    parser.add_argument("--reference-src", type=str, default="",
-                        help="accepted for compatibility with the JAX "
-                             "package's ladder; rung 0 is recorded 'skip'")
     return parser.parse_args(argv)
 
 

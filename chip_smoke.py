@@ -112,7 +112,8 @@ Phases, each printing its own lines:
     forward and a backward on the card and on the CPU with the kernel
     thresholds ``MIN_KV``/``MIN_ROWS`` at 0 (every dropout from the K5
     hash: logits 1e-3, gradients 1e-3 of the largest), then timed on the
-    card at the default thresholds. (c) a ``CaptionDecoder``'s
+    card at the default thresholds over 4 x 8 and 8 x 4 (score_grid's
+    attention must launch K6/K7 there). (c) a ``CaptionDecoder``'s
     teacher-forced caption loss with attention dropout 0.1 over 2 images,
     the same way. The card runs of (b) and (c) must launch K5-K9.
 11. serving (run after phases 9 and 15, on phase 9's corpus, before
@@ -261,9 +262,13 @@ S1E_TIE_GAP = 1e-6             # top-50 lists may differ only at such gaps
 # teacher-forced caption loss over DL_CAP_B images, card vs CPU within
 # DL_LOGIT_TOL and DL_GRAD_REL_TOL of the largest gradient (as the fp32
 # train steps); the sizes keep the CPU legs, whose plain attention
-# computes the K5 hash on int64 tensors, to a few seconds each
+# computes the K5 hash on int64 tensors, to a few seconds each. The card
+# alone is then timed at the default thresholds at DL_PQ_TIMED and
+# DL_GRID_TIMED, where score_grid's B*Lq rows (160) reach MIN_ROWS, so
+# its attention takes K6/K7 on the [A, B*Lq] fold
 SP_REPLAYS = 3
 DL_RATE, DL_PQ, DL_GRID, DL_CAP_B = 0.1, (2, 4), (4, 2), 2
+DL_PQ_TIMED, DL_GRID_TIMED = (4, 8), (8, 4)
 DL_LOGIT_TOL, DL_GRAD_REL_TOL = FP32_CARD_VS_CPU_TOL, TRAIN_GRAD_REL_TOL
 # phase 10, the trainer CLIs on a jpeg CIRR tree: stage I at its default
 # B = 512 (S1_B), two steps an epoch, two epochs; stage II at B = 16 over
@@ -1963,6 +1968,14 @@ def single_program_path(tok, words, queries: list[dict], s1e: dict) -> dict:
           f"cache hit {hit}, replay vs a multi-launch run with them: topk "
           f"and ranks bit-equal {same}; {time.perf_counter() - t0:.1f} s",
           flush=True)
+    print(f"[single_program] whole calls, end to end: the cache-hit "
+          f"single-program call {swapped.seconds['total']:.4f} s "
+          f"({n_q / swapped.seconds['total']:.1f} queries/s; "
+          f"{json.dumps(swapped.seconds)}) against the multi-launch call "
+          f"right after it, same weights {eager.seconds['total']:.4f} s "
+          f"({n_q / eager.seconds['total']:.1f} queries/s); the first "
+          f"single-program call {sec['total']:.4f} s, phase 9's "
+          f"multi-launch call {multi.seconds['total']:.4f} s", flush=True)
     if not hit or np.array_equal(swapped.ranks, res.ranks):
         fail("the weight swap did not replay the cached graph with the "
              "new weights")
@@ -2076,8 +2089,9 @@ def dropout_layouts_path(tok) -> dict:
     ``CaptionDecoder``'s teacher-forced caption loss over DL_CAP_B images,
     each a forward and a backward on the card and on the CPU with the
     kernel thresholds at 0 (card vs CPU within DL_LOGIT_TOL and
-    DL_GRAD_REL_TOL), then timed on the card at the default thresholds.
-    Returns the card runs' launches."""
+    DL_GRAD_REL_TOL), then timed on the card at the default thresholds
+    (the re-ranker at DL_PQ_TIMED and DL_GRID_TIMED, where score_grid must
+    launch K6/K7). Returns the card runs' launches."""
     from candidate_reranking_cir_tpu_torch.config import (
         RerankerModelConfig,
         RetrievalModelConfig,
@@ -2103,19 +2117,25 @@ def dropout_layouts_path(tok) -> dict:
         mask = (np.arange(TEXT_LEN) < lens[..., None]).astype(np.int32)
         return ids, mask
 
-    (q, c), (a, b) = DL_PQ, DL_GRID
     m = vit.num_tokens
-    cases = {
-        "score_per_query": (
-            rng.standard_normal((q, TEXT_LEN, width), np.float32),
-            *texts((q,)),
-            rng.standard_normal((q, c, m, width), np.float32),
-            f"{q} queries x {c} candidates"),
-        "score_grid": (
-            rng.standard_normal((a, b, TEXT_LEN, width), np.float32),
-            *texts((a, b)),
-            rng.standard_normal((a, m, width), np.float32),
-            f"{a} candidates x {b} queries")}
+
+    def case(method: str, lead: tuple) -> tuple:
+        """(arrays, what) of one call: score_per_query over lead = (queries,
+        candidates), score_grid over lead = (candidates, queries)."""
+        if method == "score_per_query":
+            q, c = lead
+            return ((rng.standard_normal((q, TEXT_LEN, width), np.float32),
+                     *texts((q,)),
+                     rng.standard_normal((q, c, m, width), np.float32)),
+                    f"{q} queries x {c} candidates")
+        a, b = lead
+        return ((rng.standard_normal((a, b, TEXT_LEN, width), np.float32),
+                 *texts((a, b)),
+                 rng.standard_normal((a, m, width), np.float32)),
+                f"{a} candidates x {b} queries")
+
+    sizes = {"score_per_query": (DL_PQ, DL_PQ_TIMED),
+             "score_grid": (DL_GRID, DL_GRID_TIMED)}
     torch.manual_seed(SEED + 41)
     models = {"cpu": RerankerModel(RerankerModelConfig(
         vit=vit, text=text, text_len=TEXT_LEN), device="cpu")}
@@ -2138,15 +2158,24 @@ def dropout_layouts_path(tok) -> dict:
 
         return loss_and_grads(model, run, dev)
 
-    for method, (*arrays, what) in cases.items():
+    for method, (small, timed) in sizes.items():
+        arrays, what = case(method, small)
         with kernel_thresholds(zero=True):
             runs = {dev: layout_run(dev, method, arrays)
                     for dev in ("cuda", "cpu")}
         card_vs_cpu_grads(f"{method} [{what}] fp32, thresholds 0",
                           runs["cuda"], runs["cpu"])
+        arrays, what = case(method, timed)
+        layout_run("cuda", method, arrays)            # warm-up
+        before = launch_counts()
         t = layout_run("cuda", method, arrays)[2]
+        k67 = {k: launch_counts()[k] - before[k] for k in ("K6", "K7")}
         print(f"[dropout] {method} [{what}] fp32 on the card at the default "
-              f"thresholds: {t:.3f} s a forward and backward", flush=True)
+              f"thresholds: {t:.3f} s a forward and backward; launches "
+              f"{json.dumps(k67)}", flush=True)
+        if method == "score_grid" and not (k67["K6"] > 0 and k67["K7"] > 0):
+            fail(f"score_grid [{what}] at the default thresholds launched "
+                 f"{k67}: K6/K7 must run on the [A, B*Lq] fold")
     del models
 
     # (c) captioning

@@ -1408,23 +1408,13 @@ class _Images:
         return {"name": self.index_names[i], "image": self.images[i]}
 
 
-def test_single_program_replays_equal_the_multi_launch_path(dev):
-    """evaluate_cirr_stage1(single_program=True) on the card: one CUDA
-    graph whose replay gives the multi-launch path's top-K and ranks bit
-    for bit (bf16; the last embed chunk ragged); a second call replays the
-    cached graph; weights loaded in place replay it too and equal the
-    multi-launch path with those weights; a model moved off the card and
-    back is captured again."""
+def _small_stage1():
+    """A small bf16-sized stage-I config, a 12-image corpus and 20 CIRR
+    queries over it, and their tokenizer."""
     from candidate_reranking_cir_tpu_torch import config as tcfg
-    from candidate_reranking_cir_tpu_torch.models.blip_retrieval import (
-        RetrievalModel,
-    )
     from candidate_reranking_cir_tpu_torch.models.tokenizer import (
         WordPieceTokenizer,
         build_test_vocab,
-    )
-    from candidate_reranking_cir_tpu_torch.retrieval import (
-        validate_engine as tv,
     )
 
     cfg = tcfg.RetrievalModelConfig(
@@ -1448,7 +1438,25 @@ def test_single_program_replays_equal_the_multi_launch_path(dev):
         relative.append({"caption": " ".join(rng.choice(words, 2 + i % 9)),
                          "reference_name": ref, "target_name": members[1],
                          "group_members": members})
-    tok = WordPieceTokenizer(vocab)
+    return cfg, classic, relative, WordPieceTokenizer(vocab)
+
+
+def test_single_program_replays_equal_the_multi_launch_path(dev):
+    """evaluate_cirr_stage1(single_program=True) on the card: one CUDA
+    graph whose replay gives the multi-launch path's top-K and ranks bit
+    for bit (bf16; the last embed chunk ragged); a second call replays the
+    cached graph, its corpus written straight into the graph's own static
+    images; weights loaded in place replay it too and equal the
+    multi-launch path with those weights; a model moved off the card and
+    back is captured again."""
+    from candidate_reranking_cir_tpu_torch.models.blip_retrieval import (
+        RetrievalModel,
+    )
+    from candidate_reranking_cir_tpu_torch.retrieval import (
+        validate_engine as tv,
+    )
+
+    cfg, classic, relative, tok = _small_stage1()
     torch.manual_seed(0)
     model = RetrievalModel(cfg, dtype=torch.bfloat16, device=dev).eval()
     kw = dict(text_len=16, batch_size=5, q_batch=8, save_topk_k=6,
@@ -1469,7 +1477,9 @@ def test_single_program_replays_equal_the_multi_launch_path(dev):
     first = check(1)
     assert run.capture.launches["K1"] > 0 and run.capture.launches["K2"] > 0
     assert run.capture.pool_bytes > 0
+    static = [x.data_ptr() for x in run.capture.inputs]
     again = check(1)                                  # the cached graph
+    assert [x.data_ptr() for x in run.capture.inputs] == static
     np.testing.assert_array_equal(again.topk, first.topk)
     torch.manual_seed(1)
     other = RetrievalModel(cfg, dtype=torch.bfloat16, device="cpu")
@@ -1481,3 +1491,98 @@ def test_single_program_replays_equal_the_multi_launch_path(dev):
     check(2)
     run.release()
     assert run.capture is None
+
+
+def _small_plan(classic, relative, tok, device):
+    """The single program's inputs for ``_small_stage1``'s data:
+    (imgs, fams, inv, ent) on ``device``."""
+    from candidate_reranking_cir_tpu_torch.retrieval import (
+        validate_engine as tv,
+    )
+
+    names = classic.index_names
+    pos = {n: i for i, n in enumerate(names)}
+    ref_idx = np.asarray([pos[q["reference_name"]] for q in relative],
+                         np.int32)
+    ids, mask, bucket_of = tv.resolve_buckets(
+        tok, [q["caption"] for q in relative], 16, "auto")
+    fams, inv = tv.build_fusion_plan(
+        tv.schedule_fusion_batches(ref_idx, bucket_of, 8, True), ids, mask,
+        device)
+    ent = np.asarray([[pos[q["target_name"]], pos[q["reference_name"]]]
+                      for q in relative], np.int64)
+    imgs = torch.from_numpy(np.stack(classic.images)).to(device)
+    return (imgs, fams, torch.from_numpy(inv).to(device),
+            torch.from_numpy(ent).to(device))
+
+
+def test_single_program_reads_and_never_writes_its_inputs(dev):
+    """Through ``make_single_program_eval(model)(...)``, a second call with
+    other inputs replays the cached graph on them, equal to the program
+    run eagerly on them, and leaves the first call's tensors as they
+    were."""
+    from candidate_reranking_cir_tpu_torch.models.blip_retrieval import (
+        RetrievalModel,
+    )
+    from candidate_reranking_cir_tpu_torch.retrieval import (
+        validate_engine as tv,
+    )
+
+    cfg, classic, relative, tok = _small_stage1()
+    torch.manual_seed(0)
+    model = RetrievalModel(cfg, dtype=torch.bfloat16, device=dev).eval()
+    run = tv.SingleProgramEval(model)
+    first = _small_plan(classic, relative, tok, dev)
+    kept = [x.clone() for x in (first[0], first[2], first[3],
+                                *(t for fam in first[1] for t in fam))]
+    rng = np.random.default_rng(1)
+    second = (torch.from_numpy(rng.standard_normal(
+        first[0].shape, dtype=np.float32)).to(dev), first[1],
+        torch.flip(first[2], (0,)), torch.flip(first[3], (0,)))
+    n = len(classic)
+    run(None, *first, n_idx=n, width=6, chunk=5)
+    out = run(None, *second, n_idx=n, width=6, chunk=5)
+    assert run.captures == 1
+    now = [first[0], first[2], first[3], *(t for fam in first[1] for t in fam)]
+    assert all(torch.equal(a, b) for a, b in zip(now, kept))
+    with torch.inference_mode():
+        topk, ranks, _ = tv._program_body(
+            model, 5, 6, len(second[1]), second[0], second[2], second[3],
+            *(t for fam in second[1] for t in fam))
+    np.testing.assert_array_equal(out[0], topk.cpu().numpy())
+    np.testing.assert_array_equal(out[1], ranks.cpu().numpy())
+    run.release()
+
+
+def test_embed_scan_replays_equal_build_index(dev):
+    """``make_embed_scan`` on the card: its replay equals ``build_index``
+    bit for bit; a second call with other images replays on them, equal
+    to ``build_index`` over them, and leaves the first images as they
+    were."""
+    from candidate_reranking_cir_tpu_torch.models.blip_retrieval import (
+        RetrievalModel,
+    )
+    from candidate_reranking_cir_tpu_torch.retrieval import (
+        validate_engine as tv,
+    )
+    from candidate_reranking_cir_tpu_torch.retrieval.index import (
+        build_index,
+    )
+
+    cfg, classic, _, _ = _small_stage1()
+    torch.manual_seed(0)
+    model = RetrievalModel(cfg, dtype=torch.bfloat16, device=dev).eval()
+    embed, _ = tv.make_stage1_fns(model, None, dev)
+    scan = tv.make_embed_scan(model, None, dev)
+    other = _Images(np.random.default_rng(1).standard_normal(
+        (12, 192, 192, 3), dtype=np.float32))
+    first = torch.from_numpy(np.stack(classic.images)).to(dev)
+    kept = first.clone()
+    for data, images in ((classic, first), (other, torch.from_numpy(
+            np.stack(other.images)).to(dev))):
+        raw, pooled, _ = build_index(data, embed, 4, pooled=True, device=dev)
+        raw_s, pooled_s = scan(images.reshape(3, 4, *images.shape[1:]))
+        assert raw_s.shape[:2] == (3, 4)
+        assert torch.equal(raw_s.flatten(0, 1).to(raw.dtype), raw)
+        assert torch.equal(pooled_s.flatten(0, 1).float(), pooled)
+    assert torch.equal(first, kept)

@@ -104,6 +104,16 @@ def test_ladder_expected_metrics_gate(artifacts):
     assert rungs["expected_metrics"]["deltas"]["recall_at1"] > 4.0
 
 
+def test_ladder_refuses_the_reference_sources_flag(capsys):
+    """Rung 0 runs no reference code in the port, so its flag is refused
+    as the port refuses its other unported features."""
+    with pytest.raises(SystemExit):
+        parity_ladder.parse_args(["--dataset", "CIRR", "--reference-src",
+                                  "src"])
+    assert "unrecognized arguments: --reference-src" in \
+        capsys.readouterr().err
+
+
 @pytest.mark.parametrize("seed", range(3))
 def test_compare_topk_matches_jax(seed):
     rng = np.random.default_rng(seed)
