@@ -20,9 +20,13 @@ import numpy as np
 from candidate_reranking_cir_tpu_torch.cli.common import (
     add_common_flags,
     build_stage1,
+    get_device,
+    get_mesh,
     get_tokenizer,
     get_transform,
+    is_writer,
     load_params,
+    run_ranks,
 )
 from candidate_reranking_cir_tpu_torch.data.datasets import CIRRDataset
 from candidate_reranking_cir_tpu_torch.data.topk_io import save_topk_file
@@ -62,6 +66,9 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if args.dataset.lower() != "cirr":
         parser.error("the test1 submission is CIRR's")
+    if run_ranks(main, argv, args):
+        return
+    mesh = get_mesh(args)
 
     tokenizer = get_tokenizer(args)  # cheap fail-fast before ckpt IO
     model, cfg = build_stage1(args)
@@ -71,9 +78,10 @@ def main(argv=None):
     classic = CIRRDataset(args.data_root, "test1", "classic", transform)
     relative = CIRRDataset(args.data_root, "test1", "relative", transform)
 
-    embed, fuse = make_stage1_fns(model, params, args.device)
+    embed, fuse = make_stage1_fns(model, params, get_device(args))
     raw, pooled, index_names = build_index(classic, embed, args.batch_size,
-                                           pooled=True, device=args.device)
+                                           pooled=True, device=args.device,
+                                           mesh=mesh)
 
     pair_ids, refs, captions, groups = [], [], [], []
     for i in range(len(relative)):
@@ -85,7 +93,7 @@ def main(argv=None):
 
     # the fusion batch is --batch-size, as in the JAX CLI
     pred = predict_queries(fuse, tokenizer, captions, refs, raw, index_names,
-                           args.text_len, args.batch_size,
+                           args.text_len, args.batch_size, mesh=mesh,
                            image_major=not args.query_major_fusion)
     # the submission consumes the top-50 and the top-k artifact only, never
     # the full order (validate_engine.ranked_slices)
@@ -94,7 +102,9 @@ def main(argv=None):
     ent = np.asarray([[pos[r], *[pos[m] for m in row]]
                       for r, row in zip(refs, members)], np.int32)
     width = max(51, args.k + 1)
-    topk_idx, ranks = ranked_slices(pred, pooled, width, ent)
+    topk_idx, ranks = ranked_slices(pred, pooled, width, ent, mesh=mesh)
+    if not is_writer():
+        return
 
     # remove the reference image from each row (cirr_test_submission.py:55-58)
     names_sliced = np.asarray(index_names, dtype=object)[topk_idx]

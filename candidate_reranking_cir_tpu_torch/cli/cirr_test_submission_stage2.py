@@ -6,7 +6,7 @@ Global ranking: the test1 top-k file's K candidate names re-sorted by the
 re-ranker's score (cirr_test_submission_stage2.py:93-106); subset ranking:
 the 5 non-reference group members re-scored by the same model.
 ``--schedule query_major`` (with ``--q-batch``) runs; ``--shard-index``
-raises.
+splits the bank over the mesh (no effect without one, as in the JAX CLI).
 
 Example:
   python -m candidate_reranking_cir_tpu_torch.cli.cirr_test_submission_stage2 \
@@ -25,21 +25,23 @@ from candidate_reranking_cir_tpu_torch.cli.common import (
     build_stage1,
     build_stage2,
     get_device,
+    get_mesh,
     get_tokenizer,
     get_transform,
+    is_writer,
     load_params,
     parse_l_buckets,
+    run_ranks,
 )
 from candidate_reranking_cir_tpu_torch.data.datasets import CIRRDataset
-from candidate_reranking_cir_tpu_torch.retrieval.index import build_index
 from candidate_reranking_cir_tpu_torch.retrieval.rerank import bind_module
 from candidate_reranking_cir_tpu_torch.retrieval.submission import (
     build_submissions,
     write_submissions,
 )
 from candidate_reranking_cir_tpu_torch.retrieval.validate2_engine import (
-    check_stage2_options,
     run_rerank,
+    stage2_bank,
 )
 from candidate_reranking_cir_tpu_torch.runtime.host import (
     limit_numpy_threads,
@@ -66,15 +68,19 @@ def main(argv=None):
                         help="re-rank scheduling: by candidate or by query "
                              "([Qb, K] chunks)")
     parser.add_argument("--shard-index", action="store_true",
-                        help="shard the feature bank over a mesh; not "
-                             "ported (raises)")
+                        help="shard the corpus feature bank over the mesh "
+                             "(needs --mesh auto and the candidate_major "
+                             "schedule)")
     parser.add_argument("--l-buckets", type=str, default="auto",
                         help="text-length buckets for the candidate-major "
                              "scheduler: 'auto', 'off', or '16,24,40'")
     args = parser.parse_args(argv)
     if args.dataset.lower() != "cirr":
         parser.error("the test1 submission is CIRR's")
-    check_stage2_options(None, args.shard_index)
+    if run_ranks(main, argv, args):
+        return
+    mesh = get_mesh(args)
+    shard_index = args.shard_index and mesh is not None
 
     tokenizer = get_tokenizer(args)  # cheap fail-fast before ckpt IO
     stage1, s1_cfg = build_stage1(args)
@@ -91,8 +97,8 @@ def main(argv=None):
     device = get_device(args)
     stage1 = bind_module(stage1, s1_params, device)
     reranker = bind_module(reranker, s2_params, device)
-    raw, index_names = build_index(classic, reranker.embed_images,
-                                   args.batch_size, device=device)
+    raw, index_names = stage2_bank(reranker, classic, args.batch_size, False,
+                                   device, mesh, shard_index)
 
     samples = [relative[i] for i in range(len(relative))]
     pair_ids = [s["pair_id"] for s in samples]
@@ -103,6 +109,7 @@ def main(argv=None):
     out = run_rerank(
         args.schedule, stage1, reranker, tokenizer, q_batch=args.q_batch,
         l_buckets=parse_l_buckets(args.l_buckets), device=device,
+        mesh=mesh, shard_index=shard_index,
         captions=[s["caption"] for s in samples], reference_names=refs,
         topk_names=topk_names, index_feats=raw, index_names=index_names,
         text_len=args.text_len, group_members=groups)
@@ -114,6 +121,8 @@ def main(argv=None):
         dtype=object)
     group_sorted = np.take_along_axis(members_no_ref, out.group_order, axis=1)
 
+    if not is_writer():
+        return
     submission, group_submission = build_submissions(
         pair_ids, reranked_names, group_sorted)
     p1, p2 = write_submissions(args.out_dir, args.submission_name, submission,

@@ -4,19 +4,28 @@ loading, and the trainers' text-width buckets.
 
 The flag surface follows the JAX package's CLIs, with one flag of the
 port's own: ``--device`` (default 'cuda'; 'cpu' runs the kernels' plain
-versions). ``--fused-attention`` and ``--mesh`` are accepted for
-compatibility only: the port always routes attention through its kernels
-(so ``off`` is refused on the card) and runs on one device (so ``--mesh
-auto`` with several cards visible is refused).
+versions). ``--fused-attention`` is accepted for compatibility only: the
+port always routes attention through its kernels (so ``off`` is refused
+on the card).
+
+``--mesh auto`` (the default) is JAX's ``get_mesh``: a data-parallel mesh
+over every rank, None below two. The port runs one process a rank
+(``run_ranks``): under ``torchrun`` each process joins the group its
+environment names; a plain launch on the card that sees several cards
+starts one rank a card itself (NCCL), each running the CLI, so that the
+JAX command line runs unchanged; ``--mesh off`` stays on one card. Only
+rank 0 prints metrics and writes files (``is_writer``).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import sys
 import os
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 from candidate_reranking_cir_tpu_torch.config import (
     RerankerModelConfig,
@@ -76,10 +85,9 @@ def add_common_flags(parser: argparse.ArgumentParser):
                              "the CPU and refused on the card")
     parser.add_argument("--mesh", type=str, default="auto",
                         choices=["auto", "off"],
-                        help="accepted for compatibility with the JAX "
-                             "package's CLIs: 'auto' and 'off' are the same "
-                             "on one card; 'auto' with several cards visible "
-                             "is refused (the mesh paths are not ported)")
+                        help="'auto': data parallelism over every rank "
+                             "(torchrun's, or one rank a visible card, "
+                             "started by the CLI); 'off': one device")
     parser.add_argument("--model-config", type=str, default="",
                         help="JSON overriding model dims: "
                              '{"vit": {...}, "text": {...}, "embed_dim": N}')
@@ -97,24 +105,73 @@ def _model_overrides(args) -> dict:
 
 
 def mesh_requested(args) -> bool:
-    """Whether the JAX package's CLIs would build a mesh for these flags
-    (``--mesh auto`` with several devices visible)."""
-    return args.mesh == "auto" and args.device == "cuda" \
-        and torch.cuda.device_count() > 1
+    """Whether these flags run over a mesh: ``--mesh auto`` in a process
+    group of several ranks, or on the card with several cards visible
+    (``run_ranks`` then starts one rank a card)."""
+    if args.mesh != "auto":
+        return False
+    if dist.is_initialized():
+        return dist.get_world_size() > 1
+    return args.device == "cuda" and torch.cuda.device_count() > 1
+
+
+def run_ranks(main, argv, args) -> bool:
+    """Start the ranks a mesh needs, if this process is not one yet:
+    under ``torchrun`` join the group its environment names (this process
+    then goes on as its rank; returns False); on a plain launch with
+    ``--mesh auto`` on the card and several cards visible, run
+    ``main(argv)`` on one spawned NCCL rank a card and return True (the
+    caller returns). Otherwise False: one process, no mesh."""
+    from candidate_reranking_cir_tpu_torch.parallel import launch, mesh
+
+    if args.mesh != "auto" or dist.is_initialized():
+        return False
+    env = mesh.env_world()
+    if env is not None:
+        rank, world, local = env
+        if args.device == "cuda":
+            torch.cuda.set_device(local)
+        dist.init_process_group("nccl" if args.device == "cuda" else "gloo",
+                                init_method="env://", rank=rank,
+                                world_size=world)
+        return False
+    if not mesh_requested(args):
+        return False
+    launch.run_world(main, torch.cuda.device_count(), device="cuda",
+                     args=(list(sys.argv[1:] if argv is None else argv),),
+                     timeout_s=7 * 24 * 3600.0)
+    return True
+
+
+def get_mesh(args):
+    """Resolve --mesh (JAX's ``get_mesh``): a data-parallel mesh over every
+    rank of this process's group, or None (``--mesh off``, or fewer than
+    two ranks)."""
+    if args.mesh != "auto" or not dist.is_initialized() \
+            or dist.get_world_size() < 2:
+        return None
+    from candidate_reranking_cir_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(device=args.device)
+
+
+def is_writer() -> bool:
+    """Whether this process prints results and writes files: rank 0, or
+    the only process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def get_device(args) -> torch.device:
     """Resolve --device (raises for 'cuda' without a card), checking
-    --fused-attention and --mesh against what the port runs."""
+    --fused-attention against what the port runs. In a process group on
+    the card, the rank's own card."""
     device = resolve_device(args.device)
     if args.fused_attention == "off" and device.type == "cuda":
         raise NotImplementedError(
             "--fused-attention off: the port has no attention route on the "
             "card that skips its kernels")
-    if mesh_requested(args):
-        raise NotImplementedError(
-            "--mesh auto over several cards is not ported; pass --mesh off "
-            "to run on one card")
+    if device.type == "cuda" and dist.is_initialized():
+        return torch.device("cuda", torch.cuda.current_device())
     return device
 
 
@@ -229,6 +286,8 @@ def parse_l_buckets(spec: str):
 
 
 def print_metrics(metrics: dict):
+    if not is_writer():
+        return
     for k, v in metrics.items():
         print(f"{k} = {v:.2f}")
 
@@ -248,14 +307,23 @@ def parse_text_buckets(spec: str, text_len: int) -> tuple[int, ...]:
     return tuple(sorted(cand))
 
 
-def text_bucket_slice(ids, mask, buckets: tuple[int, ...]):
+def text_bucket_slice(ids, mask, buckets: tuple[int, ...], mesh=None):
     """Slice a pad-to-text_len batch (arrays or tensors) down to the
     smallest bucket holding its longest caption. The reference trains
     pad-to-longest per batch (blip_stage1.py:72); a fixed bucket set keeps
     the set of shapes small while recovering most of that saving. Numerics
-    per real token are unchanged (pad keys are additively masked)."""
+    per real token are unchanged (pad keys are additively masked). With
+    ``mesh`` the batch is this rank's block and the longest caption is
+    the global batch's (an all-reduce), so every rank takes one width."""
     if not buckets:
         return ids, mask
     max_len = int(mask.sum(axis=1).max())
+    if mesh is not None:
+        from candidate_reranking_cir_tpu_torch.parallel.mesh import (
+            all_reduce,
+        )
+
+        max_len = int(all_reduce(mesh, torch.tensor(
+            [max_len], device=mesh.device), "max").item())
     lb = next((b for b in buckets if b >= max_len), ids.shape[1])
     return ids[:, :lb], mask[:, :lb]

@@ -42,10 +42,14 @@ from candidate_reranking_cir_tpu_torch.cli.common import (
     add_common_flags,
     build_stage1,
     build_stage2,
+    get_mesh,
     get_tokenizer,
     get_transform,
+    is_writer,
     load_params,
+    run_ranks,
 )
+from candidate_reranking_cir_tpu_torch.parallel.mesh import barrier
 from candidate_reranking_cir_tpu_torch.runtime.host import (
     limit_numpy_threads,
 )
@@ -142,6 +146,15 @@ def main(argv=None):
     args = parse_args(argv)
     if args.dataset.lower() != "cirr":
         raise ValueError("the ladder targets CIRR artifacts")
+    if run_ranks(main, argv, args):
+        return
+    mesh = get_mesh(args)
+
+    def written():
+        """Rank 0's files, on every rank."""
+        if mesh is not None:
+            barrier(mesh)
+
     ladder = Ladder()
     work = Path(args.work_dir)
     work.mkdir(parents=True, exist_ok=True)
@@ -198,10 +211,12 @@ def main(argv=None):
             result, payload = evaluate_cirr_stage1(
                 stage1, s1_params, classic, relative, tokenizer,
                 text_len=args.text_len, batch_size=args.batch_size,
-                save_topk_k=args.k_extract, device=args.device)
+                save_topk_k=args.k_extract, device=args.device, mesh=mesh)
             mets1 = result.metrics
-            save_topk_file(work / f"cirr_top_{args.k_extract}_val.npz",
-                           payload)
+            if is_writer():
+                save_topk_file(work / f"cirr_top_{args.k_extract}_val.npz",
+                               payload)
+            written()
             ladder.record("stage1_val", "pass",
                           **{k: round(v, 2) for k, v in mets1.items()})
         except Exception as e:  # noqa: BLE001
@@ -244,7 +259,7 @@ def main(argv=None):
                 data_root=args.data_root, transform=transform,
                 top_k_path=topk_path, k=args.k_value,
                 text_len=args.text_len, batch_size=args.batch_size,
-                device=args.device)
+                device=args.device, mesh=mesh)
             ladder.record("stage2_val", "pass",
                           **{k: round(v, 2) for k, v in mets2.items()})
         except Exception as e:  # noqa: BLE001
@@ -309,6 +324,7 @@ def main(argv=None):
                            "recall_submission_stage2_0.json"),
                           ("recall_subset_submission_ladder_stage2.json",
                            "recall_subset_submission_stage2_0.json")]
+            written()
             diffs = {}
             for ours_name, golden_name in pairs:
                 golden = Path(args.goldens_dir) / golden_name
@@ -328,8 +344,10 @@ def main(argv=None):
                       reason="needs --goldens-dir, test1 split, and ckpts")
 
     report = {"rungs": ladder.rungs, "failed": ladder.failed}
-    Path(args.report).write_text(json.dumps(report, indent=2, default=str))
-    print(f"report written to {args.report}")
+    if is_writer():
+        Path(args.report).write_text(json.dumps(report, indent=2,
+                                                default=str))
+        print(f"report written to {args.report}")
     sys.exit(1 if ladder.failed else 0)
 
 

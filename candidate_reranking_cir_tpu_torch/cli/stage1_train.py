@@ -6,7 +6,7 @@ Example:
       --dataset CIRR --data-root /data --vocab vocab.txt \
       --pretrained model_base.pth --experiment-name s1 --device cuda
 
-The JAX trainer's flags, on one device (``--device``, default the card):
+The JAX trainer's flags (``--device``, default the card):
 the step is ``runtime/train_steps.py::make_stage1_train_step`` fed by the
 prefetching host loader. As in the JAX package:
 - gradient accumulation keeps a running mean (``optax.MultiSteps``'s);
@@ -15,7 +15,17 @@ prefetching host loader. As in the JAX package:
   state but never reloads it;
 - SIGTERM/SIGINT finish the current step, save a resumable ``blip_last``
   and return (``runtime/host.py::GracefulShutdown``).
-``--fsdp`` raises: the port runs on one card, with no mesh.
+
+Over several ranks (``--mesh auto``: torchrun's, or one rank a card that
+the CLI starts; ``cli/common.py``) the run is JAX's data-parallel one:
+``make_mesh_for_batch(--batch-size)``, each rank loading only its block
+of each global batch, in the one-process order; the global-batch
+contrast; the gradients averaged over the ranks, or with ``--fsdp``
+reduce-scattered into ZeRO-style blocks of the moments
+(``runtime/optim.AdamW``). A signal on any rank stops every rank at the
+same step (the flag is all-reduced at each step boundary). Only rank 0
+prints, logs, validates and writes checkpoints, which have the
+one-process format, so a run saved at four ranks resumes at one.
 """
 from __future__ import annotations
 
@@ -31,10 +41,12 @@ from candidate_reranking_cir_tpu_torch.cli.common import (
     build_stage1,
     get_tokenizer,
     get_transform,
+    is_writer,
     load_params,
     parse_text_buckets,
     prescan_captions,
     print_metrics,
+    run_ranks,
     text_bucket_slice,
 )
 from candidate_reranking_cir_tpu_torch.config import TrainConfig
@@ -44,6 +56,7 @@ from candidate_reranking_cir_tpu_torch.data.datasets import (
     FashionIQDataset,
 )
 from candidate_reranking_cir_tpu_torch.data.loader import BatchLoader, prefetch
+from candidate_reranking_cir_tpu_torch.parallel import mesh as pmesh
 from candidate_reranking_cir_tpu_torch.retrieval.index import build_index
 from candidate_reranking_cir_tpu_torch.retrieval.validate_engine import (
     evaluate_cirr_stage1,
@@ -59,7 +72,9 @@ from candidate_reranking_cir_tpu_torch.runtime.host import (
     limit_numpy_threads,
 )
 from candidate_reranking_cir_tpu_torch.runtime.logging import (
+    CometStub,
     MetricsLogger,
+    MetricsStub,
     make_comet,
 )
 from candidate_reranking_cir_tpu_torch.runtime.optim import make_optimizer
@@ -79,9 +94,9 @@ def add_train_flags(parser: argparse.ArgumentParser):
     parser.add_argument("--api-key", type=str, default="")
     parser.add_argument("--workspace", type=str, default="")
     parser.add_argument("--fsdp", action="store_true",
-                        help="shard params and optimizer moments over a "
-                             "mesh; not ported (raises): the port runs on "
-                             "one card")
+                        help="shard the optimizer moments over the mesh "
+                             "(ZeRO-style; the parameters are gathered for "
+                             "each step)")
     parser.add_argument("--resume", action="store_true",
                         help="resume from <output-dir>/<exp>/saved_models/"
                              "blip_last (the full train state, optimizer "
@@ -120,11 +135,7 @@ def parse_args(argv=None):
 
 
 def check_train_args(args) -> str:
-    """Refuse what the port cannot run; returns the dataset's name."""
-    if args.fsdp:
-        raise NotImplementedError(
-            "--fsdp is not ported: the port trains on one card, without a "
-            "mesh")
+    """Refuse what the trainers cannot run; returns the dataset's name."""
     name = args.dataset.lower()
     if name not in ("cirr", "fashioniq"):
         raise ValueError("Dataset should be either 'CIRR' or 'fashionIQ'")
@@ -132,15 +143,74 @@ def check_train_args(args) -> str:
 
 
 def batch_captions(batch, dataset_name: str, seed: int, epoch: int,
-                   index: int) -> list[str]:
+                   index: int, first_row: int = 0) -> list[str]:
     """A train batch's captions. Fashion-IQ's random two-caption
     composition draws from a generator of (seed, epoch, batch index), so
     a resumed run composes what the uninterrupted run composed (the JAX
-    trainer draws from one generator for the whole run)."""
+    trainer draws from one generator for the whole run). ``first_row``:
+    the batch is a rank's block starting at that row of the global batch,
+    whose earlier rows' draws are skipped, so every rank composes its
+    rows as one process does."""
     if dataset_name == "cirr":
         return batch["caption"]
-    return compose_fiq_train(batch["captions"],
-                             np.random.default_rng([seed, epoch, index]))
+    rng = np.random.default_rng([seed, epoch, index])
+    rng.random(first_row)  # one draw a row (compose_fiq_train)
+    return compose_fiq_train(batch["captions"], rng)
+
+
+class RankRun:
+    """One rank's view of a trainer run: the training mesh (None on one
+    process), whether this rank writes, the step-boundary stop flag and
+    the checkpoint writes."""
+
+    def __init__(self, args):
+        self.mesh = None
+        if args.mesh == "auto" and torch.distributed.is_initialized() \
+                and torch.distributed.get_world_size() > 1:
+            self.mesh = pmesh.make_mesh_for_batch(args.batch_size,
+                                                  device=args.device)
+        self.writer = is_writer()
+
+    @property
+    def idle(self) -> bool:
+        """A rank outside a mesh that the batch shrank."""
+        return self.mesh is not None and not self.mesh.member
+
+    @property
+    def shard(self):
+        return None if self.mesh is None else (self.mesh.rank,
+                                               self.mesh.size)
+
+    def first_row(self, batch_size: int) -> int:
+        return 0 if self.mesh is None \
+            else self.mesh.rank * (batch_size // self.mesh.size)
+
+    def stop(self, requested: bool) -> bool:
+        """Whether any rank was asked to stop (an all-reduce of the flag
+        over the mesh)."""
+        if self.mesh is None:
+            return requested
+        flag = torch.tensor([int(requested)], device=self.mesh.device)
+        return bool(pmesh.all_reduce(self.mesh, flag, "max").item())
+
+    def save(self, path, model, optimizer, metadata: dict,
+             opt_state=None) -> None:
+        """The train state written by rank 0 (every rank calls this: a
+        ZeRO-sharded optimizer's state is gathered collectively)."""
+        if opt_state is None:
+            opt_state = optimizer.state_dict()
+        if self.writer:
+            save_checkpoint(path, model, optimizer, metadata=metadata,
+                            opt_state=opt_state)
+
+    def done(self) -> None:
+        """Every rank waits for rank 0's writes."""
+        if self.mesh is not None:
+            pmesh.barrier(self.mesh)
+
+    def log(self, text: str) -> None:
+        if self.writer:
+            print(text, flush=True)
 
 
 def tokenize_batch(tokenizer, captions, text_len):
@@ -151,6 +221,12 @@ def main(argv=None):
     limit_numpy_threads()
     args = parse_args(argv)
     dataset_name = check_train_args(args)
+    if run_ranks(main, argv, args):
+        return
+    run = RankRun(args)
+    if run.idle:
+        return
+    mesh = run.mesh
 
     tokenizer = get_tokenizer(args)  # cheap fail-fast before ckpt IO
     torch.manual_seed(args.seed)     # the fresh initialization
@@ -179,7 +255,7 @@ def main(argv=None):
                                          list(args.dress_types), "classic",
                                          transform)
     loader = BatchLoader(train_ds, args.batch_size, shuffle=True,
-                         seed=args.seed, workers=8)
+                         seed=args.seed, workers=8, shard=run.shard)
     steps_per_epoch = max(len(loader), 1)
     prescan_captions(tokenizer, train_ds, args.text_len, dataset_name)
 
@@ -187,7 +263,8 @@ def main(argv=None):
         model.load_state_dict(load_params(args.pretrained, 1, cfg))
     freeze = () if args.blip_img_tune else ("visual_encoder",)
     optimizer, schedule = make_optimizer(train_cfg, model, steps_per_epoch,
-                                         freeze_prefixes=freeze)
+                                         freeze_prefixes=freeze, mesh=mesh,
+                                         fsdp=args.fsdp)
 
     # target-feature cache: with a frozen ViT and deterministic transforms
     # the pooled target features are constant; embed the train corpus once
@@ -198,11 +275,11 @@ def main(argv=None):
     # went through vision_proj, which weight decay has moved since)
     tgt_pooled_np, tgt_pos = None, None
     if cache_targets:
-        print("caching pooled target features for the train corpus...")
+        run.log("caching pooled target features for the train corpus...")
         embed, _ = make_stage1_fns(model, None, device)
         _, pooled, names = build_index(classic_train, embed, args.blip_bs,
                                        pooled=True, keep_raw=False,
-                                       device=device)
+                                       device=device, mesh=mesh)
         tgt_pooled_np = pooled.cpu().numpy()
         tgt_pos = {nm: i for i, nm in enumerate(names)}
 
@@ -210,29 +287,30 @@ def main(argv=None):
     start_epoch, skip_batches = 0, 0
     if args.resume:
         start_epoch, skip_batches = try_resume(
-            training_path / "saved_models" / "blip_last", model, optimizer)
+            training_path / "saved_models" / "blip_last", model, optimizer,
+            run)
     # per-epoch shuffle order is seed + epoch; align the loader's counter so
     # a resumed run sees the batch order the original run would have seen
     loader.epoch = start_epoch
-    logger = MetricsLogger(training_path, args.experiment_name, vars(args))
-    comet = make_comet(args.api_key or None, args.workspace or None,
-                       f"cir-stage1-{dataset_name}", args.experiment_name)
+    logger, comet = make_loggers(run, training_path, args,
+                                 f"cir-stage1-{dataset_name}", make_comet)
     step_fn = make_stage1_train_step(model, optimizer,
-                                     finetune_vit=args.blip_img_tune)
+                                     finetune_vit=args.blip_img_tune,
+                                     mesh=mesh)
     text_buckets = parse_text_buckets(args.text_len_buckets, args.text_len)
 
     best_metric = -1.0
     stop = GracefulShutdown()
     for epoch in range(start_epoch, args.num_epochs):
         t0 = time.time()
-        running_loss, seen, steps_done = 0.0, 0, 0
+        running_loss, seen, steps_done, stopped = 0.0, 0, 0, False
         for bi, batch in enumerate(prefetch(iter(loader), 2)):
             if epoch == start_epoch and bi < skip_batches:
                 continue  # already applied before the preemption
             captions = batch_captions(batch, dataset_name, args.seed, epoch,
-                                      bi)
+                                      bi, run.first_row(args.batch_size))
             ids, mask = tokenize_batch(tokenizer, captions, args.text_len)
-            ids, mask = text_bucket_slice(ids, mask, text_buckets)
+            ids, mask = text_bucket_slice(ids, mask, text_buckets, mesh)
             host_batch = {
                 "ref_images": batch["reference_image"].astype(np.float32),
                 "input_ids": ids, "attention_mask": mask,
@@ -249,9 +327,10 @@ def main(argv=None):
             seen += ids.shape[0]
             steps_done = bi + 1
             comet.log_metric("step_loss", loss, step=optimizer.micro_steps)
-            if stop.requested:
+            if run.stop(stop.requested):
+                stopped = True
                 break
-        if stop.requested:  # preemption: save a resumable state, return
+        if stopped:  # preemption: save a resumable state, return
             # epoch - 1 re-enters the interrupted epoch; skip_batches skips
             # the steps already inside the optimizer state, so nothing is
             # applied twice and the step-indexed LR schedule stays exact.
@@ -260,18 +339,19 @@ def main(argv=None):
             # preemption never loses the recorded skip count.
             applied = max(steps_done,
                           skip_batches if epoch == start_epoch else 0)
-            save_checkpoint(training_path / "saved_models" / "blip_last",
-                            model, optimizer,
-                            metadata={"epoch": epoch - 1,
-                                      "skip_batches": applied})
-            print(f"preempted ({stop.signal_name}) at epoch {epoch}: "
-                  "resumable checkpoint saved; restart with --resume")
+            run.save(training_path / "saved_models" / "blip_last",
+                     model, optimizer,
+                     {"epoch": epoch - 1, "skip_batches": applied})
+            run.log(f"preempted ({stop.signal_name or 'SIGTERM'}) at epoch "
+                    f"{epoch}: resumable checkpoint saved; restart with "
+                    "--resume")
+            run.done()
             stop.restore()
             return
         epoch_loss = running_loss / max(seen, 1)
         lr = float(schedule(epoch * steps_per_epoch))
-        print(f"[epoch {epoch}] loss={epoch_loss:.4f} lr={lr:.2e} "
-              f"({time.time() - t0:.1f}s)")
+        run.log(f"[epoch {epoch}] loss={epoch_loss:.4f} lr={lr:.2e} "
+                f"({time.time() - t0:.1f}s)")
         logger.log_train(epoch=epoch, train_epoch_loss=epoch_loss)
         comet.log_metric("epoch_loss", epoch_loss, epoch=epoch)
         comet.log_metric("epoch_lr", lr, epoch=epoch)
@@ -280,12 +360,23 @@ def main(argv=None):
                 or epoch == args.num_epochs - 1):
             best_metric = run_validation(
                 args, model, optimizer, tokenizer, transform, dataset_name,
-                epoch, logger, comet, best_metric, training_path)
+                epoch, logger, comet, best_metric, training_path, run)
     stop.restore()
-    print("training done")
+    run.log("training done")
 
 
-def try_resume(path, model, optimizer) -> tuple[int, int]:
+def make_loggers(run: RankRun, training_path, args, project: str,
+                 comet_factory):
+    """(the CSV logger, Comet from ``comet_factory``) of rank 0; stubs on
+    the other ranks."""
+    if not run.writer:
+        return MetricsStub(), CometStub()
+    return (MetricsLogger(training_path, args.experiment_name, vars(args)),
+            comet_factory(args.api_key or None, args.workspace or None,
+                          project, args.experiment_name))
+
+
+def try_resume(path, model, optimizer, run: RankRun) -> tuple[int, int]:
     """Restore the full train state in place from the checkpoint directory
     ``path``; returns (the epoch to start at, the batches of that epoch to
     skip). A mid-epoch preemption records the batches it had applied: the
@@ -294,24 +385,48 @@ def try_resume(path, model, optimizer) -> tuple[int, int]:
     (seed, epoch), so skipping reproduces the uninterrupted run."""
     path = Path(path)
     if not path.exists():
-        print(f"no checkpoint at {path}; starting fresh")
+        run.log(f"no checkpoint at {path}; starting fresh")
         return 0, 0
     restored = restore_checkpoint(path, model, optimizer)
     epoch = restored.get("epoch", -1) + 1
     skip = int(restored.get("skip_batches", 0))
     extra = f", skipping {skip} already-applied batches" if skip else ""
-    print(f"resumed from {path} at epoch {epoch} "
-          f"(step {restored['step']}){extra}")
+    run.log(f"resumed from {path} at epoch {epoch} "
+            f"(step {restored['step']}){extra}")
     return epoch, skip
 
 
 def run_validation(args, model, optimizer, tokenizer, transform,
                    dataset_name, epoch, logger, comet, best_metric,
-                   training_path) -> float:
-    """Validate the model as it stands, log the metrics, save ``blip_last``
-    and, on a new best, the best checkpoint; returns the best metric."""
-    device = next(model.parameters()).device
+                   training_path, run: RankRun) -> float:
+    """Validate the model as it stands on rank 0 (on its card, without a
+    mesh, as the JAX trainer does), log the metrics, save ``blip_last``
+    and, on a new best, the best checkpoint; returns the best metric
+    (rank 0's). Every rank calls it."""
     saved_dir = Path(training_path) / "saved_models"
+    selection = None
+    if run.writer:
+        selection, ckpt_name = validate_stage1(
+            args, model, tokenizer, transform, dataset_name, epoch, logger,
+            comet)
+    opt_state = optimizer.state_dict()
+    run.save(saved_dir / "blip_last", model, optimizer, {"epoch": epoch},
+             opt_state)
+    if run.writer and selection > best_metric:
+        best_metric = selection
+        run.save(saved_dir / ckpt_name, model, optimizer,
+                 {"epoch": epoch, "metric": selection}, opt_state)
+        run.log(f"saved best ({ckpt_name}) at epoch {epoch}: "
+                f"{selection:.2f}")
+    run.done()
+    return best_metric
+
+
+def validate_stage1(args, model, tokenizer, transform, dataset_name, epoch,
+                    logger, comet) -> tuple[float, str]:
+    """The validation metrics, printed and logged; returns (the selection
+    metric, the best checkpoint's name)."""
+    device = next(model.parameters()).device
     if dataset_name == "cirr":
         classic = CIRRDataset(args.data_root, "val", "classic", transform)
         relative = CIRRDataset(args.data_root, "val", "relative", transform)
@@ -344,15 +459,7 @@ def run_validation(args, model, optimizer, tokenizer, transform,
     logger.log_validation(epoch=epoch, **mets)
     for k, v in mets.items():
         comet.log_metric(k, v, epoch=epoch)
-
-    save_checkpoint(saved_dir / "blip_last", model, optimizer,
-                    metadata={"epoch": epoch})
-    if selection > best_metric:
-        best_metric = selection
-        save_checkpoint(saved_dir / ckpt_name, model, optimizer,
-                        metadata={"epoch": epoch, "metric": selection})
-        print(f"saved best ({ckpt_name}) at epoch {epoch}: {selection:.2f}")
-    return best_metric
+    return selection, ckpt_name
 
 
 if __name__ == "__main__":

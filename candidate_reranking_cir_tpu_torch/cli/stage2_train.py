@@ -13,7 +13,10 @@ the dual-encoder re-ranker trains with CE over the B x B pair grid
 (``runtime/train_steps.py::make_stage2_train_step``). The stage-II ViT
 is frozen unless ``--blip-img-tune``. Checkpoints, ``--resume`` and
 preemption as in ``cli/stage1_train.py``; validation re-ranks the
-``--top-k-path`` file (``retrieval/validate2_engine.py``).
+``--top-k-path`` file (``retrieval/validate2_engine.py``). Over several
+ranks (``--mesh auto``, ``--fsdp``) as ``cli/stage1_train.py``: each rank
+loads its block of each global batch, and the step shards the B x B pair
+grid's candidates (``runtime/train_steps.py``).
 """
 from __future__ import annotations
 
@@ -34,12 +37,15 @@ from candidate_reranking_cir_tpu_torch.cli.common import (
     parse_text_buckets,
     prescan_captions,
     print_metrics,
+    run_ranks,
     text_bucket_slice,
 )
 from candidate_reranking_cir_tpu_torch.cli.stage1_train import (
+    RankRun,
     add_train_flags,
     batch_captions,
     check_train_args,
+    make_loggers,
     try_resume,
 )
 from candidate_reranking_cir_tpu_torch.config import TrainConfig
@@ -52,17 +58,11 @@ from candidate_reranking_cir_tpu_torch.retrieval.validate2_engine import (
     evaluate_cirr_stage2,
     evaluate_fiq_stage2,
 )
-from candidate_reranking_cir_tpu_torch.runtime.checkpoint import (
-    save_checkpoint,
-)
 from candidate_reranking_cir_tpu_torch.runtime.host import (
     GracefulShutdown,
     limit_numpy_threads,
 )
-from candidate_reranking_cir_tpu_torch.runtime.logging import (
-    MetricsLogger,
-    make_comet,
-)
+from candidate_reranking_cir_tpu_torch.runtime.logging import make_comet
 from candidate_reranking_cir_tpu_torch.runtime.optim import make_optimizer
 from candidate_reranking_cir_tpu_torch.runtime.train_steps import (
     make_stage2_train_step,
@@ -97,6 +97,12 @@ def main(argv=None):
     limit_numpy_threads()
     args = parse_args(argv)
     dataset_name = check_train_args(args)
+    if run_ranks(main, argv, args):
+        return
+    run = RankRun(args)
+    if run.idle:
+        return
+    mesh = run.mesh
 
     tokenizer = get_tokenizer(args)  # cheap fail-fast before ckpt IO
     stage1, s1_cfg = build_stage1(args)
@@ -121,7 +127,7 @@ def main(argv=None):
                                     list(args.dress_types), "relative",
                                     transform)
     loader = BatchLoader(train_ds, args.batch_size, shuffle=True,
-                         seed=args.seed)
+                         seed=args.seed, shard=run.shard)
     steps_per_epoch = max(len(loader), 1)
     prescan_captions(tokenizer, train_ds, args.text_len, dataset_name)
 
@@ -129,37 +135,38 @@ def main(argv=None):
     # invisible to AdamW, whose weight decay would otherwise shrink it
     freeze = () if args.blip_img_tune else ("visual_encoder",)
     optimizer, schedule = make_optimizer(train_cfg, reranker, steps_per_epoch,
-                                         freeze_prefixes=freeze)
+                                         freeze_prefixes=freeze, mesh=mesh,
+                                         fsdp=args.fsdp)
 
     training_path = Path(args.output_dir) / args.experiment_name
     start_epoch, skip_batches = 0, 0
     if args.resume:
         start_epoch, skip_batches = try_resume(
             training_path / "saved_models" / "blip_last", reranker,
-            optimizer)
+            optimizer, run)
     # per-epoch shuffle order is seed + epoch; align the loader's counter so
     # a resumed run sees the batch order the original run would have seen
     loader.epoch = start_epoch
-    logger = MetricsLogger(training_path, args.experiment_name, vars(args))
-    comet = make_comet(args.api_key or None, args.workspace or None,
-                       f"cir-stage2-{dataset_name}", args.experiment_name)
+    logger, comet = make_loggers(run, training_path, args,
+                                 f"cir-stage2-{dataset_name}", make_comet)
     step_fn = make_stage2_train_step(stage1, reranker, optimizer,
-                                     finetune_vit=args.blip_img_tune)
+                                     finetune_vit=args.blip_img_tune,
+                                     mesh=mesh)
     text_buckets = parse_text_buckets(args.text_len_buckets, args.text_len)
 
     best_metric = -1.0
     stop = GracefulShutdown()
     for epoch in range(start_epoch, args.num_epochs):
         t0 = time.time()
-        running_loss, seen, steps_done = 0.0, 0, 0
+        running_loss, seen, steps_done, stopped = 0.0, 0, 0, False
         for bi, batch in enumerate(prefetch(iter(loader), 2)):
             if epoch == start_epoch and bi < skip_batches:
                 continue  # already applied before the preemption
             captions = batch_captions(batch, dataset_name, args.seed, epoch,
-                                      bi)
+                                      bi, run.first_row(args.batch_size))
             ids, mask = tokenizer.encode(captions, args.text_len,
                                          set_enc_token=True)
-            ids, mask = text_bucket_slice(ids, mask, text_buckets)
+            ids, mask = text_bucket_slice(ids, mask, text_buckets, mesh)
             loss = float(step_fn({
                 "ref_images": batch["reference_image"].astype(np.float32),
                 "target_images": batch["target_image"].astype(np.float32),
@@ -169,23 +176,25 @@ def main(argv=None):
             seen += ids.shape[0]
             steps_done = bi + 1
             comet.log_metric("step_loss", loss, step=optimizer.micro_steps)
-            if stop.requested:
+            if run.stop(stop.requested):
+                stopped = True
                 break
-        if stop.requested:  # preemption: as in cli/stage1_train.py
+        if stopped:  # preemption: as in cli/stage1_train.py
             applied = max(steps_done,
                           skip_batches if epoch == start_epoch else 0)
-            save_checkpoint(training_path / "saved_models" / "blip_last",
-                            reranker, optimizer,
-                            metadata={"epoch": epoch - 1,
-                                      "skip_batches": applied})
-            print(f"preempted ({stop.signal_name}) at epoch {epoch}: "
-                  "resumable checkpoint saved; restart with --resume")
+            run.save(training_path / "saved_models" / "blip_last",
+                     reranker, optimizer,
+                     {"epoch": epoch - 1, "skip_batches": applied})
+            run.log(f"preempted ({stop.signal_name or 'SIGTERM'}) at epoch "
+                    f"{epoch}: resumable checkpoint saved; restart with "
+                    "--resume")
+            run.done()
             stop.restore()
             return
         epoch_loss = running_loss / max(seen, 1)
-        print(f"[epoch {epoch}] loss={epoch_loss:.4f} "
-              f"lr={float(schedule(epoch * steps_per_epoch)):.2e} "
-              f"({time.time() - t0:.1f}s)")
+        run.log(f"[epoch {epoch}] loss={epoch_loss:.4f} "
+                f"lr={float(schedule(epoch * steps_per_epoch)):.2e} "
+                f"({time.time() - t0:.1f}s)")
         logger.log_train(epoch=epoch, train_epoch_loss=epoch_loss)
         comet.log_metric("epoch_loss", epoch_loss, epoch=epoch)
 
@@ -194,47 +203,52 @@ def main(argv=None):
             best_metric = run_validation(
                 args, stage1, reranker, optimizer, tokenizer, transform,
                 dataset_name, epoch, logger, comet, best_metric,
-                training_path)
+                training_path, run)
     stop.restore()
-    print("training done")
+    run.log("training done")
 
 
 def run_validation(args, stage1, reranker, optimizer, tokenizer, transform,
                    dataset_name, epoch, logger, comet, best_metric,
-                   training_path) -> float:
-    """Re-rank the validation top-K file with the re-ranker as it stands,
-    log the metrics, save ``blip_last`` and, on a new best, the best
-    checkpoint; returns the best metric."""
-    device = next(reranker.parameters()).device
+                   training_path, run: RankRun) -> float:
+    """Re-rank the validation top-K file with the re-ranker as it stands
+    on rank 0 (without a mesh, as the JAX trainer does), log the metrics,
+    save ``blip_last`` and, on a new best, the best checkpoint; returns
+    the best metric (rank 0's). Every rank calls it."""
     saved_dir = Path(training_path) / "saved_models"
-    common = dict(data_root=args.data_root, transform=transform,
-                  top_k_path=args.top_k_path, k=args.k_value,
-                  text_len=args.text_len, device=device)
-    if dataset_name == "cirr":
-        mets = evaluate_cirr_stage2(stage1, None, reranker, None, tokenizer,
-                                    **common)
-        # a Python float: the checkpoint's metadata must load with
-        # torch.load(weights_only=True), which refuses numpy scalars
-        selection = float(mets["mean_r5_rs1"])
-        ckpt_name = "blip_mean"
-    else:
-        mets = evaluate_fiq_stage2(stage1, None, reranker, None, tokenizer,
-                                   **common)
-        selection = float(mets["average_recall"])
-        ckpt_name = "blip"
+    selection = None
+    if run.writer:
+        device = next(reranker.parameters()).device
+        common = dict(data_root=args.data_root, transform=transform,
+                      top_k_path=args.top_k_path, k=args.k_value,
+                      text_len=args.text_len, device=device)
+        if dataset_name == "cirr":
+            mets = evaluate_cirr_stage2(stage1, None, reranker, None,
+                                        tokenizer, **common)
+            # a Python float: the checkpoint's metadata must load with
+            # torch.load(weights_only=True), which refuses numpy scalars
+            selection = float(mets["mean_r5_rs1"])
+            ckpt_name = "blip_mean"
+        else:
+            mets = evaluate_fiq_stage2(stage1, None, reranker, None,
+                                       tokenizer, **common)
+            selection = float(mets["average_recall"])
+            ckpt_name = "blip"
+        print_metrics(mets)
+        logger.log_validation(epoch=epoch, **mets)
+        for k, v in mets.items():
+            comet.log_metric(k, v, epoch=epoch)
 
-    print_metrics(mets)
-    logger.log_validation(epoch=epoch, **mets)
-    for k, v in mets.items():
-        comet.log_metric(k, v, epoch=epoch)
-
-    save_checkpoint(saved_dir / "blip_last", reranker, optimizer,
-                    metadata={"epoch": epoch})
-    if selection > best_metric:
+    opt_state = optimizer.state_dict()
+    run.save(saved_dir / "blip_last", reranker, optimizer, {"epoch": epoch},
+             opt_state)
+    if run.writer and selection > best_metric:
         best_metric = selection
-        save_checkpoint(saved_dir / ckpt_name, reranker, optimizer,
-                        metadata={"epoch": epoch, "metric": selection})
-        print(f"saved best ({ckpt_name}) at epoch {epoch}: {selection:.2f}")
+        run.save(saved_dir / ckpt_name, reranker, optimizer,
+                 {"epoch": epoch, "metric": selection}, opt_state)
+        run.log(f"saved best ({ckpt_name}) at epoch {epoch}: "
+                f"{selection:.2f}")
+    run.done()
     return best_metric
 
 

@@ -17,10 +17,13 @@ from candidate_reranking_cir_tpu_torch.cli.common import (
     add_common_flags,
     build_stage1,
     get_tokenizer,
+    get_mesh,
     get_transform,
+    is_writer,
     load_params,
     mesh_requested,
     print_metrics,
+    run_ranks,
 )
 from candidate_reranking_cir_tpu_torch.data.datasets import (
     CIRRDataset,
@@ -64,6 +67,9 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if args.single_program and mesh_requested(args):
         parser.error("--single-program is single-device (drop --mesh)")
+    if run_ranks(main, argv, args):
+        return
+    mesh = get_mesh(args)
 
     tokenizer = get_tokenizer(args)  # cheap fail-fast before ckpt IO
     model, cfg = build_stage1(args)
@@ -73,7 +79,8 @@ def main(argv=None):
     common = dict(text_len=args.text_len, batch_size=args.batch_size,
                   save_topk_k=k, q_batch=args.q_batch,
                   image_major=not args.query_major_fusion,
-                  single_program=args.single_program, device=args.device)
+                  single_program=args.single_program, device=args.device,
+                  mesh=mesh)
 
     if args.dataset.lower() == "cirr":
         split = "train" if args.train else "val"
@@ -85,7 +92,7 @@ def main(argv=None):
         result, payload = evaluate_cirr_stage1(
             model, params, classic, relative, tokenizer, **common)
         print_metrics(result.metrics)
-        if payload is not None:
+        if payload is not None and is_writer():
             out = args.topk_out or f"cirr_top_{args.k}_{split}.npz"
             payload["split"] = split
             save_topk_file(out, payload)
@@ -105,11 +112,12 @@ def main(argv=None):
             result, payload = evaluate_fiq_stage1(
                 model, params, classic, relative, tokenizer,
                 dress_types=[dress], **common)
-            print(f"\n[{dress}]")
+            if is_writer():
+                print(f"\n[{dress}]")
             print_metrics(result.metrics)
             r10s.append(result.metrics["recall_at10"])
             r50s.append(result.metrics["recall_at50"])
-            if payload is not None:
+            if payload is not None and is_writer():
                 if args.topk_out:
                     # one file per category: suffix the requested stem
                     out = (str(Path(args.topk_out).with_suffix(""))
@@ -118,9 +126,9 @@ def main(argv=None):
                     out = f"fiq_top_{args.k}_{split}_{dress}.npz"
                 save_topk_file(out, payload)
                 print(f"top {args.k} saved at {out}.")
-        print(f"\naverage recall10 = {mean(r10s):.2f}")
-        print(f"average recall50 = {mean(r50s):.2f}")
-        print(f"average total = {(mean(r10s) + mean(r50s)) / 2:.2f}")
+        print_metrics({"\naverage recall10": mean(r10s),
+                       "average recall50": mean(r50s),
+                       "average total": (mean(r10s) + mean(r50s)) / 2})
     else:
         raise ValueError("Dataset should be either 'CIRR' or 'fashionIQ'")
 

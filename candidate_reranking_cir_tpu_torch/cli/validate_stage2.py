@@ -8,8 +8,9 @@ Example:
       --vocab vocab.txt --device cuda
 
 ``--schedule query_major`` (with ``--q-batch``) and ``--index-int8`` run;
-``--shard-index`` raises, as the engine does, and ``--index-int8`` with
-``--shard-index`` is refused, as in the JAX CLI.
+``--shard-index`` splits the bank over the mesh (``--mesh auto`` on
+several ranks; without a mesh it has no effect, as in the JAX CLI), and
+``--index-int8`` with ``--shard-index`` is refused, as in the JAX CLI.
 """
 from __future__ import annotations
 
@@ -19,11 +20,14 @@ from candidate_reranking_cir_tpu_torch.cli.common import (
     add_common_flags,
     build_stage1,
     build_stage2,
+    get_mesh,
     get_tokenizer,
     get_transform,
+    is_writer,
     load_params,
     parse_l_buckets,
     print_metrics,
+    run_ranks,
 )
 from candidate_reranking_cir_tpu_torch.retrieval.validate2_engine import (
     evaluate_cirr_stage2,
@@ -53,8 +57,10 @@ def main(argv=None):
                              "(K/V amortized over the queries that rank each "
                              "corpus image) or by query ([Qb, K] chunks)")
     parser.add_argument("--shard-index", action="store_true",
-                        help="shard the feature bank over a mesh; not "
-                             "ported (raises)")
+                        help="shard the corpus feature bank over the mesh "
+                             "(production layout for corpora beyond one "
+                             "card's memory); needs --mesh auto and the "
+                             "candidate_major schedule")
     parser.add_argument("--index-int8", action="store_true",
                         help="quantize the corpus feature bank to per-token "
                              "int8 (about half the memory; scores shift by "
@@ -68,6 +74,9 @@ def main(argv=None):
     if args.index_int8 and args.shard_index:
         parser.error("--index-int8 and --shard-index are mutually exclusive "
                      "(quantize halves the bank instead of sharding it)")
+    if run_ranks(main, argv, args):
+        return
+    mesh = get_mesh(args)
 
     tokenizer = get_tokenizer(args)  # cheap fail-fast before ckpt IO
     stage1, s1_cfg = build_stage1(args)
@@ -79,14 +88,14 @@ def main(argv=None):
                   text_len=args.text_len, q_batch=args.q_batch,
                   schedule=args.schedule,
                   l_buckets=parse_l_buckets(args.l_buckets),
-                  index_int8=args.index_int8, shard_index=args.shard_index,
-                  device=args.device)
+                  index_int8=args.index_int8,
+                  shard_index=args.shard_index and mesh is not None,
+                  mesh=mesh, device=args.device)
 
     if args.dataset.lower() == "cirr":
         mets = evaluate_cirr_stage2(stage1, s1_params, reranker, s2_params,
                                     tokenizer, **common)
-        print_metrics(mets)
-        print(f"recall_mean = {mets['mean_r5_rs1']:.2f}")
+        print_metrics({**mets, "recall_mean": mets["mean_r5_rs1"]})
     elif args.dataset.lower() == "fashioniq":
         mets = evaluate_fiq_stage2(stage1, s1_params, reranker, s2_params,
                                    tokenizer, **common)

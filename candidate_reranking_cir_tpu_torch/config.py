@@ -1,15 +1,23 @@
 """Model configuration for the PyTorch port.
 
-An own copy of the fields of the JAX package's configuration tree that the
-port reads. ``RetrievalModelConfig`` also configures the captioner
+An own copy of the JAX package's configuration tree: the model, train,
+data and mesh configs, the experiment config that holds them, and its
+JSON/YAML (de)serialization (``load_config``, ``save_config``,
+``to_dict``; ``configs/cirr.yaml`` and ``configs/fashioniq.yaml`` beside
+this module). ``RetrievalModelConfig`` also configures the captioner
 (``models/blip_decoder.py``) and ``BlipBase``, as in the JAX package.
-Absent: the attention-kernel switch (the port's attention always routes
-through its kernels, ``ops/attention.py``) and the options of paths not
-ported yet.
+Absent: the attention-kernel switches and the ViT's scan unroll (the
+port's attention always routes through its kernels, ``ops/attention.py``,
+and its blocks are a Python loop) and the text encoder's ``pad_token_id``
+(no port module reads it); ``load_config`` ignores them in a file.
 """
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Any
 
 
 @dataclass(frozen=True)
@@ -116,11 +124,103 @@ class RerankerModelConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh layout: one data axis; ``fsdp`` shards the optimizer
+    moments over it (ZeRO-style, ``runtime/optim.AdamW``)."""
+
+    data_axis: str = "data"
+    fsdp: bool = False
+
+
+@dataclass(frozen=True)
 class TrainConfig:
-    """Optimizer settings (reference stage2_train.py, utils.py:216-221)."""
+    """Optimizer and run settings (reference stage2_train.py,
+    utils.py:216-221)."""
 
     learning_rate: float = 2e-5
     min_lr: float = 0.0
     weight_decay: float = 0.05
+    num_epochs: int = 40
     cosine_max_epoch: int = 10       # cosine schedule period
+    batch_size: int = 512
     grad_accumulation: int = 1
+    seed: int = 0
+    finetune_vit: bool = False       # reference --blip-img-tune
+    validation_frequency: int = 1
+    bf16: bool = True
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    dataset: str = "cirr"            # 'cirr' | 'fashioniq'
+    data_root: str = ""              # holds cirr_dataset/ fashionIQ_dataset/
+    image_size: int = 384
+    target_ratio: float = 1.25
+    transform: str = "targetpad"     # 'targetpad' | 'squarepad'
+    dress_types: tuple[str, ...] = ("dress", "shirt", "toptee")
+    num_workers: int = 8
+    top_k_path: str = ""
+    k_value: int = 50
+
+
+@dataclass(frozen=True)
+class ExperimentConfig:
+    stage1: RetrievalModelConfig = field(default_factory=RetrievalModelConfig)
+    stage2: RerankerModelConfig = field(default_factory=RerankerModelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    experiment_name: str = "exp0"
+    output_dir: str = "models"
+
+
+# ---------------------------------------------------------------------------
+# (De)serialization
+
+_NESTED = {
+    "vit": ViTConfig,
+    "text": TextEncoderConfig,
+    "stage1": RetrievalModelConfig,
+    "stage2": RerankerModelConfig,
+    "train": TrainConfig,
+    "data": DataConfig,
+    "mesh": MeshConfig,
+}
+
+
+def _from_dict(cls, d: dict[str, Any]):
+    """``cls`` from a dict: nested configs by field name, lists of dress
+    types as tuples; keys ``cls`` has no field for are ignored."""
+    kw = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in d:
+            continue
+        v = d[f.name]
+        if f.name in _NESTED:
+            v = _from_dict(_NESTED[f.name], v)
+        elif f.name == "dress_types":
+            v = tuple(v)
+        kw[f.name] = v
+    return cls(**kw)
+
+
+def to_dict(cfg) -> dict[str, Any]:
+    return dataclasses.asdict(cfg)
+
+
+def load_config(path: str | Path) -> ExperimentConfig:
+    """An ``ExperimentConfig`` from a JSON file, or from YAML (``.yaml``,
+    ``.yml``; pyyaml is imported only then)."""
+    path = Path(path)
+    text = path.read_text()
+    if path.suffix in (".yaml", ".yml"):
+        import yaml
+
+        d = yaml.safe_load(text)
+    else:
+        d = json.loads(text)
+    return _from_dict(ExperimentConfig, d)
+
+
+def save_config(cfg, path: str | Path) -> None:
+    Path(path).write_text(json.dumps(to_dict(cfg), indent=2))

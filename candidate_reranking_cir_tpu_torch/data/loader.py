@@ -32,16 +32,29 @@ class BatchLoader:
     skip_errors datasets may return None; those are dropped and backfilled
     from subsequent indices so every batch stays full (the reference instead
     shrinks the batch, utils.py:99-106).
+
+    ``shard=(rank, size)``: the loader of one rank of a data-parallel mesh.
+    The batches are the one-process loader's, in its order (the same
+    permutation from ``seed`` and the epoch), and this rank loads only its
+    contiguous block of batch_size / size samples of each. A sample the
+    dataset drops would shift the other ranks' blocks, so under a shard
+    it raises.
     """
 
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = False,
-                 seed: int = 0, workers: int = 8, drop_last: bool = True):
+                 seed: int = 0, workers: int = 8, drop_last: bool = True,
+                 shard: tuple[int, int] | None = None):
+        if shard is not None and (batch_size % shard[1] or not drop_last):
+            raise ValueError(f"a sharded loader drops the last batch and "
+                             f"splits each of {batch_size} samples over "
+                             f"{shard[1]} ranks")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.workers = workers
         self.drop_last = drop_last
+        self.shard = shard
         self.epoch = 0
 
     def __len__(self) -> int:
@@ -55,6 +68,9 @@ class BatchLoader:
             rng = np.random.default_rng(self.seed + self.epoch)
             rng.shuffle(order)
         self.epoch += 1
+        if self.shard is not None:
+            yield from self._iter_shard(order)
+            return
 
         keys = None
         with ThreadPoolExecutor(max_workers=self.workers) as pool:
@@ -71,6 +87,19 @@ class BatchLoader:
                     batch = []
             if batch and not self.drop_last:
                 yield _collate(batch, keys)
+
+    def _iter_shard(self, order) -> Iterator[dict]:
+        rank, size = self.shard
+        local = self.batch_size // size
+        with ThreadPoolExecutor(max_workers=self.workers) as pool:
+            for i in range(len(self)):
+                lo = i * self.batch_size + rank * local
+                samples = list(pool.map(self.dataset.__getitem__,
+                                        order[lo:lo + local]))
+                if any(s is None for s in samples):
+                    raise ValueError("a sharded loader cannot backfill a "
+                                     "dropped sample")
+                yield _collate(samples, list(samples[0].keys()))
 
 
 def prefetch(iterator, size: int = 2):

@@ -23,7 +23,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
-from candidate_reranking_cir_tpu_torch.ops import attention_train
+from candidate_reranking_cir_tpu_torch.ops import attention_train, draws
 from candidate_reranking_cir_tpu_torch.ops.attention import (
     _dropout_probs,
     dot_product_attention,
@@ -90,9 +90,10 @@ def remat(fn, *args, policy=None):
     """``fn(*args)``, recomputed in backward (``torch.utils.checkpoint``,
     non-reentrant) under ``policy`` (None: recompute everything). The RNG
     state is not saved: every layer seeds its own generators from its
-    seed-table row, so the recomputation redraws the same masks."""
+    seed-table row, so the recomputation redraws the same masks (under
+    the forward's ``ops/draws.py`` context)."""
     extra = {} if policy is None else {"context_fn": policy.context_fn}
-    return checkpoint(fn, *args, use_reentrant=False,
+    return checkpoint(draws.bound(fn), *args, use_reentrant=False,
                       preserve_rng_state=False, **extra)
 
 
@@ -140,8 +141,7 @@ class Dropout(nn.Module):
         if generator is None:
             raise ValueError("dropout needs a generator")
         keep_prob = 1.0 - self.rate
-        keep = torch.rand(x.shape, generator=generator,
-                          device=x.device) < keep_prob
+        keep = draws.uniform(x.shape, generator, x.device) < keep_prob
         return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
@@ -152,8 +152,7 @@ def drop_path(x, rate: float, *, deterministic: bool, generator=None):
     if generator is None:
         raise ValueError("stochastic depth needs a generator")
     shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-    keep = torch.rand(shape, generator=generator, device=x.device) \
-        < 1.0 - rate
+    keep = draws.uniform(shape, generator, x.device) < 1.0 - rate
     return torch.where(keep, x / max(1.0 - rate, 1e-6),
                        torch.zeros_like(x)).to(x.dtype)
 

@@ -17,7 +17,7 @@ import math
 
 import torch
 
-from candidate_reranking_cir_tpu_torch.ops import attention_train
+from candidate_reranking_cir_tpu_torch.ops import attention_train, draws
 from candidate_reranking_cir_tpu_torch.ops.cuda_attention import (
     fused_attention,
     fused_attention_folded,
@@ -49,8 +49,7 @@ def _dropout_probs(probs, rate: float, generator):
     ``generator`` on the probabilities' device."""
     if generator is None:
         raise ValueError("attention dropout needs a generator")
-    keep = torch.rand(probs.shape, generator=generator,
-                      device=probs.device) < 1.0 - rate
+    keep = draws.uniform(probs.shape, generator, probs.device) < 1.0 - rate
     return probs * keep / (1.0 - rate)
 
 

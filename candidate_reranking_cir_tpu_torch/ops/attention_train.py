@@ -50,6 +50,7 @@ import ctypes
 
 import torch
 
+from candidate_reranking_cir_tpu_torch.ops import draws
 from candidate_reranking_cir_tpu_torch.ops.cuda_attention import (
     DTYPE_CODES,
     KERNEL_HEAD_DIM,
@@ -431,7 +432,8 @@ def fused_attention_train(q, k, v, bias, seed: int, rate: float):
     _check_train_args(q, k, v, 4, seed, rate)
     e, lq, _, _ = q.shape
     bias3 = _train_bias3(bias, e, lq, k.shape[1])
-    return _TrainAttention.apply(q, k, v, bias3, int(seed), float(rate),
+    return _TrainAttention.apply(q, k, v, bias3,
+                                 draws.entry_seed(int(seed), e), float(rate),
                                  False)
 
 
@@ -446,5 +448,5 @@ def fused_attention_train_folded(q, k, v, bias, seed: int, rate: float, *,
         raise ValueError(f"width {hd} not divisible by {num_heads} heads")
     bias3 = _train_bias3(bias, e, lq, k.shape[1])
     return _TrainAttention.apply(
-        *(_heads(t, num_heads) for t in (q, k, v)), bias3, int(seed),
-        float(rate), True).flatten(-2)
+        *(_heads(t, num_heads) for t in (q, k, v)), bias3,
+        draws.entry_seed(int(seed), e), float(rate), True).flatten(-2)

@@ -2,12 +2,15 @@
 
 Distances are 1 - pred @ index.T as float32 products (TF32 is off, see
 ``runtime/device.py``). Rankings are stable: equal distances keep corpus
-order, as the JAX package's stable argsort and ``lax.top_k`` do. The
-per-shard merge over a mesh (``sharded_cosine_topk``) is not ported.
+order, as the JAX package's stable argsort and ``lax.top_k`` do.
+``sharded_cosine_topk`` ranks a corpus whose rows are split over a mesh:
+each rank's top-k, then a top-k over the all-gathered candidates.
 """
 from __future__ import annotations
 
 import torch
+
+from candidate_reranking_cir_tpu_torch.parallel.mesh import all_gather
 
 
 def cosine_scores(pred: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
@@ -34,3 +37,22 @@ def cosine_topk(pred: torch.Tensor, index: torch.Tensor, k: int,
         sims = sims.masked_fill(~valid[None, :], float("-inf"))
     scores, idx = torch.sort(sims, dim=-1, descending=True, stable=True)
     return scores[:, :k], idx[:, :k]
+
+
+def sharded_cosine_topk(pred: torch.Tensor, index_shard: torch.Tensor,
+                        k: int, mesh, shard_offset: int | None = None):
+    """Top-k over a corpus split over ``mesh`` in contiguous row blocks:
+    each rank ranks its block ``index_shard`` (whose first row is global
+    row ``shard_offset``, default rank x block length), then the ranks'
+    candidates are all-gathered and ranked again: an O(k x ranks) merge,
+    not a global sort. Every rank returns the same (scores [Q, k], global
+    indices [Q, k]). Ties fall as ``lax.top_k`` breaks them over the
+    gathered list, at the lowest position: shard order, which is the
+    global index order."""
+    if shard_offset is None:
+        shard_offset = mesh.rank * index_shard.shape[0]
+    sims, local_idx = cosine_topk(pred, index_shard, k)
+    all_sims = all_gather(mesh, sims, dim=-1)
+    all_idx = all_gather(mesh, local_idx + shard_offset, dim=-1)
+    merged, pos = torch.sort(all_sims, dim=-1, descending=True, stable=True)
+    return merged[:, :k], all_idx.gather(-1, pos[:, :k])

@@ -1,9 +1,13 @@
-"""Corpus index building on one device (port of the JAX package's
-``retrieval/index.py`` with a float bank).
+"""Corpus index building (port of the JAX package's ``retrieval/index.py``
+with a float bank).
 
 Raw token features are stored in bfloat16 by default, as in the JAX
 package; the bank, and the pooled features where asked for, stay on the
-device that embedded them.
+device that embedded them. Over a mesh every rank embeds its rows of each
+image batch and the bank is replicated, or with ``shard_index`` split over
+the ranks in contiguous row blocks (the layout of corpora beyond one
+card's memory, which ``rerank_candidate_major(index_sharded=True)``
+reads).
 """
 from __future__ import annotations
 
@@ -12,6 +16,7 @@ from typing import Callable, Iterable
 import numpy as np
 import torch
 
+from candidate_reranking_cir_tpu_torch.parallel import mesh as pmesh
 from candidate_reranking_cir_tpu_torch.runtime.device import resolve_device
 
 
@@ -48,10 +53,35 @@ def iter_batches(dataset, batch_size: int
         yield names, np.stack(images)
 
 
+def _embed_batch(embed_fn, images, device, pooled: bool, shard_mesh,
+                 batch_size: int):
+    """``embed_fn`` over one batch: (raw, pooled or None) on ``device``.
+    Under ``shard_mesh`` the batch is padded to ``batch_size``, each rank
+    embeds its rows, and the rows are gathered and the padding cut; ranks
+    outside a shrunk ``shard_mesh`` receive them."""
+    valid = len(images)
+    if shard_mesh is not None and not shard_mesh.member:
+        return pmesh.share(shard_mesh)
+    if shard_mesh is not None:
+        if valid < batch_size:
+            images = np.concatenate([images, np.zeros(
+                (batch_size - valid, *images.shape[1:]), images.dtype)])
+        images = images[pmesh.shard_rows(shard_mesh, batch_size)]
+    x = torch.from_numpy(np.ascontiguousarray(images, np.float32))
+    out = embed_fn(x.to(device))
+    raw, pool = out if pooled else (out, None)
+    if shard_mesh is not None:
+        raw = pmesh.all_gather(shard_mesh, raw)[:valid]
+        if pool is not None:
+            pool = pmesh.all_gather(shard_mesh, pool)[:valid]
+    return pmesh.share(shard_mesh, (raw, pool))
+
+
 @torch.inference_mode()
 def build_index(dataset, embed_fn: Callable, batch_size: int = 32, *,
                 feature_dtype=torch.bfloat16, device=None,
-                pooled: bool = False, keep_raw: bool = True):
+                pooled: bool = False, keep_raw: bool = True, mesh=None,
+                shard_index: bool = False):
     """Embed the whole corpus with ``embed_fn`` ([B, H, W, 3] tensor on
     ``device`` -> raw [B, M, D], or (raw, pooled [B, E]) with ``pooled``).
 
@@ -59,22 +89,46 @@ def build_index(dataset, embed_fn: Callable, batch_size: int = 32, *,
     ``pooled``, (bank, pooled [N, E] fp32 on ``device``, names), the bank
     None when not ``keep_raw`` (the stage-I trainer's target-feature cache
     never holds the [N, M, D] token bank). The flags are the JAX
-    function's; without ``pooled`` the bank must be kept."""
+    function's; without ``pooled`` the bank must be kept.
+
+    mesh: every rank embeds its rows of each batch (``fit_mesh(mesh,
+    batch_size)``: a batch the mesh does not divide runs on its first
+    ranks, and the others receive the result) and gets the whole bank, on
+    the mesh's device. shard_index (with a mesh): the bank is padded with
+    zero rows to a multiple of the mesh size and each rank keeps its
+    contiguous block of N_pad / size rows, redistributed batch by batch
+    (a batch's gathered rows, then this rank's share of them), so the
+    whole bank never sits on one rank; ``pooled`` stays whole. Sharding
+    needs every sample of ``dataset`` (no ``skip_errors`` drops)."""
     if not (pooled or keep_raw):
         raise ValueError("build_index with neither pooled nor keep_raw "
                          "returns nothing")
-    device = resolve_device(device)
+    device = resolve_device(device) if mesh is None else mesh.device
+    shard_mesh = pmesh.fit_mesh(mesh, batch_size)
+    block = None
+    if mesh is not None and shard_index:
+        block = -(-len(dataset) // mesh.size)
+        lo = mesh.rank * block
     chunks, pooled_chunks, names_all = [], [], []
     for names, images in iter_batches(dataset, batch_size):
-        x = torch.from_numpy(np.ascontiguousarray(images, np.float32))
-        out = embed_fn(x.to(device))
+        raw, pool = _embed_batch(embed_fn, images, device, pooled,
+                                 shard_mesh, batch_size)
         if pooled:
-            out, pool = out
             pooled_chunks.append(pool.float())
         if keep_raw:
-            chunks.append(out.to(feature_dtype))
+            if block is not None:  # this rank's rows of the batch
+                start = len(names_all)
+                raw = raw[max(lo - start, 0):max(lo + block - start, 0)]
+            chunks.append(raw.to(feature_dtype))
         names_all.extend(names)
     bank = torch.cat(chunks) if keep_raw else None
+    if block is not None and keep_raw:
+        if len(names_all) != len(dataset):
+            raise ValueError("shard_index needs every corpus sample; "
+                             f"{len(dataset) - len(names_all)} were dropped")
+        if len(bank) < block:  # the padding rows of the last blocks
+            bank = torch.cat([bank, bank.new_zeros(
+                (block - len(bank), *bank.shape[1:]))])
     if pooled:
         return bank, torch.cat(pooled_chunks), names_all
     return bank, names_all

@@ -1,4 +1,4 @@
-"""Stage-II re-rank scheduling on one device (port of the JAX package's
+"""Stage-II re-rank scheduling (port of the JAX package's
 ``retrieval/rerank.py``: ``rerank`` and ``rerank_candidate_major``).
 
 Candidate-major (``rerank_candidate_major``, the eval default): pairs
@@ -17,6 +17,21 @@ the chunk's unique candidates gathered per pair (``score_indexed``).
 
 Both gather bank rows through ``ops/quant.take_rows``, so the bank may be
 an ``Int8Bank``.
+
+Over a mesh (``parallel/mesh.py``), as in the JAX package:
+- ``rerank``: each chunk's queries are split over ``fit_mesh(mesh,
+  q_batch)`` (the dedup's unique candidates whole on every rank); the
+  ranks' scores are gathered once at the end;
+- ``rerank_candidate_major`` over a whole bank: each rank fuses its block
+  of every z_t chunk (``zt_batch`` rounded up to a multiple of the mesh
+  size) and the z_t are gathered; each call's A candidates (rounded up to
+  a multiple of the mesh size) are split over the ranks;
+- ``rerank_candidate_major(index_sharded=True)`` over the block-sharded
+  bank of ``build_index(shard_index=True)``: every rank fuses every z_t,
+  fetching reference rows with a masked take from its block and an
+  all-reduce sum (JAX's ``zt_body``), and scores the candidates whose
+  rows it owns; calls are laid out as the ranks' owner blocks.
+Every rank returns the global ``RerankOutput``.
 """
 from __future__ import annotations
 
@@ -26,7 +41,12 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from candidate_reranking_cir_tpu_torch.ops.quant import take_rows
+from candidate_reranking_cir_tpu_torch.ops.quant import (
+    Int8Bank,
+    bank_len,
+    take_rows,
+)
+from candidate_reranking_cir_tpu_torch.parallel import mesh as pmesh
 from candidate_reranking_cir_tpu_torch.runtime.device import (
     resolve_device,
     sync_device,
@@ -103,10 +123,12 @@ def rerank(stage1, s1_params, reranker, s2_params, tokenizer, *,
     scored by ``score_indexed``; a chunk that does not compress falls back
     to the per-pair scorer. Output order is the input's.
 
-    mesh: not ported (raises). Same outputs as the JAX function."""
-    if mesh is not None:
-        raise NotImplementedError("mesh re-ranking is not ported")
-    device = resolve_device(device)
+    mesh: each chunk's q_batch queries are split over ``fit_mesh(mesh,
+    q_batch)``, on the mesh's device. Same outputs as the JAX function."""
+    mesh = pmesh.fit_mesh(mesh, q_batch)
+    if mesh is not None and not mesh.member:
+        return pmesh.share(mesh)
+    device = resolve_device(device) if mesh is None else mesh.device
     stage1 = bind_module(stage1, s1_params, device)
     reranker = bind_module(reranker, s2_params, device)
     produce_zt, score, score_indexed = make_rerank_fns(stage1, reranker)
@@ -141,28 +163,41 @@ def rerank(stage1, s1_params, reranker, s2_params, tokenizer, *,
     def to_dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
+    chunks = []  # (rows, count, device scores of this rank's rows)
     for start in range(0, n, q_batch):
         rows = order[start:start + q_batch]
         count = len(rows)
         if count < q_batch:  # pad the tail chunk with repeats
             rows = np.concatenate(
                 [rows, np.repeat(rows[:1], q_batch - count)])
-        ids, msk = to_dev(ids_all[rows]), to_dev(mask_all[rows])
-        z_t = produce_zt(take_rows(feats, to_dev(ref_idx[rows])), ids, msk)
-
         chunk_cand = cand_idx_all[rows]
         uniq, inv = np.unique(chunk_cand, return_inverse=True)
+        pair_map = inv.reshape(chunk_cand.shape)
+        mine = rows  # this rank's queries of the chunk
+        if mesh is not None:
+            block = pmesh.shard_rows(mesh, q_batch)
+            mine, chunk_cand, pair_map = (a[block] for a in (
+                rows, chunk_cand, pair_map))
+        ids, msk = to_dev(ids_all[mine]), to_dev(mask_all[mine])
+        z_t = produce_zt(take_rows(feats, to_dev(ref_idx[mine])), ids, msk)
         if dedup and len(uniq) <= u_cap:
             pad_uniq = np.pad(uniq, (0, u_cap - len(uniq)))
             out = score_indexed(z_t, ids, msk,
                                 take_rows(feats, to_dev(pad_uniq)),
-                                to_dev(inv.reshape(chunk_cand.shape)))
+                                to_dev(pair_map))
         else:
             out = score(z_t, ids, msk, take_rows(feats, to_dev(chunk_cand)))
-        out = out[:count].float().cpu().numpy()
-        logits[rows[:count]] = out[:, :k]
+        chunks.append((rows, count, out.float()))
+
+    if chunks:
+        scores = torch.stack([c[2] for c in chunks])   # [chunks, rows, K']
+        if mesh is not None:
+            scores = pmesh.all_gather(mesh, scores, dim=1)
+        scores = scores.cpu().numpy()
+    for (rows, count, _), out in zip(chunks, scores if chunks else []):
+        logits[rows[:count]] = out[:count, :k]
         if do_groups:
-            grp_logits[rows[:count]] = out[:, k:]
+            grp_logits[rows[:count]] = out[:count, k:]
 
     if skip_mask is not None:
         logits[np.asarray(skip_mask, bool)] = SKIP_LOGIT
@@ -171,7 +206,8 @@ def rerank(stage1, s1_params, reranker, s2_params, tokenizer, *,
     rank_order = np.argsort(-logits, axis=-1, kind="stable")
     group_order = (np.argsort(-grp_logits, axis=-1, kind="stable")
                    if do_groups else None)
-    return RerankOutput(logits, grp_logits, rank_order, group_order)
+    return pmesh.share(mesh, RerankOutput(logits, grp_logits, rank_order,
+                                          group_order))
 
 
 def resolve_l_buckets(l_buckets, lengths: np.ndarray,
@@ -211,6 +247,56 @@ def _chunk_by_candidate(per_cand: dict, buckets: list[int]) -> dict:
     return chunks_by_b
 
 
+def _fetch_rows(mesh, block, rows, shard_size: int):
+    """Rows ``rows`` (global indices) of a bank split over ``mesh`` in
+    blocks of ``shard_size``: each rank takes the rows it owns from its
+    ``block`` (zeros elsewhere) and an all-reduce sums them (JAX's
+    ``zt_body``)."""
+    local = rows - mesh.rank * shard_size
+    ok = (local >= 0) & (local < shard_size)
+    got = take_rows(block, local.clamp(0, shard_size - 1))
+    got = torch.where(ok[:, None, None], got, torch.zeros_like(got))
+    return pmesh.all_reduce(mesh, got)
+
+
+def _pack_calls(chunks: list, a: int, b: int, n_dev: int,
+                shard_size: int) -> tuple:
+    """Lay ``chunks`` [(candidate, entries)] out as calls of ``a``
+    candidates x ``b`` query slots: (rows, valid, qrow, kind, col [n_calls,
+    a, b], cands [n_calls, a]). With ``shard_size`` (a block-sharded
+    bank) the a axis is ``n_dev`` blocks of a // n_dev, block d holding
+    candidates that rank d owns, by their local index."""
+    if shard_size:
+        a_dev = a // n_dev
+        by_owner: list[list] = [[] for _ in range(n_dev)]
+        for cid, entries in chunks:
+            by_owner[cid // shard_size].append((cid, entries))
+        n_calls = max((len(lst) + a_dev - 1) // a_dev for lst in by_owner)
+        placed = []
+        for d, lst in enumerate(by_owner):
+            lst = lst + [(d * shard_size, [])] * (n_calls * a_dev - len(lst))
+            for idx, item in enumerate(lst):
+                ci, ai = divmod(idx, a_dev)
+                placed.append((ci, d * a_dev + ai, item))
+    else:
+        n_calls = (len(chunks) + a - 1) // a
+        chunks = chunks + [(chunks[0][0], [])] * (n_calls * a - len(chunks))
+        placed = [(*divmod(idx, a), item) for idx, item in enumerate(chunks)]
+    rows = np.zeros((n_calls, a, b), np.int64)
+    valid = np.zeros((n_calls, a, b), bool)
+    qrow = np.zeros((n_calls, a, b), np.int64)
+    kind = np.zeros((n_calls, a, b), np.int64)
+    col = np.zeros((n_calls, a, b), np.int64)
+    cands = np.zeros((n_calls, a), np.int64)
+    for ci, ai, (cid, entries) in placed:
+        cands[ci, ai] = cid % shard_size if shard_size else cid
+        for bi, (li, qi, kd, cl) in enumerate(entries):
+            rows[ci, ai, bi] = li
+            valid[ci, ai, bi] = True
+            qrow[ci, ai, bi], kind[ci, ai, bi], col[ci, ai, bi] = qi, kd, cl
+    return rows, valid, qrow, kind, col, cands
+
+
 @torch.inference_mode()
 def rerank_candidate_major(stage1, s1_params, reranker, s2_params, tokenizer,
                            *, captions: list[str], reference_names: list[str],
@@ -222,17 +308,34 @@ def rerank_candidate_major(stage1, s1_params, reranker, s2_params, tokenizer,
                            q_buckets: tuple[int, ...] = (4, 8, 16, 32, 64,
                                                          128),
                            l_buckets="auto", zt_batch: int = 32,
+                           mesh=None, index_sharded: bool = False,
                            device=None) -> RerankOutput:
     """Score every query's top-K candidates (and CIRR 5-member groups).
 
     stage1 / reranker: the port's ``RetrievalModel`` / ``RerankerModel``;
     s1_params / s2_params: port state dicts to load into them, or None.
     index_feats: [N_idx, M, W] bank (``retrieval.index.build_index``), or
-    an ``Int8Bank``. Same outputs as the JAX function of the same name."""
-    device = resolve_device(device)
+    an ``Int8Bank``. Same outputs as the JAX function of the same name.
+
+    mesh: the z_t chunks and each call's candidates are split over the
+    ranks (the module's docstring), on the mesh's device; ``zt_batch`` is
+    rounded up to a multiple of the mesh size, as in JAX.
+    index_sharded (needs a mesh; not with an ``Int8Bank``):
+    ``index_feats`` is this rank's block of the bank that
+    ``build_index(shard_index=True)`` made."""
+    if index_sharded and mesh is None:
+        raise ValueError("index_sharded=True requires a mesh")
+    if index_sharded and isinstance(index_feats, Int8Bank):
+        raise ValueError("int8 banks are not supported with index_sharded "
+                         "(quantize halves the bank instead of sharding it)")
+    n_dev = 1 if mesh is None else mesh.size
+    if mesh is not None and zt_batch % n_dev != 0:
+        zt_batch = ((zt_batch + n_dev - 1) // n_dev) * n_dev
+    device = resolve_device(device) if mesh is None else mesh.device
     stage1 = bind_module(stage1, s1_params, device)
     reranker = bind_module(reranker, s2_params, device)
     feats = index_feats.to(device)
+    shard_size = bank_len(feats) if index_sharded else 0
 
     n = len(captions)
     k = topk_names.shape[1]
@@ -274,16 +377,27 @@ def rerank_candidate_major(stage1, s1_params, reranker, s2_params, tokenizer,
         mask_dev = to_dev(mask_all[qsel][:, :lb])
         ref_dev = to_dev(ref_idx[qsel])
 
-        # z_t for every bucket query, zt_batch rows at a time
+        # z_t for every bucket query, zt_batch rows at a time: on a whole
+        # bank each rank fuses its block of a chunk; on a sharded one every
+        # rank fuses every row, its references fetched across the ranks
         zs = []
         for start in range(0, n_lb, zt_batch):
             rows = np.zeros(zt_batch, np.int64)  # tail padding repeats row 0
             real = np.arange(start, min(start + zt_batch, n_lb))
             rows[:len(real)] = real
+            if mesh is not None and not index_sharded:
+                rows = rows[pmesh.shard_rows(mesh, zt_batch)]
             r = to_dev(rows)
-            zs.append(stage1.fuse(take_rows(feats, ref_dev[r]), ids_dev[r],
-                                  mask_dev[r], return_raw=True))
-        zt_all = torch.cat(zs)[:n_lb]
+            refs = _fetch_rows(mesh, feats, ref_dev[r], shard_size) \
+                if index_sharded else take_rows(feats, ref_dev[r])
+            zs.append(stage1.fuse(refs, ids_dev[r], mask_dev[r],
+                                  return_raw=True))
+        zt_all = torch.cat(zs)
+        if mesh is not None and not index_sharded:
+            # [ranks x (chunks x block)] -> chunk by chunk, ranks in order
+            zt_all = pmesh.all_gather(mesh, zt_all[None]).unflatten(
+                1, (len(zs), -1)).transpose(0, 1).flatten(0, 2)
+        zt_all = zt_all[:n_lb]
         sync_device(device)
         t1 = time.perf_counter()
         seconds["zt"] += t1 - t0
@@ -309,38 +423,33 @@ def rerank_candidate_major(stage1, s1_params, reranker, s2_params, tokenizer,
             chunks = chunks_by_b[b]
             if not chunks:
                 continue
-            a = max(1, ppc // b)
-            n_calls = (len(chunks) + a - 1) // a
-            chunks = chunks + [(chunks[0][0], [])] * (n_calls * a
-                                                      - len(chunks))
-            rows = np.zeros((n_calls, a, b), np.int64)
-            valid = np.zeros((n_calls, a, b), bool)
-            qrow = np.zeros((n_calls, a, b), np.int64)
-            kind = np.zeros((n_calls, a, b), np.int64)
-            col = np.zeros((n_calls, a, b), np.int64)
-            cands = np.zeros((n_calls, a), np.int64)
-            for idx, (cid, entries) in enumerate(chunks):
-                ci, ai = divmod(idx, a)
-                cands[ci, ai] = cid
-                for bi, (li, qi, kd, cl) in enumerate(entries):
-                    rows[ci, ai, bi] = li
-                    valid[ci, ai, bi] = True
-                    qrow[ci, ai, bi], kind[ci, ai, bi], col[ci, ai, bi] = \
-                        qi, kd, cl
-            rows_dev, cands_dev = to_dev(rows), to_dev(cands)
+            if index_sharded:
+                a = max(1, ppc // b // n_dev) * n_dev
+            else:  # a candidate axis the mesh divides
+                a = (max(1, ppc // b) + n_dev - 1) // n_dev * n_dev
+            rows, valid, qrow, kind, col, cands = _pack_calls(
+                chunks, a, b, n_dev, shard_size)
+            mine = slice(None) if mesh is None \
+                else pmesh.shard_rows(mesh, a)
+            rows_dev, cands_dev = to_dev(rows[:, mine]), to_dev(cands[:, mine])
+            a_loc = rows_dev.shape[1]
             scores = []
-            for ci in range(n_calls):
+            for ci in range(len(rows)):
                 flat = rows_dev[ci].reshape(-1)
+                # widths from the tensors: a bucket wider than text_len
+                # holds text_len columns (as JAX's reshape(a, b, -1))
                 scores.append(reranker.score_grid(
-                    zt_all[flat].reshape(a, b, lb, -1),
-                    ids_dev[flat].reshape(a, b, lb),
-                    mask_dev[flat].reshape(a, b, lb),
+                    zt_all[flat].reshape(a_loc, b, *zt_all.shape[1:]),
+                    ids_dev[flat].reshape(a_loc, b, -1),
+                    mask_dev[flat].reshape(a_loc, b, -1),
                     take_rows(feats, cands_dev[ci])))
             pending.append((torch.stack(scores), valid, qrow, kind, col))
         sync_device(device)
         seconds["score"] += time.perf_counter() - t1
 
     for scores_dev, valid, qrow, kind, col in pending:
+        if mesh is not None:
+            scores_dev = pmesh.all_gather(mesh, scores_dev, dim=1)
         scores = scores_dev.float().cpu().numpy()
         tk = valid & (kind == 0)
         logits[qrow[tk], col[tk]] = scores[tk]

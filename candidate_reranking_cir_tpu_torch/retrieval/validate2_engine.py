@@ -1,12 +1,15 @@
 """Stage-II CIRR and Fashion-IQ validation (port of the JAX package's
-``retrieval/validate2_engine.py``, one device).
+``retrieval/validate2_engine.py``).
 
 Builds the stage-II ViT index over the val corpus (optionally quantized to
 an int8 bank), re-ranks each query's top-K candidates with the
 candidate-major scheduler (the default) or the query-major one, and
 computes the re-ranked recalls, plus for CIRR the subset recalls from the
 re-scored 5-member groups. Fashion-IQ runs per dress type, each with its
-own top-K file.
+own top-K file. Over a mesh the index build and the re-rank shard their
+work (``retrieval/index.py``, ``retrieval/rerank.py``); ``shard_index``
+splits the bank over the ranks, which only the candidate-major schedule
+reads.
 """
 from __future__ import annotations
 
@@ -48,29 +51,36 @@ class Stage2Result:
 
 
 def run_rerank(schedule: str, stage1, reranker, tokenizer, *, q_batch: int,
-               l_buckets, device, **kw) -> RerankOutput:
+               l_buckets, device, mesh=None, shard_index: bool = False,
+               **kw) -> RerankOutput:
     """The re-rank scheduler ``schedule`` names (the JAX package's
     ``_run_rerank``) over bound models: 'candidate_major' groups pairs by
     candidate, so K/V projections serve the ~90 queries that rank each
     corpus image; 'query_major' runs fixed [q_batch, K] chunks at the
-    single ``text_len`` bucket."""
+    single ``text_len`` bucket. ``shard_index`` (a block-sharded bank)
+    needs 'candidate_major'."""
     if schedule == "candidate_major":
         return rerank_candidate_major(stage1, None, reranker, None, tokenizer,
                                       l_buckets=l_buckets, device=device,
+                                      mesh=mesh, index_sharded=shard_index,
                                       **kw)
+    if shard_index:
+        raise ValueError("shard_index requires schedule='candidate_major'")
     if schedule == "query_major":
         return rerank(stage1, None, reranker, None, tokenizer,
-                      q_batch=q_batch, device=device, **kw)
+                      q_batch=q_batch, device=device, mesh=mesh, **kw)
     raise ValueError(f"unknown schedule {schedule!r}")
 
 
 def stage2_bank(reranker, classic, batch_size: int, index_int8: bool,
-                device):
+                device, mesh=None, shard_index: bool = False):
     """The stage-II ViT bank of ``classic`` and its names; with
     ``index_int8`` quantized to an ``Int8Bank`` (about half the memory;
-    scores shift by under 1%)."""
+    scores shift by under 1%); over ``mesh`` with ``shard_index``, this
+    rank's block of it."""
     raw, index_names = build_index(classic, reranker.embed_images, batch_size,
-                                   device=device)
+                                   device=device, mesh=mesh,
+                                   shard_index=shard_index)
     return (quantize_bank(raw) if index_int8 else raw), index_names
 
 
@@ -80,17 +90,19 @@ def evaluate_cirr_stage2_datasets(stage1, s1_params, reranker, s2_params,
                                   l_buckets="auto",
                                   schedule: str = "candidate_major",
                                   q_batch: int = 8, index_int8: bool = False,
+                                  mesh=None, shard_index: bool = False,
                                   device=None) -> Stage2Result:
     """The evaluation on ready-made datasets: ``classic`` yields
     {'name', 'image' [H, W, 3]} corpus rows, ``relative`` the val triplets
     with their top-K names and labels (``CIRRDataset`` with ``load_topk``,
-    or any object with the same items)."""
-    device = resolve_device(device)
+    or any object with the same items). ``mesh`` and ``shard_index`` as
+    ``evaluate_cirr_stage2``'s."""
+    device = resolve_device(device) if mesh is None else mesh.device
     t0 = time.perf_counter()
     stage1 = bind_module(stage1, s1_params, device)
     reranker = bind_module(reranker, s2_params, device)
     raw, index_names = stage2_bank(reranker, classic, batch_size, index_int8,
-                                   device)
+                                   device, mesh, shard_index)
     sync_device(device)
     t_index = time.perf_counter() - t0
 
@@ -103,12 +115,14 @@ def evaluate_cirr_stage2_datasets(stage1, s1_params, reranker, s2_params,
                             for s in samples])
 
     hit_rate = 100.0 * topk_labels.any(1).mean()
-    print(f"val-split: top-{k} candidate {hit_rate:.2f}%")
+    if mesh is None or mesh.rank == 0:
+        print(f"val-split: top-{k} candidate {hit_rate:.2f}%")
 
     t1 = time.perf_counter()
     out = run_rerank(
         schedule, stage1, reranker, tokenizer, q_batch=q_batch,
-        l_buckets=l_buckets, device=device,
+        l_buckets=l_buckets, device=device, mesh=mesh,
+        shard_index=shard_index,
         captions=[s["caption"] for s in samples], reference_names=refs,
         topk_names=topk_names, index_feats=raw, index_names=index_names,
         text_len=text_len, skip_mask=~topk_labels.any(axis=1),
@@ -133,12 +147,6 @@ def evaluate_cirr_stage2_datasets(stage1, s1_params, reranker, s2_params,
     return Stage2Result(mets, out, seconds)
 
 
-def check_stage2_options(mesh, shard_index) -> None:
-    """Raise NotImplementedError for the stage-II options not ported."""
-    if mesh is not None or shard_index:
-        raise NotImplementedError("mesh and shard_index are not ported yet")
-
-
 def evaluate_cirr_stage2(stage1, s1_params, reranker, s2_params, tokenizer, *,
                          data_root, transform, top_k_path, k, text_len,
                          q_batch: int = 8, batch_size: int = 16, mesh=None,
@@ -150,9 +158,10 @@ def evaluate_cirr_stage2(stage1, s1_params, reranker, s2_params, tokenizer, *,
     stage1 / reranker are the port's models; s1_params / s2_params port
     state dicts to load into them, or None. ``q_batch`` is the query-major
     schedule's chunk (unused by the candidate-major one, as in JAX);
-    ``index_int8`` quantizes the stage-II bank. ``mesh`` and
-    ``shard_index`` are not ported: they raise."""
-    check_stage2_options(mesh, shard_index)
+    ``index_int8`` quantizes the stage-II bank. ``mesh``: the index build
+    and the re-rank shard their work over it; ``shard_index`` (with a
+    mesh and the candidate-major schedule) splits the bank over the
+    ranks."""
     classic = CIRRDataset(data_root, "val", "classic", transform,
                           load_topk=top_k_path, k=k)
     relative = CIRRDataset(data_root, "val", "relative", transform,
@@ -161,7 +170,7 @@ def evaluate_cirr_stage2(stage1, s1_params, reranker, s2_params, tokenizer, *,
         stage1, s1_params, reranker, s2_params, tokenizer, classic, relative,
         k=k, text_len=text_len, batch_size=batch_size, l_buckets=l_buckets,
         schedule=schedule, q_batch=q_batch, index_int8=index_int8,
-        device=device).metrics
+        mesh=mesh, shard_index=shard_index, device=device).metrics
 
 
 def evaluate_fiq_stage2(stage1, s1_params, reranker, s2_params, tokenizer, *,
@@ -176,8 +185,7 @@ def evaluate_fiq_stage2(stage1, s1_params, reranker, s2_params, tokenizer, *,
     reference's 'DTYPE' placeholder, substituted per category (the
     reference stores one file per type, utils.py:195). Options as
     ``evaluate_cirr_stage2``."""
-    check_stage2_options(mesh, shard_index)
-    device = resolve_device(device)
+    device = resolve_device(device) if mesh is None else mesh.device
     stage1 = bind_module(stage1, s1_params, device)
     reranker = bind_module(reranker, s2_params, device)
     mets = {}
@@ -189,13 +197,14 @@ def evaluate_fiq_stage2(stage1, s1_params, reranker, s2_params, tokenizer, *,
         relative = FashionIQDataset(data_root, "val", [dress], "relative",
                                     transform, load_topk=path, k=k)
         raw, index_names = stage2_bank(reranker, classic, batch_size,
-                                       index_int8, device)
+                                       index_int8, device, mesh, shard_index)
         samples = [relative[i] for i in range(len(relative))]
         topk_labels = np.stack([np.asarray(s["topk_labels"], bool)
                                 for s in samples])
         out = run_rerank(
             schedule, stage1, reranker, tokenizer, q_batch=q_batch,
-            l_buckets=l_buckets, device=device,
+            l_buckets=l_buckets, device=device, mesh=mesh,
+            shard_index=shard_index,
             captions=compose_fiq_eval([s["captions"] for s in samples]),
             reference_names=[s["reference_name"] for s in samples],
             topk_names=np.stack([np.asarray(s["topk_names"])

@@ -1,4 +1,4 @@
-"""Stage-I validation and top-k extraction on one device (port of the JAX
+"""Stage-I validation and top-k extraction (port of the JAX
 package's ``retrieval/validate_engine.py``).
 
 Mirrors the reference validate.py flows (cirr_val_retrieval :319-339,
@@ -25,7 +25,13 @@ addresses, and replayed; on the CPU the same program eagerly. Every chunk,
 batch and product has the multi-launch path's shape, so the two agree bit
 for bit.
 
-Not ported: the mesh paths (``mesh=`` raises).
+Over a mesh (``parallel/mesh.py``) the multi-launch executor shards its
+work as the JAX package's does: each rank embeds its rows of every corpus
+batch, fuses its rows of every fusion batch (a Q-bucket runs image-major
+only where the mesh divides its image count; ``schedule_fusion_batches``),
+and ranks its block of the queries against the whole pooled index; the
+predictions and rankings are all-gathered, so every rank returns the
+global result. The single-program executor is single-device, as in JAX.
 """
 from __future__ import annotations
 
@@ -41,6 +47,7 @@ from candidate_reranking_cir_tpu_torch.ops import attention_train
 from candidate_reranking_cir_tpu_torch.ops import cuda_attention
 from candidate_reranking_cir_tpu_torch.ops.topk import cosine_rank, \
     cosine_scores
+from candidate_reranking_cir_tpu_torch.parallel import mesh as pmesh
 from candidate_reranking_cir_tpu_torch.retrieval import metrics as M
 from candidate_reranking_cir_tpu_torch.retrieval.index import (
     build_index,
@@ -76,10 +83,10 @@ class Stage1EvalResult:
     ranks: np.ndarray | None = None
 
 
-def _check_ported(mesh=None) -> None:
-    if mesh is not None:
-        raise NotImplementedError("the mesh paths are not ported; the port "
-                                  "runs on one device")
+def _check_single_program(mesh, single_program: bool) -> None:
+    if single_program and mesh is not None:
+        raise ValueError("single_program eval is single-device (no mesh), "
+                         "as in the JAX package")
 
 
 def make_stage1_fns(model, params=None, device=None):
@@ -102,7 +109,8 @@ def make_stage1_fns(model, params=None, device=None):
 
 
 def schedule_fusion_batches(ref_idx: np.ndarray, bucket_of: np.ndarray,
-                            q_batch: int, image_major: bool) -> list[tuple]:
+                            q_batch: int, image_major: bool,
+                            n_dev: int = 1) -> list[tuple]:
     """Decompose the query set into fixed-shape fusion batches.
 
     Returns a list of (query_group, width, rows, refs_rows, count):
@@ -114,7 +122,10 @@ def schedule_fusion_batches(ref_idx: np.ndarray, bucket_of: np.ndarray,
     ``query_group`` in (8, 4, 2) via power-of-2 chunk decomposition
     (5 queries -> 4 + 1; never a padding query); leftovers go query-major.
     Batches within a family are ordered by padded width so narrow ones can
-    run narrow.
+    run narrow. Over ``n_dev`` ranks a group size runs image-major only
+    when n_dev divides its image count q_batch // Q (rows are
+    image-contiguous, so a rank's block of the G images and of the G*Q
+    rows cut at the same boundaries).
     """
     batches: list[tuple] = []
 
@@ -134,7 +145,8 @@ def schedule_fusion_batches(ref_idx: np.ndarray, bucket_of: np.ndarray,
                         np.asarray(refs_rows, np.int32), count))
 
     if image_major:
-        group_sizes = [q for q in (8, 4, 2) if q <= q_batch]
+        group_sizes = [q for q in (8, 4, 2)
+                       if q <= q_batch and (q_batch // q) % n_dev == 0]
     if image_major and group_sizes:
         by_img: dict[int, list[int]] = {}
         for row, r in enumerate(ref_idx):
@@ -216,31 +228,60 @@ def predict_queries(fuse_fn, tokenizer, captions: list[str], ref_names,
     One launch sequence per scheduled batch. A batch's padded tail rows are
     duplicates of its real rows and are sliced off; the inverse permutation
     resolves a row to any copy and fails if the scheduler dropped one.
+
+    mesh: each fusion batch's rows are split over ``fit_mesh(mesh,
+    q_batch)`` (the bank is whole on every rank); each rank keeps its
+    blocks' predictions, whole batches with their padding, and they are
+    all-gathered once at the end. Every rank returns the [N_q, E]
+    predictions.
     """
-    _check_ported(mesh)
+    mesh = pmesh.fit_mesh(mesh, q_batch)
+    if mesh is not None and not mesh.member:
+        return pmesh.share(mesh)
     device = index_feats.device
     pos = {n: i for i, n in enumerate(index_names)}
     ref_idx = np.asarray([pos[r] for r in ref_names], np.int32)
     n = len(captions)
     if n == 0:
-        return torch.empty((0, 0), dtype=torch.float32, device=device)
+        return pmesh.share(mesh, torch.empty((0, 0), dtype=torch.float32,
+                                             device=device))
     ids_all, mask_all, bucket_of = resolve_buckets(tokenizer, captions,
                                                    text_len, l_buckets)
 
     preds = []       # device tensors, scheduling order
     sched_rows = []  # original row index of each kept pred row
-    for q, width, rows, refs_rows, count in schedule_fusion_batches(
-            ref_idx, bucket_of, q_batch, image_major):
+    batches = schedule_fusion_batches(ref_idx, bucket_of, q_batch,
+                                      image_major,
+                                      1 if mesh is None else mesh.size)
+    for q, width, rows, refs_rows, count in batches:
+        if mesh is not None:  # this rank's block of the batch
+            refs_rows = refs_rows[pmesh.shard_rows(mesh, len(refs_rows))]
+            rows = rows[pmesh.shard_rows(mesh, len(rows))]
         refs = index_feats[torch.from_numpy(refs_rows.astype(np.int64))
                            .to(device)]
         ids = torch.from_numpy(ids_all[rows][:, :width]).to(device)
         msk = torch.from_numpy(mask_all[rows][:, :width]).to(device)
         pred = fuse_fn(refs, ids, msk, q) if q > 1 \
             else fuse_fn(refs, ids, msk)
-        preds.append(pred[:count].float())
-        sched_rows.extend(rows[:count].tolist())
+        if mesh is None:
+            preds.append(pred[:count].float())
+            sched_rows.extend(rows[:count].tolist())
+        else:
+            preds.append(pred.float())
 
-    grouped = torch.cat(preds) if len(preds) > 1 else preds[0]
+    if mesh is None:
+        grouped = torch.cat(preds) if len(preds) > 1 else preds[0]
+    else:
+        # every rank's blocks, one gather; a batch's rows are its ranks'
+        # blocks in mesh order, its real rows first
+        sizes = [len(p) for p in preds]
+        parts = [g.split(sizes) for g in
+                 pmesh.all_gather(mesh, torch.cat(preds)[None])]
+        grouped = torch.cat([
+            torch.cat([part[i] for part in parts])[:count]
+            for i, (_, _, _, _, count) in enumerate(batches)])
+        sched_rows = [r for _, _, rows, _, count in batches
+                      for r in rows[:count].tolist()]
     inv = np.full(n, -1, np.int64)
     inv[np.asarray(sched_rows, np.int64)] = np.arange(len(sched_rows))
     missing = np.flatnonzero(inv < 0)
@@ -250,7 +291,7 @@ def predict_queries(fuse_fn, tokenizer, captions: list[str], ref_names,
         raise AssertionError(
             f"fusion scheduler dropped {missing.size} quer(ies): "
             f"rows {missing[:8].tolist()}...")
-    return grouped[torch.from_numpy(inv).to(device)]
+    return pmesh.share(mesh, grouped[torch.from_numpy(inv).to(device)])
 
 
 def _on_index_device(pred, pooled_index) -> tuple[torch.Tensor, torch.Tensor]:
@@ -258,12 +299,31 @@ def _on_index_device(pred, pooled_index) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.as_tensor(pred, device=index.device), index
 
 
+def _query_block(mesh, pred, ent=None):
+    """This rank's block of the queries (and entity columns), padded with
+    zero rows to a multiple of the mesh size."""
+    pred, _ = pmesh.pad_rows(pred, mesh.size)
+    rows = pmesh.shard_rows(mesh, len(pred))
+    if ent is not None:
+        ent = pmesh.pad_rows(ent, mesh.size)[0][rows]
+    return pred[rows], ent
+
+
 @torch.inference_mode()
 def full_ranking(pred, pooled_index, mesh=None) -> np.ndarray:
     """Ascending-distance stable argsort over the whole corpus, on the
-    index's device: [N_q, N_idx] corpus indices."""
-    _check_ported(mesh)
-    return cosine_rank(*_on_index_device(pred, pooled_index)).cpu().numpy()
+    index's device: [N_q, N_idx] corpus indices.
+
+    mesh: the queries are padded to a multiple of the mesh size, each rank
+    ranks its block against the whole (replicated) pooled index on the
+    mesh's device, and one all-gather returns every rank the ranking."""
+    pred, index = _on_index_device(pred, pooled_index)
+    if mesh is None:
+        return cosine_rank(pred, index).cpu().numpy()
+    n = len(pred)
+    block, _ = _query_block(mesh, pred.to(mesh.device))
+    order = cosine_rank(block, index.to(mesh.device))
+    return pmesh.all_gather(mesh, order)[:n].cpu().numpy()
 
 
 @torch.inference_mode()
@@ -284,13 +344,27 @@ def ranked_slices(pred, pooled_index, width: int,
     is a stable sort on the device (``torch.topk`` promises no order among
     equal values there); only the top-width columns and the entity ranks
     leave it. Returns (topk [N_q, width] int32, ranks [N_q, E] int32 or
-    None)."""
-    _check_ported(mesh)
+    None).
+
+    mesh: the queries (and entity rows) are padded to a multiple of the
+    mesh size and each rank ranks its block against the whole pooled
+    index on the mesh's device; topk and ranks are gathered."""
     pred, index = _on_index_device(pred, pooled_index)
     ent = None if entity_idx is None else torch.as_tensor(
         np.asarray(entity_idx, np.int64), device=index.device)
-    topk, ranks = _ranked_body(pred, index, ent, width)
-    return topk.cpu().numpy(), None if ranks is None else ranks.cpu().numpy()
+    if mesh is None:
+        topk, ranks = _ranked_body(pred, index, ent, width)
+        return topk.cpu().numpy(), \
+            None if ranks is None else ranks.cpu().numpy()
+    n = len(pred)
+    dev = mesh.device
+    block, ent_block = _query_block(
+        mesh, pred.to(dev), None if ent is None else ent.to(dev))
+    topk, ranks = _ranked_body(block, index.to(dev), ent_block, width)
+    topk = pmesh.all_gather(mesh, topk)[:n].cpu().numpy()
+    if ranks is None:
+        return topk, None
+    return topk, pmesh.all_gather(mesh, ranks)[:n].cpu().numpy()
 
 
 def _ranked_body(pred, index, ent, width: int):
@@ -649,18 +723,19 @@ def run_single_program_eval(model, params, dataset_classic, tokenizer,
 
 def _index_and_fuse(model, params, dataset_classic, tokenizer, captions,
                     refs, *, text_len: int, batch_size: int, q_batch: int,
-                    image_major: bool, device) -> tuple:
+                    image_major: bool, device, mesh=None) -> tuple:
     """Corpus embed and query fusion: (pooled [N, E], pred [N_q, E],
     index_names, seconds {'index', 'fusion'})."""
     t0 = time.perf_counter()
     embed, fuse = make_stage1_fns(model, params, device)
     raw, pooled, index_names = build_index(dataset_classic, embed,
                                            batch_size, pooled=True,
-                                           device=device)
+                                           device=device, mesh=mesh)
     sync_device(device)
     t1 = time.perf_counter()
     pred = predict_queries(fuse, tokenizer, captions, refs, raw, index_names,
-                           text_len, q_batch, image_major=image_major)
+                           text_len, q_batch, image_major=image_major,
+                           mesh=mesh)
     sync_device(device)
     return pooled, pred, index_names, {"index": t1 - t0,
                                        "fusion": time.perf_counter() - t1}
@@ -669,9 +744,10 @@ def _index_and_fuse(model, params, dataset_classic, tokenizer, captions,
 def _stage1_ranks(model, params, dataset_classic, tokenizer, captions,
                   refs, ent_names, *, text_len: int, batch_size: int,
                   q_batch: int, image_major: bool, width: int,
-                  single_program: bool, device) -> tuple:
+                  single_program: bool, device, mesh=None) -> tuple:
     """(topk [N_q, width], ranks [N_q, E], index_names, seconds) by either
     executor; ``ent_names`` [N_q][E] the entity columns' names."""
+    _check_single_program(mesh, single_program)
     if single_program:
         return run_single_program_eval(
             model, params, dataset_classic, tokenizer, captions, refs,
@@ -681,12 +757,12 @@ def _stage1_ranks(model, params, dataset_classic, tokenizer, captions,
     pooled, pred, index_names, seconds = _index_and_fuse(
         model, params, dataset_classic, tokenizer, captions, refs,
         text_len=text_len, batch_size=batch_size, q_batch=q_batch,
-        image_major=image_major, device=device)
+        image_major=image_major, device=device, mesh=mesh)
     t0 = time.perf_counter()
     pos = {name: i for i, name in enumerate(index_names)}
     ent = np.asarray([[pos[nm] for nm in row] for row in ent_names],
                      np.int32)
-    topk_idx, ranks = ranked_slices(pred, pooled, width, ent)
+    topk_idx, ranks = ranked_slices(pred, pooled, width, ent, mesh=mesh)
     seconds["ranking"] = time.perf_counter() - t0
     return topk_idx, ranks, index_names, seconds
 
@@ -707,9 +783,11 @@ def evaluate_cirr_stage1(model, params, dataset_classic, dataset_relative,
     card one CUDA-graph replay, and the corpus on the card at once; the
     model's cached graph keeps the corpus and its pool on the card until
     ``make_single_program_eval(model).release()``).
+    mesh: the multi-launch executor over a mesh (the module's docstring),
+    on the mesh's device; with ``single_program`` refused, as in JAX.
     Returns (Stage1EvalResult, payload or None)."""
-    _check_ported(mesh)
-    device = resolve_device(device)
+    _check_single_program(mesh, single_program)
+    device = resolve_device(device) if mesh is None else mesh.device
     t0 = time.perf_counter()
     captions, refs, targets, groups = [], [], [], []
     for i in range(len(dataset_relative)):
@@ -726,7 +804,7 @@ def evaluate_cirr_stage1(model, params, dataset_classic, dataset_relative,
         model, params, dataset_classic, tokenizer, captions, refs, ent_names,
         text_len=text_len, batch_size=batch_size, q_batch=q_batch,
         image_major=image_major, width=width, single_program=single_program,
-        device=device)
+        device=device, mesh=mesh)
     ranking = M.cirr_ranking_from_ranks(
         topk_idx, index_names, targets, members,
         target_ranks=ranks[:, 0], ref_ranks=ranks[:, 1],
@@ -753,8 +831,8 @@ def evaluate_fiq_stage1(model, params, dataset_classic, dataset_relative,
     """Fashion-IQ stage-I metrics of one corpus (one or more dress types),
     and the top-k payload when ``save_topk_k``; as
     ``evaluate_cirr_stage1``."""
-    _check_ported(mesh)
-    device = resolve_device(device)
+    _check_single_program(mesh, single_program)
+    device = resolve_device(device) if mesh is None else mesh.device
     t0 = time.perf_counter()
     captions_pairs, refs, targets = [], [], []
     for i in range(len(dataset_relative)):
@@ -769,7 +847,7 @@ def evaluate_fiq_stage1(model, params, dataset_classic, dataset_relative,
         model, params, dataset_classic, tokenizer, captions, refs,
         [[t] for t in targets], text_len=text_len, batch_size=batch_size,
         q_batch=q_batch, image_major=image_major, width=width,
-        single_program=single_program, device=device)
+        single_program=single_program, device=device, mesh=mesh)
     ranking = M.fiq_ranking_from_ranks(topk_idx, index_names, targets,
                                        target_ranks=ranks[:, 0])
     mets = M.fiq_metrics(ranking)

@@ -37,15 +37,20 @@ METADATA_FILE = "framework_metadata.json"
 
 
 def save_checkpoint(path: str | Path, model, optimizer, *,
-                    metadata: dict | None = None) -> None:
+                    metadata: dict | None = None,
+                    opt_state: dict | None = None) -> None:
     """Write the train state of ``model`` and ``optimizer`` (the port's
     ``AdamW``) to the directory ``path``, replacing what it held. The
     state file is written under a temporary name and renamed, so a crash
-    mid-save leaves the previous checkpoint whole."""
+    mid-save leaves the previous checkpoint whole. ``opt_state``: the
+    optimizer's ``state_dict()`` already taken (a ZeRO-sharded optimizer
+    gathers it collectively on every rank; rank 0 then writes)."""
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
+    if opt_state is None:
+        opt_state = optimizer.state_dict()
     state = {"step": optimizer.micro_steps, "params": model.state_dict(),
-             "opt_state": optimizer.state_dict(),
+             "opt_state": opt_state,
              "metadata": dict(metadata or {})}
     tmp = path / (STATE_FILE + ".tmp")
     torch.save(state, tmp)

@@ -6,6 +6,8 @@ three sinks (stage1_train.py:561-581, 203-206).
   validation_metrics.csv (the reference's file names) and writes the
   hyperparameters to <training_path>/<experiment_name>.json
   (stage1_train.py:59-60).
+- ``MetricsStub`` takes the same calls and writes nothing (the ranks of a
+  mesh but rank 0).
 - Comet is optional: made only when an API key is given, else a no-op
   stub, as the reference's disabled experiment.
 """
@@ -73,3 +75,13 @@ class MetricsLogger:
 
     def log_validation(self, **row):
         self._append(self.val_csv, row)
+
+
+class MetricsStub:
+    """``MetricsLogger``'s calls, writing nothing."""
+
+    def log_train(self, **row):
+        pass
+
+    def log_validation(self, **row):
+        pass

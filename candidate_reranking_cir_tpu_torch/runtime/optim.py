@@ -15,6 +15,19 @@ The update repeats optax's float32 arithmetic op for op, including its
 bias corrections 1 - b**count taken in float32 (``torch.optim.AdamW``
 takes them in float64, which moves an early update by about 6e-6 of its
 size).
+
+Over a mesh (``mesh``, ``parallel/mesh.py``) each rank's gradients are
+averaged over the ranks before the step, so a rank whose loss is the mean
+over its rows takes the global mean's gradient, as JAX's one global
+program does. With ``fsdp`` (ZeRO-style, JAX's ``state_shardings``) every
+parameter that ``fsdp_param_spec`` shards has its moments (and its
+running mean under accumulation) for this rank's block only: optimizer
+memory shrinks by the mesh size. Its gradient is reduce-scattered into
+the block, the update runs on the block (a view of the parameter), and
+the blocks are all-gathered back into the whole parameter, which every
+rank keeps for its forward. ``state_dict`` gathers the blocks (a
+collective: every rank calls it), so a checkpoint has the one-card
+format; ``load_state_dict`` keeps this rank's block of each tensor.
 """
 from __future__ import annotations
 
@@ -26,6 +39,7 @@ import torch
 from torch import nn
 
 from candidate_reranking_cir_tpu_torch.config import TrainConfig
+from candidate_reranking_cir_tpu_torch.parallel import mesh as pmesh
 
 
 def cosine_epoch_schedule(init_lr: float, min_lr: float, max_epoch: int,
@@ -97,30 +111,57 @@ class AdamW:
     B1, B2, EPS = 0.9, 0.999, 1e-8
 
     def __init__(self, params, schedule: Callable[[int], float],
-                 weight_decay: float, accumulation: int = 1):
+                 weight_decay: float, accumulation: int = 1, *,
+                 mesh=None, fsdp: bool = False):
         if accumulation < 1:
             raise ValueError("accumulation must be >= 1")
         self.params = list(params)
         self.schedule = schedule
         self.weight_decay = weight_decay
         self.accumulation = accumulation
+        self.mesh = mesh
+        self.fsdp = fsdp and mesh is not None
         self.count = 0        # updates applied (the schedule's step)
         self.mini_step = 0
-        self.mu = [torch.zeros_like(p) for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
-        self.acc = ([torch.zeros_like(p) for p in self.params]
+        # the dimension each parameter is sharded on (None: whole)
+        self.shard_dims = [
+            pmesh.fsdp_param_spec(p.shape, mesh.size) if self.fsdp else None
+            for p in self.params]
+        targets = self._targets()
+        self.mu = [torch.zeros_like(t) for t in targets]
+        self.nu = [torch.zeros_like(t) for t in targets]
+        self.acc = ([torch.zeros_like(t) for t in targets]
                     if accumulation > 1 else None)
+
+    def _block(self, x, dim):
+        """This rank's block of ``x`` on ``dim`` (a view), or ``x``."""
+        if dim is None:
+            return x
+        n = x.shape[dim] // self.mesh.size
+        return x.narrow(dim, self.mesh.rank * n, n)
+
+    def _targets(self) -> list:
+        """What the update writes: each parameter, or its block."""
+        return [p if d is None else self._block(p.detach(), d)
+                for p, d in zip(self.params, self.shard_dims)]
 
     @property
     def micro_steps(self) -> int:
         """Micro-steps taken (the JAX train state's ``step``)."""
         return self.count * self.accumulation + self.mini_step
 
+    def _whole(self, tensors):
+        """The parameters' shapes from this rank's blocks (gathered)."""
+        return [t if d is None else pmesh.all_gather(self.mesh, t, d)
+                for t, d in zip(tensors, self.shard_dims)]
+
     def state_dict(self) -> dict:
+        """Counters and moments in the one-card format (with ``fsdp`` a
+        collective that gathers the blocks)."""
         return {"count": self.count, "mini_step": self.mini_step,
-                "accumulation": self.accumulation, "mu": list(self.mu),
-                "nu": list(self.nu),
-                "acc": None if self.acc is None else list(self.acc)}
+                "accumulation": self.accumulation,
+                "mu": self._whole(self.mu), "nu": self._whole(self.nu),
+                "acc": None if self.acc is None else self._whole(self.acc)}
 
     @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
@@ -134,13 +175,13 @@ class AdamW:
         for key in ("mu", "nu") + (("acc",) if self.acc is not None else ()):
             mine, saved = getattr(self, key), state[key]
             if len(saved) != len(mine) or any(
-                    a.shape != b.shape for a, b in zip(mine, saved)):
+                    p.shape != b.shape for p, b in zip(self.params, saved)):
                 raise ValueError(
                     f"optimizer state {key!r} does not fit the trainable "
                     f"parameters ({len(saved)} tensors saved, {len(mine)} "
                     "here)")
-            for a, b in zip(mine, saved):
-                a.copy_(b)
+            for a, b, d in zip(mine, saved, self.shard_dims):
+                a.copy_(self._block(b, d))
         self.count = int(state["count"])
         self.mini_step = int(state["mini_step"])
 
@@ -148,28 +189,52 @@ class AdamW:
         for p in self.params:
             p.grad = None
 
+    def _mesh_grads(self) -> list:
+        """Each target's gradient, averaged over the mesh: all-reduced
+        (one flat buffer for the whole parameters), or reduce-scattered
+        into this rank's block."""
+        grads = [p.grad for p in self.params]
+        if self.mesh is None:
+            return grads
+        whole = [i for i, d in enumerate(self.shard_dims) if d is None]
+        if whole:
+            flat = torch.cat([grads[i].reshape(-1) for i in whole])
+            pmesh.all_reduce(self.mesh, flat, "mean")
+            for i, part in zip(whole, flat.split(
+                    [grads[i].numel() for i in whole])):
+                grads[i] = part.view_as(grads[i])
+        for i, d in enumerate(self.shard_dims):
+            if d is not None:
+                grads[i] = pmesh.reduce_scatter(self.mesh, grads[i], d) \
+                    .div_(self.mesh.size)
+        return grads
+
     @torch.no_grad()
     def step(self) -> bool:
         for p in self.params:
             if p.grad is None:  # optax decays a zero gradient too
                 p.grad = torch.zeros_like(p)
+        grads = self._mesh_grads()
         if self.acc is not None:
             n = self.mini_step
-            for p, acc in zip(self.params, self.acc):
-                acc.add_((p.grad - acc) / (n + 1))
+            for g, acc in zip(grads, self.acc):
+                acc.add_((g - acc) / (n + 1))
             self.mini_step += 1
             if self.mini_step < self.accumulation:
                 return False
             self.mini_step = 0
-            for p, acc in zip(self.params, self.acc):
-                p.grad = acc.clone()
+            grads = [acc.clone() for acc in self.acc]
+            for acc in self.acc:
                 acc.zero_()
-        self._update([p.grad for p in self.params],
-                     _f32(self.schedule(self.count)))
+        targets = self._targets()
+        self._update(targets, grads, _f32(self.schedule(self.count)))
+        for p, t, d in zip(self.params, targets, self.shard_dims):
+            if d is not None:
+                p.copy_(pmesh.all_gather(self.mesh, t, d))
         self.count += 1
         return True
 
-    def _update(self, grads, lr: float) -> None:
+    def _update(self, targets, grads, lr: float) -> None:
         """One optax.adamw update in optax's order: scale_by_adam,
         add_decayed_weights, scale_by_learning_rate, apply_updates."""
         b1, b2 = self.B1, self.B2
@@ -187,16 +252,18 @@ class AdamW:
         torch._foreach_add_(denom, self.EPS)
         upd = torch._foreach_div(torch._foreach_div(self.mu, bc1), denom)
         del denom
-        torch._foreach_add_(upd, torch._foreach_mul(self.params,
+        torch._foreach_add_(upd, torch._foreach_mul(targets,
                                                     self.weight_decay))
         torch._foreach_mul_(upd, -lr)
-        torch._foreach_add_(self.params, upd)
+        torch._foreach_add_(targets, upd)
 
 
 def make_optimizer(cfg: TrainConfig, model: nn.Module, steps_per_epoch: int,
-                   *, freeze_prefixes: tuple[str, ...] = ()):
+                   *, freeze_prefixes: tuple[str, ...] = (), mesh=None,
+                   fsdp: bool = False):
     """(AdamW over the trainable parameters, the cosine schedule). Frozen
-    parameters are marked ``requires_grad=False`` and left out."""
+    parameters are marked ``requires_grad=False`` and left out. ``mesh``
+    and ``fsdp``: data parallelism and ZeRO-style sharding (``AdamW``)."""
     schedule = cosine_epoch_schedule(cfg.learning_rate, cfg.min_lr,
                                      cfg.cosine_max_epoch, steps_per_epoch)
     trainable = []
@@ -206,4 +273,4 @@ def make_optimizer(cfg: TrainConfig, model: nn.Module, steps_per_epoch: int,
         else:
             trainable.append(p)
     return AdamW(trainable, schedule, cfg.weight_decay,
-                 cfg.grad_accumulation), schedule
+                 cfg.grad_accumulation, mesh=mesh, fsdp=fsdp), schedule

@@ -183,11 +183,25 @@ Phases, each printing its own lines:
     back bit for bit; ``[entry]`` ``entry()`` ([2, 4] finite scores, K1 >
     0); ``[demo]`` ``demo.main --device cuda`` (every artifact of the JAX
     package's demo, K2 and K3 > 0 at 6-wide heads).
+16. the multi-card paths (after phase 14) at full width through NCCL,
+    over min(4, cards) ranks: one rank in this process in bf16, where every
+    result must be bit-equal to the same call without a mesh; with several
+    cards one spawned rank a card in fp32, within MESH_TOL. A stage-I step
+    (B = 64, the trainer's model, dropout 0.1, cached targets) and a
+    stage-II step (B = 8), each replicated and with ``fsdp``: losses and
+    every trained parameter against the step without a mesh, seconds and
+    peak GiB of each; ``ranked_slices`` at CIRR-val scale (4,181 x 2,297
+    random pooled features); ``build_index(shard_index=True)`` of the
+    stage-II bank over 256 images (its bytes per rank); the candidate-major
+    re-rank of 64 queries (K = 50, CIRR groups) over the block-sharded and
+    the replicated bank; ``sharded_cosine_topk``; ``dryrun_multichip``.
+    Prints the seconds, the max |mesh - no mesh| of each comparison and
+    the launches of the mesh calls (K1-K3 and K5-K9 must be > 0).
 12. a JSON line of kernel figures (``launches_by_path`` adds phase 10's
     counts as "train_cli", phase 11's as "serve", phase 13's as
-    "caption", phase 14's as "glue" and phase 15's as "single_program"
-    and "dropout_layouts"), then the card's name and power limit, then the
-    last line ``{"ok": true, "device": {...}}``.
+    "caption", phase 14's as "glue", phase 15's as "single_program"
+    and "dropout_layouts" and phase 16's as "mesh"), then the card's name
+    and power limit, then the last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero without the last line.
 Imports nothing of JAX.
@@ -325,6 +339,26 @@ IMAGE_OPS_TOL, IMAGE_OPS_PIL_MEAN = 1e-4, 0.12
 CAP_G, CAP_Q = 4, 4
 CAP_PROB_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 CAP_Z_TOL, CAP_GRAD_REL_TOL, CAP_ROUTE_TOL = 1e-3, 1e-3, 1e-4
+# phase 16, the multi-card paths: a world of min(MESH_WORLD_MAX, cards)
+# NCCL ranks; stage-I and stage-II steps at B = MESH_S1_B and MESH_S2_B,
+# replicated and FSDP; ranked_slices at CIRR-val scale; the stage-II bank
+# of MESH_INDEX_IMAGES images block-sharded; the candidate-major re-rank
+# of MESH_RERANK_Q queries over it; the per-shard top-k; the dry run. One
+# rank: bit-equal to the calls without a mesh; several: fp32 within
+# MESH_TOL (the CPU tests' tolerances; index arrays MESH_INDEX_SHARE
+# equal). The phase aims at MESH_PHASE_S
+# seconds; every eval and train kernel but K4 must launch in it
+MESH_WORLD_MAX, MESH_PHASE_S = 4, 60.0
+MESH_S1_B, MESH_S2_B, MESH_INDEX_IMAGES, MESH_RERANK_Q = 64, 8, 256, 64
+MESH_TOL = {"loss": 1e-5, "params": 3e-5, "logits": 1e-4, "bank": 1e-5}
+# the steps' learning rate: an Adam update is at most ~lr an element, so
+# 1e-5 keeps a sign flip of a near-zero gradient inside MESH_TOL["params"]
+MESH_LR = 1e-5
+# several ranks: the rankings' and top-k's indices equal in at least this
+# share of entries (each rank's distance products have another shape, so
+# cuBLAS may round them an ulp apart and swap near ties)
+MESH_INDEX_SHARE = 0.999
+MESH_KERNELS = ("K1", "K2", "K3", "K5", "K6", "K7", "K8", "K9")
 # phase 10's native lines: native pixels against PIL within
 # tests/test_native_pipe.py's bounds (8-bit units), on a few jpegs
 NATIVE_MEAN_TOL, NATIVE_MAX_TOL, NATIVE_PIXEL_IMAGES = 0.5, 10.0, 8
@@ -3898,6 +3932,311 @@ def build_libraries() -> bool:
     return native_missing_what is None
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the multi-card paths
+
+def mesh_compare_indices(report: dict, label: str, got, want,
+                         exact: bool) -> None:
+    """Record the share of equal entries of two index arrays under
+    ``label``; fail unless all equal (``exact``, one rank) or at least
+    MESH_INDEX_SHARE."""
+    got, want = (np.asarray(x.cpu() if torch.is_tensor(x) else x)
+                 for x in (got, want))
+    if got.shape != want.shape:
+        fail(f"[mesh] {label}: shape {got.shape} against {want.shape}")
+    share = float((got == want).mean()) if got.size else 1.0
+    report.setdefault("equal_share", {})[label] = share
+    if share < (1.0 if exact else MESH_INDEX_SHARE):
+        fail(f"[mesh] {label}: {share:.6f} of the entries equal")
+
+
+def mesh_compare(report: dict, label: str, got, want, exact: bool,
+                 tol: float) -> None:
+    """Record max |got - want| under ``label``; fail unless bit-equal
+    (``exact``, one rank) or within ``tol``."""
+    got, want = (x.detach().float().cpu().numpy() if torch.is_tensor(x)
+                 else np.asarray(x, np.float64) for x in (got, want))
+    if got.shape != want.shape:
+        fail(f"[mesh] {label}: shape {got.shape} against {want.shape}")
+    diff = float(np.abs(got - want).max()) if got.size else 0.0
+    report.setdefault("max_abs_diff", {})[label] = diff
+    if (diff != 0.0) if exact else not diff <= tol:
+        fail(f"[mesh] {label}: max |mesh - no mesh| {diff:.3e} "
+             f"({'bit-equal required' if exact else f'tol {tol}'})")
+
+
+def mesh_train_check(report: dict, tag: str, make_step, model, batch: dict,
+                     mesh, exact: bool, run) -> None:
+    """One step of ``make_step(mesh, fsdp)`` from ``model``'s weights
+    without a mesh, replicated over ``mesh`` and with ``fsdp``: losses and
+    trained parameters held to the run without a mesh; each variant's
+    seconds and peak memory."""
+    from candidate_reranking_cir_tpu_torch.parallel.mesh import shard_batch
+
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    out = {}
+    for variant, m, fsdp in (("none", None, False), ("replicated", mesh,
+                                                       False),
+                             ("fsdp", mesh, True)):
+        model.load_state_dict(init)
+        step = make_step(m, fsdp)
+        local = batch if m is None else shard_batch(m, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = run(lambda: step(local, SEED)) if m is not None \
+            else step(local, SEED)
+        loss = float(loss)
+        torch.cuda.synchronize()
+        out[variant] = (loss, {n: p.detach().clone()
+                               for n, p in model.named_parameters()
+                               if p.requires_grad})
+        report.setdefault("train", {})[f"{tag} {variant}"] = {
+            "loss": loss, "seconds": round(time.perf_counter() - t0, 4),
+            "peak_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3)}
+    for variant in ("replicated", "fsdp"):
+        loss, params = out[variant]
+        mesh_compare(report, f"{tag} {variant} loss", [loss],
+                     [out["none"][0]], exact, MESH_TOL["loss"])
+        for name, p in params.items():
+            mesh_compare(report, f"{tag} {variant} params", p,
+                         out["none"][1][name], exact, MESH_TOL["params"])
+    model.load_state_dict(init)
+
+
+def mesh_checks(tok, words, dtype, exact: bool) -> dict:
+    """Phase 16's calls over the world's mesh, each against the same call
+    without a mesh (bit-equal at one rank, else within MESH_TOL), with the
+    kernels' launches of the mesh calls. Every rank runs it; rank 0's
+    report is returned."""
+    from candidate_reranking_cir_tpu_torch.config import TrainConfig
+    from candidate_reranking_cir_tpu_torch.entry import dryrun_multichip
+    from candidate_reranking_cir_tpu_torch.models.blip_reranker import (
+        RerankerModel,
+    )
+    from candidate_reranking_cir_tpu_torch.models.blip_retrieval import (
+        RetrievalModel,
+    )
+    from candidate_reranking_cir_tpu_torch.ops.topk import (
+        cosine_topk,
+        sharded_cosine_topk,
+    )
+    from candidate_reranking_cir_tpu_torch.parallel.mesh import (
+        make_mesh,
+        pad_rows,
+        shard_rows,
+    )
+    from candidate_reranking_cir_tpu_torch.retrieval.index import build_index
+    from candidate_reranking_cir_tpu_torch.retrieval.rerank import (
+        rerank_candidate_major,
+    )
+    from candidate_reranking_cir_tpu_torch.retrieval.validate_engine import (
+        ranked_slices,
+    )
+    from candidate_reranking_cir_tpu_torch.runtime.optim import (
+        make_optimizer,
+    )
+    from candidate_reranking_cir_tpu_torch.runtime.train_steps import (
+        make_stage1_train_step,
+        make_stage2_train_step,
+    )
+
+    mesh = make_mesh(device="cuda")
+    report = {"world": mesh.size, "launches": {k: 0 for k in SOURCES}}
+
+    def run(fn):  # a mesh call: its kernel launches count for "mesh"
+        before = launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        for k, v in launch_counts().items():
+            report["launches"][k] += v - before[k]
+        return out
+
+    rng = np.random.default_rng(SEED + 40)
+    t0 = time.perf_counter()
+    # stage I at B = MESH_S1_B: the trainer's model (MED with remat,
+    # dropout 0.1), cached target features
+    cfg = stage1_config()
+    torch.manual_seed(SEED + 41)
+    s1t = RetrievalModel(cfg, dtype=dtype, device="cuda")
+    tgt = rng.normal(size=(MESH_S1_B, cfg.embed_dim)).astype(np.float32)
+    ids, mask = tok.encode([" ".join(rng.choice(words, size=1 + i % 20))
+                            for i in range(MESH_S1_B)], TEXT_LEN,
+                           set_enc_token=True)
+    batch1 = {"ref_images": rng.normal(size=(MESH_S1_B, 384, 384, 3))
+              .astype(np.float32), "input_ids": ids, "attention_mask": mask,
+              "target_pooled": tgt / np.linalg.norm(tgt, axis=1,
+                                                    keepdims=True)}
+
+    def stage1_step(m, fsdp):
+        opt, _ = make_optimizer(TrainConfig(learning_rate=MESH_LR), s1t,
+                                1000, freeze_prefixes=("visual_encoder",),
+                                mesh=m, fsdp=fsdp)
+        return make_stage1_train_step(s1t, opt, mesh=m)
+
+    mesh_train_check(report, "stage1", stage1_step, s1t, batch1, mesh, exact,
+                     run)
+    del s1t, batch1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # stage II at B = MESH_S2_B: the trainer's models (dropout 0.1)
+    cfg1, cfg2 = train_configs(dropout=True)
+    torch.manual_seed(SEED + 42)
+    s1 = RetrievalModel(cfg1, dtype=dtype, device="cuda")
+    s2 = RerankerModel(cfg2, dtype=dtype, device="cuda")
+    ids, mask = tok.encode([" ".join(rng.choice(words, size=3 + i))
+                            for i in range(MESH_S2_B)], TEXT_LEN,
+                           set_enc_token=True)
+    batch2 = {k: rng.normal(size=(MESH_S2_B, 384, 384, 3)).astype(np.float32)
+              for k in ("ref_images", "target_images")}
+    batch2.update(input_ids=ids, attention_mask=mask)
+
+    def stage2_step(m, fsdp):
+        opt, _ = make_optimizer(TrainConfig(learning_rate=MESH_LR), s2,
+                                1000, freeze_prefixes=("visual_encoder",),
+                                mesh=m, fsdp=fsdp)
+        return make_stage2_train_step(s1, s2, opt, mesh=m)
+
+    mesh_train_check(report, "stage2", stage2_step, s2, batch2, mesh, exact,
+                     run)
+    del batch2
+    report["seconds_train"] = round(time.perf_counter() - t0, 3)
+
+    # ranked_slices at CIRR-val scale, random pooled features
+    t1 = time.perf_counter()
+    pred = rng.normal(size=(S1E_QUERIES, 256)).astype(np.float32)
+    pooled = torch.from_numpy(rng.normal(size=(S1E_IMAGES, 256))
+                              .astype(np.float32)).cuda()
+    ent = rng.integers(0, S1E_IMAGES, size=(S1E_QUERIES, 7))
+    got = run(lambda: ranked_slices(pred, pooled, 501, ent, mesh=mesh))
+    want = ranked_slices(pred, pooled, 501, ent)
+    for label, a, b in zip(("ranked_slices topk", "ranked_slices ranks"),
+                           got, want):
+        mesh_compare_indices(report, label, a, b, exact)
+
+    # the stage-II bank over MESH_INDEX_IMAGES images, block-sharded
+    # (bf16 as the eval path stores it; in an fp32 run fp32, since the
+    # ranks' embeds round apart and bf16 storage turns that into an ulp)
+    corpus = Corpus(MESH_INDEX_IMAGES, 384, rng)
+    bank_dtype = torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
+    torch.cuda.reset_peak_memory_stats()
+    block, names = run(lambda: build_index(
+        corpus, s2.embed_images, 32, feature_dtype=bank_dtype, mesh=mesh,
+        shard_index=True))
+    whole, _ = build_index(corpus, s2.embed_images, 32,
+                           feature_dtype=bank_dtype, device="cuda")
+    padded, n = pad_rows(whole, mesh.size)
+    mesh_compare(report, "build_index shard", block,
+                 padded[shard_rows(mesh, len(padded))], exact,
+                 MESH_TOL["bank"])
+    report["bank_bytes_per_rank"] = block.numel() * block.element_size()
+    report["bank_bytes_whole"] = whole.numel() * whole.element_size()
+
+    # the candidate-major re-rank over the sharded and the replicated bank
+    queries = make_queries(names, MESH_RERANK_Q, TOPK, rng, words)
+    kw = dict(captions=[q["caption"] for q in queries],
+              reference_names=[q["reference_name"] for q in queries],
+              topk_names=np.stack([q["topk_names"] for q in queries]),
+              index_names=names, text_len=TEXT_LEN,
+              group_members=[q["group_members"] for q in queries])
+    plain = rerank_candidate_major(s1, None, s2, None, tok,
+                                   index_feats=whole, device="cuda", **kw)
+    for label, bank, sharded in (("replicated", whole, False),
+                                 ("sharded", block, True)):
+        out = run(lambda: rerank_candidate_major(
+            s1, None, s2, None, tok, index_feats=bank, mesh=mesh,
+            index_sharded=sharded, **kw))
+        mesh_compare(report, f"rerank {label} logits", out.logits,
+                     plain.logits, exact, MESH_TOL["logits"])
+        mesh_compare(report, f"rerank {label} group logits",
+                     out.group_logits, plain.group_logits, exact,
+                     MESH_TOL["logits"])
+
+    # the per-shard top-k over the pooled features' row blocks
+    pooled_pad, _ = pad_rows(pooled, mesh.size)
+    q = torch.from_numpy(pred[:MESH_RERANK_Q]).cuda()
+    scores, idx = run(lambda: sharded_cosine_topk(
+        q, pooled_pad[shard_rows(mesh, len(pooled_pad))], TOPK, mesh))
+    ref_scores, ref_idx = cosine_topk(q, pooled, TOPK)
+    mesh_compare_indices(report, "sharded_cosine_topk indices", idx,
+                         ref_idx, exact)
+    mesh_compare(report, "sharded_cosine_topk scores", scores, ref_scores,
+                 exact, MESH_TOL["bank"])
+    report["seconds_eval"] = round(time.perf_counter() - t1, 3)
+    report["peak_gib_eval"] = round(torch.cuda.max_memory_allocated()
+                                    / 2**30, 3)
+    del s1, s2, whole, block, pooled
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t2 = time.perf_counter()
+    report["dryrun"] = run(lambda: dryrun_multichip(mesh.size))
+    report["seconds_dryrun"] = round(time.perf_counter() - t2, 3)
+    return report if mesh.rank == 0 else None
+
+
+def mesh_rank(words: list[str]):
+    """A rank of a several-card world: phase 16 in fp32, to tolerances."""
+    from candidate_reranking_cir_tpu_torch.models.tokenizer import (
+        WordPieceTokenizer,
+        build_test_vocab,
+    )
+
+    return mesh_checks(WordPieceTokenizer(build_test_vocab()), words,
+                       torch.float32, exact=False)
+
+
+def mesh_path(tok, words) -> dict:
+    """Phase 16: the mesh paths at full width through NCCL, over
+    min(4, cards) ranks: one rank in this process (bf16, every result
+    bit-equal to the same call without a mesh), or one spawned rank a card
+    (fp32, MESH_TOL). Returns the launches of the mesh calls."""
+    import torch.distributed as dist
+
+    from candidate_reranking_cir_tpu_torch.parallel.launch import run_world
+    from candidate_reranking_cir_tpu_torch.parallel.mesh import (
+        init_process_group,
+    )
+
+    world = min(MESH_WORLD_MAX, torch.cuda.device_count())
+    t0 = time.perf_counter()
+    if world == 1:
+        with tempfile.TemporaryDirectory() as tmp:
+            init_process_group(0, 1, device="cuda",
+                               init_method=f"file://{tmp}/store")
+            try:
+                report = mesh_checks(tok, words, torch.bfloat16, exact=True)
+            finally:
+                dist.destroy_process_group()
+    else:
+        report = run_world(mesh_rank, world, device="cuda", args=(words,),
+                           timeout_s=900.0)[0]
+    seconds = time.perf_counter() - t0
+    missed = [k for k in MESH_KERNELS if report["launches"][k] == 0]
+    print(f"[mesh] world {report['world']} (NCCL, "
+          f"{'bf16, bit-equal to no mesh' if world == 1 else 'fp32'}); "
+          f"phase seconds {seconds:.1f} (train {report['seconds_train']}, "
+          f"eval {report['seconds_eval']}, dryrun "
+          f"{report['seconds_dryrun']})", flush=True)
+    print(f"[mesh] train steps {json.dumps(report['train'])}", flush=True)
+    print(f"[mesh] bank bytes per rank {report['bank_bytes_per_rank']} of "
+          f"{report['bank_bytes_whole']}; eval peak "
+          f"{report['peak_gib_eval']} GiB per rank", flush=True)
+    print(f"[mesh] max |mesh - no mesh| "
+          f"{json.dumps(report['max_abs_diff'])}; equal index shares "
+          f"{json.dumps(report['equal_share'])}", flush=True)
+    print(f"[mesh] dryrun {json.dumps(report['dryrun'])}; launches "
+          f"{json.dumps(report['launches'])}", flush=True)
+    if missed:
+        fail(f"[mesh] kernels of the mesh paths not launched: {missed}")
+    if not seconds <= MESH_PHASE_S:
+        print(f"[mesh] WARNING: the phase took {seconds:.1f} s, over its "
+              f"{MESH_PHASE_S} s budget", flush=True)
+    report["seconds"] = seconds
+    return report
+
+
 def main():
     if not torch.cuda.is_available():
         fail("CUDA is not available")
@@ -3954,6 +4293,7 @@ def main():
     cli = train_cli_path(tok, words, native_ok)
     caption = caption_path(tok)
     glue = glue_path(tok, words)
+    mesh = mesh_path(tok, words)
 
     kernels = []
     for kid in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9"):
@@ -3987,6 +4327,7 @@ def main():
         by_path["train_cli"] = cli["launches"][kid]
         by_path["caption"] = caption["launches"][kid]
         by_path["glue"] = glue["launches"][kid]
+        by_path["mesh"] = mesh["launches"][kid]
         n = sum(by_path.values())
         kernels.append({
             "name": kid, "route": "cuda", "source": SOURCES[kid],

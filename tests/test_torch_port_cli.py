@@ -305,14 +305,16 @@ def test_submissions(workdir, tok):
         assert set(sub2[str(s["pair_id"])]) == set(sub[str(s["pair_id"])][:4])
 
 
-def test_unported_flags_raise(workdir, capsys, monkeypatch):
+def test_unported_flags_raise(workdir, tok, capsys, monkeypatch, tmp_path):
     from candidate_reranking_cir_tpu_torch.cli import (
+        cirr_test_submission,
         cirr_test_submission_stage2,
         validate,
         validate_stage2,
     )
+    from candidate_reranking_cir_tpu_torch.data.topk_io import save_topk_file
 
-    root, _, _ = workdir
+    root, s1_model, _ = workdir
     s1 = ["--stage1-path", str(root / "s1.pt")]
     both = s1 + ["--stage2-path", str(root / "s2.pt"), "--top-k-path", "x"]
     # --single-program is ported: the same printed metrics as without it
@@ -327,15 +329,38 @@ def test_unported_flags_raise(workdir, capsys, monkeypatch):
         validate.main(common_flags(root, IMG, device="cuda") + s1
                       + ["--single-program", "--mesh", "auto"])
     monkeypatch.undo()
-    with pytest.raises(NotImplementedError):
-        validate_stage2.main(_common(root) + both + ["--shard-index"])
     with pytest.raises(SystemExit):  # refused by the parser, as in JAX
         validate_stage2.main(_common(root) + both + ["--shard-index",
                                                      "--index-int8"])
-    with pytest.raises(NotImplementedError):
+    # --shard-index is ported; without a mesh it has no effect, as in the
+    # JAX CLIs: the same printed metrics and submissions as without it
+    _, payload = v1.evaluate_cirr_stage1(
+        s1_model, None, _cirr(root, "val", "classic"),
+        _cirr(root, "val", "relative"), tok, text_len=TEXT_LEN, batch_size=4,
+        save_topk_k=8, device="cpu")
+    save_topk_file(tmp_path / "top.npz", payload)
+    both[-1] = str(tmp_path / "top.npz")
+    printed = []
+    for flag in ([], ["--shard-index"]):
+        validate_stage2.main(_common(root) + both + ["--K-value", "4"] + flag)
+        printed.append(_printed(capsys.readouterr().out))
+    assert printed[0] == printed[1] and printed[0]
+    topk1 = tmp_path / "top_test1.npz"
+    cirr_test_submission.main(_common(root) + s1 + [
+        "--submission-name", "t", "--out-dir", str(tmp_path / "stage1"),
+        "--save-topk", "--k", "4", "--topk-out", str(topk1),
+        "--batch-size", "4"])
+    sub = []
+    for flag in ([], ["--shard-index"]):
+        out = tmp_path / f"sub{len(sub)}"
         cirr_test_submission_stage2.main(
-            _common(root) + both + ["--submission-name", "x",
-                                    "--shard-index"])
+            _common(root) + s1 + ["--stage2-path", str(root / "s2.pt"),
+                                  "--top-k-path", str(topk1),
+                                  "--K-value", "4",
+                                  "--submission-name", "x", "--out-dir",
+                                  str(out)] + flag)
+        sub.append(sorted(p.read_text() for p in out.glob("*.json")))
+    assert sub[0] == sub[1] and sub[0]
 
 
 def test_validate_stage2_query_major_int8(workdir, tok, capsys, tmp_path):
@@ -385,9 +410,14 @@ def test_device_flag(monkeypatch):
     assert common.get_device(_args("--fused-attention", "on")).type == "cuda"
     with pytest.raises(NotImplementedError, match="fused-attention"):
         common.get_device(_args("--fused-attention", "off"))
+    # several cards: --mesh auto runs over them (one rank a card, started
+    # by run_ranks), --mesh off and the CPU stay on one device
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        common.get_device(_args())
+    assert common.get_device(_args()).type == "cuda"
+    assert common.mesh_requested(_args())
+    assert not common.mesh_requested(_args("--mesh", "off"))
+    assert not common.mesh_requested(_args("--device", "cpu"))
+    assert common.get_mesh(_args()) is None  # no process group here
     assert common.get_device(_args("--mesh", "off")).type == "cuda"
 
 

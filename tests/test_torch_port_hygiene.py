@@ -26,9 +26,10 @@ from candidate_reranking_cir_tpu_torch.ops import attention as tattn
 from candidate_reranking_cir_tpu_torch.ops import cuda_attention as ck
 from candidate_reranking_cir_tpu_torch.retrieval import rerank
 from candidate_reranking_cir_tpu_torch.retrieval.index import build_index
+from candidate_reranking_cir_tpu_torch.ops.quant import quantize_bank
 from candidate_reranking_cir_tpu_torch.retrieval.validate2_engine import (
-    evaluate_cirr_stage2,
     evaluate_cirr_stage2_datasets,
+    run_rerank,
 )
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -112,11 +113,24 @@ def test_caption_decode_on_cpu_counts_no_launches():
 
 
 def test_unported_options_raise():
-    for kw in ({"mesh": object()}, {"shard_index": True}):
-        with pytest.raises(NotImplementedError):
-            evaluate_cirr_stage2(None, None, None, None, None, data_root="",
-                                 transform=None, top_k_path="", k=1,
-                                 text_len=8, device="cpu", **kw)
+    """The stage-II options are ported; what stays refused is what the
+    JAX package refuses: a block-sharded bank without a mesh, an int8
+    bank with a sharded one, and a sharded bank on the query-major
+    schedule."""
+    kw = dict(captions=[], reference_names=[], topk_names=np.zeros((0, 1)),
+              index_names=[], text_len=8, device="cpu")
+    with pytest.raises(ValueError, match="requires a mesh"):
+        rerank.rerank_candidate_major(None, None, None, None, None,
+                                      index_feats=None, index_sharded=True,
+                                      **kw)
+    bank = quantize_bank(torch.zeros(2, 3, 4))
+    with pytest.raises(ValueError, match="int8"):
+        rerank.rerank_candidate_major(None, None, None, None, None,
+                                      index_feats=bank, index_sharded=True,
+                                      mesh=object(), **kw)
+    with pytest.raises(ValueError, match="candidate_major"):
+        run_rerank("query_major", None, None, None, q_batch=1,
+                   l_buckets=None, device="cpu", shard_index=True)
 
 
 def test_cpu_models_count_no_launches():

@@ -199,12 +199,51 @@ def test_query_major_matches_candidate_major(models, tokenizers,
     _assert_same(qm, cm)
 
 
-def test_rerank_refuses_a_mesh():
-    with pytest.raises(NotImplementedError):
-        trerank.rerank(None, None, None, None, None, captions=[],
-                       reference_names=[], topk_names=np.zeros((0, 1)),
-                       index_feats=None, index_names=[], text_len=8,
-                       mesh=object(), device="cpu")
+def test_rerank_refuses_a_mesh(models, tokenizers, rerank_inputs, tmp_path):
+    """Both schedules take a mesh; a mesh of one rank (a gloo group of
+    this process) gives the results without one. What stays
+    refused is what the JAX package refuses: a block-sharded bank without
+    a mesh, or as an int8 bank. A ``zt_batch`` the mesh size does not
+    divide is rounded up, as in JAX (4-rank runs:
+    tests/test_torch_port_mesh_eval.py)."""
+    from _torch_port_mesh_worker import one_rank_mesh
+
+    *_, t1, t2 = models
+    _, tt = tokenizers
+    raw, kw = rerank_inputs
+    # the first four queries (the one-rank comparisons' cost)
+    kw = {k: v[:4] if k not in ("index_names", "text_len") else v
+          for k, v in kw.items()}
+    bank = _port_bank(raw, False)
+    with pytest.raises(ValueError, match="requires a mesh"):
+        trerank.rerank_candidate_major(t1, None, t2, None, tt,
+                                       index_feats=bank, index_sharded=True,
+                                       device="cpu", **kw)
+    with pytest.raises(ValueError, match="int8"):
+        trerank.rerank_candidate_major(t1, None, t2, None, tt,
+                                       index_feats=_port_bank(raw, True),
+                                       index_sharded=True, mesh=object(),
+                                       device="cpu", **kw)
+    plain = (trerank.rerank(t1, None, t2, None, tt, index_feats=bank,
+                            device="cpu", q_batch=3, **kw),
+             trerank.rerank_candidate_major(t1, None, t2, None, tt,
+                                            index_feats=bank, device="cpu",
+                                            zt_batch=3, **kw))
+    with one_rank_mesh(tmp_path) as mesh:
+        meshed = (trerank.rerank(t1, None, t2, None, tt, index_feats=bank,
+                                 device="cpu", q_batch=3, mesh=mesh, **kw),
+                  trerank.rerank_candidate_major(
+                      t1, None, t2, None, tt, index_feats=bank, device="cpu",
+                      zt_batch=3, mesh=mesh, index_sharded=True, **kw))
+    np.testing.assert_array_equal(meshed[0].logits, plain[0].logits)
+    np.testing.assert_array_equal(meshed[0].group_logits,
+                                  plain[0].group_logits)
+    # the sharded bank's reference rows come through a masked copy, which
+    # the CPU's BLAS may round an ulp differently (on the card: bit-equal,
+    # chip_smoke.py's [mesh] phase)
+    for got, want in ((meshed[1].logits, plain[1].logits),
+                      (meshed[1].group_logits, plain[1].group_logits)):
+        np.testing.assert_allclose(got, want, atol=1e-7, rtol=0)
 
 
 @pytest.mark.parametrize("schedule,int8", [

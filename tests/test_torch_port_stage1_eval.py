@@ -338,16 +338,18 @@ def test_full_ranking_and_topk_match_jax(ties):
                                rtol=0, atol=1e-6)
 
 
-def test_unported_options_raise(cirr_root, models, tokenizers):
-    with pytest.raises(NotImplementedError):
-        tv.ranked_slices(np.zeros((1, 2)), torch.zeros(3, 2), 2, mesh=object())
-    with pytest.raises(NotImplementedError):
-        tv.full_ranking(np.zeros((1, 2)), torch.zeros(3, 2), mesh=object())
+def test_unported_options_raise(cirr_root, models, tokenizers, tmp_path):
+    """The mesh paths are ported. What stays refused is what the JAX
+    package refuses: the single-program eval with a mesh. A mesh of one
+    rank (a gloo group of this process) gives ``ranked_slices``,
+    ``full_ranking`` and ``predict_queries`` bit for bit the results
+    without a mesh."""
+    from _torch_port_mesh_worker import one_rank_mesh
+
     for fn in (tv.evaluate_cirr_stage1, tv.evaluate_fiq_stage1):
-        for kw in ({"mesh": object()},
-                   {"mesh": object(), "single_program": True}):
-            with pytest.raises(NotImplementedError):
-                fn(None, None, [], [], None, text_len=8, device="cpu", **kw)
+        with pytest.raises(ValueError, match="single-device"):
+            fn(None, None, [], [], None, text_len=8, device="cpu",
+               mesh=object(), single_program=True)
     # the single-program eval is ported: it runs, and ranks as the
     # multi-launch path does (tests/test_torch_port_single_program.py
     # holds the two executors equal in full)
@@ -360,14 +362,28 @@ def test_unported_options_raise(cirr_root, models, tokenizers):
                                         single_program=True, **kw)
     multi, _ = tv.evaluate_cirr_stage1(t1, None, *sets, tt, **kw)
     assert single.metrics == multi.metrics
-    with pytest.raises(NotImplementedError):
-        tv.predict_queries(None, None, ["a"], ["x"], torch.zeros(1, 2, 2),
-                           ["x"], 8, mesh=object())
-    for kw in ({"mesh": object()}, {"shard_index": True}):
-        with pytest.raises(NotImplementedError):
-            tv2.evaluate_fiq_stage2(None, None, None, None, None, data_root="",
-                                    transform=None, top_k_path="", k=1,
-                                    text_len=8, device="cpu", **kw)
+    rng = np.random.default_rng(3)
+    pred = rng.normal(size=(5, 4)).astype(np.float32)
+    index = torch.from_numpy(rng.normal(size=(7, 4)).astype(np.float32))
+    ent = rng.integers(0, 7, size=(5, 2))
+    _, fuse = tv.make_stage1_fns(t1, None, "cpu")
+    caps = ["a red dress", "a dog", "blue", "two red cars", "it"]
+    refs = ["x", "x", "y", "x", "y"]
+    feats = torch.from_numpy(rng.normal(size=(2, 5, TINY_VIT.hidden_size))
+                             .astype(np.float32))
+    with one_rank_mesh(tmp_path) as mesh:
+        meshed = (tv.ranked_slices(pred, index, 3, ent, mesh=mesh),
+                  tv.full_ranking(pred, index, mesh=mesh),
+                  tv.predict_queries(fuse, tt, caps, refs, feats, ["x", "y"],
+                                     TEXT_LEN, 4, mesh=mesh))
+    plain = (tv.ranked_slices(pred, index, 3, ent),
+             tv.full_ranking(pred, index),
+             tv.predict_queries(fuse, tt, caps, refs, feats, ["x", "y"],
+                                TEXT_LEN, 4))
+    for a, b in zip(meshed[0], plain[0]):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(meshed[1], plain[1])
+    assert torch.equal(meshed[2], plain[2])
 
 
 # ---------------------------------------------------------------------------

@@ -494,25 +494,28 @@ def test_single_stream_pretrain_into_stage2_matches_jax():
 
 
 def test_trainer_refusals(root, pretrained, topk, monkeypatch):
-    """--fsdp raises on both trainers; --mesh auto over several cards
-    raises (the port trains on one card); without --device they run on
-    the card, so without one they raise."""
+    """--fsdp is ported: it parses on both trainers (on one process it is
+    the JAX trainers' one-device mesh: nothing to shard). What stays
+    refused: an unknown dataset; without --device the trainers run on the
+    card, so without one they raise; a rank's loader refuses a batch that
+    does not split over the ranks."""
     s2 = ["--stage1-path", str(pretrained[0]), "--top-k-path", str(topk),
           "--K-value", "4"]
-    for main, extra in ((stage1_train.main, []), (stage2_train.main, s2)):
+    for module, extra in ((stage1_train, []), (stage2_train, s2)):
         argv = _train_args(root, "x", root / "refused", device="cpu") + extra
-        with pytest.raises(NotImplementedError, match="fsdp"):
-            main(argv + ["--fsdp"])
+        args = module.parse_args(argv + ["--fsdp"])
+        assert args.fsdp and stage1_train.check_train_args(args) == "cirr"
+        args.dataset = "COCO"
+        with pytest.raises(ValueError, match="CIRR"):
+            stage1_train.check_train_args(args)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for main, extra in ((stage1_train.main, []), (stage2_train.main, s2)):
         with pytest.raises(RuntimeError, match="CUDA"):
             main(_train_args(root, "x", root / "refused") + extra)
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    for main, extra in ((stage1_train.main, []), (stage2_train.main, s2)):
-        argv = _train_args(root, "x", root / "refused", device="cuda") + extra
-        with pytest.raises(NotImplementedError, match="mesh"):
-            main(argv)
+    from candidate_reranking_cir_tpu_torch.data.loader import BatchLoader
+
+    with pytest.raises(ValueError, match="splits"):
+        BatchLoader(list(range(12)), 6, shard=(0, 4))
 
 
 def test_cached_targets_match_embedding_them(root, tmp_path):
