@@ -8,8 +8,12 @@ Two transports:
   stdout line. For piping and smoke tests.
 - ``--mode http``: a threaded HTTP server; concurrent POST /rank requests
   are coalesced by the micro-batcher into waves of --q-pad. GET /healthz
-  for liveness, GET /statsz for the batcher's counters, POST /admin/add
-  and /admin/remove behind --enable-admin.
+  for liveness, GET /statsz for the batcher's counters
+  (``MicroBatcher.stats()``: requests, waves, errors, wave occupancy,
+  latency percentiles, and the cumulative seconds ``queue_wait_s`` from
+  enqueue to wave, ``wave_s`` in the waves, ``device_wait_s`` of the waves
+  blocked on the card and ``idle_s`` of the worker waiting for requests),
+  POST /admin/add and /admin/remove behind --enable-admin.
 
 Request: {"caption": str, "reference": corpus-image-name, "k": int}
          (or "reference_path": path to a new image file)

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from candidate_reranking_cir_tpu_torch.parallel import mesh as pmesh
+from candidate_reranking_cir_tpu_torch.runtime import tracing
 from candidate_reranking_cir_tpu_torch.runtime.device import resolve_device
 
 
@@ -67,8 +68,10 @@ def _embed_batch(embed_fn, images, device, pooled: bool, shard_mesh,
             images = np.concatenate([images, np.zeros(
                 (batch_size - valid, *images.shape[1:]), images.dtype)])
         images = images[pmesh.shard_rows(shard_mesh, batch_size)]
-    x = torch.from_numpy(np.ascontiguousarray(images, np.float32))
-    out = embed_fn(x.to(device))
+    with tracing.trace_phase("index.upload"):
+        x = torch.from_numpy(np.ascontiguousarray(images, np.float32))
+        x = x.to(device)
+    out = embed_fn(x)
     raw, pool = out if pooled else (out, None)
     if shard_mesh is not None:
         raw = pmesh.all_gather(shard_mesh, raw)[:valid]
@@ -99,7 +102,11 @@ def build_index(dataset, embed_fn: Callable, batch_size: int = 32, *,
     contiguous block of N_pad / size rows, redistributed batch by batch
     (a batch's gathered rows, then this rank's share of them), so the
     whole bank never sits on one rank; ``pooled`` stays whole. Sharding
-    needs every sample of ``dataset`` (no ``skip_errors`` drops)."""
+    needs every sample of ``dataset`` (no ``skip_errors`` drops).
+
+    Each batch's assembly and its copy to ``device`` are the phase spans
+    'index.load' and 'index.upload' (``runtime/tracing``); a copy from
+    pageable memory first waits for the device's queued work."""
     if not (pooled or keep_raw):
         raise ValueError("build_index with neither pooled nor keep_raw "
                          "returns nothing")
@@ -110,7 +117,13 @@ def build_index(dataset, embed_fn: Callable, batch_size: int = 32, *,
         block = -(-len(dataset) // mesh.size)
         lo = mesh.rank * block
     chunks, pooled_chunks, names_all = [], [], []
-    for names, images in iter_batches(dataset, batch_size):
+    batches = iter_batches(dataset, batch_size)
+    while True:
+        with tracing.trace_phase("index.load"):
+            batch = next(batches, None)
+        if batch is None:
+            break
+        names, images = batch
         raw, pool = _embed_batch(embed_fn, images, device, pooled,
                                  shard_mesh, batch_size)
         if pooled:

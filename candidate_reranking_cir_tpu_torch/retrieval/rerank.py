@@ -35,7 +35,6 @@ Every rank returns the global ``RerankOutput``.
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -47,6 +46,7 @@ from candidate_reranking_cir_tpu_torch.ops.quant import (
     take_rows,
 )
 from candidate_reranking_cir_tpu_torch.parallel import mesh as pmesh
+from candidate_reranking_cir_tpu_torch.runtime import tracing
 from candidate_reranking_cir_tpu_torch.runtime.device import (
     resolve_device,
     sync_device,
@@ -61,7 +61,8 @@ class RerankOutput:
     group_logits: np.ndarray | None    # [N, 5] (CIRR) or None
     order: np.ndarray                  # [N, K] descending-score argsort
     group_order: np.ndarray | None
-    # wall seconds per stage ('zt', 'score'), each ending in a device sync
+    # candidate-major: wall seconds per stage ('zt', 'score'), each ending
+    # in a device sync, and its phase spans' totals (``runtime/tracing``)
     seconds: dict = field(default_factory=dict)
 
 
@@ -106,7 +107,7 @@ def rerank(stage1, s1_params, reranker, s2_params, tokenizer, *,
            skip_mask: np.ndarray | None = None,
            group_members: list[list[str]] | None = None,
            dedup: bool = False, dedup_cap: float = 0.625,
-           mesh=None, device=None) -> RerankOutput:
+           mesh=None, device=None, trace_as: str = "rerank") -> RerankOutput:
     """Score every query's K candidates (and CIRR 5-member groups) in
     query-major [q_batch, K(+5)] chunks.
 
@@ -124,60 +125,67 @@ def rerank(stage1, s1_params, reranker, s2_params, tokenizer, *,
     to the per-pair scorer. Output order is the input's.
 
     mesh: each chunk's q_batch queries are split over ``fit_mesh(mesh,
-    q_batch)``, on the mesh's device. Same outputs as the JAX function."""
+    q_batch)``, on the mesh's device. Same outputs as the JAX function.
+
+    trace_as: the prefix of its phase spans (``runtime/tracing``):
+    ``<trace_as>.plan`` (host work before each chunk's launches),
+    ``.wait`` (the scores' readback) and ``.finish`` (scatter and sort)."""
     mesh = pmesh.fit_mesh(mesh, q_batch)
     if mesh is not None and not mesh.member:
         return pmesh.share(mesh)
-    device = resolve_device(device) if mesh is None else mesh.device
-    stage1 = bind_module(stage1, s1_params, device)
-    reranker = bind_module(reranker, s2_params, device)
-    produce_zt, score, score_indexed = make_rerank_fns(stage1, reranker)
-    feats = index_feats.to(device)
+    plan = f"{trace_as}.plan"
+    with tracing.trace_phase(plan):
+        device = resolve_device(device) if mesh is None else mesh.device
+        stage1 = bind_module(stage1, s1_params, device)
+        reranker = bind_module(reranker, s2_params, device)
+        produce_zt, score, score_indexed = make_rerank_fns(stage1, reranker)
+        feats = index_feats.to(device)
 
-    n = len(captions)
-    k = topk_names.shape[1]
-    pos = {name: i for i, name in enumerate(index_names)}
-    ref_idx = np.asarray([pos[r] for r in reference_names], np.int64)
-    cand_idx = np.asarray(
-        [[pos[nm] for nm in row] for row in topk_names], np.int64)
-    ids_all, mask_all = tokenizer.encode(captions, text_len,
-                                         set_enc_token=True)
+        n = len(captions)
+        k = topk_names.shape[1]
+        pos = {name: i for i, name in enumerate(index_names)}
+        ref_idx = np.asarray([pos[r] for r in reference_names], np.int64)
+        cand_idx = np.asarray(
+            [[pos[nm] for nm in row] for row in topk_names], np.int64)
+        ids_all, mask_all = tokenizer.encode(captions, text_len,
+                                             set_enc_token=True)
 
-    do_groups = group_members is not None
-    if do_groups:
-        members_no_ref = [[m for m in g if m != r][:5]
-                          for g, r in zip(group_members, reference_names)]
-        grp_idx = np.asarray([[pos[m] for m in row] for row in members_no_ref],
-                             np.int64)
-        cand_idx_all = np.concatenate([cand_idx, grp_idx], axis=1)
-    else:
-        cand_idx_all = cand_idx
+        do_groups = group_members is not None
+        if do_groups:
+            members_no_ref = [[m for m in g if m != r][:5]
+                              for g, r in zip(group_members, reference_names)]
+            grp_idx = np.asarray([[pos[m] for m in row]
+                                  for row in members_no_ref], np.int64)
+            cand_idx_all = np.concatenate([cand_idx, grp_idx], axis=1)
+        else:
+            cand_idx_all = cand_idx
 
-    logits = np.empty((n, k), np.float32)
-    grp_logits = np.empty((n, 5), np.float32) if do_groups else None
-    order = (cluster_queries(cand_idx, q_batch) if dedup and n > q_batch
-             else np.arange(n))
-    width = cand_idx_all.shape[1]
-    u_cap = max(int(q_batch * width * dedup_cap) // 64 * 64, 64)
+        logits = np.empty((n, k), np.float32)
+        grp_logits = np.empty((n, 5), np.float32) if do_groups else None
+        order = (cluster_queries(cand_idx, q_batch) if dedup and n > q_batch
+                 else np.arange(n))
+        width = cand_idx_all.shape[1]
+        u_cap = max(int(q_batch * width * dedup_cap) // 64 * 64, 64)
 
     def to_dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     chunks = []  # (rows, count, device scores of this rank's rows)
     for start in range(0, n, q_batch):
-        rows = order[start:start + q_batch]
-        count = len(rows)
-        if count < q_batch:  # pad the tail chunk with repeats
-            rows = np.concatenate(
-                [rows, np.repeat(rows[:1], q_batch - count)])
-        chunk_cand = cand_idx_all[rows]
-        uniq, inv = np.unique(chunk_cand, return_inverse=True)
-        pair_map = inv.reshape(chunk_cand.shape)
-        mine = rows  # this rank's queries of the chunk
-        if mesh is not None:
-            block = pmesh.shard_rows(mesh, q_batch)
-            mine, chunk_cand, pair_map = (a[block] for a in (
-                rows, chunk_cand, pair_map))
+        with tracing.trace_phase(plan):
+            rows = order[start:start + q_batch]
+            count = len(rows)
+            if count < q_batch:  # pad the tail chunk with repeats
+                rows = np.concatenate(
+                    [rows, np.repeat(rows[:1], q_batch - count)])
+            chunk_cand = cand_idx_all[rows]
+            uniq, inv = np.unique(chunk_cand, return_inverse=True)
+            pair_map = inv.reshape(chunk_cand.shape)
+            mine = rows  # this rank's queries of the chunk
+            if mesh is not None:
+                block = pmesh.shard_rows(mesh, q_batch)
+                mine, chunk_cand, pair_map = (a[block] for a in (
+                    rows, chunk_cand, pair_map))
         ids, msk = to_dev(ids_all[mine]), to_dev(mask_all[mine])
         z_t = produce_zt(take_rows(feats, to_dev(ref_idx[mine])), ids, msk)
         if dedup and len(uniq) <= u_cap:
@@ -193,19 +201,22 @@ def rerank(stage1, s1_params, reranker, s2_params, tokenizer, *,
         scores = torch.stack([c[2] for c in chunks])   # [chunks, rows, K']
         if mesh is not None:
             scores = pmesh.all_gather(mesh, scores, dim=1)
-        scores = scores.cpu().numpy()
-    for (rows, count, _), out in zip(chunks, scores if chunks else []):
-        logits[rows[:count]] = out[:count, :k]
-        if do_groups:
-            grp_logits[rows[:count]] = out[:count, k:]
+        with tracing.trace_phase(f"{trace_as}.wait"):
+            scores = scores.cpu().numpy()
+    with tracing.trace_phase(f"{trace_as}.finish"):
+        for (rows, count, _), out in zip(chunks, scores if chunks else []):
+            logits[rows[:count]] = out[:count, :k]
+            if do_groups:
+                grp_logits[rows[:count]] = out[:count, k:]
 
-    if skip_mask is not None:
-        logits[np.asarray(skip_mask, bool)] = SKIP_LOGIT
+        if skip_mask is not None:
+            logits[np.asarray(skip_mask, bool)] = SKIP_LOGIT
 
-    # descending sort; stable on the negated scores for deterministic ties
-    rank_order = np.argsort(-logits, axis=-1, kind="stable")
-    group_order = (np.argsort(-grp_logits, axis=-1, kind="stable")
-                   if do_groups else None)
+        # descending sort; stable on the negated scores for deterministic
+        # ties
+        rank_order = np.argsort(-logits, axis=-1, kind="stable")
+        group_order = (np.argsort(-grp_logits, axis=-1, kind="stable")
+                       if do_groups else None)
     return pmesh.share(mesh, RerankOutput(logits, grp_logits, rank_order,
                                           group_order))
 
@@ -322,144 +333,169 @@ def rerank_candidate_major(stage1, s1_params, reranker, s2_params, tokenizer,
     rounded up to a multiple of the mesh size, as in JAX.
     index_sharded (needs a mesh; not with an ``Int8Bank``):
     ``index_feats`` is this rank's block of the bank that
-    ``build_index(shard_index=True)`` made."""
+    ``build_index(shard_index=True)`` made.
+
+    ``seconds`` of the output: the layer spans 'zt' and 'score' (each
+    bucket's, ending in a device sync) and the phase spans' totals
+    (``runtime/tracing``): 'rerank.prep' (tokenize, index lookups),
+    'rerank.zt.wait', 'rerank.plan' (pair lists, chunking, packing and
+    the packed arrays' uploads), 'rerank.score.wait' and 'rerank.finish'
+    (readback, scatter, sort)."""
     if index_sharded and mesh is None:
         raise ValueError("index_sharded=True requires a mesh")
     if index_sharded and isinstance(index_feats, Int8Bank):
         raise ValueError("int8 banks are not supported with index_sharded "
                          "(quantize halves the bank instead of sharding it)")
-    n_dev = 1 if mesh is None else mesh.size
-    if mesh is not None and zt_batch % n_dev != 0:
-        zt_batch = ((zt_batch + n_dev - 1) // n_dev) * n_dev
-    device = resolve_device(device) if mesh is None else mesh.device
-    stage1 = bind_module(stage1, s1_params, device)
-    reranker = bind_module(reranker, s2_params, device)
-    feats = index_feats.to(device)
-    shard_size = bank_len(feats) if index_sharded else 0
-
-    n = len(captions)
-    k = topk_names.shape[1]
-    pos = {name: i for i, name in enumerate(index_names)}
-    ref_idx = np.asarray([pos[r] for r in reference_names], np.int64)
-    cand_idx = np.asarray(
-        [[pos[nm] for nm in row] for row in topk_names], np.int64)
-    ids_all, mask_all = tokenizer.encode(captions, text_len,
-                                         set_enc_token=True)
-    skip = (np.zeros(n, bool) if skip_mask is None
-            else np.asarray(skip_mask, bool))
-    do_groups = group_members is not None
-    if do_groups:
-        members_no_ref = [[m for m in g if m != r][:5]
-                          for g, r in zip(group_members, reference_names)]
-        grp_idx = np.asarray([[pos[m] for m in row] for row in members_no_ref],
-                             np.int64)
-
-    logits = np.full((n, k), SKIP_LOGIT, np.float32)
-    grp_logits = np.zeros((n, 5), np.float32) if do_groups else None
     seconds = {"zt": 0.0, "score": 0.0}
-    pending: list[tuple] = []  # (device scores, valid, qrow, kind, col)
+    with tracing.collect(seconds):
+        with tracing.trace_phase("rerank.prep"):
+            n_dev = 1 if mesh is None else mesh.size
+            if mesh is not None and zt_batch % n_dev != 0:
+                zt_batch = ((zt_batch + n_dev - 1) // n_dev) * n_dev
+            device = resolve_device(device) if mesh is None else mesh.device
+            stage1 = bind_module(stage1, s1_params, device)
+            reranker = bind_module(reranker, s2_params, device)
+            feats = index_feats.to(device)
+            shard_size = bank_len(feats) if index_sharded else 0
 
-    lengths = mask_all.sum(axis=1).astype(np.int32)
-    lbs = resolve_l_buckets(l_buckets, lengths, text_len)
-    assign = np.searchsorted(np.asarray(lbs), lengths)
-    buckets = sorted(q_buckets)
-
-    def to_dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-    for lbi, lb in enumerate(lbs):
-        qsel = np.nonzero(assign == lbi)[0]
-        n_lb = len(qsel)
-        if n_lb == 0:
-            continue
-        t0 = time.perf_counter()
-        ids_dev = to_dev(ids_all[qsel][:, :lb])
-        mask_dev = to_dev(mask_all[qsel][:, :lb])
-        ref_dev = to_dev(ref_idx[qsel])
-
-        # z_t for every bucket query, zt_batch rows at a time: on a whole
-        # bank each rank fuses its block of a chunk; on a sharded one every
-        # rank fuses every row, its references fetched across the ranks
-        zs = []
-        for start in range(0, n_lb, zt_batch):
-            rows = np.zeros(zt_batch, np.int64)  # tail padding repeats row 0
-            real = np.arange(start, min(start + zt_batch, n_lb))
-            rows[:len(real)] = real
-            if mesh is not None and not index_sharded:
-                rows = rows[pmesh.shard_rows(mesh, zt_batch)]
-            r = to_dev(rows)
-            refs = _fetch_rows(mesh, feats, ref_dev[r], shard_size) \
-                if index_sharded else take_rows(feats, ref_dev[r])
-            zs.append(stage1.fuse(refs, ids_dev[r], mask_dev[r],
-                                  return_raw=True))
-        zt_all = torch.cat(zs)
-        if mesh is not None and not index_sharded:
-            # [ranks x (chunks x block)] -> chunk by chunk, ranks in order
-            zt_all = pmesh.all_gather(mesh, zt_all[None]).unflatten(
-                1, (len(zs), -1)).transpose(0, 1).flatten(0, 2)
-        zt_all = zt_all[:n_lb]
-        sync_device(device)
-        t1 = time.perf_counter()
-        seconds["zt"] += t1 - t0
-
-        # pair lists per candidate; entry (local_row, query, kind, col),
-        # kind 0 = top-K slot, kind 1 = group slot
-        per_cand: dict[int, list[tuple[int, int, int, int]]] = {}
-        for li, qi in enumerate(qsel):
-            qi = int(qi)
-            if not skip[qi]:
-                for j in range(k):
-                    per_cand.setdefault(int(cand_idx[qi, j]), []).append(
-                        (li, qi, 0, j))
+            n = len(captions)
+            k = topk_names.shape[1]
+            pos = {name: i for i, name in enumerate(index_names)}
+            ref_idx = np.asarray([pos[r] for r in reference_names], np.int64)
+            cand_idx = np.asarray(
+                [[pos[nm] for nm in row] for row in topk_names], np.int64)
+            ids_all, mask_all = tokenizer.encode(captions, text_len,
+                                                 set_enc_token=True)
+            skip = (np.zeros(n, bool) if skip_mask is None
+                    else np.asarray(skip_mask, bool))
+            do_groups = group_members is not None
             if do_groups:
-                for j in range(grp_idx.shape[1]):
-                    per_cand.setdefault(int(grp_idx[qi, j]), []).append(
-                        (li, qi, 1, j))
-        chunks_by_b = _chunk_by_candidate(per_cand, buckets)
+                members_no_ref = [[m for m in g if m != r][:5]
+                                  for g, r in zip(group_members,
+                                                  reference_names)]
+                grp_idx = np.asarray([[pos[m] for m in row]
+                                      for row in members_no_ref], np.int64)
 
-        # constant work per call: narrower text buckets take more pairs
-        ppc = max(64, pairs_per_call * text_len // lb)
-        for b in buckets:
-            chunks = chunks_by_b[b]
-            if not chunks:
+            logits = np.full((n, k), SKIP_LOGIT, np.float32)
+            grp_logits = np.zeros((n, 5), np.float32) if do_groups else None
+            # (device scores, valid, qrow, kind, col) of every packed bucket
+            pending: list[tuple] = []
+
+            lengths = mask_all.sum(axis=1).astype(np.int32)
+            lbs = resolve_l_buckets(l_buckets, lengths, text_len)
+            assign = np.searchsorted(np.asarray(lbs), lengths)
+            buckets = sorted(q_buckets)
+
+        def to_dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+        for lbi, lb in enumerate(lbs):
+            qsel = np.nonzero(assign == lbi)[0]
+            n_lb = len(qsel)
+            if n_lb == 0:
                 continue
-            if index_sharded:
-                a = max(1, ppc // b // n_dev) * n_dev
-            else:  # a candidate axis the mesh divides
-                a = (max(1, ppc // b) + n_dev - 1) // n_dev * n_dev
-            rows, valid, qrow, kind, col, cands = _pack_calls(
-                chunks, a, b, n_dev, shard_size)
-            mine = slice(None) if mesh is None \
-                else pmesh.shard_rows(mesh, a)
-            rows_dev, cands_dev = to_dev(rows[:, mine]), to_dev(cands[:, mine])
-            a_loc = rows_dev.shape[1]
-            scores = []
-            for ci in range(len(rows)):
-                flat = rows_dev[ci].reshape(-1)
-                # widths from the tensors: a bucket wider than text_len
-                # holds text_len columns (as JAX's reshape(a, b, -1))
-                scores.append(reranker.score_grid(
-                    zt_all[flat].reshape(a_loc, b, *zt_all.shape[1:]),
-                    ids_dev[flat].reshape(a_loc, b, -1),
-                    mask_dev[flat].reshape(a_loc, b, -1),
-                    take_rows(feats, cands_dev[ci])))
-            pending.append((torch.stack(scores), valid, qrow, kind, col))
-        sync_device(device)
-        seconds["score"] += time.perf_counter() - t1
+            with tracing.layer_span("zt"):
+                ids_dev = to_dev(ids_all[qsel][:, :lb])
+                mask_dev = to_dev(mask_all[qsel][:, :lb])
+                ref_dev = to_dev(ref_idx[qsel])
 
-    for scores_dev, valid, qrow, kind, col in pending:
-        if mesh is not None:
-            scores_dev = pmesh.all_gather(mesh, scores_dev, dim=1)
-        scores = scores_dev.float().cpu().numpy()
-        tk = valid & (kind == 0)
-        logits[qrow[tk], col[tk]] = scores[tk]
-        if do_groups:
-            gp = valid & (kind == 1)
-            grp_logits[qrow[gp], col[gp]] = scores[gp]
+                # z_t for every bucket query, zt_batch rows at a time: on a
+                # whole bank each rank fuses its block of a chunk; on a
+                # sharded one every rank fuses every row, its references
+                # fetched across the ranks
+                zs = []
+                for start in range(0, n_lb, zt_batch):
+                    # tail padding repeats row 0
+                    rows = np.zeros(zt_batch, np.int64)
+                    real = np.arange(start, min(start + zt_batch, n_lb))
+                    rows[:len(real)] = real
+                    if mesh is not None and not index_sharded:
+                        rows = rows[pmesh.shard_rows(mesh, zt_batch)]
+                    r = to_dev(rows)
+                    refs = _fetch_rows(mesh, feats, ref_dev[r], shard_size) \
+                        if index_sharded else take_rows(feats, ref_dev[r])
+                    zs.append(stage1.fuse(refs, ids_dev[r], mask_dev[r],
+                                          return_raw=True))
+                zt_all = torch.cat(zs)
+                if mesh is not None and not index_sharded:
+                    # [ranks x (chunks x block)] -> chunk by chunk, ranks in
+                    # order
+                    zt_all = pmesh.all_gather(mesh, zt_all[None]).unflatten(
+                        1, (len(zs), -1)).transpose(0, 1).flatten(0, 2)
+                zt_all = zt_all[:n_lb]
+                with tracing.trace_phase("rerank.zt.wait"):
+                    sync_device(device)
 
-    rank_order = np.argsort(-logits, axis=-1, kind="stable")
-    group_order = (np.argsort(-grp_logits, axis=-1, kind="stable")
-                   if do_groups else None)
+            with tracing.layer_span("score"):
+                with tracing.trace_phase("rerank.plan"):
+                    # pair lists per candidate; entry (local_row, query,
+                    # kind, col), kind 0 = top-K slot, kind 1 = group slot
+                    per_cand: dict[int, list[tuple[int, int, int, int]]] = {}
+                    for li, qi in enumerate(qsel):
+                        qi = int(qi)
+                        if not skip[qi]:
+                            for j in range(k):
+                                per_cand.setdefault(
+                                    int(cand_idx[qi, j]), []).append(
+                                    (li, qi, 0, j))
+                        if do_groups:
+                            for j in range(grp_idx.shape[1]):
+                                per_cand.setdefault(
+                                    int(grp_idx[qi, j]), []).append(
+                                    (li, qi, 1, j))
+                    chunks_by_b = _chunk_by_candidate(per_cand, buckets)
+
+                # constant work per call: narrower text buckets take more
+                # pairs
+                ppc = max(64, pairs_per_call * text_len // lb)
+                for b in buckets:
+                    chunks = chunks_by_b[b]
+                    if not chunks:
+                        continue
+                    with tracing.trace_phase("rerank.plan"):
+                        if index_sharded:
+                            a = max(1, ppc // b // n_dev) * n_dev
+                        else:  # a candidate axis the mesh divides
+                            a = (max(1, ppc // b) + n_dev - 1) // n_dev \
+                                * n_dev
+                        rows, valid, qrow, kind, col, cands = _pack_calls(
+                            chunks, a, b, n_dev, shard_size)
+                        mine = slice(None) if mesh is None \
+                            else pmesh.shard_rows(mesh, a)
+                        rows_dev = to_dev(rows[:, mine])
+                        cands_dev = to_dev(cands[:, mine])
+                    a_loc = rows_dev.shape[1]
+                    scores = []
+                    for ci in range(len(rows)):
+                        flat = rows_dev[ci].reshape(-1)
+                        # widths from the tensors: a bucket wider than
+                        # text_len holds text_len columns (as JAX's
+                        # reshape(a, b, -1))
+                        scores.append(reranker.score_grid(
+                            zt_all[flat].reshape(a_loc, b,
+                                                 *zt_all.shape[1:]),
+                            ids_dev[flat].reshape(a_loc, b, -1),
+                            mask_dev[flat].reshape(a_loc, b, -1),
+                            take_rows(feats, cands_dev[ci])))
+                    pending.append((torch.stack(scores), valid, qrow, kind,
+                                    col))
+                with tracing.trace_phase("rerank.score.wait"):
+                    sync_device(device)
+
+        with tracing.trace_phase("rerank.finish"):
+            for scores_dev, valid, qrow, kind, col in pending:
+                if mesh is not None:
+                    scores_dev = pmesh.all_gather(mesh, scores_dev, dim=1)
+                scores = scores_dev.float().cpu().numpy()
+                tk = valid & (kind == 0)
+                logits[qrow[tk], col[tk]] = scores[tk]
+                if do_groups:
+                    gp = valid & (kind == 1)
+                    grp_logits[qrow[gp], col[gp]] = scores[gp]
+
+            rank_order = np.argsort(-logits, axis=-1, kind="stable")
+            group_order = (np.argsort(-grp_logits, axis=-1, kind="stable")
+                           if do_groups else None)
     return RerankOutput(logits, grp_logits, rank_order, group_order, seconds)
 
 

@@ -13,7 +13,6 @@ reads.
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -36,6 +35,7 @@ from candidate_reranking_cir_tpu_torch.retrieval.rerank import (
     rerank,
     rerank_candidate_major,
 )
+from candidate_reranking_cir_tpu_torch.runtime import tracing
 from candidate_reranking_cir_tpu_torch.runtime.device import (
     resolve_device,
     sync_device,
@@ -46,8 +46,10 @@ from candidate_reranking_cir_tpu_torch.runtime.device import (
 class Stage2Result:
     metrics: dict
     rerank: RerankOutput
-    seconds: dict   # wall seconds: 'index', 'zt' and 'score' (or 'rerank'
-                    # for the query-major schedule), 'total'
+    # wall seconds of the layer spans 'index', 'zt' and 'score' (or
+    # 'rerank' for the query-major schedule), 'total', and the phase
+    # spans' totals (``runtime/tracing``)
+    seconds: dict
 
 
 def run_rerank(schedule: str, stage1, reranker, tokenizer, *, q_batch: int,
@@ -67,8 +69,9 @@ def run_rerank(schedule: str, stage1, reranker, tokenizer, *, q_batch: int,
     if shard_index:
         raise ValueError("shard_index requires schedule='candidate_major'")
     if schedule == "query_major":
-        return rerank(stage1, None, reranker, None, tokenizer,
-                      q_batch=q_batch, device=device, mesh=mesh, **kw)
+        with tracing.layer_span("rerank"):
+            return rerank(stage1, None, reranker, None, tokenizer,
+                          q_batch=q_batch, device=device, mesh=mesh, **kw)
     raise ValueError(f"unknown schedule {schedule!r}")
 
 
@@ -98,52 +101,55 @@ def evaluate_cirr_stage2_datasets(stage1, s1_params, reranker, s2_params,
     or any object with the same items). ``mesh`` and ``shard_index`` as
     ``evaluate_cirr_stage2``'s."""
     device = resolve_device(device) if mesh is None else mesh.device
-    t0 = time.perf_counter()
-    stage1 = bind_module(stage1, s1_params, device)
-    reranker = bind_module(reranker, s2_params, device)
-    raw, index_names = stage2_bank(reranker, classic, batch_size, index_int8,
-                                   device, mesh, shard_index)
-    sync_device(device)
-    t_index = time.perf_counter() - t0
+    seconds = {}
+    with tracing.collect(seconds), tracing.layer_span("total"):
+        with tracing.layer_span("index"):
+            stage1 = bind_module(stage1, s1_params, device)
+            reranker = bind_module(reranker, s2_params, device)
+            raw, index_names = stage2_bank(reranker, classic, batch_size,
+                                           index_int8, device, mesh,
+                                           shard_index)
+            with tracing.trace_phase("index.wait"):
+                sync_device(device)
 
-    samples = [relative[i] for i in range(len(relative))]
-    refs = [s["reference_name"] for s in samples]
-    targets = [s["target_name"] for s in samples]
-    groups = [s["group_members"] for s in samples]
-    topk_names = np.stack([np.asarray(s["topk_names"]) for s in samples])
-    topk_labels = np.stack([np.asarray(s["topk_labels"], bool)
-                            for s in samples])
+        with tracing.trace_phase("rerank.labels"):
+            samples = [relative[i] for i in range(len(relative))]
+            refs = [s["reference_name"] for s in samples]
+            targets = [s["target_name"] for s in samples]
+            groups = [s["group_members"] for s in samples]
+            topk_names = np.stack([np.asarray(s["topk_names"])
+                                   for s in samples])
+            topk_labels = np.stack([np.asarray(s["topk_labels"], bool)
+                                    for s in samples])
+            hit_rate = 100.0 * topk_labels.any(1).mean()
+        if mesh is None or mesh.rank == 0:
+            print(f"val-split: top-{k} candidate {hit_rate:.2f}%")
 
-    hit_rate = 100.0 * topk_labels.any(1).mean()
-    if mesh is None or mesh.rank == 0:
-        print(f"val-split: top-{k} candidate {hit_rate:.2f}%")
+        out = run_rerank(
+            schedule, stage1, reranker, tokenizer, q_batch=q_batch,
+            l_buckets=l_buckets, device=device, mesh=mesh,
+            shard_index=shard_index,
+            captions=[s["caption"] for s in samples], reference_names=refs,
+            topk_names=topk_names, index_feats=raw, index_names=index_names,
+            text_len=text_len, skip_mask=~topk_labels.any(axis=1),
+            group_members=groups)
+        # candidate-major keeps its own seconds ('zt', 'score', its phases)
+        seconds.update(out.seconds)
 
-    t1 = time.perf_counter()
-    out = run_rerank(
-        schedule, stage1, reranker, tokenizer, q_batch=q_batch,
-        l_buckets=l_buckets, device=device, mesh=mesh,
-        shard_index=shard_index,
-        captions=[s["caption"] for s in samples], reference_names=refs,
-        topk_names=topk_names, index_feats=raw, index_names=index_names,
-        text_len=text_len, skip_mask=~topk_labels.any(axis=1),
-        group_members=groups)
-    # candidate-major splits its seconds ('zt', 'score'); query-major not
-    rerank_s = out.seconds or {"rerank": time.perf_counter() - t1}
-
-    labels = M.reranked_labels(topk_labels, out.order)
-    members_no_ref = [[m for m in g if m != r][:5]
-                      for g, r in zip(groups, refs)]
-    glabels = cirr_group_labels(members_no_ref, out.group_order, targets)
-    mets = {}
-    for kk in (1, 5, 10, 50, 100):
-        if kk <= labels.shape[1]:
-            mets[f"recall_at{kk}"] = M.recall_at(labels, kk)
-    for kk in (1, 2, 3):
-        mets[f"group_recall_at{kk}"] = M.recall_at(glabels, kk)
-    mets["mean_r5_rs1"] = (mets.get("recall_at5", 0.0)
-                           + mets["group_recall_at1"]) / 2
-    seconds = {"index": t_index, **rerank_s,
-               "total": time.perf_counter() - t0}
+        with tracing.trace_phase("rerank.metrics"):
+            labels = M.reranked_labels(topk_labels, out.order)
+            members_no_ref = [[m for m in g if m != r][:5]
+                              for g, r in zip(groups, refs)]
+            glabels = cirr_group_labels(members_no_ref, out.group_order,
+                                        targets)
+            mets = {}
+            for kk in (1, 5, 10, 50, 100):
+                if kk <= labels.shape[1]:
+                    mets[f"recall_at{kk}"] = M.recall_at(labels, kk)
+            for kk in (1, 2, 3):
+                mets[f"group_recall_at{kk}"] = M.recall_at(glabels, kk)
+            mets["mean_r5_rs1"] = (mets.get("recall_at5", 0.0)
+                                   + mets["group_recall_at1"]) / 2
     return Stage2Result(mets, out, seconds)
 
 

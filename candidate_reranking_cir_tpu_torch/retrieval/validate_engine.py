@@ -60,6 +60,7 @@ from candidate_reranking_cir_tpu_torch.retrieval.rerank import (
 from candidate_reranking_cir_tpu_torch.retrieval.topk_writer import (
     topk_payload,
 )
+from candidate_reranking_cir_tpu_torch.runtime import tracing
 from candidate_reranking_cir_tpu_torch.runtime.device import (
     resolve_device,
     sync_device,
@@ -72,10 +73,11 @@ class Stage1EvalResult:
     ranking: M.RankingResult
     index_names: list[str]
     target_names: list[str]
-    # wall seconds, each stage ending in a device sync: 'index', 'fusion',
-    # 'ranking', 'total' (multi-launch); 'load' (the dataset's batches on
-    # the host), 'copy' (host to device), 'plan' (tokenize, schedule,
-    # upload), 'program', 'total' (single-program)
+    # wall seconds of the layer spans, each stage ending in a device sync:
+    # 'index', 'fusion', 'ranking', 'total' (multi-launch); 'load' (the
+    # dataset's batches on the host), 'copy' (host to device), 'plan'
+    # (tokenize, schedule, upload), 'program', 'total' (single-program);
+    # and the phase spans' totals (``runtime/tracing``)
     seconds: dict = field(default_factory=dict)
     # the device ranking the metrics were read from: the top-width corpus
     # indices [N_q, width] and the entity columns' exact ranks [N_q, E]
@@ -239,20 +241,21 @@ def predict_queries(fuse_fn, tokenizer, captions: list[str], ref_names,
     if mesh is not None and not mesh.member:
         return pmesh.share(mesh)
     device = index_feats.device
-    pos = {n: i for i, n in enumerate(index_names)}
-    ref_idx = np.asarray([pos[r] for r in ref_names], np.int32)
     n = len(captions)
     if n == 0:
         return pmesh.share(mesh, torch.empty((0, 0), dtype=torch.float32,
                                              device=device))
-    ids_all, mask_all, bucket_of = resolve_buckets(tokenizer, captions,
-                                                   text_len, l_buckets)
+    with tracing.trace_phase("fusion.plan"):
+        pos = {n: i for i, n in enumerate(index_names)}
+        ref_idx = np.asarray([pos[r] for r in ref_names], np.int32)
+        ids_all, mask_all, bucket_of = resolve_buckets(tokenizer, captions,
+                                                       text_len, l_buckets)
+        batches = schedule_fusion_batches(ref_idx, bucket_of, q_batch,
+                                          image_major,
+                                          1 if mesh is None else mesh.size)
 
     preds = []       # device tensors, scheduling order
     sched_rows = []  # original row index of each kept pred row
-    batches = schedule_fusion_batches(ref_idx, bucket_of, q_batch,
-                                      image_major,
-                                      1 if mesh is None else mesh.size)
     for q, width, rows, refs_rows, count in batches:
         if mesh is not None:  # this rank's block of the batch
             refs_rows = refs_rows[pmesh.shard_rows(mesh, len(refs_rows))]
@@ -354,17 +357,19 @@ def ranked_slices(pred, pooled_index, width: int,
         np.asarray(entity_idx, np.int64), device=index.device)
     if mesh is None:
         topk, ranks = _ranked_body(pred, index, ent, width)
-        return topk.cpu().numpy(), \
-            None if ranks is None else ranks.cpu().numpy()
+        with tracing.trace_phase("ranking.wait"):
+            return topk.cpu().numpy(), \
+                None if ranks is None else ranks.cpu().numpy()
     n = len(pred)
     dev = mesh.device
     block, ent_block = _query_block(
         mesh, pred.to(dev), None if ent is None else ent.to(dev))
     topk, ranks = _ranked_body(block, index.to(dev), ent_block, width)
-    topk = pmesh.all_gather(mesh, topk)[:n].cpu().numpy()
-    if ranks is None:
-        return topk, None
-    return topk, pmesh.all_gather(mesh, ranks)[:n].cpu().numpy()
+    topk = pmesh.all_gather(mesh, topk)[:n]
+    ranks = None if ranks is None else pmesh.all_gather(mesh, ranks)[:n]
+    with tracing.trace_phase("ranking.wait"):
+        return topk.cpu().numpy(), \
+            None if ranks is None else ranks.cpu().numpy()
 
 
 def _ranked_body(pred, index, ent, width: int):
@@ -672,81 +677,94 @@ def run_single_program_eval(model, params, dataset_classic, tokenizer,
     (``make_single_program_eval``). When the model's cached graph takes
     inputs of these shapes, the corpus and the plan are written straight
     into its static inputs, so no second copy of the corpus is made.
-    Returns (topk [N_q, w] int32, ranks [N_q, E] int32, index_names,
-    seconds {'load', 'copy', 'plan', 'program'})."""
+    Returns (topk [N_q, w] int32, ranks [N_q, E] int32, index_names).
+    Its spans go to the caller's ``tracing.collect``: the layers 'load',
+    'copy', 'plan', 'program' and the phases 'index.load',
+    'index.upload', 'copy.wait', 'fusion.plan', 'plan.upload',
+    'plan.wait'."""
     device = resolve_device(device)
     run = make_single_program_eval(model)
-    seconds = {"load": 0.0, "copy": 0.0}
     imgs, names_all = None, []
-    t0 = time.perf_counter()
-    for names, images in iter_batches(dataset_classic, batch_size):
-        t1 = time.perf_counter()
-        seconds["load"] += t1 - t0
-        if imgs is None:
-            imgs = run.buffer(0, (len(dataset_classic), *images.shape[1:]),
-                              torch.float32, device)
-        start = len(names_all)
-        imgs[start:start + len(names)].copy_(torch.from_numpy(
-            np.ascontiguousarray(images, np.float32)))
-        names_all.extend(names)
-        t0 = time.perf_counter()
-        seconds["copy"] += t0 - t1
-    sync_device(device)
-    seconds["copy"] += time.perf_counter() - t0
+    batches = iter_batches(dataset_classic, batch_size)
+    while True:
+        with tracing.layer_span("load"), tracing.trace_phase("index.load"):
+            batch = next(batches, None)
+        if batch is None:
+            break
+        names, images = batch
+        with tracing.layer_span("copy"), \
+                tracing.trace_phase("index.upload"):
+            if imgs is None:
+                imgs = run.buffer(
+                    0, (len(dataset_classic), *images.shape[1:]),
+                    torch.float32, device)
+            start = len(names_all)
+            imgs[start:start + len(names)].copy_(torch.from_numpy(
+                np.ascontiguousarray(images, np.float32)))
+            names_all.extend(names)
+    with tracing.layer_span("copy"), tracing.trace_phase("copy.wait"):
+        sync_device(device)
     n_idx = len(names_all)
     imgs = imgs[:n_idx]
 
-    t0 = time.perf_counter()
-    pos = {nm: i for i, nm in enumerate(names_all)}
-    ref_idx = np.asarray([pos[r] for r in ref_names], np.int32)
-    ids_all, mask_all, bucket_of = resolve_buckets(tokenizer, captions,
-                                                   text_len, l_buckets)
-    batches = schedule_fusion_batches(ref_idx, bucket_of, q_batch,
-                                      image_major)
-    fams, inv = build_fusion_plan(batches, ids_all, mask_all, "cpu")
-    ent = np.asarray([[pos[nm] for nm in row] for row in ent_names],
-                     np.int64)
-    plan = [torch.from_numpy(inv), torch.from_numpy(ent),
-            *(t for fam in fams for t in fam)]
-    inv, ent, *flat = (run.buffer(i, x.shape, x.dtype, device).copy_(x)
-                       for i, x in enumerate(plan, start=1))
-    fams = tuple(tuple(flat[i:i + 3]) for i in range(0, len(flat), 3))
-    sync_device(device)
-    seconds["plan"] = time.perf_counter() - t0
+    with tracing.layer_span("plan"):
+        with tracing.trace_phase("fusion.plan"):
+            pos = {nm: i for i, nm in enumerate(names_all)}
+            ref_idx = np.asarray([pos[r] for r in ref_names], np.int32)
+            ids_all, mask_all, bucket_of = resolve_buckets(
+                tokenizer, captions, text_len, l_buckets)
+            batches = schedule_fusion_batches(ref_idx, bucket_of,
+                                              q_batch, image_major)
+            fams, inv = build_fusion_plan(batches, ids_all, mask_all,
+                                          "cpu")
+            ent = np.asarray([[pos[nm] for nm in row]
+                              for row in ent_names], np.int64)
+        with tracing.trace_phase("plan.upload"):
+            plan = [torch.from_numpy(inv), torch.from_numpy(ent),
+                    *(t for fam in fams for t in fam)]
+            inv, ent, *flat = (
+                run.buffer(i, x.shape, x.dtype, device).copy_(x)
+                for i, x in enumerate(plan, start=1))
+            fams = tuple(tuple(flat[i:i + 3])
+                         for i in range(0, len(flat), 3))
+        with tracing.trace_phase("plan.wait"):
+            sync_device(device)
 
-    t0 = time.perf_counter()
-    topk, ranks = run(params, imgs, fams, inv, ent, n_idx=n_idx,
-                      width=min(width, n_idx), chunk=batch_size, donate=True)
-    seconds["program"] = time.perf_counter() - t0
-    return topk, ranks, names_all, seconds
+    with tracing.layer_span("program"):
+        topk, ranks = run(params, imgs, fams, inv, ent, n_idx=n_idx,
+                          width=min(width, n_idx), chunk=batch_size,
+                          donate=True)
+    return topk, ranks, names_all
 
 
 def _index_and_fuse(model, params, dataset_classic, tokenizer, captions,
                     refs, *, text_len: int, batch_size: int, q_batch: int,
                     image_major: bool, device, mesh=None) -> tuple:
-    """Corpus embed and query fusion: (pooled [N, E], pred [N_q, E],
-    index_names, seconds {'index', 'fusion'})."""
-    t0 = time.perf_counter()
-    embed, fuse = make_stage1_fns(model, params, device)
-    raw, pooled, index_names = build_index(dataset_classic, embed,
-                                           batch_size, pooled=True,
-                                           device=device, mesh=mesh)
-    sync_device(device)
-    t1 = time.perf_counter()
-    pred = predict_queries(fuse, tokenizer, captions, refs, raw, index_names,
-                           text_len, q_batch, image_major=image_major,
-                           mesh=mesh)
-    sync_device(device)
-    return pooled, pred, index_names, {"index": t1 - t0,
-                                       "fusion": time.perf_counter() - t1}
+    """Corpus embed and query fusion, the layer spans 'index' and
+    'fusion': (pooled [N, E], pred [N_q, E], index_names)."""
+    with tracing.layer_span("index"):
+        embed, fuse = make_stage1_fns(model, params, device)
+        raw, pooled, index_names = build_index(dataset_classic, embed,
+                                               batch_size, pooled=True,
+                                               device=device, mesh=mesh)
+        with tracing.trace_phase("index.wait"):
+            sync_device(device)
+    with tracing.layer_span("fusion"):
+        pred = predict_queries(fuse, tokenizer, captions, refs, raw,
+                               index_names, text_len, q_batch,
+                               image_major=image_major, mesh=mesh)
+        with tracing.trace_phase("fusion.wait"):
+            sync_device(device)
+    return pooled, pred, index_names
 
 
 def _stage1_ranks(model, params, dataset_classic, tokenizer, captions,
                   refs, ent_names, *, text_len: int, batch_size: int,
                   q_batch: int, image_major: bool, width: int,
                   single_program: bool, device, mesh=None) -> tuple:
-    """(topk [N_q, width], ranks [N_q, E], index_names, seconds) by either
-    executor; ``ent_names`` [N_q][E] the entity columns' names."""
+    """(topk [N_q, width], ranks [N_q, E], index_names) by either
+    executor; ``ent_names`` [N_q][E] the entity columns' names. Its spans
+    go to the caller's ``tracing.collect``."""
     _check_single_program(mesh, single_program)
     if single_program:
         return run_single_program_eval(
@@ -754,17 +772,17 @@ def _stage1_ranks(model, params, dataset_classic, tokenizer, captions,
             ent_names, text_len=text_len, batch_size=batch_size,
             q_batch=q_batch, image_major=image_major, width=width,
             device=device)
-    pooled, pred, index_names, seconds = _index_and_fuse(
+    pooled, pred, index_names = _index_and_fuse(
         model, params, dataset_classic, tokenizer, captions, refs,
         text_len=text_len, batch_size=batch_size, q_batch=q_batch,
         image_major=image_major, device=device, mesh=mesh)
-    t0 = time.perf_counter()
-    pos = {name: i for i, name in enumerate(index_names)}
-    ent = np.asarray([[pos[nm] for nm in row] for row in ent_names],
-                     np.int32)
-    topk_idx, ranks = ranked_slices(pred, pooled, width, ent, mesh=mesh)
-    seconds["ranking"] = time.perf_counter() - t0
-    return topk_idx, ranks, index_names, seconds
+    with tracing.layer_span("ranking"):
+        with tracing.trace_phase("ranking.plan"):
+            pos = {name: i for i, name in enumerate(index_names)}
+            ent = np.asarray([[pos[nm] for nm in row] for row in ent_names],
+                             np.int32)
+        topk_idx, ranks = ranked_slices(pred, pooled, width, ent, mesh=mesh)
+    return topk_idx, ranks, index_names
 
 
 def evaluate_cirr_stage1(model, params, dataset_classic, dataset_relative,
@@ -788,34 +806,37 @@ def evaluate_cirr_stage1(model, params, dataset_classic, dataset_relative,
     Returns (Stage1EvalResult, payload or None)."""
     _check_single_program(mesh, single_program)
     device = resolve_device(device) if mesh is None else mesh.device
-    t0 = time.perf_counter()
-    captions, refs, targets, groups = [], [], [], []
-    for i in range(len(dataset_relative)):
-        s = dataset_relative[i]
-        captions.append(s["caption"])
-        refs.append(s["reference_name"])
-        targets.append(s["target_name"])
-        groups.append(s["group_members"])
-    members = [[m for m in g if m != r][:5] for g, r in zip(groups, refs)]
-    width = max(501, (save_topk_k or 0) + 1)
+    seconds = {}
+    with tracing.collect(seconds), tracing.layer_span("total"):
+        with tracing.trace_phase("stage1.labels"):
+            captions, refs, targets, groups = [], [], [], []
+            for i in range(len(dataset_relative)):
+                s = dataset_relative[i]
+                captions.append(s["caption"])
+                refs.append(s["reference_name"])
+                targets.append(s["target_name"])
+                groups.append(s["group_members"])
+            members = [[m for m in g if m != r][:5]
+                       for g, r in zip(groups, refs)]
+            width = max(501, (save_topk_k or 0) + 1)
+            ent_names = [[t, r, *row]
+                         for t, r, row in zip(targets, refs, members)]
 
-    ent_names = [[t, r, *row] for t, r, row in zip(targets, refs, members)]
-    topk_idx, ranks, index_names, seconds = _stage1_ranks(
-        model, params, dataset_classic, tokenizer, captions, refs, ent_names,
-        text_len=text_len, batch_size=batch_size, q_batch=q_batch,
-        image_major=image_major, width=width, single_program=single_program,
-        device=device, mesh=mesh)
-    ranking = M.cirr_ranking_from_ranks(
-        topk_idx, index_names, targets, members,
-        target_ranks=ranks[:, 0], ref_ranks=ranks[:, 1],
-        member_ranks=ranks[:, 2:])
-    mets = M.cirr_metrics(ranking)
-
-    payload = None
-    if save_topk_k:
-        payload = topk_payload(
-            ranking, index_names, targets, "val", k=save_topk_k)
-    seconds["total"] = time.perf_counter() - t0
+        topk_idx, ranks, index_names = _stage1_ranks(
+            model, params, dataset_classic, tokenizer, captions, refs,
+            ent_names, text_len=text_len, batch_size=batch_size,
+            q_batch=q_batch, image_major=image_major, width=width,
+            single_program=single_program, device=device, mesh=mesh)
+        with tracing.trace_phase("stage1.metrics"):
+            ranking = M.cirr_ranking_from_ranks(
+                topk_idx, index_names, targets, members,
+                target_ranks=ranks[:, 0], ref_ranks=ranks[:, 1],
+                member_ranks=ranks[:, 2:])
+            mets = M.cirr_metrics(ranking)
+            payload = None
+            if save_topk_k:
+                payload = topk_payload(
+                    ranking, index_names, targets, "val", k=save_topk_k)
     return Stage1EvalResult(mets, ranking, index_names, targets, seconds,
                             topk_idx, ranks), payload
 
@@ -833,30 +854,34 @@ def evaluate_fiq_stage1(model, params, dataset_classic, dataset_relative,
     ``evaluate_cirr_stage1``."""
     _check_single_program(mesh, single_program)
     device = resolve_device(device) if mesh is None else mesh.device
-    t0 = time.perf_counter()
-    captions_pairs, refs, targets = [], [], []
-    for i in range(len(dataset_relative)):
-        s = dataset_relative[i]
-        captions_pairs.append(s["captions"])
-        refs.append(s["reference_name"])
-        targets.append(s["target_name"])
-    captions = compose_fiq_eval(captions_pairs)
-    width = max(501, (save_topk_k or 0) + 1)
+    seconds = {}
+    with tracing.collect(seconds), tracing.layer_span("total"):
+        with tracing.trace_phase("stage1.labels"):
+            captions_pairs, refs, targets = [], [], []
+            for i in range(len(dataset_relative)):
+                s = dataset_relative[i]
+                captions_pairs.append(s["captions"])
+                refs.append(s["reference_name"])
+                targets.append(s["target_name"])
+            captions = compose_fiq_eval(captions_pairs)
+            width = max(501, (save_topk_k or 0) + 1)
 
-    topk_idx, ranks, index_names, seconds = _stage1_ranks(
-        model, params, dataset_classic, tokenizer, captions, refs,
-        [[t] for t in targets], text_len=text_len, batch_size=batch_size,
-        q_batch=q_batch, image_major=image_major, width=width,
-        single_program=single_program, device=device, mesh=mesh)
-    ranking = M.fiq_ranking_from_ranks(topk_idx, index_names, targets,
-                                       target_ranks=ranks[:, 0])
-    mets = M.fiq_metrics(ranking)
-
-    payload = None
-    if save_topk_k:
-        payload = topk_payload(ranking, index_names, targets,
-                               dataset_relative.split, k=save_topk_k,
-                               dress_types=dress_types)
-    seconds["total"] = time.perf_counter() - t0
+        topk_idx, ranks, index_names = _stage1_ranks(
+            model, params, dataset_classic, tokenizer, captions, refs,
+            [[t] for t in targets], text_len=text_len,
+            batch_size=batch_size, q_batch=q_batch, image_major=image_major,
+            width=width, single_program=single_program, device=device,
+            mesh=mesh)
+        with tracing.trace_phase("stage1.metrics"):
+            ranking = M.fiq_ranking_from_ranks(topk_idx, index_names,
+                                               targets,
+                                               target_ranks=ranks[:, 0])
+            mets = M.fiq_metrics(ranking)
+            payload = None
+            if save_topk_k:
+                payload = topk_payload(ranking, index_names, targets,
+                                       dataset_relative.split,
+                                       k=save_topk_k,
+                                       dress_types=dress_types)
     return Stage1EvalResult(mets, ranking, index_names, targets, seconds,
                             topk_idx, ranks), payload

@@ -42,6 +42,7 @@ from candidate_reranking_cir_tpu_torch.retrieval.rerank import (
     bind_module,
     rerank,
 )
+from candidate_reranking_cir_tpu_torch.runtime import tracing
 from candidate_reranking_cir_tpu_torch.runtime.device import resolve_device
 
 
@@ -430,30 +431,39 @@ class CIRServingEngine:
         return out
 
     def _handle_wave(self, requests) -> list[ServeResult]:
+        """One wave; its host work and its waits on the device are the
+        phase spans 'serve.tokenize', 'serve.stage1.wait',
+        'serve.assemble', 'serve.rerank.plan', 'serve.rerank.wait',
+        'serve.rerank.finish' and 'serve.merge' (``runtime/tracing``)."""
         n = len(requests)
-        padded = list(requests) + [requests[0]] * (self.q_pad - n)
-
-        ids, mask = self.tokenizer.encode([r.caption for r in padded],
-                                          self.text_len, set_enc_token=True)
+        with tracing.trace_phase("serve.tokenize"):
+            padded = list(requests) + [requests[0]] * (self.q_pad - n)
+            ids, mask = self.tokenizer.encode([r.caption for r in padded],
+                                              self.text_len,
+                                              set_enc_token=True)
         ref1 = self._ref_feats(padded, self.index.raw_s1,
                                self.stage1.embed_images)
         preds = self.stage1.fuse(ref1, torch.from_numpy(ids).to(self.device),
                                  torch.from_numpy(mask).to(self.device))
         sims, idx = cosine_topk(preds, self.index.pooled_s1, self.max_k,
                                 self.index.valid)
-        sims = sims[:n].float().cpu().numpy()
-        idx = idx[:n].cpu().numpy()
+        sims, idx = sims[:n].float(), idx[:n]
+        with tracing.trace_phase("serve.stage1.wait"):
+            sims = sims.cpu().numpy()
+            idx = idx.cpu().numpy()
 
-        results = []
-        names = self.index.names
-        for qi, r in enumerate(requests):
-            ranked = [(names[j], float(s))
-                      for j, s in zip(idx[qi], sims[qi])
-                      if np.isfinite(s)  # skip tombstoned/free slots
-                      and (r.reference is None or names[j] != r.reference)]
-            ranked = ranked[:r.k]
-            results.append(ServeResult(ranking=[nm for nm, _ in ranked],
-                                       scores=[s for _, s in ranked]))
+        with tracing.trace_phase("serve.assemble"):
+            results = []
+            names = self.index.names
+            for qi, r in enumerate(requests):
+                ranked = [(names[j], float(s))
+                          for j, s in zip(idx[qi], sims[qi])
+                          if np.isfinite(s)  # skip tombstoned/free slots
+                          and (r.reference is None
+                               or names[j] != r.reference)]
+                ranked = ranked[:r.k]
+                results.append(ServeResult(ranking=[nm for nm, _ in ranked],
+                                           scores=[s for _, s in ranked]))
 
         if self.reranker is not None:
             self._rerank_wave(requests, results)
@@ -467,30 +477,33 @@ class CIRServingEngine:
         their last candidate and the padded scores discarded. Requests
         whose reference is an uploaded image keep their stage-I order: z_t
         fusion needs the reference's corpus features."""
-        rows = [qi for qi, r in enumerate(requests)
-                if r.reference is not None and results[qi].ranking]
+        with tracing.trace_phase("serve.assemble"):
+            rows = [qi for qi, r in enumerate(requests)
+                    if r.reference is not None and results[qi].ranking]
+            kk = self.rerank_k
+            depths = [min(kk, len(results[qi].ranking)) for qi in rows]
+            topk_names = np.asarray(
+                [[results[qi].ranking[min(j, d - 1)] for j in range(kk)]
+                 for qi, d in zip(rows, depths)], dtype=object)
         if not rows:
             return
-        kk = self.rerank_k
-        depths = [min(kk, len(results[qi].ranking)) for qi in rows]
-        topk_names = np.asarray(
-            [[results[qi].ranking[min(j, d - 1)] for j in range(kk)]
-             for qi, d in zip(rows, depths)], dtype=object)
         out = rerank(
             self.stage1, None, self.reranker, None, self.tokenizer,
             captions=[requests[qi].caption for qi in rows],
             reference_names=[requests[qi].reference for qi in rows],
             topk_names=topk_names,
             index_feats=self.index.raw_s2, index_names=self.index.names,
-            text_len=self.text_len, q_batch=self.q_pad, device=self.device)
-        for oi, (qi, d) in enumerate(zip(rows, depths)):
-            res = results[qi]
-            order = [j for j in out.order[oi] if j < d]
-            head = [res.ranking[j] for j in order]
-            head_scores = [float(out.logits[oi, j]) for j in order]
-            res.ranking = head + res.ranking[d:]
-            res.scores = head_scores + res.scores[d:]
-            res.reranked = d
+            text_len=self.text_len, q_batch=self.q_pad, device=self.device,
+            trace_as="serve.rerank")
+        with tracing.trace_phase("serve.merge"):
+            for oi, (qi, d) in enumerate(zip(rows, depths)):
+                res = results[qi]
+                order = [j for j in out.order[oi] if j < d]
+                head = [res.ranking[j] for j in order]
+                head_scores = [float(out.logits[oi, j]) for j in order]
+                res.ranking = head + res.ranking[d:]
+                res.scores = head_scores + res.scores[d:]
+                res.reranked = d
 
 
 class _AdminOp:
@@ -503,7 +516,9 @@ class _AdminOp:
 class MicroBatcher:
     """Thread-safe request coalescing: concurrent callers block on their own
     event while one worker thread drains the queue in waves of up to
-    q_pad."""
+    q_pad. The worker's phase spans (``runtime/tracing``) are
+    'batcher.idle' (blocked on an empty queue) and 'batcher.gather' (the
+    straggler window); each wave is the layer span 'serve.wave'."""
 
     def __init__(self, engine: CIRServingEngine, window_ms: float = 3.0):
         self.engine = engine
@@ -519,13 +534,22 @@ class MicroBatcher:
         self._requests = 0
         self._waves = 0
         self._errors = 0
+        self._queue_wait_s = 0.0
+        self._wave_s = 0.0
+        self._device_wait_s = 0.0
+        self._worker_s: dict = {}  # the worker's phase totals
         self._latencies: list[float] = []  # rolling, last 1024
         self.worker = threading.Thread(target=self._run, daemon=True)
         self.worker.start()
 
     def stats(self) -> dict:
         """Serving counters: totals, wave occupancy, latency percentiles
-        (seconds, over the last 1024 requests)."""
+        (seconds, over the last 1024 requests), and cumulative seconds:
+        ``queue_wait_s`` (each request, from its enqueue to the start of
+        its wave), ``wave_s`` (each wave's ``engine.handle``),
+        ``device_wait_s`` (the waves' ``serve.*.wait`` spans, the host
+        blocked on the device) and ``idle_s`` (the worker blocked on an
+        empty queue)."""
         with self._lock:
             lats = sorted(self._latencies)
             n = len(lats)
@@ -540,6 +564,10 @@ class MicroBatcher:
                 "latency_p50_s": round(pct(0.50), 4),
                 "latency_p95_s": round(pct(0.95), 4),
                 "latency_p99_s": round(pct(0.99), 4),
+                "queue_wait_s": self._queue_wait_s,
+                "wave_s": self._wave_s,
+                "device_wait_s": self._device_wait_s,
+                "idle_s": self._worker_s.get("batcher.idle", 0.0),
             }
 
     def submit(self, request: ServeRequest) -> ServeResult:
@@ -549,6 +577,7 @@ class MicroBatcher:
         with self._submit_lock:
             if self._stop.is_set():
                 raise RuntimeError("server is shutting down")
+            slot["enqueued"] = time.perf_counter()
             self.q.put((request, ev, slot))
         ev.wait()
         with self._lock:
@@ -575,34 +604,39 @@ class MicroBatcher:
         return slot["result"]
 
     def _run(self):
-        while not self._stop.is_set():
-            try:
-                first = self.q.get(timeout=0.1)
-            except queue.Empty:
-                continue
-            if isinstance(first[0], _AdminOp):
-                self._run_admin(first)
-                continue
-            batch = [first]
-            admin_item = None
-            # absolute deadline: the first request waits at most one window
-            # however many stragglers trickle in behind it
-            deadline = time.monotonic() + self.window
-            while len(batch) < self.engine.q_pad:
-                remaining = deadline - time.monotonic()
-                if remaining <= 0:
-                    break
+        with tracing.collect(self._worker_s):
+            while not self._stop.is_set():
                 try:
-                    item = self.q.get(timeout=remaining)
+                    with tracing.trace_phase("batcher.idle"):
+                        first = self.q.get(timeout=0.1)
                 except queue.Empty:
-                    break
-                if isinstance(item[0], _AdminOp):
-                    admin_item = item  # flush the wave first, then mutate
-                    break
-                batch.append(item)
-            self._serve_batch(batch)
-            if admin_item is not None:
-                self._run_admin(admin_item)
+                    continue
+                if isinstance(first[0], _AdminOp):
+                    self._run_admin(first)
+                    continue
+                batch = [first]
+                admin_item = None
+                with tracing.trace_phase("batcher.gather"):
+                    # absolute deadline: the first request waits at most
+                    # one window however many stragglers trickle in
+                    # behind it
+                    deadline = time.monotonic() + self.window
+                    while len(batch) < self.engine.q_pad:
+                        remaining = deadline - time.monotonic()
+                        if remaining <= 0:
+                            break
+                        try:
+                            item = self.q.get(timeout=remaining)
+                        except queue.Empty:
+                            break
+                        if isinstance(item[0], _AdminOp):
+                            # flush the wave first, then mutate
+                            admin_item = item
+                            break
+                        batch.append(item)
+                self._serve_batch(batch)
+                if admin_item is not None:
+                    self._run_admin(admin_item)
         self._fail_queued()
 
     def _fail_queued(self):
@@ -625,26 +659,37 @@ class MicroBatcher:
         ev.set()
 
     def _serve_batch(self, batch):
+        start = time.perf_counter()
         reqs = [b[0] for b in batch]
         with self._lock:
             self._requests += len(reqs)
             self._waves += 1
-        try:
-            results = self.engine.handle(reqs)
-            for (_, ev, slot), res in zip(batch, results):
-                slot["result"] = res
-                ev.set()
-        except Exception:
-            # one bad request must not fail its wave-mates: retry each
-            # request alone, so only the offender errors
-            for req, ev, slot in batch:
-                try:
-                    slot["result"] = self.engine.handle([req])[0]
-                except Exception as e:  # reported to that request's caller
-                    with self._lock:
-                        self._errors += 1
-                    slot["error"] = e
-                ev.set()
+            self._queue_wait_s += sum(start - slot["enqueued"]
+                                      for _, _, slot in batch)
+        wave: dict = {}
+        with tracing.collect(wave), tracing.layer_span("serve.wave"):
+            try:
+                outcomes = [("result", res)
+                            for res in self.engine.handle(reqs)]
+            except Exception:
+                # one bad request must not fail its wave-mates: retry each
+                # request alone, so only the offender errors
+                outcomes = []
+                for req in reqs:
+                    try:
+                        outcomes.append(("result",
+                                         self.engine.handle([req])[0]))
+                    except Exception as e:  # reported to its caller
+                        outcomes.append(("error", e))
+        with self._lock:
+            self._errors += sum(key == "error" for key, _ in outcomes)
+            self._wave_s += wave["serve.wave"]
+            self._device_wait_s += sum(
+                v for name, v in wave.items()
+                if name.startswith("serve.") and name.endswith(".wait"))
+        for (_, ev, slot), (key, value) in zip(batch, outcomes):
+            slot[key] = value
+            ev.set()
 
     def close(self):
         with self._submit_lock:

@@ -160,8 +160,10 @@ def cirr_runs(cirr_root, models, tokenizers):
 def test_single_program_equals_multi_launch_cirr(cirr_runs):
     runs, _ = cirr_runs
     _same_eval(runs[True], runs[False])
-    assert set(runs[True][0].seconds) == {"load", "copy", "plan", "program",
-                                          "total"}
+    assert set(runs[True][0].seconds) == {
+        "load", "copy", "plan", "program", "total", "index.load",
+        "index.upload", "copy.wait", "fusion.plan", "plan.upload",
+        "plan.wait", "stage1.labels", "stage1.metrics"}
 
 
 def test_single_program_equals_multi_launch_fiq(fiq_root, models,

@@ -548,7 +548,10 @@ def test_evaluate_cirr_stage1_matches_jax(cirr_root, models, tokenizers):
     assert payload.keys() == ref_payload.keys()
     for key in ref_payload:
         np.testing.assert_array_equal(payload[key], ref_payload[key])
-    assert set(out.seconds) == {"index", "fusion", "ranking", "total"}
+    assert set(out.seconds) == {
+        "index", "fusion", "ranking", "total", "index.load", "index.upload",
+        "index.wait", "fusion.plan", "fusion.wait", "ranking.plan",
+        "ranking.wait", "stage1.labels", "stage1.metrics"}
     # image-major and query-major rank alike
     qm, _ = tv.evaluate_cirr_stage1(t1, None, *tset, tt, device="cpu",
                                     image_major=False, **kw)
