@@ -40,7 +40,6 @@ from candidate_reranking_cir_tpu_torch.config import RetrievalModelConfig
 from candidate_reranking_cir_tpu_torch.models.layers import (
     Dense,
     LayerNorm,
-    exact_gelu,
 )
 from candidate_reranking_cir_tpu_torch.models.med import TextEncoder
 from candidate_reranking_cir_tpu_torch.models.vit import VisionTransformer
@@ -59,7 +58,7 @@ class BertLMHead(nn.Module):
         self.decoder = Dense(hidden_size, vocab_size, dtype, device)
 
     def forward(self, hidden):
-        h = self.ln(exact_gelu(self.transform(hidden)))
+        h = self.ln(self.transform.gelu(hidden))
         return self.decoder(h).float()
 
 

@@ -24,6 +24,10 @@ from torch.utils.checkpoint import (
 )
 
 from candidate_reranking_cir_tpu_torch.ops import attention_train, draws
+from candidate_reranking_cir_tpu_torch.ops.activation import (  # noqa: F401
+    bias_gelu,
+    exact_gelu,
+)
 from candidate_reranking_cir_tpu_torch.ops.attention import (
     _dropout_probs,
     dot_product_attention,
@@ -95,21 +99,6 @@ def remat(fn, *args, policy=None):
     extra = {} if policy is None else {"context_fn": policy.context_fn}
     return checkpoint(draws.bound(fn), *args, use_reentrant=False,
                       preserve_rng_state=False, **extra)
-
-
-def exact_gelu(x):
-    """Erf-based GELU. float32: the exact erf form. Other dtypes: the JAX
-    package's rational erf (Abramowitz & Stegun 7.1.26) evaluated in
-    float32 and cast back, reproduced term for term."""
-    if x.dtype == torch.float32:
-        return F.gelu(x)
-    x32 = x.float()
-    u = x32.abs() * 0.7071067811865476
-    t = 1.0 / (1.0 + 0.3275911 * u)
-    poly = t * (0.254829592 + t * (-0.284496736 + t * (1.421413741
-                + t * (-1.453152027 + t * 1.061405429))))
-    erf = torch.sign(x32) * (1.0 - poly * torch.exp(-u * u))
-    return (0.5 * x32 * (1.0 + erf)).to(x.dtype)
 
 
 def _normal_(t: torch.Tensor, std: float = 0.02) -> torch.Tensor:
@@ -189,11 +178,20 @@ class Dense(nn.Module):
         self.bias = (nn.Parameter(torch.zeros(out_features, device=device))
                      if bias else None)
 
+    def product(self, x):
+        """The product without the bias, rounded to the compute dtype (what
+        ``ops/activation.bias_gelu`` takes with ``self.bias``)."""
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+
     def forward(self, x):
-        y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        y = self.product(x)
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
         return y
+
+    def gelu(self, x):
+        """``exact_gelu(self(x))``, through ``ops/activation.bias_gelu``."""
+        return bias_gelu(self.product(x), self.bias)
 
 
 class MultiHeadAttention(nn.Module):
@@ -348,6 +346,6 @@ class Mlp(nn.Module):
         self.fc2 = Dense(hidden_features, out_features, dtype, device)
 
     def forward(self, x, *, deterministic: bool = True, generator=None):
-        h = self.drop(exact_gelu(self.fc1(x)), deterministic=deterministic,
+        h = self.drop(self.fc1.gelu(x), deterministic=deterministic,
                       generator=generator)
         return self.fc2(h)

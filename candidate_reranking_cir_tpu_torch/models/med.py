@@ -46,7 +46,6 @@ from candidate_reranking_cir_tpu_torch.models.layers import (
     LayerNorm,
     MultiHeadAttention,
     _normal_,
-    exact_gelu,
     remat,
     resolve_remat_policy,
     seeded_generator,
@@ -154,7 +153,7 @@ class BertFFN(nn.Module):
         self.ln = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, dtype, device)
 
     def forward(self, x, *, deterministic: bool = True, generator=None):
-        h = self.output(exact_gelu(self.intermediate(x)))
+        h = self.output(self.intermediate.gelu(x))
         h = self.drop(h, deterministic=deterministic, generator=generator)
         return self.ln(h + x)
 

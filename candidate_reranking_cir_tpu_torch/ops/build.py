@@ -118,3 +118,15 @@ def load_attention_train_library() -> ctypes.CDLL:
     lib.crc_keep_mask.argtypes = [i32, i32, i32, i32, i32, f32, vp, vp]
     lib.crc_keep_mask.restype = i32
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_activation_library() -> ctypes.CDLL:
+    """The bias + exact-GELU kernel's library (``csrc/activation.cu``) with
+    its C signature declared."""
+    path, _, _ = build("activation")
+    lib = ctypes.CDLL(str(path))
+    vp, i64 = ctypes.c_void_p, ctypes.c_longlong
+    lib.crc_bias_gelu.argtypes = [vp, vp, vp, i64, i64, vp]
+    lib.crc_bias_gelu.restype = ctypes.c_int
+    return lib

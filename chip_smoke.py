@@ -6,7 +6,8 @@
 Phases, each printing its own lines:
 1. device: requires CUDA; prints ``nvidia-smi`` name and power limit.
 2. build: compiles the eval (K1-K4) and train (K5-K9) attention libraries
-   from ``csrc/`` (one nvcc each, started together with ``make -B -C
+   and the bias + GELU library (G1) from ``csrc/`` (one nvcc each, started
+   together with ``make -B -C
    native`` for the native host libraries where g++ and the libjpeg
    headers are present, else a ``[native] unavailable: ...`` line; sm_90a)
    and prints
@@ -31,6 +32,14 @@ Phases, each printing its own lines:
    the port never calls it), the kernel's and SDPA's device-only times
    (CUDA-graph replays) and their ratio, and the least time the card
    could take (bytes over 3.35 TB/s or operations over the dtype's peak).
+   Then G1, fc1's bias add and exact GELU (``ops/activation.bias_gelu``),
+   at the ViT's fc1 at embed batch 32 ([18464, 3072]), a candidate-major
+   dual-encoder chunk's ([8, 1280, 3072]), the caption head's transform
+   ([48, 20, 768]) and a ragged [4099, 3071] (the scalar body), bf16:
+   bit for bit against its plain version (the eager route), kernel / plain
+   / ``F.gelu`` after the bias add (a yardstick the port never calls)
+   times over back-to-back calls, the kernel's and ``F.gelu``'s
+   device-only times, and its bound (bytes, or instruction issue).
 4. kernels K5-K7 at the training path's shape ([16, 640, 12, 64] queries
    x 577 keys, rate 0.1), bf16 and fp32 (bf16 K6 and K7 run the
    tensor-core kernels, fp32 the fp32-FMA ones): the K5 mask bit for bit
@@ -42,7 +51,8 @@ Phases, each printing its own lines:
 5. eval path: stage-II re-rank evaluation through the port's
    ``evaluate_cirr_stage2`` entry at full ViT-B/16@384 + MED + dual-encoder
    width in bf16, random weights from a seed, on a synthetic CIRR-shaped
-   corpus held in memory; launch counts per kernel (K1-K3 must be > 0);
+   corpus held in memory; launch counts per kernel (K1-K3 and G1 must be
+   > 0);
    then a few hundred pairs re-scored in fp32 on the card and on the CPU,
    and in bf16 on the card and on the CPU (the card's bf16 logits held to
    the CPU's bf16 eager path within a share of the fp32 logits' spread; the
@@ -197,7 +207,8 @@ Phases, each printing its own lines:
     the replicated bank; ``sharded_cosine_topk``; ``dryrun_multichip``.
     Prints the seconds, the max |mesh - no mesh| of each comparison and
     the launches of the mesh calls (K1-K3 and K5-K9 must be > 0).
-12. a JSON line of kernel figures (``launches_by_path`` adds phase 10's
+12. a JSON line of kernel figures, K1-K9 and G1 (``launches_by_path`` adds
+    phase 10's
     counts as "train_cli", phase 11's as "serve", phase 13's as
     "caption", phase 14's as "glue", phase 15's as "single_program"
     and "dropout_layouts" and phase 16's as "mesh"), then the card's name
@@ -373,15 +384,21 @@ SOURCES = {"K1": f"{CSRC}/attention_tc.cuh", "K2": f"{CSRC}/attention_tc.cuh",
            "K6": f"{CSRC}/attention_train_tc.cuh",
            "K7": f"{CSRC}/attention_train_tc.cuh",
            "K8": f"{CSRC}/attention_train_tc.cuh",
-           "K9": f"{CSRC}/attention_train_tc.cuh"}
+           "K9": f"{CSRC}/attention_train_tc.cuh",
+           "G1": f"{CSRC}/activation.cu"}
 JAX_KERNELS = "candidate_reranking_cir_tpu/ops/pallas_attention.py"
 JAX_TRAIN = "candidate_reranking_cir_tpu/ops/pallas_attention_train.py"
 REPLACES = {"K1": f"{JAX_KERNELS}:220", "K2": f"{JAX_KERNELS}:132",
             "K3": f"{JAX_KERNELS}:122", "K4": f"{JAX_KERNELS}:236",
             "K5": f"{JAX_TRAIN}:61", "K6": f"{JAX_TRAIN}:114",
             "K7": f"{JAX_TRAIN}:135", "K8": f"{JAX_TRAIN}:382",
-            "K9": f"{JAX_TRAIN}:414"}
-MAIN_PATH_KERNELS = ("K1", "K2", "K3")
+            "K9": f"{JAX_TRAIN}:414",
+            # G1 replaces no TPU kernel: XLA fuses the same formula into
+            # fc1's epilogue
+            "G1": "none (candidate_reranking_cir_tpu/models/layers.py: "
+                  "Dense, exact_gelu, fused by XLA)"}
+MAIN_PATH_KERNELS = ("K1", "K2", "K3", "G1")
+EVAL_KERNELS = ("K1", "K2", "K3", "K4")
 # profiler families of the attention kernels (see kernel_family); a bf16
 # profile fails on any time in the FMA families
 TC_FAMILY = "eval attention, tensor cores (bf16 K1-K4)"
@@ -601,6 +618,79 @@ def run_kernel_case(kid, label, e, lq, m, h, folded, with_bias, dtype,
           f"{device_ratio:.2f}x; bound {rec['bound_ms']:.4f} ms "
           f"({rec['bound_by']})", flush=True)
     return rec
+
+
+# G1 at the paths' shapes (label, product shape): the ViT's fc1 at embed
+# batch 32, a candidate-major dual-encoder chunk's fc1 (8 candidates x 32
+# queries x 40 tokens), the caption head's transform over the beams at
+# full length, and a ragged row count at a width that is no multiple of 8
+# (the scalar body)
+G1_CASES = (
+    ("ViT fc1, embed batch 32", (32 * 577, 3072)),
+    ("candidate-major dual-encoder chunk fc1", (8, 32 * TEXT_LEN, 3072)),
+    ("caption LM head transform", (CAP_B * CAP_BEAMS, CAP_MAX_LEN, 768)),
+    ("ragged rows, odd width (scalar body)", (4099, 3071)),
+)
+# G1's instruction-issue bound: the 8-wide loop's SASS (sm_90a build)
+# issues about this many instructions an element (the IEEE divide's and
+# expf's sequences, ~22 fp32 operations, the bf16 conversions), at 4 warp
+# instructions a clock an SM
+G1_INSTR_PER_ELEMENT = 55
+SM_CLOCK_HZ = 1.98e9           # H100 SXM boost clock (NVIDIA data sheet)
+
+
+def run_bias_gelu_cases() -> list:
+    """G1 at G1_CASES in bf16 with an fp32 bias: bit for bit against
+    ``bias_gelu_plain`` (fails on any differing bit), kernel / plain /
+    ``F.gelu`` + bias times, device-only times and the bound."""
+    import torch.nn.functional as F
+
+    from candidate_reranking_cir_tpu_torch.ops import activation as act
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    recs = []
+    for label, shape in G1_CASES:
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        p = (torch.randn(shape, generator=g, device="cuda") * 3).bfloat16()
+        b = torch.randn(shape[-1], generator=g, device="cuda") * 0.5
+        kernel = lambda: act.bias_gelu(p, b)
+        plain = lambda: act.bias_gelu_plain(p, b)
+        library = lambda: F.gelu(p + b.to(p.dtype))
+        n0 = act.LAUNCHES["bias_gelu"]
+        got = kernel()
+        torch.cuda.synchronize()
+        launched = act.LAUNCHES["bias_gelu"] - n0
+        ref = plain()
+        differ = int((got.view(torch.int16) != ref.view(torch.int16)).sum())
+        err = (got.float() - ref.float()).abs().max().item()
+        if differ or launched != 1:
+            fail(f"G1 {label} {list(shape)}: {differ} elements differ from "
+                 f"the plain version (max |err| {err:.3e}); {launched} "
+                 "launches")
+        t_mem = (4 * p.numel() + 4 * b.numel()) / HBM_BYTES_PER_S
+        t_issue = p.numel() * G1_INSTR_PER_ELEMENT / 32 / (
+            sms * 4 * SM_CLOCK_HZ)
+        rec = {"name": "G1", "label": label, "dtype": "bfloat16",
+               "shape": list(shape), "max_abs_err": err,
+               "ms": time_ms(kernel, 50), "device_ms": graph_ms(kernel, 50),
+               "plain_ms": time_ms(plain, 10),
+               "library_ms": time_ms(library, 50),
+               "library_device_ms": graph_ms(library, 50),
+               "bound_ms": max(t_mem, t_issue) * 1e3,
+               "bound_by": "bytes" if t_mem >= t_issue else
+               "instruction issue", "bytes_bound_ms": t_mem * 1e3,
+               "issue_bound_ms": t_issue * 1e3}
+        print(f"[kernel] G1 {label} bf16 {list(shape)}: bit-equal to the "
+              f"plain version; kernel {rec['ms']:.4f} ms, plain "
+              f"{rec['plain_ms']:.4f} ms, F.gelu+bias "
+              f"{rec['library_ms']:.4f} ms; device only: kernel "
+              f"{rec['device_ms']:.4f} ms, F.gelu+bias "
+              f"{rec['library_device_ms']:.4f} ms; bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; bytes "
+              f"{rec['bytes_bound_ms']:.4f}, issue "
+              f"{rec['issue_bound_ms']:.4f} at {sms} SMs)", flush=True)
+        recs.append(rec)
+    return recs
 
 
 # ---------------------------------------------------------------------------
@@ -828,7 +918,6 @@ def rescore(s1, s2, tok, bank, names, queries, skip, dtype, device,
 
 
 def main_path():
-    from candidate_reranking_cir_tpu_torch.ops import cuda_attention as ck
     from candidate_reranking_cir_tpu_torch.retrieval.index import build_index
     from candidate_reranking_cir_tpu_torch.retrieval.rerank import (
         rerank_candidate_major,
@@ -851,10 +940,10 @@ def main_path():
     # counted run on all of them
     evaluate_cirr_stage2_datasets(s1, None, s2, None, tok, corpus,
                                   queries[:8], **kw)
-    ck.reset_launch_counts()
+    reset_launch_counts()
     res = evaluate_cirr_stage2_datasets(s1, None, s2, None, tok, corpus,
                                         queries, **kw)
-    launches = dict(ck.LAUNCHES)
+    launches = launch_counts()
     out = res.rerank
     n_pairs = int((~skip).sum()) * TOPK + N_QUERIES * 5
     rerank_s = res.seconds["zt"] + res.seconds["score"]
@@ -1122,15 +1211,12 @@ def timed_steps(tag: str, step, batches, seed: int, n_steps: int):
     count set to 0 just before them and read just after; prints the
     seconds the cyclic garbage collector took inside each counted step.
     Returns (seconds, losses, launches, peak GiB, text widths)."""
-    from candidate_reranking_cir_tpu_torch.ops import attention_train as tat
-    from candidate_reranking_cir_tpu_torch.ops import cuda_attention as ck
 
     gc.collect()  # earlier phases' garbage is not this path's
     loss = step(next(batches), seed)
     torch.cuda.synchronize()
     print(f"[{tag}] warm-up step: loss {float(loss):.4f}", flush=True)
-    ck.reset_launch_counts()
-    tat.reset_launch_counts()
+    reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     seconds, losses, widths, gc_seconds = [], [], [], []
     clock = GcClock()
@@ -1150,7 +1236,7 @@ def timed_steps(tag: str, step, batches, seed: int, n_steps: int):
         gc.callbacks.remove(clock)
     print(f"[{tag}] cyclic gc seconds inside each counted step "
           f"{[round(x, 4) for x in gc_seconds]}", flush=True)
-    launches = {**ck.LAUNCHES, **tat.LAUNCHES}
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if not all(np.isfinite(losses)):
         fail(f"non-finite {tag} loss")
@@ -1735,7 +1821,6 @@ def stage1_eval_path(tok, words, queries: list[dict]) -> dict:
         load_topk_file,
         save_topk_file,
     )
-    from candidate_reranking_cir_tpu_torch.ops import cuda_attention as ck
     from candidate_reranking_cir_tpu_torch.retrieval.index import build_index
     from candidate_reranking_cir_tpu_torch.retrieval.validate2_engine import (
         evaluate_cirr_stage2_datasets,
@@ -1765,9 +1850,9 @@ def stage1_eval_path(tok, words, queries: list[dict]) -> dict:
           f"{time.perf_counter() - t0:.1f} s; {len(queries)} queries",
           flush=True)
     gc.collect()
-    ck.reset_launch_counts()
+    reset_launch_counts()
     res, payload = evaluate_cirr_stage1(s1, None, corpus, queries, tok, **kw)
-    launches = dict(ck.LAUNCHES)
+    launches = launch_counts()
     sec = res.seconds
     print(f"[stage1_eval] seconds {json.dumps(sec)} (index: corpus embed "
           f"at batch {S1E_EMBED_BATCH}, the host-to-card copy of the images "
@@ -1783,8 +1868,9 @@ def stage1_eval_path(tok, words, queries: list[dict]) -> dict:
                       for (q, w, g), n in sorted(fams.items())), flush=True)
     print(f"[stage1_eval] metrics {json.dumps(res.metrics)}", flush=True)
     if not (launches["K1"] > 0 and launches["K2"] > 0
-            and launches["K3"] == 0):
-        fail(f"stage-I eval launches {launches}: K1 and K2 must run, K3 not")
+            and launches["G1"] > 0 and launches["K3"] == 0):
+        fail(f"stage-I eval launches {launches}: K1, K2 and G1 must run, K3 "
+             "not")
     for key, val in res.metrics.items():
         if not 0.0 <= val <= 100.0:
             fail(f"stage-I metric {key} = {val} out of range")
@@ -2482,7 +2568,8 @@ def serving_path(tok, words, corpus: Corpus) -> dict:
         print(f"[serve] launches {json.dumps(launches)}", flush=True)
         if not all(launches[k] > 0 for k in MAIN_PATH_KERNELS) or any(
                 launches[k] for k in launches if k not in MAIN_PATH_KERNELS):
-            fail(f"serving launches {launches}: K1-K3 must run, K4-K9 not")
+            fail(f"serving launches {launches}: K1-K3 and G1 must run, "
+                 "K4-K9 not")
         if index.n_valid != len(corpus) or any(
                 nm in index.pos for nm in removed) or not all(
                 nm in index.pos for nm in added):
@@ -2792,18 +2879,22 @@ def compare_train_states(a_dir, b_dir) -> dict:
 
 
 def launch_counts() -> dict:
+    """Launches of K1-K9 and G1 since the last ``reset_launch_counts``."""
+    from candidate_reranking_cir_tpu_torch.ops import activation as act
     from candidate_reranking_cir_tpu_torch.ops import attention_train as tat
     from candidate_reranking_cir_tpu_torch.ops import cuda_attention as ck
 
-    return {**ck.LAUNCHES, **tat.LAUNCHES}
+    return {**ck.LAUNCHES, **tat.LAUNCHES, "G1": act.LAUNCHES["bias_gelu"]}
 
 
 def reset_launch_counts() -> None:
+    from candidate_reranking_cir_tpu_torch.ops import activation as act
     from candidate_reranking_cir_tpu_torch.ops import attention_train as tat
     from candidate_reranking_cir_tpu_torch.ops import cuda_attention as ck
 
     ck.reset_launch_counts()
     tat.reset_launch_counts()
+    act.reset_launch_counts()
 
 
 def remat_memory(tok, words) -> dict:
@@ -3387,7 +3478,7 @@ def caption_path(tok) -> dict:
               f"{CAP_B * steps / seconds:.1f} tokens/s ({CAP_B} rows x "
               f"{steps} steps); ids {list(ids.shape)}, first row "
               f"{ids[0].tolist()}", flush=True)
-    for kid in ("K1", "K2", "K3"):
+    for kid in ("K1", "K2", "K3", "G1"):
         if launches[kid] <= 0:
             fail(f"{kid} was not launched on the caption path")
     for kid in ("K4", "K5", "K6", "K7", "K8", "K9"):
@@ -3870,11 +3961,11 @@ def build_native() -> tuple[str | None, float]:
 
 
 def build_libraries() -> bool:
-    """Both kernel libraries, one nvcc each, and the native host libraries
-    (``make -C native``), started together; ptxas's register and spill
-    lines of every kernel (the tensor-core kernels' must be among them
-    when a library was built), and the tensor-core kernels' dynamic shared
-    memory. Returns whether the native libraries were built; if not, a
+    """The three kernel libraries, one nvcc each, and the native host
+    libraries (``make -C native``), started together; ptxas's register and
+    spill lines of every kernel (the tensor-core kernels' and G1's must be
+    among them when a library was built), and the tensor-core kernels'
+    dynamic shared memory. Returns whether the native libraries were built; if not, a
     ``[native] unavailable`` line says what is missing."""
     from candidate_reranking_cir_tpu_torch.ops import attention_train as tat
     from candidate_reranking_cir_tpu_torch.ops.build import (
@@ -3883,8 +3974,8 @@ def build_libraries() -> bool:
         load_attention_train_library,
     )
 
-    names = ("attention", "attention_train")
-    with ThreadPoolExecutor(3) as pool:
+    names = ("attention", "attention_train", "activation")
+    with ThreadPoolExecutor(4) as pool:
         native = pool.submit(build_native)
         built = list(pool.map(build, names))
         native_missing_what, native_s = native.result()
@@ -3905,7 +3996,9 @@ def build_libraries() -> bool:
                                       "attn_train_bwd_tc_rows_kernel",
                                       "attn_train_bwd_tc_keys_kernel",
                                       "attn_bwd_tc_rows_kernel",
-                                      "attn_bwd_tc_keys_kernel")}[name]
+                                      "attn_bwd_tc_keys_kernel"),
+                  "activation": ("bias_gelu_vec_kernel",
+                                 "bias_gelu_scalar_kernel")}[name]
         for kernel in wanted:
             if log and kernel not in log:
                 fail(f"ptxas reported no {kernel}")
@@ -4267,6 +4360,8 @@ def main():
                 records[case[0]] = rec
     for case, d in NARROW_CASES:
         run_kernel_case(*case, torch.bfloat16, d=d)
+    # the JSON line keeps G1 at the ViT's shape
+    records["G1"] = run_bias_gelu_cases()[0]
     for dtype in (torch.float32, torch.bfloat16):
         recs = run_train_kernel_cases(dtype)
         if dtype == torch.bfloat16:
@@ -4296,7 +4391,7 @@ def main():
     mesh = mesh_path(tok, words)
 
     kernels = []
-    for kid in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9"):
+    for kid in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "G1"):
         rec = records[kid]
         # K1-K4: launches on the two eval paths (stage II, then stage I);
         # K6/K7 on the stage-II training path; K8/K9 on the stage-I one; K5
@@ -4310,19 +4405,22 @@ def main():
         # its capture; a replay adds none) under "single_program", K5-K9
         # the dropout layouts' card runs (phase 15 (b), (c)) under
         # "dropout_layouts"
-        if kid in launches:
+        # G1 runs in every FFN: it counts on the eval paths, both training
+        # paths and the dropout layouts
+        by_path = {}
+        if kid in EVAL_KERNELS or kid == "G1":
             by_path = {"stage2_eval": launches[kid],
                        "stage1_eval": s1e_launches[kid],
                        "serve": serve_launches[kid],
                        "single_program": p15["single_program"][kid]}
-        elif kid == "K5":
-            by_path = {"stage2_train": train["launches"]["K5"],
-                       "stage1_train": stage1["launches"]["K5"]}
+        if kid in ("K5", "G1"):
+            by_path.update(stage2_train=train["launches"][kid],
+                           stage1_train=stage1["launches"][kid])
         elif kid in ("K8", "K9"):
-            by_path = {"stage1_train": stage1["launches"][kid]}
-        else:
-            by_path = {"stage2_train": train["launches"][kid]}
-        if kid not in launches:
+            by_path["stage1_train"] = stage1["launches"][kid]
+        elif kid in ("K6", "K7"):
+            by_path["stage2_train"] = train["launches"][kid]
+        if kid not in EVAL_KERNELS:
             by_path["dropout_layouts"] = p15["dropout_layouts"][kid]
         by_path["train_cli"] = cli["launches"][kid]
         by_path["caption"] = caption["launches"][kid]
@@ -4338,7 +4436,8 @@ def main():
             "shape": rec["shape"], "dtype": rec["dtype"],
             "launches_by_path": by_path,
             **{key: rec[key] for key in ("device_ms", "library_device_ms",
-                                         "sdpa_own_mask_ms") if key in rec}})
+                                         "sdpa_own_mask_ms", "bytes_bound_ms",
+                                         "issue_bound_ms") if key in rec}})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
