@@ -10,6 +10,12 @@ Absent: the attention-kernel switches and the ViT's scan unroll (the
 port's attention always routes through its kernels, ``ops/attention.py``,
 and its blocks are a Python loop) and the text encoder's ``pad_token_id``
 (no port module reads it); ``load_config`` ignores them in a file.
+
+Port-only: BLIP-2's stage-I retrieval model (``Blip2RetrievalModelConfig``,
+``models/blip2_retrieval.py``), which the JAX package lacks, with the two
+ViT keys its EVA ViT-g tower needs (``qkv_bias``, ``final_norm_eps``;
+off by default). ``load_config`` reads a ``stage1`` that holds
+``num_query_tokens`` as BLIP-2's.
 """
 from __future__ import annotations
 
@@ -78,6 +84,12 @@ class ViTConfig:
     drop_path_rate: float = 0.0      # stage-II uses 0.1 (reference blip_stage2.py:37)
     remat: bool = False              # recompute each block in backward
     remat_policy: str = ""           # '' | 'dots' (see TextEncoderConfig)
+    # the q/k/v projections that carry a bias: 'qkv', or 'qv' (EVA ViT-g,
+    # BLIP-2's tower: learned q and v biases, none on k)
+    qkv_bias: str = "qkv"
+    # the final LayerNorm's eps where it differs from the blocks' (BLIP-2's
+    # ln_vision, 1e-5, after EVA ViT-g's 1e-6 blocks); None: layer_norm_eps
+    final_norm_eps: float | None = None
 
     @property
     def num_patches(self) -> int:
@@ -93,14 +105,23 @@ class ViTConfig:
 
 
 def vit_config(size: str = "base", image_size: int = 384, **kw) -> ViTConfig:
-    """'base' (ViT-B/16) or 'large' (ViT-L/16), as in reference blip.py."""
+    """'base' (ViT-B/16) or 'large' (ViT-L/16), as in reference blip.py; 'g'
+    (EVA ViT-g/14, LAVIS ``eva_vit.py::create_eva_vit_g``: 39 blocks of
+    1408, 16 heads of 88, MLP int(1408 * 4.3637) = 6144, q and v biases;
+    its final norm is BLIP-2's ``ln_vision``, eps 1e-5)."""
     if size == "base":
         return ViTConfig(image_size=image_size, hidden_size=768, num_layers=12,
                          num_heads=12, **kw)
     if size == "large":
         return ViTConfig(image_size=image_size, hidden_size=1024, num_layers=24,
                          num_heads=16, **kw)
-    raise ValueError(f"unknown vit size {size!r} (expected 'base' or 'large')")
+    if size == "g":
+        return ViTConfig(image_size=image_size, patch_size=14,
+                         hidden_size=1408, num_layers=39, num_heads=16,
+                         mlp_ratio=4.3637, qkv_bias="qv", final_norm_eps=1e-5,
+                         **kw)
+    raise ValueError(f"unknown vit size {size!r} (expected 'base', 'large' "
+                     "or 'g')")
 
 
 @dataclass(frozen=True)
@@ -112,6 +133,25 @@ class RetrievalModelConfig:
     embed_dim: int = 256
     temp_init: float = 0.07
     text_len: int = 40
+
+
+@dataclass(frozen=True)
+class Blip2RetrievalModelConfig:
+    """BLIP-2's image-text retrieval model as a stage-I model (Li et al.
+    2023, arXiv:2301.12597; LAVIS ``blip2_qformer.py``,
+    ``blip2_pretrain.yaml``): EVA ViT-g/14 at 224 with ``ln_vision``, and a
+    BERT-base Q-Former (``text``: vocabulary 30,522 + [DEC], cross-attention
+    from ``encoder_width`` 1408) with ``num_query_tokens`` learned queries,
+    cross-attending in every ``cross_attention_freq``-th layer; captions of
+    at most ``text_len`` tokens (LAVIS's ``max_txt_len``)."""
+
+    vit: ViTConfig = field(default_factory=lambda: vit_config("g", 224))
+    text: TextEncoderConfig = field(default_factory=lambda: TextEncoderConfig(
+        vocab_size=30523, encoder_width=1408))
+    num_query_tokens: int = 32
+    cross_attention_freq: int = 2
+    embed_dim: int = 256
+    text_len: int = 32
 
 
 @dataclass(frozen=True)
@@ -165,7 +205,8 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class ExperimentConfig:
-    stage1: RetrievalModelConfig = field(default_factory=RetrievalModelConfig)
+    stage1: RetrievalModelConfig | Blip2RetrievalModelConfig = field(
+        default_factory=RetrievalModelConfig)
     stage2: RerankerModelConfig = field(default_factory=RerankerModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     data: DataConfig = field(default_factory=DataConfig)
@@ -189,14 +230,17 @@ _NESTED = {
 
 
 def _from_dict(cls, d: dict[str, Any]):
-    """``cls`` from a dict: nested configs by field name, lists of dress
-    types as tuples; keys ``cls`` has no field for are ignored."""
+    """``cls`` from a dict: nested configs by field name (a ``stage1``
+    with ``num_query_tokens`` as BLIP-2's), lists of dress types as tuples;
+    keys ``cls`` has no field for are ignored."""
     kw = {}
     for f in dataclasses.fields(cls):
         if f.name not in d:
             continue
         v = d[f.name]
-        if f.name in _NESTED:
+        if f.name == "stage1" and "num_query_tokens" in v:
+            v = _from_dict(Blip2RetrievalModelConfig, v)
+        elif f.name in _NESTED:
             v = _from_dict(_NESTED[f.name], v)
         elif f.name == "dress_types":
             v = tuple(v)

@@ -8,7 +8,9 @@
 // Per (entry e, head h): out = softmax(q*d^-1/2 . k^T + bias) . v with
 //   - fp32 scores times the scale (the JAX package folds a power-of-two
 //     scale into q, which gives the same bits; the kernels take d = 64,
-//     and the wrappers zero-pad narrower heads and pass their own scale),
+//     and the wrappers zero-pad narrower heads and pass their own scale;
+//     the tensor-core kernel also takes d = 88 without a bias, in place:
+//     EVA ViT-g's heads, BLIP-2's vision tower),
 //   - max-subtracted exp, a sum, and a DIVIDE (not a
 //     reciprocal multiply), as pallas_attention.py:_head_attention does,
 //   - the probabilities rounded to the input type before P.V,
@@ -77,22 +79,25 @@ int launch(const void* q, const void* k, const void* v, const float* bias,
 }
 
 // The tensor-core kernel with kWarpgroups warpgroups (64 query rows each)
-// a block. Its attributes are set once per device, for the ring's shared
-// memory, the most a launch takes.
-template <int kWarpgroups, bool kHasBias>
+// a block, at head width kDim. Its attributes are set once per device, for
+// the ring's shared memory, the most a launch takes.
+template <int kWarpgroups, bool kHasBias, int kDim>
 int launch_tc_wg(const void* q, const void* k, const void* v,
                  const float* bias, void* out, int entries, int heads,
                  int lq, int m, float scale, const Strides& st,
                  cudaStream_t stream) {
   static std::atomic<bool> done[tc::kMaxDevices];
-  auto kernel = tc::attn_fwd_tc_kernel<kWarpgroups, kHasBias>;
-  const cudaError_t err =
-      tc::configure_once(done, reinterpret_cast<const void*>(kernel),
-                         tc::smem_bytes(kWarpgroups, tc::kTileKeys + 1));
+  constexpr int sub_tiles = tc::HeadLayout<kDim>::kSubTiles;
+  auto kernel = tc::attn_fwd_tc_kernel<kWarpgroups, kHasBias, kDim>;
+  const cudaError_t err = tc::configure_once(
+      done, reinterpret_cast<const void*>(kernel),
+      tc::smem_bytes(kWarpgroups, tc::kTileKeys + 1, tc::kStages,
+                     sub_tiles));
   if (err != cudaSuccess) return static_cast<int>(err);
   constexpr int rows = kWarpgroups * tc::kRowsPerWg;
   const dim3 grid((lq + rows - 1) / rows, heads, entries);
-  kernel<<<grid, kWarpgroups * 128, tc::smem_bytes(kWarpgroups, m),
+  kernel<<<grid, kWarpgroups * 128,
+           tc::smem_bytes(kWarpgroups, m, tc::kStages, sub_tiles),
            stream>>>(static_cast<const __nv_bfloat16*>(q),
                      static_cast<const __nv_bfloat16*>(k),
                      static_cast<const __nv_bfloat16*>(v), bias,
@@ -102,15 +107,17 @@ int launch_tc_wg(const void* q, const void* k, const void* v,
 
 // One warpgroup (64 rows) per block up to 64 query rows, two above. The
 // caller has checked the alignment (tc::aligned()).
-template <bool kHasBias>
+template <bool kHasBias, int kDim = kHeadDim>
 int launch_tc(const void* q, const void* k, const void* v, const float* bias,
               void* out, int entries, int heads, int lq, int m, float scale,
               const Strides& st, cudaStream_t stream) {
   return lq > tc::kRowsPerWg
-             ? launch_tc_wg<2, kHasBias>(q, k, v, bias, out, entries, heads,
-                                         lq, m, scale, st, stream)
-             : launch_tc_wg<1, kHasBias>(q, k, v, bias, out, entries, heads,
-                                         lq, m, scale, st, stream);
+             ? launch_tc_wg<2, kHasBias, kDim>(q, k, v, bias, out, entries,
+                                               heads, lq, m, scale, st,
+                                               stream)
+             : launch_tc_wg<1, kHasBias, kDim>(q, k, v, bias, out, entries,
+                                               heads, lq, m, scale, st,
+                                               stream);
 }
 
 }  // namespace
@@ -128,22 +135,32 @@ int crc_attention_tc_smem_bytes(int warpgroups, int m) {
 // What crc_attention_forward refuses, as negative codes (a positive code
 // is a cudaError_t): more keys than the fp32-FMA kernel's score rows hold
 // in shared memory (fwd_max_keys()); on the tensor-core route a base
-// pointer or stride that is not aligned (tc::aligned()).
+// pointer or stride that is not aligned (tc::aligned()); a head width
+// other than kHeadDim, or kWideHeadDim in bf16 without a bias.
 constexpr int kRefusedKeys = -1;
 constexpr int kRefusedAlignment = -2;
+constexpr int kRefusedHeadDim = -3;
 
-// dtype: 0 = float32, 1 = bfloat16. bias: null, or fp32 with strides
-// strides[12..13]. strides: q, k, v, out as (entry, row, head) triples.
-// Routes bf16 to the tensor-core kernel, fp32 to attn_fwd_kernel. Returns
-// the launch's cudaGetLastError() (0 = success), cudaErrorInvalidValue
-// for an empty axis or an unknown dtype, or one of the refusals above.
-int crc_attention_forward(int dtype, const void* q, const void* k,
-                          const void* v, const float* bias, void* out,
-                          const long long* strides, int entries, int heads,
-                          int lq, int m, float scale, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16. head_dim: kHeadDim, or kWideHeadDim
+// (bf16, no bias). bias: null, or fp32 with strides strides[12..13].
+// strides: q, k, v, out as (entry, row, head) triples. Routes bf16 to the
+// tensor-core kernel, fp32 to attn_fwd_kernel. Returns the launch's
+// cudaGetLastError() (0 = success), cudaErrorInvalidValue for an empty axis
+// or an unknown dtype, or one of the refusals above.
+int crc_attention_forward(int dtype, int head_dim, const void* q,
+                          const void* k, const void* v, const float* bias,
+                          void* out, const long long* strides, int entries,
+                          int heads, int lq, int m, float scale,
+                          void* stream) {
   const Strides st = unpack_strides(strides);
   if (m < 1 || lq < 1) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
+  if (head_dim == tc::kWideHeadDim && dtype == 1 && !bias) {
+    if (!tc::aligned(q, k, v, out, st)) return kRefusedAlignment;
+    return launch_tc<false, tc::kWideHeadDim>(q, k, v, bias, out, entries,
+                                              heads, lq, m, scale, st, s);
+  }
+  if (head_dim != kHeadDim) return kRefusedHeadDim;
   if (dtype == 1) {
     if (!tc::aligned(q, k, v, out, st)) return kRefusedAlignment;
     return bias ? launch_tc<true>(q, k, v, bias, out, entries, heads, lq, m,

@@ -88,6 +88,22 @@
 // copies need, and the output's 4-byte aligned (it is written as bf16
 // pairs); the C entry point refuses anything else (aligned()). The bias
 // takes any fp32 strides.
+//
+// Head width 88 (kWideHeadDim: EVA ViT-g's 16 heads of 1408, BLIP-2's
+// vision tower), without a bias: the kDim template argument of the body and
+// of attn_fwd_tc_kernel (64 everywhere else). An 88-wide row is 176 bytes,
+// eleven 16-byte chunks, so the heads are read in place and the padding to
+// the products' widths happens in shared memory (HeadLayout): a row of a
+// tile is two 64-lane sub-tiles, each laid out as a d = 64 tile is (the
+// same swizzle and descriptors), the second holding lanes 64..87 and a
+// zero-filled chunk for lanes 88..95. S = Q.K^T takes six k-steps of 16
+// (lanes 0..95, the last eight zeros in Q and K); P.V takes one m64n64 per
+// sub-tile (lanes 0..127), and only lanes 0..87 are stored. The products
+// run 96/88 (S) and 128/88 (P.V) of the work the head needs; at ViT-g's
+// 257 x 257 the attention is about 3% of the tower's operations, and bytes,
+// not the products, bound it (128 operations a byte against the card's
+// 295). The two accumulators take 32 more registers a thread, so the wide
+// kernel asks for one block an SM in its launch bounds.
 
 #pragma once
 
@@ -106,12 +122,34 @@ constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = 2^(x log2 e)
 
 static_assert(kHeadDim == 64, "a tile row is one 128-byte swizzle row");
 
+constexpr int kWideHeadDim = 88;  // the other head width (no bias)
+
+// A head of kDim lanes in shared memory: kSubTiles 64-lane sub-tiles of
+// kTileBytes each (a d = 64 tile's layout), kChunks 16-byte chunks of the
+// head a row, kLoadChunks copied a row (the head rounded up to a k-step of
+// 16 lanes; the chunks past the head zero-filled), kKSteps k-steps of S.
+template <int kDim>
+struct HeadLayout {
+  static_assert(kDim % 8 == 0 && kDim <= 128, "8..128 lanes in 16-byte chunks");
+  static constexpr int kChunks = kDim / 8;
+  static constexpr int kLoadChunks = (kDim + 15) / 16 * 2;
+  static constexpr int kSubTiles = (kDim + 63) / 64;
+  static constexpr int kKSteps = (kDim + 15) / 16;
+  static constexpr int kBytes = kSubTiles * kTileBytes;
+  // the bf16 pairs of the last sub-tile's accumulator columns a row stores
+  static constexpr int kLastPairs = (kDim - 64 * (kSubTiles - 1)) / 8;
+};
+
 // Dynamic shared memory: Q tiles (one per warpgroup), then a ring of
 // `stages` (K, V) tile pairs, of which one key tile (m <= 64) uses the
 // first only; +1 KB to align the start to the 1,024-byte swizzle atom.
-inline size_t smem_bytes(int warpgroups, int m, int stages = kStages) {
+// `sub_tiles`: HeadLayout's kSubTiles (a tile of a wide head is that many
+// d = 64 tiles).
+inline size_t smem_bytes(int warpgroups, int m, int stages = kStages,
+                         int sub_tiles = 1) {
   if (m <= kTileKeys) stages = 1;
-  return static_cast<size_t>(warpgroups + 2 * stages) * kTileBytes + 1024;
+  return static_cast<size_t>(warpgroups + 2 * stages) * sub_tiles *
+             kTileBytes + 1024;
 }
 
 // Byte offset of 16-byte chunk c of row r in a 128-byte-swizzled tile
@@ -153,24 +191,53 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// Rows [row0, row0 + 64) of a [rows, 64] bf16 view into a swizzled tile;
-// rows at or past `rows` are zero-filled (and read no memory). kHint: the
-// copies carry the L2 `policy`.
-template <bool kHint = false>
+// Chunk i of a tile's copy, of kLoadChunks a row: its row r, its chunk c
+// within the row, and whether c lies inside the head (chunks past it are
+// zero-filled and read no memory). At d = 64 a row is eight chunks, all of
+// the head.
+template <int kDim>
+__device__ __forceinline__ void tile_chunk(int i, int& r, int& c,
+                                           bool& in_head) {
+  using L = HeadLayout<kDim>;
+  if constexpr (L::kLoadChunks == 8) {
+    r = i >> 3;
+    c = i & 7;
+  } else {
+    r = i / L::kLoadChunks;
+    c = i % L::kLoadChunks;
+  }
+  in_head = L::kChunks == L::kLoadChunks || c < L::kChunks;
+}
+
+// Where chunk c of row r lands: its sub-tile, then the 128-byte swizzle.
+template <int kDim>
+__device__ __forceinline__ uint32_t chunk_at(int r, int c) {
+  if constexpr (HeadLayout<kDim>::kSubTiles == 1) return swz(r, c);
+  return static_cast<uint32_t>((c >> 3) * kTileBytes) + swz(r, c & 7);
+}
+
+// Rows [row0, row0 + 64) of a [rows, kDim] bf16 view into a swizzled tile
+// (HeadLayout<kDim>); rows at or past `rows` are zero-filled (and read no
+// memory). kHint: the copies carry the L2 `policy`.
+template <bool kHint = false, int kDim = kHeadDim>
 __device__ __forceinline__ void load_tile(uint32_t dst,
                                           const __nv_bfloat16* base,
                                           long long row_stride, int row0,
                                           int rows, int tid, int nthreads,
                                           uint64_t policy = 0) {
-  for (int i = tid; i < kTileKeys * 8; i += nthreads) {
-    const int r = i >> 3, c = i & 7;
+  for (int i = tid; i < kTileKeys * HeadLayout<kDim>::kLoadChunks;
+       i += nthreads) {
+    int r, c;
+    bool in_head;
+    tile_chunk<kDim>(i, r, c, in_head);
     const int row = row0 + r;
-    const bool ok = row < rows;
-    const __nv_bfloat16* src = base + (ok ? row : 0) * row_stride + c * 8;
+    const bool ok = row < rows && in_head;
+    const __nv_bfloat16* src =
+        base + (ok ? row : 0) * row_stride + (in_head ? c : 0) * 8;
     if constexpr (kHint)
-      cp_async16_hint(dst + swz(r, c), src, ok ? 16 : 0, policy);
+      cp_async16_hint(dst + chunk_at<kDim>(r, c), src, ok ? 16 : 0, policy);
     else
-      cp_async16(dst + swz(r, c), src, ok ? 16 : 0);
+      cp_async16(dst + chunk_at<kDim>(r, c), src, ok ? 16 : 0);
   }
 }
 
@@ -183,18 +250,23 @@ __device__ __forceinline__ int tile_row(int w, int h, int i, int rot) {
   return 32 * h + 8 * ((w + rot) & 3) + i;
 }
 
-// The Q tile of rows [row0, row0 + 64) of a [rows, 64] bf16 view in
+// The Q tile of rows [row0, row0 + 64) of a [rows, kDim] bf16 view in
 // tile_row()'s order; rows at or past `rows` are zero-filled.
+template <int kDim = kHeadDim>
 __device__ __forceinline__ void load_q_tile(uint32_t dst,
                                             const __nv_bfloat16* base,
                                             long long row_stride, int row0,
                                             int rows, int rot, int tid,
                                             int nthreads) {
-  for (int i = tid; i < kRowsPerWg * 8; i += nthreads) {
-    const int r = i >> 3, c = i & 7;
+  for (int i = tid; i < kRowsPerWg * HeadLayout<kDim>::kLoadChunks;
+       i += nthreads) {
+    int r, c;
+    bool in_head;
+    tile_chunk<kDim>(i, r, c, in_head);
     const int row = row0 + tile_row(r >> 4, (r >> 3) & 1, r & 7, rot);
-    const bool ok = row < rows;
-    cp_async16(dst + swz(r, c), base + (ok ? row : 0) * row_stride + c * 8,
+    const bool ok = row < rows && in_head;
+    cp_async16(dst + chunk_at<kDim>(r, c),
+               base + (ok ? row : 0) * row_stride + (in_head ? c : 0) * 8,
                ok ? 16 : 0);
   }
 }
@@ -398,15 +470,18 @@ __device__ __forceinline__ void tile_probs(const float (&s)[32], int key0,
     }
 }
 
-// S = Q.K^T for one warpgroup: Q [64 x 64] and K [64 keys x 64], both
-// swizzled tiles; 4 k-steps of 16 (32 bytes along each 128-byte row).
+// S = Q.K^T for one warpgroup: Q [64 x kDim] and K [64 keys x kDim],
+// both swizzled tiles (HeadLayout<kDim>); k-steps of 16 (32 bytes along
+// each 128-byte row of a sub-tile, four a sub-tile).
+template <int kDim = kHeadDim>
 __device__ __forceinline__ void scores(float (&s)[32], uint32_t q_tile,
                                        uint32_t k_tile) {
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kHeadDim / 16; ++kk)
-    wgmma_ss(s, desc_sw128(q_tile + 32 * kk), desc_sw128(k_tile + 32 * kk),
-             kk > 0);
+  for (int kk = 0; kk < HeadLayout<kDim>::kKSteps; ++kk) {
+    const uint32_t at = (kk >> 2) * kTileBytes + 32 * (kk & 3);
+    wgmma_ss(s, desc_sw128(q_tile + at), desc_sw128(k_tile + at), kk > 0);
+  }
   wgmma_commit();
   wgmma_wait_all();
   fence_acc(s);
@@ -420,26 +495,28 @@ __device__ __forceinline__ void scores(float (&s)[32], uint32_t q_tile,
 // strides st.b. kDropout: K6's dropout in sweep 2 (tile_probs), the mask
 // keyed by the absolute entry blockIdx.z, the head and the absolute row
 // and key. kRing: the (K, V) ring's stages. kStreamSweep2: sweep 2's
-// copies carry an evict-first L2 policy (they are read once). The eval
-// kernels (attn_fwd_tc_kernel), K6 (attn_train_fwd_tc_kernel) and K8
+// copies carry an evict-first L2 policy (they are read once). kDim: the
+// head width (HeadLayout; P.V accumulates one m64n64 a sub-tile). The
+// eval kernels (attn_fwd_tc_kernel), K6 (attn_train_fwd_tc_kernel) and K8
 // (attn_train_fwd_folded_tc_kernel, attention_train_tc.cuh) are
 // __global__ entry points of their own over this body.
 template <int kWarpgroups, bool kHasBias, bool kDropout, int kRing = kStages,
-          bool kStreamSweep2 = false>
+          bool kStreamSweep2 = false, int kDim = kHeadDim>
 __device__ __forceinline__ void attn_fwd_tc_body(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
     __nv_bfloat16* __restrict__ out, int lq, int m, float scale,
     const Strides& st, const Dropout& drop) {
   static_assert(kRing >= 2, "a step's tiles and the next step's");
+  using L = HeadLayout<kDim>;
   constexpr int kThreadsTc = kWarpgroups * 128;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw =
       static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
   const uint32_t base = (raw + 1023u) & ~1023u;
   const uint32_t q_tiles = base;
-  const uint32_t ring = base + kWarpgroups * kTileBytes;
-  // stage s: K tile at ring + 2s * kTileBytes, V tile right after it
+  const uint32_t ring = base + kWarpgroups * L::kBytes;
+  // stage s: K tile at ring + 2s * L::kBytes, V tile right after it
 
   const int tid = threadIdx.x;
   const int wg = tid / 128;
@@ -466,32 +543,33 @@ __device__ __forceinline__ void attn_fwd_tc_body(
   auto load_step = [&](int step) {
     const int stage = step % kRing;
     const int j = step < n_tiles ? step : step - n_tiles;
-    const uint32_t kt = ring + 2 * stage * kTileBytes;
+    const uint32_t kt = ring + 2 * stage * L::kBytes;
     if (kStreamSweep2 && step >= n_tiles) {
-      load_tile<true>(kt, kb, st.k[1], j * kTileKeys, m, tid, kThreadsTc,
-                      sweep2_policy);
-      load_tile<true>(kt + kTileBytes, vb, st.v[1], j * kTileKeys, m, tid,
-                      kThreadsTc, sweep2_policy);
+      load_tile<true, kDim>(kt, kb, st.k[1], j * kTileKeys, m, tid,
+                            kThreadsTc, sweep2_policy);
+      load_tile<true, kDim>(kt + L::kBytes, vb, st.v[1], j * kTileKeys, m,
+                            tid, kThreadsTc, sweep2_policy);
       return;
     }
-    load_tile(kt, kb, st.k[1], j * kTileKeys, m, tid, kThreadsTc);
+    load_tile<false, kDim>(kt, kb, st.k[1], j * kTileKeys, m, tid,
+                           kThreadsTc);
     if (single || step >= n_tiles)
-      load_tile(kt + kTileBytes, vb, st.v[1], j * kTileKeys, m, tid,
-                kThreadsTc);
+      load_tile<false, kDim>(kt + L::kBytes, vb, st.v[1], j * kTileKeys, m,
+                             tid, kThreadsTc);
   };
 
   // prologue: the Q tiles ride with step 0's group
 #pragma unroll
   for (int w = 0; w < kWarpgroups; ++w)
-    load_q_tile(q_tiles + w * kTileBytes, qb, st.q[1],
-                block_row0 + w * kRowsPerWg, lq, rot, tid, kThreadsTc);
+    load_q_tile<kDim>(q_tiles + w * L::kBytes, qb, st.q[1],
+                      block_row0 + w * kRowsPerWg, lq, rot, tid, kThreadsTc);
 #pragma unroll
   for (int s = 0; s < kRing - 1; ++s) {
     if (s < n_steps) load_step(s);
     cp_async_commit();
   }
 
-  const uint32_t my_q = q_tiles + wg * kTileBytes;
+  const uint32_t my_q = q_tiles + wg * L::kBytes;
   const int quad = lane & 3;
   // exp(x) = 2^(c * x) with x the scaled score; without a bias the scale
   // rides in c, with one it is already in t
@@ -510,9 +588,11 @@ __device__ __forceinline__ void attn_fwd_tc_body(
   float row_max[2] = {-INFINITY, -INFINITY};
   float row_sum[2] = {0.f, 0.f};
   float neg_mc[2], inv[2];
-  float o[32];
+  float o[L::kSubTiles][32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int u = 0; u < L::kSubTiles; ++u)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[u][i] = 0.f;
 
   for (int step = 0; step < n_steps; ++step) {
     cp_async_wait<kRing - 2>();  // this step's tiles have landed
@@ -522,12 +602,12 @@ __device__ __forceinline__ void attn_fwd_tc_body(
     cp_async_commit();
 
     const int stage = step % kRing;
-    const uint32_t kt = ring + 2 * stage * kTileBytes;
+    const uint32_t kt = ring + 2 * stage * L::kBytes;
     const bool sweep1 = step < n_tiles;
     const int key0 = (sweep1 ? step : step - n_tiles) * kTileKeys;
     const bool ragged = key0 + kTileKeys > m;  // only the last tile
     float s[32];
-    scores(s, my_q, kt);
+    scores<kDim>(s, my_q, kt);
     if (kHasBias) {
       if (ragged)
         add_bias<true>(s, bb, st.b[1], rows, lq, key0, m, quad, scale);
@@ -582,40 +662,50 @@ __device__ __forceinline__ void attn_fwd_tc_body(
         for (int r = 0; r < 4; ++r) p[kk][r] = 0u;
     }
     wgmma_fence();
-    fence_acc(o);
+#pragma unroll
+    for (int u = 0; u < L::kSubTiles; ++u) fence_acc(o[u]);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs_tn(o, p[kk], desc_sw128(kt + kTileBytes + kk * 16 * 128));
+#pragma unroll
+      for (int u = 0; u < L::kSubTiles; ++u)
+        wgmma_rs_tn(o[u], p[kk], desc_sw128(kt + L::kBytes + u * kTileBytes +
+                                            kk * 16 * 128));
     wgmma_commit();
     wgmma_wait_all();
-    fence_acc(o);
+#pragma unroll
+    for (int u = 0; u < L::kSubTiles; ++u) fence_acc(o[u]);
   }
 
-  // output rows of this thread: its halves' query rows
+  // output rows of this thread: its halves' query rows, the head's lanes
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int row = rows[hh];
     if (row >= lq) continue;
     __nv_bfloat16* orow = ob + row * st.o[1];
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i + 2 * quad) =
-          __floats2bfloat162_rn(o[4 * i + 2 * hh], o[4 * i + 2 * hh + 1]);
+    for (int u = 0; u < L::kSubTiles; ++u)
+#pragma unroll
+      for (int i = 0; i < (u + 1 < L::kSubTiles ? 8 : L::kLastPairs); ++i)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 64 * u + 8 * i +
+                                           2 * quad) =
+            __floats2bfloat162_rn(o[u][4 * i + 2 * hh],
+                                  o[u][4 * i + 2 * hh + 1]);
   }
 }
 
-// K1-K4 in bf16
-template <int kWarpgroups, bool kHasBias>
-__global__ void __launch_bounds__(kWarpgroups * 128, 4 / kWarpgroups)
+// K1-K4 in bf16; kDim the head width (64, or kWideHeadDim without a
+// bias), a template argument so that a trace names the width
+template <int kWarpgroups, bool kHasBias, int kDim>
+__global__ void __launch_bounds__(kWarpgroups * 128,
+                                  kDim == kHeadDim ? 4 / kWarpgroups : 1)
 attn_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v,
                    const float* __restrict__ bias,
                    __nv_bfloat16* __restrict__ out, int lq, int m,
                    float scale, Strides st) {
-  attn_fwd_tc_body<kWarpgroups, kHasBias, false>(q, k, v, bias, out, lq, m,
-                                                 scale, st,
-                                                 Dropout{0, 0.f, 1.f});
+  attn_fwd_tc_body<kWarpgroups, kHasBias, false, kStages, false, kDim>(
+      q, k, v, bias, out, lq, m, scale, st, Dropout{0, 0.f, 1.f});
 }
 
 #undef CRC_WGMMA_D32

@@ -24,6 +24,11 @@ class RetrievalModel(nn.Module):
     """Built on ``device`` (default 'cuda'; raises without a card unless
     device='cpu'); computes in ``dtype``."""
 
+    # read by the stage-I engine: one pooled target an image, and captions
+    # that open with BLIP's [ENC]
+    multi_vector = False
+    enc_token = True
+
     def __init__(self, cfg: RetrievalModelConfig, dtype=torch.float32,
                  device=None):
         super().__init__()

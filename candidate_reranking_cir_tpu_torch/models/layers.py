@@ -214,7 +214,7 @@ class MultiHeadAttention(nn.Module):
                  kv_features: int | None = None, dtype=torch.float32,
                  device=None, dropout_rate: float = 0.0,
                  capture_attention: bool = False,
-                 perturb_attention: bool = False):
+                 perturb_attention: bool = False, key_bias: bool = True):
         super().__init__()
         width = num_heads * head_dim
         kv_features = out_features if kv_features is None else kv_features
@@ -223,7 +223,8 @@ class MultiHeadAttention(nn.Module):
         self.capture_attention = capture_attention
         self.perturb_attention = perturb_attention
         self.query = Dense(out_features, width, dtype, device)
-        self.key = Dense(kv_features, width, dtype, device)
+        # key_bias False: EVA ViT-g's key projection, which has none
+        self.key = Dense(kv_features, width, dtype, device, bias=key_bias)
         self.value = Dense(kv_features, width, dtype, device)
         self.out = Dense(width, out_features, dtype, device)
 

@@ -3,7 +3,10 @@
 timm-style ViT: space-to-depth patch embedding plus one matmul (the same
 function as the stride-P convolution, without cuDNN), CLS token, learned
 position embeddings, pre-LN blocks with linearly increasing stochastic
-depth, final LayerNorm (eps 1e-6). Images are channel-last [B, H, W, 3],
+depth, final LayerNorm (eps 1e-6). EVA ViT-g/14 (BLIP-2's tower,
+``config.vit_config('g')``) is the same blocks with no key bias
+(``qkv_bias`` 'qv') and BLIP-2's ``ln_vision`` as the final LayerNorm, at
+its own eps (``final_norm_eps``). Images are channel-last [B, H, W, 3],
 as in the JAX package. Training (``deterministic=False``) takes a seed
 table of shape ``seed_shape``: row 0 seeds the embedding dropout, row
 i + 1 block i (its generator, then its attention's kernel seed).
@@ -56,11 +59,15 @@ class ViTBlock(nn.Module):
                  dtype=torch.float32, device=None):
         super().__init__()
         d = cfg.hidden_size
+        if cfg.qkv_bias not in ("qkv", "qv"):
+            raise ValueError(f"unknown qkv_bias {cfg.qkv_bias!r} (expected "
+                             "'qkv' or 'qv')")
         self.drop_path_rate = drop_path_rate
         self.norm1 = LayerNorm(d, cfg.layer_norm_eps, dtype, device)
         self.attn = MultiHeadAttention(cfg.num_heads, cfg.head_dim, d,
                                        dtype=dtype, device=device,
-                                       dropout_rate=cfg.attention_dropout)
+                                       dropout_rate=cfg.attention_dropout,
+                                       key_bias=cfg.qkv_bias == "qkv")
         self.drop = Dropout(cfg.dropout)
         self.norm2 = LayerNorm(d, cfg.layer_norm_eps, dtype, device)
         self.mlp = Mlp(d, int(d * cfg.mlp_ratio), d, dtype, device,
@@ -106,7 +113,9 @@ class VisionTransformer(nn.Module):
         self.blocks = nn.ModuleList(
             ViTBlock(cfg, rate, dtype, device) for rate in rates)
         self.drop = Dropout(cfg.dropout)
-        self.norm = LayerNorm(d, cfg.layer_norm_eps, dtype, device)
+        self.norm = LayerNorm(d, cfg.layer_norm_eps
+                              if cfg.final_norm_eps is None
+                              else cfg.final_norm_eps, dtype, device)
 
     @property
     def seed_shape(self) -> tuple[int, int]:

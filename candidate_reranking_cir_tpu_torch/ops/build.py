@@ -83,7 +83,7 @@ def load_attention_library() -> ctypes.CDLL:
     lib.crc_attention_tc_smem_bytes.argtypes = [i32, i32]
     lib.crc_attention_tc_smem_bytes.restype = i32
     lib.crc_attention_forward.argtypes = [
-        i32, vp, vp, vp, vp, vp, ctypes.POINTER(ctypes.c_longlong),
+        i32, i32, vp, vp, vp, vp, vp, ctypes.POINTER(ctypes.c_longlong),
         i32, i32, i32, i32, ctypes.c_float, vp]
     lib.crc_attention_forward.restype = ctypes.c_int
     return lib

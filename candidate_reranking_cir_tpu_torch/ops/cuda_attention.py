@@ -29,10 +29,15 @@ has each bound).
 Head widths and the scale: the kernels are built for d = 64 (ViT-B/16's
 and the MED's heads). A narrower head (the tiny configs' 6 or 8) runs
 zero-padded to 64 (``pad_heads``) with its own scale d ** -0.5, and the
-output is sliced back; a wider one raises. The scale follows the JAX
-package's rule (``scaled_scores``): the fp32 scores times the scale, at
-every width, in the kernels and the plain versions alike (bit-equal to
-JAX's fold of a power-of-two scale into q).
+output is sliced back. The tensor-core kernel also takes d = 88
+(``WIDE_HEAD_DIM``: EVA ViT-g's heads in BLIP-2's vision tower) in bf16
+without a bias, K1 and K3: it reads the 88-wide heads where they lie and
+pads them to its products' widths in shared memory, so no padded copy is
+made; those launches count in ``LAUNCHES`` under their kernel id and in
+``WIDE_LAUNCHES`` too. Any other width above 64 raises. The scale follows
+the JAX package's rule (``scaled_scores``): the fp32 scores times the
+scale, at every width, in the kernels and the plain versions alike
+(bit-equal to JAX's fold of a power-of-two scale into q).
 
 A tensor on the CPU goes to the plain version; a tensor on the card goes to
 the kernel or the wrapper raises. ``LAUNCHES`` counts kernel launches per
@@ -53,15 +58,19 @@ import torch
 import torch.nn.functional as F
 
 LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+# the launches at head width WIDE_HEAD_DIM, by kernel id (also in LAUNCHES)
+WIDE_LAUNCHES = {"K1": 0, "K3": 0}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_YZ = 65535
 KERNEL_HEAD_DIM = 64  # the head width the kernels are built for (kHeadDim)
+WIDE_HEAD_DIM = 88    # the tensor-core kernel's other width (kWideHeadDim)
 
 
 def reset_launch_counts() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    for counts in (LAUNCHES, WIDE_LAUNCHES):
+        for key in counts:
+            counts[key] = 0
 
 
 def scaled_scores(q, k, acc=torch.float32):
@@ -176,7 +185,7 @@ def uses_tensor_cores(dtype) -> bool:
 # the C entry points' refusals (csrc/attention.cu, and the alignment one of
 # K6's, K7's and K9's in csrc/attention_train.cu); a positive code is a
 # cudaError
-REFUSED_KEYS, REFUSED_ALIGNMENT = -1, -2
+REFUSED_KEYS, REFUSED_ALIGNMENT, REFUSED_HEAD_DIM = -1, -2, -3
 
 
 def raise_on_error(err: int, kid: str, tensors: dict) -> None:
@@ -187,6 +196,10 @@ def raise_on_error(err: int, kid: str, tensors: dict) -> None:
         raise ValueError(
             f"{kid}: {tensors['k'].shape[1]} keys exceed the fp32-FMA "
             "kernel's cap (score rows are held in shared memory)")
+    if err == REFUSED_HEAD_DIM:
+        raise ValueError(
+            f"{kid}: head width {tensors['q'].shape[-1]} is not one the "
+            "kernel takes in this dtype and with this bias")
     if err == REFUSED_ALIGNMENT:
         views = "; ".join(f"{n} pointer offset {t.data_ptr() % 16}, strides "
                           f"{tuple(t.stride())}" for n, t in tensors.items())
@@ -200,35 +213,49 @@ def raise_on_error(err: int, kid: str, tensors: dict) -> None:
 
 def _launch(kid: str, q4, k4, v4, bias3, out4, scale: float) -> None:
     """Launch the CUDA kernel on 4-D [E, L, H, KERNEL_HEAD_DIM] views
-    (strided) at ``scale``."""
+    (strided) at ``scale``, or [E, L, H, WIDE_HEAD_DIM] ones (bf16, no
+    bias)."""
     from candidate_reranking_cir_tpu_torch.ops.build import (
         load_attention_library,
     )
 
     lib = load_attention_library()
+    wide = q4.shape[-1] == WIDE_HEAD_DIM
     e, lq, h, d, m = check_kernel_inputs(
-        {"q": q4, "k": k4, "v": v4}, lib.crc_attention_head_dim())
+        {"q": q4, "k": k4, "v": v4},
+        q4.shape[-1] if wide else lib.crc_attention_head_dim())
     bias_ptr, bias_strides = bias_args(bias3, q4.device)
     strides = [*q4.stride()[:3], *k4.stride()[:3], *v4.stride()[:3],
                *out4.stride()[:3], *bias_strides]
     c_strides = (ctypes.c_longlong * 14)(*strides)
     err = lib.crc_attention_forward(
-        DTYPE_CODES[q4.dtype], q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
-        bias_ptr, out4.data_ptr(), c_strides, e, h, lq, m, scale,
-        torch.cuda.current_stream(out4.device).cuda_stream)
+        DTYPE_CODES[q4.dtype], d, q4.data_ptr(), k4.data_ptr(),
+        v4.data_ptr(), bias_ptr, out4.data_ptr(), c_strides, e, h, lq, m,
+        scale, torch.cuda.current_stream(out4.device).cuda_stream)
     raise_on_error(err, kid, {"q": q4, "k": k4, "v": v4, "out": out4})
     LAUNCHES[kid] += 1
+    if wide:
+        WIDE_LAUNCHES[kid] += 1
+
+
+def takes_wide_heads(q4, bias3) -> bool:
+    """Whether a launch runs at WIDE_HEAD_DIM as it is: 88-wide bf16
+    heads without a bias (K1, K3)."""
+    return (q4.shape[-1] == WIDE_HEAD_DIM and q4.dtype == torch.bfloat16
+            and bias3 is None)
 
 
 def _kernel_forward(kid: str, q4, k4, v4, bias3):
     """The kernel's output [E, Lq, H, d] for 4-D views q4, k4, v4; heads
     narrower than the kernels' width run zero-padded (``pad_heads``) at
-    their own scale, and the output is sliced back to d."""
+    their own scale, and the output is sliced back to d; 88-wide heads
+    (``takes_wide_heads``) run as they are."""
     d = q4.shape[-1]
-    q4, k4, v4 = pad_heads(q4, k4, v4)
+    if not takes_wide_heads(q4, bias3):
+        q4, k4, v4 = pad_heads(q4, k4, v4)
     out = torch.empty(q4.shape, dtype=q4.dtype, device=q4.device)
     _launch(kid, q4, k4, v4, bias3, out, d ** -0.5)
-    return out if d == KERNEL_HEAD_DIM else out[..., :d]
+    return out if out.shape[-1] == d else out[..., :d]
 
 
 class _EvalAttention(torch.autograd.Function):

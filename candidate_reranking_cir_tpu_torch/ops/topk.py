@@ -1,8 +1,10 @@
 """Top-K retrieval primitives (port of the JAX package's ``ops/topk.py``).
 
 Distances are 1 - pred @ index.T as float32 products (TF32 is off, see
-``runtime/device.py``). Rankings are stable: equal distances keep corpus
-order, as the JAX package's stable argsort and ``lax.top_k`` do.
+``runtime/device.py``); an index of several vectors an item ([N, T, E]:
+BLIP-2's 32 query outputs an image) scores each item by its best vector.
+Rankings are stable: equal distances keep corpus order, as the JAX
+package's stable argsort and ``lax.top_k`` do.
 ``sharded_cosine_topk`` ranks a corpus whose rows are split over a mesh:
 each rank's top-k, then a top-k over the all-gathered candidates.
 """
@@ -13,9 +15,27 @@ import torch
 from candidate_reranking_cir_tpu_torch.parallel.mesh import all_gather
 
 
+# the most [rows, N * T] float32 scores a block of a multi-vector index's
+# products holds before the max over T (64 MB)
+MULTI_BLOCK_SCORES = 1 << 24
+
+
 def cosine_scores(pred: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
-    """[Q, E] x [N, E] -> [Q, N] similarity, float32."""
-    return pred.float() @ index.float().T
+    """[Q, E] x [N, E] -> [Q, N] similarity, float32. An index [N, T, E]
+    scores an item by its best vector, max_t <pred, index[n, t]> (LAVIS's
+    ``sim_t2q.max(-1)``), in blocks of query rows, so that [Q, N, T] is
+    never held whole."""
+    if index.ndim == 2:
+        return pred.float() @ index.float().T
+    n, t, e = index.shape
+    flat = index.float().reshape(n * t, e).T
+    out = torch.empty((pred.shape[0], n), dtype=torch.float32,
+                      device=pred.device)
+    rows = max(1, MULTI_BLOCK_SCORES // (n * t))
+    for i in range(0, pred.shape[0], rows):
+        out[i:i + rows] = torch.amax(
+            (pred[i:i + rows].float() @ flat).view(-1, n, t), dim=-1)
+    return out
 
 
 def cosine_rank(pred: torch.Tensor, index: torch.Tensor) -> torch.Tensor:

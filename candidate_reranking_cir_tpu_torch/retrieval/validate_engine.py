@@ -25,6 +25,12 @@ addresses, and replayed; on the CPU the same program eagerly. Every chunk,
 batch and product has the multi-launch path's shape, so the two agree bit
 for bit.
 
+BLIP-2 (``models/blip2_retrieval.Blip2RetrievalModel``) runs the
+multi-launch executor on one device: the index holds its image tokens,
+a layer span 'targets' runs the Q-Former's query pass over them (32
+vectors an image), fusion is image-major as for BLIP, and the ranking
+scores each image by its best vector (``ops/topk.cosine_scores``).
+
 Over a mesh (``parallel/mesh.py``) the multi-launch executor shards its
 work as the JAX package's does: each rank embeds its rows of every corpus
 batch, fuses its rows of every fusion batch (a Q-bucket runs image-major
@@ -92,16 +98,19 @@ def _check_single_program(mesh, single_program: bool) -> None:
 
 
 def make_stage1_fns(model, params=None, device=None):
-    """(embed, fuse) closures over the port's ``RetrievalModel`` on
-    ``device`` (default 'cuda'), with ``params`` (a port state dict, or
-    None to keep the model's weights) loaded: embed(images [B, H, W, 3]) ->
-    (raw [B, M, D], pooled [B, E]); fuse(ref_feats [G, M, D], ids [G*Q, L],
-    mask [G*Q, L], query_group=1) -> normalized predictions [G*Q, E]."""
+    """(embed, fuse) closures over the port's ``RetrievalModel`` (or
+    ``Blip2RetrievalModel``) on ``device`` (default 'cuda'), with
+    ``params`` (a port state dict, or None to keep the model's weights)
+    loaded: embed(images [B, H, W, 3]) -> (raw [B, M, D], pooled [B, E]),
+    or raw alone for a ``multi_vector`` model; fuse(ref_feats [G, M, D],
+    ids [G*Q, L], mask [G*Q, L], query_group=1) -> normalized predictions
+    [G*Q, E]."""
     model = bind_module(model, params, resolve_device(device))
+    pooled = not model.multi_vector
 
     @torch.inference_mode()
     def embed(images):
-        return model.embed_images(images, pool_and_normalize=True)
+        return model.embed_images(images, pool_and_normalize=pooled)
 
     @torch.inference_mode()
     def fuse(ref_feats, ids, mask, query_group=1):
@@ -195,11 +204,14 @@ def schedule_fusion_batches(ref_idx: np.ndarray, bucket_of: np.ndarray,
     return batches
 
 
-def resolve_buckets(tokenizer, captions, text_len: int, l_buckets):
-    """Tokenize and assign each caption to its static L-bucket. Returns
-    (ids_all [N, text_len], mask_all [N, text_len], bucket_of [N])."""
+def resolve_buckets(tokenizer, captions, text_len: int, l_buckets,
+                    set_enc_token: bool = True):
+    """Tokenize and assign each caption to its static L-bucket (its first
+    token BLIP's [ENC], or with ``set_enc_token`` False BERT's [CLS], as
+    BLIP-2 takes it). Returns (ids_all [N, text_len], mask_all [N,
+    text_len], bucket_of [N])."""
     ids_all, mask_all = tokenizer.encode(captions, text_len,
-                                         set_enc_token=True)
+                                         set_enc_token=set_enc_token)
     lens = mask_all.sum(axis=1)
     lbs = resolve_l_buckets(l_buckets, lens, text_len)
     bucket_of = np.asarray([next(b for b in lbs if b >= ln) for ln in lens])
@@ -210,8 +222,8 @@ def resolve_buckets(tokenizer, captions, text_len: int, l_buckets):
 def predict_queries(fuse_fn, tokenizer, captions: list[str], ref_names,
                     index_feats, index_names, text_len: int,
                     q_batch: int = 32, mesh=None,
-                    l_buckets="auto", image_major: bool = True
-                    ) -> torch.Tensor:
+                    l_buckets="auto", image_major: bool = True,
+                    set_enc_token: bool = True) -> torch.Tensor:
     """Fused query features [N_q, E] (float32, on the bank's device) via
     index-feature reuse.
 
@@ -226,6 +238,9 @@ def predict_queries(fuse_fn, tokenizer, captions: list[str], ref_names,
     projections run once per image instead of once per query
     (``schedule_fusion_batches``); the leftovers run query-major. The same
     function as query-major fusion.
+
+    set_enc_token: the captions' first token is [ENC] (BLIP), or [CLS]
+    (False: BLIP-2).
 
     One launch sequence per scheduled batch. A batch's padded tail rows are
     duplicates of its real rows and are sliced off; the inverse permutation
@@ -248,8 +263,8 @@ def predict_queries(fuse_fn, tokenizer, captions: list[str], ref_names,
     with tracing.trace_phase("fusion.plan"):
         pos = {n: i for i, n in enumerate(index_names)}
         ref_idx = np.asarray([pos[r] for r in ref_names], np.int32)
-        ids_all, mask_all, bucket_of = resolve_buckets(tokenizer, captions,
-                                                       text_len, l_buckets)
+        ids_all, mask_all, bucket_of = resolve_buckets(
+            tokenizer, captions, text_len, l_buckets, set_enc_token)
         batches = schedule_fusion_batches(ref_idx, bucket_of, q_batch,
                                           image_major,
                                           1 if mesh is None else mesh.size)
@@ -737,22 +752,44 @@ def run_single_program_eval(model, params, dataset_classic, tokenizer,
     return topk, ranks, names_all
 
 
+@torch.inference_mode()
+def target_index(model, bank, batch_size: int) -> torch.Tensor:
+    """A multi-vector model's targets of the image tokens ``bank``
+    [N, M, W], ``batch_size`` images a launch sequence: [N, T, E]
+    float32 on the bank's device."""
+    return torch.cat([model.target_features(bank[i:i + batch_size]).float()
+                      for i in range(0, len(bank), batch_size)])
+
+
 def _index_and_fuse(model, params, dataset_classic, tokenizer, captions,
                     refs, *, text_len: int, batch_size: int, q_batch: int,
                     image_major: bool, device, mesh=None) -> tuple:
     """Corpus embed and query fusion, the layer spans 'index' and
-    'fusion': (pooled [N, E], pred [N_q, E], index_names)."""
+    'fusion': (pooled [N, E], pred [N_q, E], index_names). A multi-vector
+    model (BLIP-2) embeds the corpus's tokens alone in 'index', and its
+    targets ([N, T, E] in pooled's place) in a layer span 'targets'."""
+    multi = model.multi_vector
     with tracing.layer_span("index"):
         embed, fuse = make_stage1_fns(model, params, device)
-        raw, pooled, index_names = build_index(dataset_classic, embed,
-                                               batch_size, pooled=True,
-                                               device=device, mesh=mesh)
+        if multi:
+            raw, index_names = build_index(dataset_classic, embed,
+                                           batch_size, device=device)
+        else:
+            raw, pooled, index_names = build_index(
+                dataset_classic, embed, batch_size, pooled=True,
+                device=device, mesh=mesh)
         with tracing.trace_phase("index.wait"):
             sync_device(device)
+    if multi:
+        with tracing.layer_span("targets"):
+            pooled = target_index(model, raw, batch_size)
+            with tracing.trace_phase("targets.wait"):
+                sync_device(device)
     with tracing.layer_span("fusion"):
         pred = predict_queries(fuse, tokenizer, captions, refs, raw,
                                index_names, text_len, q_batch,
-                               image_major=image_major, mesh=mesh)
+                               image_major=image_major, mesh=mesh,
+                               set_enc_token=model.enc_token)
         with tracing.trace_phase("fusion.wait"):
             sync_device(device)
     return pooled, pred, index_names
@@ -766,6 +803,10 @@ def _stage1_ranks(model, params, dataset_classic, tokenizer, captions,
     executor; ``ent_names`` [N_q][E] the entity columns' names. Its spans
     go to the caller's ``tracing.collect``."""
     _check_single_program(mesh, single_program)
+    if model.multi_vector and (single_program or mesh is not None):
+        raise ValueError("a model of several target vectors an image "
+                         "(BLIP-2) runs the multi-launch executor on one "
+                         "device")
     if single_program:
         return run_single_program_eval(
             model, params, dataset_classic, tokenizer, captions, refs,
@@ -794,8 +835,10 @@ def evaluate_cirr_stage1(model, params, dataset_classic, dataset_relative,
                          device=None) -> tuple:
     """CIRR stage-I metrics, and the top-k payload when ``save_topk_k``.
 
-    model: the port's ``RetrievalModel``; params: a port state dict to load
-    into it, or None. batch_size drives the ViT index embed, q_batch the
+    model: the port's ``RetrievalModel``, or ``Blip2RetrievalModel`` (the
+    multi-launch executor on one device; its ``seconds`` add the layer
+    span 'targets'); params: a port state dict to load into it, or
+    None. batch_size drives the ViT index embed, q_batch the
     fusion scheduler. Runs on ``device`` (default 'cuda'). single_program:
     the whole eval as one program (``run_single_program_eval``; on the
     card one CUDA-graph replay, and the corpus on the card at once; the

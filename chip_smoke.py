@@ -32,6 +32,10 @@ Phases, each printing its own lines:
    the port never calls it), the kernel's and SDPA's device-only times
    (CUDA-graph replays) and their ratio, and the least time the card
    could take (bytes over 3.35 TB/s or operations over the dtype's peak).
+   Then K1 and K3 at EVA ViT-g's 88-wide heads (BLIP-2's vision tower;
+   bf16, no bias, read in place by ``attn_fwd_tc_kernel<wg, false, 88>``)
+   at the ViT-g's [32, 257, 257, 16, 88] and at a ragged [3, 75, 131, 5,
+   88], the same way, each launch counted in ``WIDE_LAUNCHES`` too.
    Then G1, fc1's bias add and exact GELU (``ops/activation.bias_gelu``),
    at the ViT's fc1 at embed batch 32 ([18464, 3072]), a candidate-major
    dual-encoder chunk's ([8, 1280, 3072]), the caption head's transform
@@ -193,6 +197,16 @@ Phases, each printing its own lines:
     back bit for bit; ``[entry]`` ``entry()`` ([2, 4] finite scores, K1 >
     0); ``[demo]`` ``demo.main --device cuda`` (every artifact of the JAX
     package's demo, K2 and K3 > 0 at 6-wide heads).
+17. (run after phase 11, before phase 10) BLIP-2's stage-I eval:
+    ``evaluate_cirr_stage1`` with ``Blip2RetrievalModel`` at its published
+    widths (EVA ViT-g/14 at 224, 39 blocks of 1408, 16 heads of 88; the
+    12-layer Q-Former with 32 queries) in bf16, random weights from the
+    seed, on B2_IMAGES images and B2_QUERIES queries: seconds by layer
+    span, queries/s, peak GiB, the launches after a reset (one 88-wide K1
+    a ViT-g block and embed batch, K1_d88 = 39 x batches; no 88-wide K3;
+    K1 above K1_d88 (the Q-Former's cross-attention), K2 (its masked
+    self-attention), K3 (its query pass's unmasked one) and G1 > 0) and
+    the metrics.
 16. the multi-card paths (after phase 14) at full width through NCCL,
     over min(4, cards) ranks: one rank in this process in bf16, where every
     result must be bit-equal to the same call without a mesh; with several
@@ -211,7 +225,9 @@ Phases, each printing its own lines:
     phase 10's
     counts as "train_cli", phase 11's as "serve", phase 13's as
     "caption", phase 14's as "glue", phase 15's as "single_program"
-    and "dropout_layouts" and phase 16's as "mesh"), then the card's name
+    and "dropout_layouts", phase 16's as "mesh" and phase 17's as
+    "blip2_stage1_eval"; K1_d88 is K1 at 88-wide heads, also counted in
+    K1), then the card's name
     and power limit, then the last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero without the last line.
@@ -223,6 +239,7 @@ import contextlib
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -279,6 +296,9 @@ S1E_STAGE2_QUERIES = 256       # re-ranked by stage II from the top-K file
 S1E_CHECK_QUERIES = 8          # fp32 predictions, card vs CPU
 S1E_PRED_TOL = 1e-4            # fp32 predictions, card vs CPU
 S1E_TIE_GAP = 1e-6             # top-50 lists may differ only at such gaps
+# phase 17: BLIP-2's stage-I eval at full width on a corpus of B2_IMAGES
+# images at 224 px and B2_QUERIES queries (after a warm-up on B2_WARMUP)
+B2_IMAGES, B2_QUERIES, B2_WARMUP = 256, 512, (32, 64)
 # phase 15: the single-program stage-I eval on phase 9's corpus and
 # queries, SP_REPLAYS replays timed (the recapture of a moved model on the
 # warm-up's small corpus); the dropout layouts at full width in fp32 with
@@ -385,14 +405,16 @@ SOURCES = {"K1": f"{CSRC}/attention_tc.cuh", "K2": f"{CSRC}/attention_tc.cuh",
            "K7": f"{CSRC}/attention_train_tc.cuh",
            "K8": f"{CSRC}/attention_train_tc.cuh",
            "K9": f"{CSRC}/attention_train_tc.cuh",
-           "G1": f"{CSRC}/activation.cu"}
+           "G1": f"{CSRC}/activation.cu",
+           # K1 at 88-wide heads: attn_fwd_tc_kernel<wg, false, 88>
+           "K1_d88": f"{CSRC}/attention_tc.cuh"}
 JAX_KERNELS = "candidate_reranking_cir_tpu/ops/pallas_attention.py"
 JAX_TRAIN = "candidate_reranking_cir_tpu/ops/pallas_attention_train.py"
 REPLACES = {"K1": f"{JAX_KERNELS}:220", "K2": f"{JAX_KERNELS}:132",
             "K3": f"{JAX_KERNELS}:122", "K4": f"{JAX_KERNELS}:236",
             "K5": f"{JAX_TRAIN}:61", "K6": f"{JAX_TRAIN}:114",
             "K7": f"{JAX_TRAIN}:135", "K8": f"{JAX_TRAIN}:382",
-            "K9": f"{JAX_TRAIN}:414",
+            "K9": f"{JAX_TRAIN}:414", "K1_d88": f"{JAX_KERNELS}:220",
             # G1 replaces no TPU kernel: XLA fuses the same formula into
             # fc1's epilogue
             "G1": "none (candidate_reranking_cir_tpu/models/layers.py: "
@@ -540,6 +562,38 @@ NARROW_CASES = (
     (("K1", "ViT self-attention, 8-wide heads", 16, 577, 577, 4, True,
       False), 8),
 )
+
+
+# K1 and K3 at EVA ViT-g's 88-wide heads (BLIP-2's vision tower), bf16 and
+# no bias, which the tensor-core kernel reads in place: the ViT-g's
+# self-attention at the embed batch, folded (K1, the path's) and unfolded
+# (K3), and a ragged shape (rows and keys no multiple of the tiles, 5 heads)
+WIDE_D = 88
+WIDE_CASES = (
+    ("K1", "ViT-g self-attention, 88-wide heads", S1E_EMBED_BATCH, 257, 257,
+     16, True, False),
+    ("K3", "ViT-g self-attention unfolded, 88-wide heads", S1E_EMBED_BATCH,
+     257, 257, 16, False, False),
+    ("K1", "ragged, 88-wide heads", 3, 75, 131, 5, True, False),
+    ("K3", "ragged, 88-wide heads", 3, 75, 131, 5, False, False),
+)
+
+
+def run_wide_cases() -> dict:
+    """WIDE_CASES through ``run_kernel_case``; fails unless each one
+    launched the 88-wide instantiation (``WIDE_LAUNCHES``). Returns the
+    first K1 case's record under "K1_d88"."""
+    from candidate_reranking_cir_tpu_torch.ops import cuda_attention as ck
+
+    records = {}
+    for case in WIDE_CASES:
+        n0 = ck.WIDE_LAUNCHES[case[0]]
+        rec = run_kernel_case(*case, torch.bfloat16, d=WIDE_D)
+        if ck.WIDE_LAUNCHES[case[0]] == n0:
+            fail(f"{case[0]} {case[1]}: no 88-wide launch counted")
+        if case[0] == "K1":
+            records.setdefault("K1_d88", rec)
+    return records
 
 
 def run_kernel_case(kid, label, e, lq, m, h, folded, with_bias, dtype,
@@ -1131,6 +1185,12 @@ def kernel_family(name: str) -> str:
     if name.startswith("Memcpy"):
         return "copies"
     return "elementwise, norms, gathers, optimizer"
+
+
+def is_bias_instantiation(name: str) -> bool:
+    """Whether a demangled eval tensor-core kernel name is the bias
+    instantiation (K2, K4): ``attn_fwd_tc_kernel<wg, true, head width>``."""
+    return re.search(r"attn_fwd_tc_kernel<\d+, true[,>]", name) is not None
 
 
 def profile_device(label: str, run) -> dict:
@@ -1751,7 +1811,8 @@ def stage1_fp32_check(tok, words):
 # phase 9: the stage-I eval path
 
 def stage1_eval_queries(names: list[str], n_q: int, rng,
-                        vocab_words: list[str]) -> list[dict]:
+                        vocab_words: list[str],
+                        text_len: int = TEXT_LEN) -> list[dict]:
     """CIRR-val-shaped queries: the reference drawn uniformly from the
     corpus (4,181 over 2,297 images: about 1.8 queries an image, as in
     CIRR val), a 6-member group of the reference, the target and four
@@ -1759,7 +1820,7 @@ def stage1_eval_queries(names: list[str], n_q: int, rng,
     a token; [ENC] and [SEP] take two)."""
     n = len(names)
     refs = rng.integers(0, n, size=n_q)
-    n_words = caption_lengths(n_q, TEXT_LEN, rng) - 2
+    n_words = caption_lengths(n_q, text_len, rng) - 2
     out = []
     for q in range(n_q):
         others = rng.choice(n - 1, size=5, replace=False)
@@ -2067,9 +2128,9 @@ def single_program_path(tok, words, queries: list[dict], s1e: dict) -> dict:
     print(f"[single_program] eval attention kernels in the profiled "
           f"replay: {attn if attn else 'not measured (no records)'}",
           flush=True)
-    if kernels and not any("true>" in nm for nm in attn):
+    if kernels and not any(is_bias_instantiation(nm) for nm in attn):
         fail("the profiled replay shows no K2 (attn_fwd_tc_kernel<., "
-             "true>)")
+             "true, .>)")
 
     # weights from SEED + 1 loaded in place: the cache's graph replays them
     t0 = time.perf_counter()
@@ -2745,6 +2806,85 @@ def query_major_fp32_check(s1, s2) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 17: BLIP-2's stage-I eval
+
+def blip2_stage1_eval_path(tok, words) -> dict:
+    """``evaluate_cirr_stage1`` with BLIP-2's ``Blip2RetrievalModel`` at its
+    published widths in bf16 (random weights from SEED) on B2_IMAGES
+    images at 224 px and B2_QUERIES queries, after a warm-up on B2_WARMUP.
+    Fails unless every ViT-g block launched one 88-wide K1 an embed batch
+    and nothing else did (K1_d88 = layers x batches), no 88-wide K3 ran,
+    and the Q-Former's K1 (cross-attention), K2 (masked self-attention),
+    K3 (the query pass's unmasked self-attention) and G1 ran. Returns the
+    counted run's launches."""
+    from candidate_reranking_cir_tpu_torch.config import (
+        Blip2RetrievalModelConfig,
+    )
+    from candidate_reranking_cir_tpu_torch.models.blip2_retrieval import (
+        Blip2RetrievalModel,
+    )
+    from candidate_reranking_cir_tpu_torch.ops import cuda_attention as ck
+    from candidate_reranking_cir_tpu_torch.retrieval.validate_engine import (
+        evaluate_cirr_stage1,
+    )
+
+    t_phase = time.perf_counter()
+    cfg = Blip2RetrievalModelConfig()
+    torch.manual_seed(SEED)
+    model = Blip2RetrievalModel(cfg, dtype=torch.bfloat16,
+                                device="cuda").eval()
+    size, text_len = cfg.vit.image_size, cfg.text_len
+    kw = dict(text_len=text_len, batch_size=S1E_EMBED_BATCH,
+              save_topk_k=TOPK, q_batch=S1E_Q_BATCH, device="cuda")
+    rng = np.random.default_rng(SEED + 17)
+    small = Corpus(B2_WARMUP[0], size, rng, float32_draw=True)
+    evaluate_cirr_stage1(model, None, small, stage1_eval_queries(
+        small.index_names, B2_WARMUP[1], rng, words, text_len), tok, **kw)
+    corpus = Corpus(B2_IMAGES, size, rng, float32_draw=True)
+    queries = stage1_eval_queries(corpus.index_names, B2_QUERIES, rng, words,
+                                  text_len)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    res, payload = evaluate_cirr_stage1(model, None, corpus, queries, tok,
+                                        **kw)
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    sec = res.seconds
+    batches = -(-B2_IMAGES // S1E_EMBED_BATCH)
+    print(f"[blip2] EVA ViT-g/14 @ {size} ({cfg.vit.num_layers} blocks of "
+          f"{cfg.vit.hidden_size}, {cfg.vit.num_heads} heads of "
+          f"{cfg.vit.hidden_size // cfg.vit.num_heads}) + Q-Former "
+          f"({cfg.text.num_layers} layers, {cfg.num_query_tokens} queries), "
+          f"bf16: {B2_IMAGES} images, {len(queries)} queries; seconds "
+          f"{json.dumps(sec)}; stage-I queries/s "
+          f"{len(queries) / sec['total']:.1f}; peak {peak:.2f} GiB",
+          flush=True)
+    print(f"[blip2] launches {json.dumps(launches)} (88-wide K3 "
+          f"{ck.WIDE_LAUNCHES['K3']})", flush=True)
+    print(f"[blip2] metrics {json.dumps(res.metrics)}", flush=True)
+    want_wide = cfg.vit.num_layers * batches
+    if launches["K1_d88"] != want_wide or ck.WIDE_LAUNCHES["K3"] != 0 \
+            or launches["K1"] <= launches["K1_d88"] \
+            or not all(launches[k] > 0 for k in ("K2", "K3", "G1")):
+        fail(f"BLIP-2 stage-I launches {launches}: K1_d88 must be "
+             f"{want_wide} (one a ViT-g block and embed batch), 88-wide K3 "
+             "0, K1 above K1_d88, K2, K3 and G1 > 0")
+    for key, val in res.metrics.items():
+        if not 0.0 <= val <= 100.0:
+            fail(f"BLIP-2 stage-I metric {key} = {val} out of range")
+    if payload["sorted_index_names"].shape != (len(queries), TOPK):
+        fail("unexpected BLIP-2 top-K payload shape")
+    del model, corpus, small
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[blip2] phase seconds {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 10: the training CLIs
 
 def write_cirr_tree(root, n_images: int, n_train: int, n_val_images: int,
@@ -2879,12 +3019,14 @@ def compare_train_states(a_dir, b_dir) -> dict:
 
 
 def launch_counts() -> dict:
-    """Launches of K1-K9 and G1 since the last ``reset_launch_counts``."""
+    """Launches of K1-K9 and G1 since the last ``reset_launch_counts``, and
+    K1's at 88-wide heads as "K1_d88" (also in "K1")."""
     from candidate_reranking_cir_tpu_torch.ops import activation as act
     from candidate_reranking_cir_tpu_torch.ops import attention_train as tat
     from candidate_reranking_cir_tpu_torch.ops import cuda_attention as ck
 
-    return {**ck.LAUNCHES, **tat.LAUNCHES, "G1": act.LAUNCHES["bias_gelu"]}
+    return {**ck.LAUNCHES, **tat.LAUNCHES, "G1": act.LAUNCHES["bias_gelu"],
+            "K1_d88": ck.WIDE_LAUNCHES["K1"]}
 
 
 def reset_launch_counts() -> None:
@@ -4360,6 +4502,7 @@ def main():
                 records[case[0]] = rec
     for case, d in NARROW_CASES:
         run_kernel_case(*case, torch.bfloat16, d=d)
+    records.update(run_wide_cases())
     # the JSON line keeps G1 at the ViT's shape
     records["G1"] = run_bias_gelu_cases()[0]
     for dtype in (torch.float32, torch.bfloat16):
@@ -4385,13 +4528,15 @@ def main():
     serve_launches = serving_path(tok, words, s1e["corpus"])
     del s1e
     gc.collect()
+    blip2_launches = blip2_stage1_eval_path(tok, words)
     cli = train_cli_path(tok, words, native_ok)
     caption = caption_path(tok)
     glue = glue_path(tok, words)
     mesh = mesh_path(tok, words)
 
     kernels = []
-    for kid in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "G1"):
+    for kid in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "G1",
+                "K1_d88"):
         rec = records[kid]
         # K1-K4: launches on the two eval paths (stage II, then stage I);
         # K6/K7 on the stage-II training path; K8/K9 on the stage-I one; K5
@@ -4407,12 +4552,18 @@ def main():
         # "dropout_layouts"
         # G1 runs in every FFN: it counts on the eval paths, both training
         # paths and the dropout layouts
+        # K1_d88 (K1 at 88-wide heads, in K1's counts too) runs on BLIP-2's
+        # stage-I eval (phase 17) alone, under "blip2_stage1_eval", which
+        # also counts K1-K4 and G1
         by_path = {}
-        if kid in EVAL_KERNELS or kid == "G1":
+        if kid == "K1_d88":
+            by_path = {"blip2_stage1_eval": blip2_launches[kid]}
+        elif kid in EVAL_KERNELS or kid == "G1":
             by_path = {"stage2_eval": launches[kid],
                        "stage1_eval": s1e_launches[kid],
                        "serve": serve_launches[kid],
-                       "single_program": p15["single_program"][kid]}
+                       "single_program": p15["single_program"][kid],
+                       "blip2_stage1_eval": blip2_launches[kid]}
         if kid in ("K5", "G1"):
             by_path.update(stage2_train=train["launches"][kid],
                            stage1_train=stage1["launches"][kid])
@@ -4420,12 +4571,13 @@ def main():
             by_path["stage1_train"] = stage1["launches"][kid]
         elif kid in ("K6", "K7"):
             by_path["stage2_train"] = train["launches"][kid]
-        if kid not in EVAL_KERNELS:
+        if kid not in EVAL_KERNELS and kid != "K1_d88":
             by_path["dropout_layouts"] = p15["dropout_layouts"][kid]
-        by_path["train_cli"] = cli["launches"][kid]
-        by_path["caption"] = caption["launches"][kid]
-        by_path["glue"] = glue["launches"][kid]
-        by_path["mesh"] = mesh["launches"][kid]
+        if kid != "K1_d88":
+            by_path["train_cli"] = cli["launches"][kid]
+            by_path["caption"] = caption["launches"][kid]
+            by_path["glue"] = glue["launches"][kid]
+            by_path["mesh"] = mesh["launches"][kid]
         n = sum(by_path.values())
         kernels.append({
             "name": kid, "route": "cuda", "source": SOURCES[kid],

@@ -27,10 +27,13 @@ def fused(cfg):
 
 
 def port_cfg(cfg):
-    """JAX config dataclass -> the port's config of the same name."""
+    """JAX config dataclass -> the port's config of the same name; the
+    port-only fields (BLIP-2's ViT keys) keep their defaults."""
     cls = getattr(tcfg, type(cfg).__name__)
     kw = {}
     for f in dataclasses.fields(cls):
+        if not hasattr(cfg, f.name):
+            continue
         v = getattr(cfg, f.name)
         kw[f.name] = port_cfg(v) if dataclasses.is_dataclass(v) else v
     return cls(**kw)

@@ -1586,3 +1586,142 @@ def test_embed_scan_replays_equal_build_index(dev):
         assert torch.equal(raw_s.flatten(0, 1).to(raw.dtype), raw)
         assert torch.equal(pooled_s.flatten(0, 1).float(), pooled)
     assert torch.equal(first, kept)
+
+
+# ---------------------------------------------------------------------------
+# head width 88 (EVA ViT-g, BLIP-2's vision tower): K1 and K3 in bf16
+# without a bias, the 88-wide heads read in place
+
+
+def _wide_case(dev, e, lq, m, h, seed, folded):
+    """One 88-wide launch (K1 folded, K3 unfolded) against the plain
+    version; returns the kernel names it launched. ``F.pad`` may not run:
+    the kernel reads the heads where they lie."""
+    d = ck.WIDE_HEAD_DIM
+    q = _rand(dev, torch.bfloat16, e, lq, h, d, seed=seed)
+    k = _rand(dev, torch.bfloat16, e, m, h, d, seed=seed + 1)
+    v = _rand(dev, torch.bfloat16, e, m, h, d, seed=seed + 2)
+    kid = "K1" if folded else "K3"
+    before, wide = ck.LAUNCHES[kid], ck.WIDE_LAUNCHES[kid]
+    res = {}
+
+    def run():
+        if folded:
+            res["out"] = ck.fused_attention_folded(
+                q.flatten(-2), k.flatten(-2), v.flatten(-2),
+                num_heads=h).unflatten(-1, (h, d))
+        else:
+            res["out"] = ck.fused_attention(q, k, v)
+
+    names = _kernel_names(run)
+    assert ck.LAUNCHES[kid] == before + 1
+    assert ck.WIDE_LAUNCHES[kid] == wide + 1
+    out = res["out"]
+    assert out.shape == (e, lq, h, d) and torch.isfinite(out).all()
+    ref = ck.attention_plain(q, k, v)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=TOL[torch.bfloat16])
+    return names
+
+
+def _no_pad(monkeypatch):
+    def refuse(*args, **kw):
+        raise AssertionError("an 88-wide launch padded its heads")
+
+    monkeypatch.setattr(ck.F, "pad", refuse)
+
+
+def test_k1_at_vit_g_shape_matches_plain(dev, monkeypatch):
+    """K1 at EVA ViT-g's self-attention, [32, 257, 257, 16, 88]: the
+    88-wide instantiation (its width in the kernel's name), no padded
+    copy, within the bf16 tolerance of the plain version."""
+    _no_pad(monkeypatch)
+    names = _wide_case(dev, 32, 257, 257, 16, seed=1700, folded=True)
+    wide = [n for n in names if "attn_fwd_tc_kernel<" in n]
+    assert wide and all(", 88>" in n for n in wide), names
+
+
+@pytest.mark.parametrize("folded", [True, False])
+@pytest.mark.parametrize("m", [1, 64, 65, 257])
+@pytest.mark.parametrize("lq", [1, 32, 64, 65, 257])
+def test_wide_heads_match_plain(dev, monkeypatch, folded, lq, m):
+    """K1 and K3 at head width 88 over one and several key tiles, one and
+    two warpgroups, partial row tiles."""
+    _no_pad(monkeypatch)
+    _wide_case(dev, 2, lq, m, 3, seed=1710 + lq + m, folded=folded)
+
+
+def test_wide_heads_strided_views(dev, monkeypatch):
+    """q, k, v sliced out of one fused [E, L, 3 x 16 x 88] projection (row
+    stride 4,224): read where they lie."""
+    _no_pad(monkeypatch)
+    e, l, h, d = 4, 257, 16, ck.WIDE_HEAD_DIM
+    qkv = _rand(dev, torch.bfloat16, e, l, 3 * h * d, seed=1750)
+    q, k, v = qkv.chunk(3, dim=-1)
+    assert q.stride(1) == 3 * h * d
+    out = ck.fused_attention_folded(q, k, v, num_heads=h)
+    ref = ck.attention_plain(*(x.unflatten(-1, (h, d)) for x in (q, k, v)))
+    torch.testing.assert_close(out.unflatten(-1, (h, d)).float(),
+                               ref.float(), rtol=0, atol=TOL[torch.bfloat16])
+
+
+def test_wide_heads_refused_off_their_route(dev):
+    """88-wide heads run in bf16 without a bias only; other widths above
+    64 raise as before."""
+    d = ck.WIDE_HEAD_DIM
+    q = _rand(dev, torch.float32, 2, 8, 2, d)
+    with pytest.raises(ValueError, match=f"head width {d}"):
+        ck.fused_attention(q, q, q)
+    qb = q.to(torch.bfloat16)
+    with pytest.raises(ValueError, match=f"head width {d}"):
+        ck.fused_attention(qb, qb, qb, _mask_bias(dev, 2, 8))
+    q = _rand(dev, torch.bfloat16, 2, 8, 2, 96)
+    with pytest.raises(ValueError, match="head width 96"):
+        ck.fused_attention(q, q, q)
+
+
+# the d <= 64 launches, (kernel id, E, Lq, M, H, D), and their output
+# bits from the kernel as it was before the 88-wide instantiation came
+# (the same on its build and on this one, on an H100 80GB HBM3 with
+# PyTorch 2.11 and CUDA 12.8): sha256 of the bf16 bytes, its first 16 hex
+# digits
+D64_CASES = {
+    "K1 ViT-B": ("K1", 4, 577, 577, 12, 64),
+    "K1 MED cross": ("K1", 8, 40, 577, 12, 64),
+    "K2 text + mask": ("K2", 16, 40, 40, 12, 64),
+    "K3 candidate rows": ("K3", 2, 1280, 577, 12, 64),
+    "K4 + mask": ("K4", 4, 160, 160, 12, 64),
+    "K1 8-wide, padded": ("K1", 4, 100, 100, 2, 8),
+}
+D64_DIGESTS = {
+    "K1 ViT-B": "3e9118afb56de258",
+    "K1 MED cross": "883751e5593e7631",
+    "K2 text + mask": "ab38cfc2ba75a814",
+    "K3 candidate rows": "b992118e52b20a9c",
+    "K4 + mask": "3bdf885e58de6c61",
+    "K1 8-wide, padded": "08d66b01d87c4fb1",
+}
+
+
+def d64_digests(dev) -> dict:
+    import hashlib
+
+    out = {}
+    for label, (kid, e, lq, m, h, d) in D64_CASES.items():
+        q = _rand(dev, torch.bfloat16, e, lq, h, d, seed=1800)
+        k = _rand(dev, torch.bfloat16, e, m, h, d, seed=1801)
+        v = _rand(dev, torch.bfloat16, e, m, h, d, seed=1802)
+        bias = _mask_bias(dev, e, m) if kid in ("K2", "K4") else None
+        if kid in ("K1", "K4"):
+            y = ck.fused_attention_folded(q.flatten(-2), k.flatten(-2),
+                                          v.flatten(-2), bias, num_heads=h)
+        else:
+            y = ck.fused_attention(q, k, v, bias)
+        torch.cuda.synchronize()
+        raw = y.contiguous().view(torch.int16).cpu().numpy().tobytes()
+        out[label] = hashlib.sha256(raw).hexdigest()[:16]
+    return out
+
+
+def test_d64_launches_bit_equal_to_before_the_wide_heads(dev):
+    assert d64_digests(dev) == D64_DIGESTS

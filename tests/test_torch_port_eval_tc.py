@@ -229,6 +229,8 @@ def test_card_forward_takes_autograd_only_for_gradients(monkeypatch, mode,
      "__nv_bfloat16 const*, __nv_bfloat16 const*, float const*, "
      "__nv_bfloat16*, int, int, float, crc::Strides)", "K1-K4"),
     ("void crc::tc::attn_fwd_tc_kernel<2, true>(...)", "K1-K4"),
+    ("void crc::tc::attn_fwd_tc_kernel<1, true, 64>(...)", "K1-K4"),
+    ("void crc::tc::attn_fwd_tc_kernel<2, false, 88>(...)", "K1-K4"),
     ("void (anonymous namespace)::attn_fwd_kernel<true>(float const*, ...)",
      "fp32 K1-K4"),
     ("void (anonymous namespace)::attn_fwd_kernel<false>(...)",
@@ -244,6 +246,19 @@ def test_profile_families_name_the_eval_kernels(name, family):
         "void (anonymous namespace)::attn_fwd_kernel<false>(...)")
     assert fma == chip_smoke.FMA_EVAL_FAMILY != chip_smoke.TC_FAMILY
     assert fma in chip_smoke.FMA_FAMILIES
+
+
+@pytest.mark.parametrize("name,bias", [
+    ("void crc::tc::attn_fwd_tc_kernel<1, true, 64>(__nv_bfloat16 const*, "
+     "__nv_bfloat", True),
+    ("void crc::tc::attn_fwd_tc_kernel<2, true, 64>(...)", True),
+    ("void crc::tc::attn_fwd_tc_kernel<1, false, 64>(...)", False),
+    ("void crc::tc::attn_fwd_tc_kernel<2, false, 88>(...)", False),
+])
+def test_bias_instantiation_read_from_the_name(name, bias):
+    """The single-program replay's K2 check reads the bias argument of
+    the eval kernel's template, whatever follows it (the head width)."""
+    assert chip_smoke.is_bias_instantiation(name) is bias
 
 
 @pytest.mark.parametrize("every", [False, True])

@@ -342,12 +342,19 @@ def test_config_matches_jax(name, tmp_path):
     jaxc = jcfg.load_config(jdir / f"{name}.yaml")
     port = tcfg.load_config(tdir / f"{name}.yaml")
     # the JAX-only fields: the attention-kernel switches, the ViT's scan
-    # unroll and the text encoder's pad id
+    # unroll and the text encoder's pad id; the port-only ones: the ViT
+    # keys of BLIP-2's EVA ViT-g tower, at their defaults here (off)
     only_jax = {"fused_attention", "scan_unroll", "pad_token_id"}
+    only_port = {"qkv_bias": "qkv", "final_norm_eps": None}
 
     def same(a: dict, b: dict):
-        assert set(b) - set(a) <= only_jax and not set(a) - set(b)
+        assert set(b) - set(a) <= only_jax
+        assert set(a) - set(b) <= set(only_port)
+        for key in set(a) - set(b):
+            assert a[key] == only_port[key], key
         for key, val in a.items():
+            if key not in b:
+                continue
             if isinstance(val, dict):
                 same(val, b[key])
             else:
