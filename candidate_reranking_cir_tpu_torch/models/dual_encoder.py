@@ -126,7 +126,7 @@ class DualLayer(nn.Module):
                 h, None, text_bias, deterministic=det, seed=site(1 + int(s)),
                 generator=gen)
             ctx = self.drop(ctx, deterministic=det, generator=gen)
-            hs.append(getattr(self, f"self_ln{s}")(ctx + h))
+            hs.append(getattr(self, f"self_ln{s}")(ctx, h))
         h0, h1 = hs
         d0 = self._cross("0", h0, cand, layout, det, site(3), gen, pair_map)
         d1 = self._cross("1", h1, cand, layout, det, site(4), gen, pair_map)
@@ -135,8 +135,8 @@ class DualLayer(nn.Module):
         else:
             merged = (d0 + d1) * 0.5
         merged = self.drop(merged, deterministic=det, generator=gen)
-        g0 = self.cross_ln0(merged + h0)
-        g1 = self.cross_ln1(merged + h1)
+        g0 = self.cross_ln0(merged, h0)
+        g1 = self.cross_ln1(merged, h1)
         return (self.ffn(g0, deterministic=det, generator=gen),
                 self.ffn(g1, deterministic=det, generator=gen))
 

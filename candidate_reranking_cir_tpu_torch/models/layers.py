@@ -35,6 +35,7 @@ from candidate_reranking_cir_tpu_torch.ops.attention import (
     dot_product_attention_folded_train,
 )
 from candidate_reranking_cir_tpu_torch.ops.cuda_attention import scaled_scores
+from candidate_reranking_cir_tpu_torch.ops.norm import add_layer_norm
 
 
 class DotsPolicy:
@@ -147,7 +148,9 @@ def drop_path(x, rate: float, *, deterministic: bool, generator=None):
 
 
 class LayerNorm(nn.Module):
-    """Float32 LayerNorm that returns the compute dtype."""
+    """Float32 LayerNorm that returns the compute dtype, of ``x`` or of the
+    residual sum ``x + residual`` (``ops/norm.add_layer_norm``: one kernel
+    in bf16 on the card)."""
 
     def __init__(self, dim: int, eps: float, dtype=torch.float32,
                  device=None):
@@ -157,12 +160,11 @@ class LayerNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(dim, device=device))
         self.bias = nn.Parameter(torch.zeros(dim, device=device))
 
-    def forward(self, x):
-        x32 = x.float()
-        mean = x32.mean(dim=-1, keepdim=True)
-        var = (x32 - mean).square().mean(dim=-1, keepdim=True)
-        y = (x32 - mean) * torch.rsqrt(var + self.eps)
-        return (y * self.weight + self.bias).to(self.dtype)
+    def forward(self, x, residual=None, keep_sum: bool = False):
+        """``LayerNorm(x + residual)``; with ``keep_sum`` also the sum,
+        as ``(y, x + residual)``."""
+        return add_layer_norm(x, residual, self.weight, self.bias, self.eps,
+                              keep_sum, self.dtype)
 
 
 class Dense(nn.Module):

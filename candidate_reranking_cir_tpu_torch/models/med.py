@@ -134,7 +134,7 @@ class BertSelfAttentionBlock(nn.Module):
         if cache is not None:
             ctx, cache = ctx
         ctx = self.drop(ctx, deterministic=deterministic, generator=generator)
-        out = self.ln(ctx + x)
+        out = self.ln(ctx, x)
         return out if cache is None else (out, cache)
 
 
@@ -155,7 +155,7 @@ class BertFFN(nn.Module):
     def forward(self, x, *, deterministic: bool = True, generator=None):
         h = self.output(self.intermediate.gelu(x))
         h = self.drop(h, deterministic=deterministic, generator=generator)
-        return self.ln(h + x)
+        return self.ln(h, x)
 
 
 class MedLayer(nn.Module):

@@ -79,9 +79,11 @@ class ViTBlock(nn.Module):
         h = self.attn(self.norm1(x), deterministic=det,
                       seed=None if det else seeds[1], generator=gen)
         h = self.drop(h, deterministic=det, generator=gen)
-        x = x + drop_path(h, self.drop_path_rate, deterministic=det,
-                          generator=gen)
-        h = self.mlp(self.norm2(x), deterministic=det, generator=gen)
+        # the residual add and norm2 in one call; x becomes the sum
+        h, x = self.norm2(x, drop_path(h, self.drop_path_rate,
+                                       deterministic=det, generator=gen),
+                          keep_sum=True)
+        h = self.mlp(h, deterministic=det, generator=gen)
         return x + drop_path(h, self.drop_path_rate, deterministic=det,
                              generator=gen)
 

@@ -130,3 +130,16 @@ def load_activation_library() -> ctypes.CDLL:
     lib.crc_bias_gelu.argtypes = [vp, vp, vp, i64, i64, vp]
     lib.crc_bias_gelu.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_layer_norm_library() -> ctypes.CDLL:
+    """The residual add + LayerNorm kernel's library
+    (``csrc/layer_norm.cu``) with its C signature declared."""
+    path, _, _ = build("layer_norm")
+    lib = ctypes.CDLL(str(path))
+    vp, i64 = ctypes.c_void_p, ctypes.c_longlong
+    lib.crc_add_layer_norm.argtypes = [vp, vp, vp, vp, vp, vp, i64, i64,
+                                       ctypes.c_float, vp]
+    lib.crc_add_layer_norm.restype = ctypes.c_int
+    return lib

@@ -6,7 +6,8 @@
 Phases, each printing its own lines:
 1. device: requires CUDA; prints ``nvidia-smi`` name and power limit.
 2. build: compiles the eval (K1-K4) and train (K5-K9) attention libraries
-   and the bias + GELU library (G1) from ``csrc/`` (one nvcc each, started
+   the bias + GELU library (G1) and the residual add + LayerNorm library
+   (G2) from ``csrc/`` (one nvcc each, started
    together with ``make -B -C
    native`` for the native host libraries where g++ and the libjpeg
    headers are present, else a ``[native] unavailable: ...`` line; sm_90a)
@@ -44,6 +45,16 @@ Phases, each printing its own lines:
    / ``F.gelu`` after the bias add (a yardstick the port never calls)
    times over back-to-back calls, the kernel's and ``F.gelu``'s
    device-only times, and its bound (bytes, or instruction issue).
+   Then G2, the residual add and LayerNorm (``ops/norm.add_layer_norm``),
+   at the EVA ViT-g's [8224, 1408] (``norm2`` with its residual and the
+   sum kept, ``norm1`` without), the ViT-B's [18464, 768] (``norm2``), a
+   candidate-major dual-encoder chunk's post-LN [10240, 768], the
+   Q-Former's query rows [256, 32, 768] and a ragged [4099, 1407] (the
+   scalar body), bf16: within bf16's 2e-2 of its plain version (the eager
+   route; the fp32 sums run in another order), the share of elements that
+   differ, the kept sum bit for bit, kernel / plain / ``F.layer_norm``
+   after the add (a yardstick the port never calls) times, the kernel's
+   and ``F.layer_norm``'s device-only times, and its bytes bound.
 4. kernels K5-K7 at the training path's shape ([16, 640, 12, 64] queries
    x 577 keys, rate 0.1), bf16 and fp32 (bf16 K6 and K7 run the
    tensor-core kernels, fp32 the fp32-FMA ones): the K5 mask bit for bit
@@ -55,14 +66,15 @@ Phases, each printing its own lines:
 5. eval path: stage-II re-rank evaluation through the port's
    ``evaluate_cirr_stage2`` entry at full ViT-B/16@384 + MED + dual-encoder
    width in bf16, random weights from a seed, on a synthetic CIRR-shaped
-   corpus held in memory; launch counts per kernel (K1-K3 and G1 must be
+   corpus held in memory; launch counts per kernel (K1-K3, G1 and G2 must be
    > 0);
    then a few hundred pairs re-scored in fp32 on the card and on the CPU,
    and in bf16 on the card and on the CPU (the card's bf16 logits held to
-   the CPU's bf16 eager path within a share of the fp32 logits' spread; the
-   bf16 re-rank order's top-1 and top-5 agreement with the fp32 order;
-   the same check read against planted faults, noise in one K1, K2 or K3
-   launch, which it must catch from a stated share of the launch's std);
+   the CPU's bf16 eager path, at the max and at the rms difference, within
+   shares of the fp32 logits' spread; the bf16 re-rank order's top-1 and
+   top-5 agreement with the fp32 order; the same check read against
+   planted faults, noise in one K1, K2 or K3 launch, which it must catch
+   from a stated share of the launch's std);
    a profile of one scoring pass, which fails if any eval attention ran
    on the fp32-FMA kernel, or any K6-K9 on its fp32-FMA body (every
    profile is bf16; the training profiles fail alike).
@@ -205,7 +217,7 @@ Phases, each printing its own lines:
     span, queries/s, peak GiB, the launches after a reset (one 88-wide K1
     a ViT-g block and embed batch, K1_d88 = 39 x batches; no 88-wide K3;
     K1 above K1_d88 (the Q-Former's cross-attention), K2 (its masked
-    self-attention), K3 (its query pass's unmasked one) and G1 > 0) and
+    self-attention), K3 (its query pass's unmasked one), G1 and G2 > 0) and
     the metrics.
 16. the multi-card paths (after phase 14) at full width through NCCL,
     over min(4, cards) ranks: one rank in this process in bf16, where every
@@ -221,7 +233,7 @@ Phases, each printing its own lines:
     the replicated bank; ``sharded_cosine_topk``; ``dryrun_multichip``.
     Prints the seconds, the max |mesh - no mesh| of each comparison and
     the launches of the mesh calls (K1-K3 and K5-K9 must be > 0).
-12. a JSON line of kernel figures, K1-K9 and G1 (``launches_by_path`` adds
+12. a JSON line of kernel figures, K1-K9, G1 and G2 (``launches_by_path`` adds
     phase 10's
     counts as "train_cli", phase 11's as "serve", phase 13's as
     "caption", phase 14's as "glue", phase 15's as "single_program"
@@ -261,18 +273,25 @@ FP32_CARD_VS_CPU_TOL = 1e-3    # summation order through 12+12 layers
 BF16_VS_FP32_TOL = 0.1         # bf16 compute vs fp32 on the same weights
 # bf16 card vs the bf16 eager path on the CPU (same weights, the pairs of
 # the first BF16_CPU_QUERIES scored queries; bf16 on the CPU runs about 3x
-# slower than fp32 there): max |logit diff| within this share of the fp32
-# logits' std. Two correct bf16 paths differ by about a third of that std
-# at these random weights (PERF.md section 6), near the bf16 error itself.
+# slower than fp32 there): max |logit diff| within BF16_CARD_VS_CPU_REL_TOL
+# of the fp32 logits' std, and the root-mean-square difference within
+# BF16_CARD_VS_CPU_RMS_REL_TOL of it. Two correct bf16 paths differ by about
+# a third of that std at the max and a tenth at the rms at these random
+# weights (PERF.md section 6), near the bf16 error itself. The max sits on
+# the bf16 logits' steps (about a fifth of the std), so it moves by a step
+# when any rounding on the path moves; the rms, taken over every pair, does
+# not.
 BF16_CARD_VS_CPU_REL_TOL = 0.5
+BF16_CARD_VS_CPU_RMS_REL_TOL = 0.16
 BF16_CPU_QUERIES = 2
 # controls for that check: the bf16 card re-score again with Gaussian noise
 # of each share of a launch's output std added to the first launch, or to
 # every launch, of K1, K2 and K3 (PERF.md section 6). The sound run reads
-# 0.28-0.33 of the std; the check must fail the planted faults listed in
-# BF16_CONTROL_CAUGHT as (every launch, kernel, share), which read 0.6 or
-# more. Smaller faults (a tenth of the std in every K1 launch reads 0.497)
-# pass it: it catches gross faults only.
+# 0.28-0.33 of the std at the max and 0.10-0.11 at the rms; the check must
+# fail the planted faults listed in BF16_CONTROL_CAUGHT as (every launch,
+# kernel, share), on the max or on the rms. Smaller faults (three
+# hundredths of the std in every K1 launch reads 0.388 and 0.150) pass it:
+# it catches gross faults only.
 BF16_CONTROL_SHARES_FIRST = (0.1, 0.3, 1.0)
 BF16_CONTROL_SHARES_EVERY = (0.01, 0.03, 0.1)
 BF16_CONTROL_CAUGHT = ((False, "K1", 1.0), (False, "K2", 1.0),
@@ -406,6 +425,7 @@ SOURCES = {"K1": f"{CSRC}/attention_tc.cuh", "K2": f"{CSRC}/attention_tc.cuh",
            "K8": f"{CSRC}/attention_train_tc.cuh",
            "K9": f"{CSRC}/attention_train_tc.cuh",
            "G1": f"{CSRC}/activation.cu",
+           "G2": f"{CSRC}/layer_norm.cu",
            # K1 at 88-wide heads: attn_fwd_tc_kernel<wg, false, 88>
            "K1_d88": f"{CSRC}/attention_tc.cuh"}
 JAX_KERNELS = "candidate_reranking_cir_tpu/ops/pallas_attention.py"
@@ -418,8 +438,11 @@ REPLACES = {"K1": f"{JAX_KERNELS}:220", "K2": f"{JAX_KERNELS}:132",
             # G1 replaces no TPU kernel: XLA fuses the same formula into
             # fc1's epilogue
             "G1": "none (candidate_reranking_cir_tpu/models/layers.py: "
-                  "Dense, exact_gelu, fused by XLA)"}
-MAIN_PATH_KERNELS = ("K1", "K2", "K3", "G1")
+                  "Dense, exact_gelu, fused by XLA)",
+            # G2 neither: XLA fuses the residual add and LayerNorm
+            "G2": "none (candidate_reranking_cir_tpu/models/layers.py: "
+                  "LayerNorm and the blocks' residual adds, fused by XLA)"}
+MAIN_PATH_KERNELS = ("K1", "K2", "K3", "G1", "G2")
 EVAL_KERNELS = ("K1", "K2", "K3", "K4")
 # profiler families of the attention kernels (see kernel_family); a bf16
 # profile fails on any time in the FMA families
@@ -747,6 +770,104 @@ def run_bias_gelu_cases() -> list:
     return recs
 
 
+# G2 at the paths' shapes (label, input shape, residual, sum kept, eps): the
+# EVA ViT-g's norm2 and norm1 at embed batch 32 (32 x 257 rows of 1408), the
+# ViT-B's norm2 at embed batch 32, a candidate-major dual-encoder chunk's
+# post-LN (8 candidates x 32 queries x 40 tokens), the Q-Former's query
+# rows at q_batch 256, and a ragged width (the scalar body)
+G2_CASES = (
+    ("EVA ViT-g norm2, embed batch 32", (32 * 257, 1408), True, True, 1e-6),
+    ("EVA ViT-g norm1, embed batch 32", (32 * 257, 1408), False, False,
+     1e-6),
+    ("ViT-B norm2, embed batch 32", (32 * 577, 768), True, True, 1e-6),
+    ("candidate-major dual-encoder chunk post-LN", (8 * 32 * TEXT_LEN, 768),
+     True, False, 1e-12),
+    ("Q-Former query rows, q_batch 256", (256, 32, 768), True, False, 1e-12),
+    ("ragged rows, odd width (scalar body)", (4099, 1407), True, False,
+     1e-12),
+)
+G2_TOL = 2e-2                  # bf16's bound, absolute and relative
+# the share of output elements that may differ from the plain version at
+# all: the fp32 sums' order moves a few in 10^5 by one bf16 ulp, while a
+# kernel off by a formula (an unbiased variance, eps dropped, a coarse
+# rsqrt) moves most of them, if each by less than G2_TOL
+G2_DIFFER_SHARE_MAX = 1e-3
+
+
+def run_layer_norm_cases() -> list:
+    """G2 at G2_CASES in bf16 with fp32 gains and biases: within G2_TOL of
+    ``add_layer_norm_plain``, with at most G2_DIFFER_SHARE_MAX of the
+    elements differing (fails otherwise, or if a kept sum differs in any
+    bit), the share of elements that differ, kernel / plain /
+    ``F.layer_norm`` times, device-only times and the bytes bound."""
+    import torch.nn.functional as F
+
+    from candidate_reranking_cir_tpu_torch.ops import norm
+
+    recs = []
+    for label, shape, residual, keep, eps in G2_CASES:
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        x = (torch.randn(shape, generator=g, device="cuda") * 3 + 0.5
+             ).bfloat16()
+        r = torch.randn(shape, generator=g, device="cuda").bfloat16() \
+            if residual else None
+        n = shape[-1]
+        w = 1 + 0.2 * torch.randn(n, generator=g, device="cuda")
+        b = 0.1 * torch.randn(n, generator=g, device="cuda")
+        wl, bl = w.bfloat16(), b.bfloat16()
+        kernel = lambda: norm.add_layer_norm(x, r, w, b, eps, keep)
+        plain = lambda: norm.add_layer_norm_plain(x, r, w, b, eps, keep)
+        library = (lambda: F.layer_norm(x + r, (n,), wl, bl, eps)) \
+            if residual else (lambda: F.layer_norm(x, (n,), wl, bl, eps))
+        n0 = norm.LAUNCHES["add_layer_norm"]
+        got = kernel()
+        torch.cuda.synchronize()
+        launched = norm.LAUNCHES["add_layer_norm"] - n0
+        ref = plain()
+        sum_differ = 0
+        if keep:
+            sum_differ = int((got[1].view(torch.int16)
+                              != ref[1].view(torch.int16)).sum())
+            got, ref = got[0], ref[0]
+        a, e = got.float(), ref.float()
+        err = (a - e).abs().max().item()
+        over = int(((a - e).abs() > G2_TOL + G2_TOL * e.abs()).sum())
+        share = (got.view(torch.int16) != ref.view(torch.int16)
+                 ).float().mean().item()
+        if over or share > G2_DIFFER_SHARE_MAX or sum_differ \
+                or launched != 1:
+            fail(f"G2 {label} {list(shape)}: {over} elements beyond "
+                 f"{G2_TOL} of the plain version (max |err| {err:.3e}), "
+                 f"{share:.4%} of the elements differ (at most "
+                 f"{G2_DIFFER_SHARE_MAX:.2%}), {sum_differ} elements of the "
+                 f"sum differ; {launched} launches")
+        n_bytes = 2 * x.numel() * (2 + int(residual) + int(keep)) + 8 * n
+        t_mem = n_bytes / HBM_BYTES_PER_S
+        rec = {"name": "G2", "label": label, "dtype": "bfloat16",
+               "shape": list(shape), "residual": residual, "keep_sum": keep,
+               "eps": eps, "max_abs_err": err, "differ_share": share,
+               "ms": time_ms(kernel, 50), "device_ms": graph_ms(kernel, 50),
+               "plain_ms": time_ms(plain, 10),
+               "library_ms": time_ms(library, 50),
+               "library_device_ms": graph_ms(library, 50),
+               "bound_ms": t_mem * 1e3, "bound_by": "bytes",
+               "bytes_bound_ms": t_mem * 1e3}
+        print(f"[kernel] G2 {label} bf16 {list(shape)}"
+              f"{' + residual' if residual else ''}"
+              f"{', sum kept' if keep else ''}, eps {eps:g}: within "
+              f"{G2_TOL} of the plain version (max |err| {err:.3e}, "
+              f"{share:.4%} of the elements differ); kernel "
+              f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+              f"F.layer_norm{' after the add' if residual else ''} "
+              f"{rec['library_ms']:.4f} ms; device only: kernel "
+              f"{rec['device_ms']:.4f} ms, F.layer_norm "
+              f"{rec['library_device_ms']:.4f} ms; bytes bound "
+              f"{rec['bound_ms']:.4f} ms, kernel/bound "
+              f"{rec['device_ms'] / rec['bound_ms']:.2f}x", flush=True)
+        recs.append(rec)
+    return recs
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the train kernels at the training path's shape
 def run_train_kernel_cases(dtype) -> dict:
@@ -1055,10 +1176,11 @@ def main_path():
 
 def bf16_vs_bf16(logits: dict, spread: float) -> None:
     """The bf16 card logits against the port's bf16 eager path on the CPU
-    (the same weights, the pairs of the first BF16_CPU_QUERIES queries)
-    within BF16_CARD_VS_CPU_REL_TOL of the fp32 logits' std, with the
-    max and root-mean-square differences of each bf16 path from fp32 and
-    from each other printed beside it; and how far the bf16 re-rank order
+    (the same weights, the pairs of the first BF16_CPU_QUERIES queries):
+    the max difference within BF16_CARD_VS_CPU_REL_TOL of the fp32 logits'
+    std and the root-mean-square one within BF16_CARD_VS_CPU_RMS_REL_TOL,
+    with both differences of each bf16 path from fp32 and from each other
+    printed beside them; and how far the bf16 re-rank order
     agrees with the fp32 order: per query, the top-1 candidate and the
     top-5 set."""
     n = len(logits["bf16 cpu"])
@@ -1074,12 +1196,14 @@ def bf16_vs_bf16(logits: dict, spread: float) -> None:
         mx, rms = diff(a, b)
         parts.append(f"{a} vs {b} max {mx:.3e} ({mx / spread:.3f} std), "
                      f"rms {rms:.3e} ({rms / spread:.3f} std)")
-    d = diff("bf16 card", "bf16 cpu")[0]
+    d, d_rms = diff("bf16 card", "bf16 cpu")
     tol = BF16_CARD_VS_CPU_REL_TOL * spread
+    tol_rms = BF16_CARD_VS_CPU_RMS_REL_TOL * spread
     print(f"[check] bf16 logits over the first {n} queries' "
           f"{rows['bf16 cpu'].size} pairs: {'; '.join(parts)}; tol on bf16 "
-          f"card vs bf16 cpu max "
-          f"{BF16_CARD_VS_CPU_REL_TOL} x std = {tol:.3e}", flush=True)
+          f"card vs bf16 cpu max {BF16_CARD_VS_CPU_REL_TOL} x std = "
+          f"{tol:.3e}, rms {BF16_CARD_VS_CPU_RMS_REL_TOL} x std = "
+          f"{tol_rms:.3e}", flush=True)
     # the first TOPK columns are each query's re-ranked top-K candidates
     order = {tag: np.argsort(-x[:, :TOPK], axis=1, kind="stable")
              for tag, x in logits.items()}
@@ -1090,7 +1214,7 @@ def bf16_vs_bf16(logits: dict, spread: float) -> None:
         print(f"[check] {tag} re-rank order vs fp32 cpu: top-1 equal in "
               f"{top1} of {len(ref)} queries; top-5 sets share "
               f"{top5} of 5", flush=True)
-    if not d <= tol:
+    if not (d <= tol and d_rms <= tol_rms):
         fail("bf16 card logits disagree with the bf16 path on the CPU")
 
 
@@ -1128,8 +1252,8 @@ def bf16_controls(logits: dict, spread: float, rescore_bf16_card) -> None:
     """The bf16 card-vs-CPU check against planted faults: the bf16 card
     re-score again with noise in the first launch, or in every launch, of
     K1, K2 or K3, read as the check reads the sound run (max |card - CPU|
-    in fp32 logit std, the rms beside it); fails unless every fault of
-    BF16_CONTROL_CAUGHT reads above the check's tolerance."""
+    and the rms |card - CPU|, in fp32 logit std); fails unless every fault
+    of BF16_CONTROL_CAUGHT reads above one of the check's tolerances."""
     ref = logits["bf16 cpu"]
     readings = {}
     for every, shares in ((False, BF16_CONTROL_SHARES_FIRST),
@@ -1146,13 +1270,15 @@ def bf16_controls(logits: dict, spread: float, rescore_bf16_card) -> None:
         print(f"[check] bf16 card vs bf16 cpu with a planted fault in "
               f"{'every' if every else 'the first'} launch (noise of a "
               f"share of the launch's output std; max, rms |diff| in fp32 "
-              f"logit std; tol on the max {BF16_CARD_VS_CPU_REL_TOL}): "
+              f"logit std; tol on the max {BF16_CARD_VS_CPU_REL_TOL}, on "
+              f"the rms {BF16_CARD_VS_CPU_RMS_REL_TOL}): "
               + "; ".join(
                   f"{kid} x {share}: {mx:.3f}, {rms:.3f}"
                   for (ev, kid, share), (mx, rms) in readings.items()
                   if ev == every), flush=True)
     missed = [key for key in BF16_CONTROL_CAUGHT
-              if not readings[key][0] > BF16_CARD_VS_CPU_REL_TOL]
+              if not (readings[key][0] > BF16_CARD_VS_CPU_REL_TOL
+                      or readings[key][1] > BF16_CARD_VS_CPU_RMS_REL_TOL)]
     if missed:
         fail(f"the bf16 check passed planted faults {missed}")
 
@@ -1929,9 +2055,10 @@ def stage1_eval_path(tok, words, queries: list[dict]) -> dict:
                       for (q, w, g), n in sorted(fams.items())), flush=True)
     print(f"[stage1_eval] metrics {json.dumps(res.metrics)}", flush=True)
     if not (launches["K1"] > 0 and launches["K2"] > 0
-            and launches["G1"] > 0 and launches["K3"] == 0):
-        fail(f"stage-I eval launches {launches}: K1, K2 and G1 must run, K3 "
-             "not")
+            and launches["G1"] > 0 and launches["G2"] > 0
+            and launches["K3"] == 0):
+        fail(f"stage-I eval launches {launches}: K1, K2, G1 and G2 must run, "
+             "K3 not")
     for key, val in res.metrics.items():
         if not 0.0 <= val <= 100.0:
             fail(f"stage-I metric {key} = {val} out of range")
@@ -2629,7 +2756,7 @@ def serving_path(tok, words, corpus: Corpus) -> dict:
         print(f"[serve] launches {json.dumps(launches)}", flush=True)
         if not all(launches[k] > 0 for k in MAIN_PATH_KERNELS) or any(
                 launches[k] for k in launches if k not in MAIN_PATH_KERNELS):
-            fail(f"serving launches {launches}: K1-K3 and G1 must run, "
+            fail(f"serving launches {launches}: K1-K3, G1 and G2 must run, "
                  "K4-K9 not")
         if index.n_valid != len(corpus) or any(
                 nm in index.pos for nm in removed) or not all(
@@ -2815,7 +2942,7 @@ def blip2_stage1_eval_path(tok, words) -> dict:
     Fails unless every ViT-g block launched one 88-wide K1 an embed batch
     and nothing else did (K1_d88 = layers x batches), no 88-wide K3 ran,
     and the Q-Former's K1 (cross-attention), K2 (masked self-attention),
-    K3 (the query pass's unmasked self-attention) and G1 ran. Returns the
+    K3 (the query pass's unmasked self-attention), G1 and G2 ran. Returns the
     counted run's launches."""
     from candidate_reranking_cir_tpu_torch.config import (
         Blip2RetrievalModelConfig,
@@ -2867,10 +2994,10 @@ def blip2_stage1_eval_path(tok, words) -> dict:
     want_wide = cfg.vit.num_layers * batches
     if launches["K1_d88"] != want_wide or ck.WIDE_LAUNCHES["K3"] != 0 \
             or launches["K1"] <= launches["K1_d88"] \
-            or not all(launches[k] > 0 for k in ("K2", "K3", "G1")):
+            or not all(launches[k] > 0 for k in ("K2", "K3", "G1", "G2")):
         fail(f"BLIP-2 stage-I launches {launches}: K1_d88 must be "
              f"{want_wide} (one a ViT-g block and embed batch), 88-wide K3 "
-             "0, K1 above K1_d88, K2, K3 and G1 > 0")
+             "0, K1 above K1_d88, K2, K3, G1 and G2 > 0")
     for key, val in res.metrics.items():
         if not 0.0 <= val <= 100.0:
             fail(f"BLIP-2 stage-I metric {key} = {val} out of range")
@@ -3019,13 +3146,15 @@ def compare_train_states(a_dir, b_dir) -> dict:
 
 
 def launch_counts() -> dict:
-    """Launches of K1-K9 and G1 since the last ``reset_launch_counts``, and
-    K1's at 88-wide heads as "K1_d88" (also in "K1")."""
+    """Launches of K1-K9, G1 and G2 since the last ``reset_launch_counts``,
+    and K1's at 88-wide heads as "K1_d88" (also in "K1")."""
     from candidate_reranking_cir_tpu_torch.ops import activation as act
     from candidate_reranking_cir_tpu_torch.ops import attention_train as tat
     from candidate_reranking_cir_tpu_torch.ops import cuda_attention as ck
+    from candidate_reranking_cir_tpu_torch.ops import norm
 
     return {**ck.LAUNCHES, **tat.LAUNCHES, "G1": act.LAUNCHES["bias_gelu"],
+            "G2": norm.LAUNCHES["add_layer_norm"],
             "K1_d88": ck.WIDE_LAUNCHES["K1"]}
 
 
@@ -3034,9 +3163,12 @@ def reset_launch_counts() -> None:
     from candidate_reranking_cir_tpu_torch.ops import attention_train as tat
     from candidate_reranking_cir_tpu_torch.ops import cuda_attention as ck
 
+    from candidate_reranking_cir_tpu_torch.ops import norm
+
     ck.reset_launch_counts()
     tat.reset_launch_counts()
     act.reset_launch_counts()
+    norm.reset_launch_counts()
 
 
 def remat_memory(tok, words) -> dict:
@@ -3620,7 +3752,7 @@ def caption_path(tok) -> dict:
               f"{CAP_B * steps / seconds:.1f} tokens/s ({CAP_B} rows x "
               f"{steps} steps); ids {list(ids.shape)}, first row "
               f"{ids[0].tolist()}", flush=True)
-    for kid in ("K1", "K2", "K3", "G1"):
+    for kid in ("K1", "K2", "K3", "G1", "G2"):
         if launches[kid] <= 0:
             fail(f"{kid} was not launched on the caption path")
     for kid in ("K4", "K5", "K6", "K7", "K8", "K9"):
@@ -4103,9 +4235,9 @@ def build_native() -> tuple[str | None, float]:
 
 
 def build_libraries() -> bool:
-    """The three kernel libraries, one nvcc each, and the native host
+    """The four kernel libraries, one nvcc each, and the native host
     libraries (``make -C native``), started together; ptxas's register and
-    spill lines of every kernel (the tensor-core kernels' and G1's must be
+    spill lines of every kernel (the tensor-core kernels', G1's and G2's must be
     among them when a library was built), and the tensor-core kernels'
     dynamic shared memory. Returns whether the native libraries were built; if not, a
     ``[native] unavailable`` line says what is missing."""
@@ -4116,8 +4248,8 @@ def build_libraries() -> bool:
         load_attention_train_library,
     )
 
-    names = ("attention", "attention_train", "activation")
-    with ThreadPoolExecutor(4) as pool:
+    names = ("attention", "attention_train", "activation", "layer_norm")
+    with ThreadPoolExecutor(5) as pool:
         native = pool.submit(build_native)
         built = list(pool.map(build, names))
         native_missing_what, native_s = native.result()
@@ -4140,7 +4272,9 @@ def build_libraries() -> bool:
                                       "attn_bwd_tc_rows_kernel",
                                       "attn_bwd_tc_keys_kernel"),
                   "activation": ("bias_gelu_vec_kernel",
-                                 "bias_gelu_scalar_kernel")}[name]
+                                 "bias_gelu_scalar_kernel"),
+                  "layer_norm": ("add_layer_norm_vec_kernel",
+                                 "add_layer_norm_scalar_kernel")}[name]
         for kernel in wanted:
             if log and kernel not in log:
                 fail(f"ptxas reported no {kernel}")
@@ -4505,6 +4639,8 @@ def main():
     records.update(run_wide_cases())
     # the JSON line keeps G1 at the ViT's shape
     records["G1"] = run_bias_gelu_cases()[0]
+    # and G2 at the EVA ViT-g's norm2
+    records["G2"] = run_layer_norm_cases()[0]
     for dtype in (torch.float32, torch.bfloat16):
         recs = run_train_kernel_cases(dtype)
         if dtype == torch.bfloat16:
@@ -4536,7 +4672,7 @@ def main():
 
     kernels = []
     for kid in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "G1",
-                "K1_d88"):
+                "G2", "K1_d88"):
         rec = records[kid]
         # K1-K4: launches on the two eval paths (stage II, then stage I);
         # K6/K7 on the stage-II training path; K8/K9 on the stage-I one; K5
@@ -4550,21 +4686,21 @@ def main():
         # its capture; a replay adds none) under "single_program", K5-K9
         # the dropout layouts' card runs (phase 15 (b), (c)) under
         # "dropout_layouts"
-        # G1 runs in every FFN: it counts on the eval paths, both training
-        # paths and the dropout layouts
+        # G1 runs in every FFN and G2 at every LayerNorm: they count on the
+        # eval paths, both training paths and the dropout layouts
         # K1_d88 (K1 at 88-wide heads, in K1's counts too) runs on BLIP-2's
         # stage-I eval (phase 17) alone, under "blip2_stage1_eval", which
-        # also counts K1-K4 and G1
+        # also counts K1-K4, G1 and G2
         by_path = {}
         if kid == "K1_d88":
             by_path = {"blip2_stage1_eval": blip2_launches[kid]}
-        elif kid in EVAL_KERNELS or kid == "G1":
+        elif kid in EVAL_KERNELS or kid in ("G1", "G2"):
             by_path = {"stage2_eval": launches[kid],
                        "stage1_eval": s1e_launches[kid],
                        "serve": serve_launches[kid],
                        "single_program": p15["single_program"][kid],
                        "blip2_stage1_eval": blip2_launches[kid]}
-        if kid in ("K5", "G1"):
+        if kid in ("K5", "G1", "G2"):
             by_path.update(stage2_train=train["launches"][kid],
                            stage1_train=stage1["launches"][kid])
         elif kid in ("K8", "K9"):
