@@ -18,24 +18,17 @@ some 26 fp32 passes over [rows, 3072] (``csrc/activation.cu`` has the
 numerics and the bound).
 
 Gradients: where an input wants one, the kernel runs inside
-``_BiasGelu``, whose backward recomputes the plain version under
-autograd, as ``cuda_attention._EvalAttention`` does for K1-K4.
-
-``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` the calls that
-took the plain version; neither is one of the attention kernels' counters.
+``registry.PlainBackward``, whose backward recomputes the plain version
+under autograd. ``registry`` counts the launches ("G1") and the calls that
+took the plain version.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-LAUNCHES = {"bias_gelu": 0}
-PLAIN_CALLS = {"bias_gelu": 0}
-
-
-def reset_launch_counts() -> None:
-    LAUNCHES["bias_gelu"] = 0
-    PLAIN_CALLS["bias_gelu"] = 0
+from candidate_reranking_cir_tpu_torch.ops import build, registry
+from candidate_reranking_cir_tpu_torch.ops.registry import FUSED, PLAIN_CALLS
 
 
 def exact_gelu(x):
@@ -81,47 +74,21 @@ def _check_kernel_inputs(product, bias) -> None:
 
 def _kernel_forward(product, bias):
     """One launch of ``csrc/activation.cu`` on the current stream."""
-    from candidate_reranking_cir_tpu_torch.ops.build import (
-        load_activation_library,
-    )
-
     _check_kernel_inputs(product, bias)
     out = torch.empty_like(product)
     n = product.shape[-1]
     rows = product.numel() // n if n else 0
     if rows == 0:
         return out
-    err = load_activation_library().crc_bias_gelu(
+    err = build.load("activation").crc_bias_gelu(
         product.data_ptr(), None if bias is None else bias.data_ptr(),
         out.data_ptr(), rows, n,
         torch.cuda.current_stream(product.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"bias_gelu kernel launch failed: code {err} (a "
                            "cudaError, or -1 for an empty shape)")
-    LAUNCHES["bias_gelu"] += 1
+    FUSED["G1"] += 1
     return out
-
-
-class _BiasGelu(torch.autograd.Function):
-    """Forward: the kernel. Backward: the plain version recomputed under
-    autograd."""
-
-    @staticmethod
-    def forward(ctx, product, bias):
-        ctx.save_for_backward(product, bias)
-        return _kernel_forward(product, bias)
-
-    @staticmethod
-    def backward(ctx, g):
-        product, bias = ctx.saved_tensors
-        needs = ctx.needs_input_grad
-        inputs = [None if t is None else t.detach().requires_grad_(n)
-                  for t, n in zip((product, bias), needs)]
-        with torch.enable_grad():
-            out = bias_gelu_plain(*inputs)
-            wanted = [t for t in inputs if t is not None and t.requires_grad]
-            grads = iter(torch.autograd.grad(out, wanted, g))
-        return tuple(next(grads) if n else None for n in needs)
 
 
 def bias_gelu(product, bias=None):
@@ -130,10 +97,6 @@ def bias_gelu(product, bias=None):
     dtype, ``bias`` fc1's fp32 bias [n] or None. Returns the activation in
     the product's dtype."""
     if product.device.type == "cpu" or product.dtype == torch.float32:
-        PLAIN_CALLS["bias_gelu"] += 1
+        PLAIN_CALLS["G1"] += 1
         return bias_gelu_plain(product, bias)
-    wants_grad = product.requires_grad or (bias is not None
-                                           and bias.requires_grad)
-    if torch.is_grad_enabled() and wants_grad:
-        return _BiasGelu.apply(product, bias)
-    return _kernel_forward(product, bias)
+    return registry.run(_kernel_forward, bias_gelu_plain, product, bias)

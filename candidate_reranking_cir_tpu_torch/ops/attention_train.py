@@ -50,7 +50,7 @@ import ctypes
 
 import torch
 
-from candidate_reranking_cir_tpu_torch.ops import draws
+from candidate_reranking_cir_tpu_torch.ops import build, draws, registry
 from candidate_reranking_cir_tpu_torch.ops.cuda_attention import (
     DTYPE_CODES,
     KERNEL_HEAD_DIM,
@@ -62,7 +62,7 @@ from candidate_reranking_cir_tpu_torch.ops.cuda_attention import (
     scaled_scores,
 )
 
-LAUNCHES = {"K5": 0, "K6": 0, "K7": 0, "K8": 0, "K9": 0}
+LAUNCHES = registry.TRAIN
 
 MAX_LQ = 1024
 MIN_KV = 256
@@ -72,11 +72,6 @@ MAX_ENTRIES_BWD = 4
 
 _U32 = 0xFFFFFFFF
 _INT32_MIN, _INT32_MAX = -2 ** 31, 2 ** 31 - 1
-
-
-def reset_launch_counts() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
 
 
 def _pick_entries(b: int, lq: int, cap: int = MAX_ENTRIES_BWD) -> int:
@@ -159,11 +154,7 @@ def write_keep_mask(out, seed: int, b: int, h: int, rate: float):
     if out.device.type == "cpu":
         out.copy_(keep_mask(seed, b, h, rows, cols, rate))
         return out
-    from candidate_reranking_cir_tpu_torch.ops.build import (
-        load_attention_train_library,
-    )
-
-    lib = load_attention_train_library()
+    lib = build.load("attention_train")
     err = lib.crc_keep_mask(seed, b, h, rows, cols, rate, out.data_ptr(),
                             torch.cuda.current_stream(out.device).cuda_stream)
     if err != 0:
@@ -281,11 +272,7 @@ def _kernel_fwd(q, k, v, bias3, seed: int, rate: float, *,
     run zero-padded (``pad_heads``: the padded copy of a folded tensor has
     the head stride ``KERNEL_HEAD_DIM`` that K8 takes) at their own scale,
     and the output is sliced back to d."""
-    from candidate_reranking_cir_tpu_torch.ops.build import (
-        load_attention_train_library,
-    )
-
-    lib = load_attention_train_library()
+    lib = build.load("attention_train")
     d = q.shape[-1]
     scale = d ** -0.5
     q, k, v = pad_heads(q, k, v)
@@ -319,12 +306,8 @@ def fwd_uses_tensor_cores(dtype, bias3, folded: bool) -> bool:
 def folded_forward_blocks_per_sm(lq: int, m: int) -> int:
     """How many blocks of the bf16 K8 kernel for ``lq`` rows and ``m`` keys
     an SM of the current card holds at once."""
-    from candidate_reranking_cir_tpu_torch.ops.build import (
-        load_attention_train_library,
-    )
-
-    blocks = load_attention_train_library(
-    ).crc_attention_train_folded_forward_blocks_per_sm(lq, m)
+    lib = build.load("attention_train")
+    blocks = lib.crc_attention_train_folded_forward_blocks_per_sm(lq, m)
     if blocks < 0:
         raise RuntimeError(f"K8 occupancy query failed: cudaError {-blocks}")
     return blocks
@@ -340,11 +323,7 @@ def _kernel_bwd(q, k, v, bias3, seed: int, g, rate: float, *,
                 folded: bool = False):
     """K7, or K9 (``folded``), on [E, L, H, d] views as ``_kernel_fwd``,
     narrow heads zero-padded and dq, dk, dv sliced back to d."""
-    from candidate_reranking_cir_tpu_torch.ops.build import (
-        load_attention_train_library,
-    )
-
-    lib = load_attention_train_library()
+    lib = build.load("attention_train")
     d = q.shape[-1]
     scale = d ** -0.5
     q, k, v, g = pad_heads(q, k, v, g)

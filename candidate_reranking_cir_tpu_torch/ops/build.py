@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``csrc/`` are compiled on first use with ``nvcc`` into a
-shared library with a plain C interface, loaded through ``ctypes``. The
+shared library with a plain C interface, which ``load(name)`` opens
+through ``ctypes`` with the signatures ``LIBRARIES`` declares. The
 library lands in ``_build/`` beside this package (listed in .gitignore),
 named by a hash of its source and flags, so a changed source rebuilds and
 an unchanged one is reused. Nothing is built at import time.
@@ -72,74 +73,50 @@ def build(name: str = "attention") -> tuple[Path, float, str]:
     return lib, time.perf_counter() - t0, proc.stdout + proc.stderr
 
 
-@functools.lru_cache(maxsize=None)
-def load_attention_library() -> ctypes.CDLL:
-    """The attention kernels' library with its C signatures declared."""
-    path, _, _ = build("attention")
-    lib = ctypes.CDLL(str(path))
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.crc_attention_head_dim.argtypes = []
-    lib.crc_attention_head_dim.restype = i32
-    lib.crc_attention_tc_smem_bytes.argtypes = [i32, i32]
-    lib.crc_attention_tc_smem_bytes.restype = i32
-    lib.crc_attention_forward.argtypes = [
-        i32, i32, vp, vp, vp, vp, vp, ctypes.POINTER(ctypes.c_longlong),
-        i32, i32, i32, i32, ctypes.c_float, vp]
-    lib.crc_attention_forward.restype = ctypes.c_int
-    return lib
+_VP, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                         ctypes.c_float)
+_STRIDES = ctypes.POINTER(ctypes.c_longlong)
+# K6's and K8's entry points take the same arguments, and K7's and K9's
+_TRAIN_FWD = (_I32, _VP, _VP, _VP, _VP, _VP, _STRIDES, _I32, _I32, _I32, _I32,
+              _F32, _I32, _F32, _F32, _VP)
+_TRAIN_BWD = (_I32, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _STRIDES,
+              _I32, _I32, _I32, _I32, _F32, _I32, _F32, _F32, _VP)
+# every kernel library, ``csrc/<name>.cu``: its C entry points and their
+# argument types; each returns an int (0, a refusal code or a cudaError)
+LIBRARIES = {
+    "attention": {  # K1-K4
+        "crc_attention_head_dim": (),
+        "crc_attention_tc_smem_bytes": (_I32, _I32),
+        "crc_attention_forward": (_I32, _I32, _VP, _VP, _VP, _VP, _VP,
+                                  _STRIDES, _I32, _I32, _I32, _I32, _F32,
+                                  _VP),
+    },
+    "attention_train": {  # K5-K9
+        "crc_attention_train_max_keys": (),
+        "crc_attention_train_forward": _TRAIN_FWD,
+        "crc_attention_train_folded_forward": _TRAIN_FWD,
+        "crc_attention_train_backward": _TRAIN_BWD,
+        "crc_attention_train_folded_backward": _TRAIN_BWD,
+        "crc_attention_train_tc_smem_bytes": (_I32,),
+        "crc_attention_train_folded_forward_blocks_per_sm": (_I32, _I32),
+        "crc_keep_mask": (_I32, _I32, _I32, _I32, _I32, _F32, _VP, _VP),
+    },
+    "activation": {  # G1
+        "crc_bias_gelu": (_VP, _VP, _VP, _I64, _I64, _VP),
+    },
+    "layer_norm": {  # G2
+        "crc_add_layer_norm": (_VP, _VP, _VP, _VP, _VP, _VP, _I64, _I64,
+                               _F32, _VP),
+    },
+}
 
 
 @functools.lru_cache(maxsize=None)
-def load_attention_train_library() -> ctypes.CDLL:
-    """The train attention kernels' library (K5-K9) with its C signatures
-    declared. The folded entry points (K8, K9) take the unfolded ones'
-    arguments."""
-    path, _, _ = build("attention_train")
-    lib = ctypes.CDLL(str(path))
-    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    strides = ctypes.POINTER(ctypes.c_longlong)
-    lib.crc_attention_train_max_keys.argtypes = []
-    lib.crc_attention_train_max_keys.restype = i32
-    for fn in (lib.crc_attention_train_forward,
-               lib.crc_attention_train_folded_forward):
-        fn.argtypes = [i32, vp, vp, vp, vp, vp, strides, i32, i32, i32, i32,
-                       f32, i32, f32, f32, vp]
-        fn.restype = i32
-    for fn in (lib.crc_attention_train_backward,
-               lib.crc_attention_train_folded_backward):
-        fn.argtypes = [i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, strides, i32,
-                       i32, i32, i32, f32, i32, f32, f32, vp]
-        fn.restype = i32
-    lib.crc_attention_train_tc_smem_bytes.argtypes = [i32]
-    lib.crc_attention_train_tc_smem_bytes.restype = i32
-    blocks_per_sm = lib.crc_attention_train_folded_forward_blocks_per_sm
-    blocks_per_sm.argtypes = [i32, i32]
-    blocks_per_sm.restype = i32
-    lib.crc_keep_mask.argtypes = [i32, i32, i32, i32, i32, f32, vp, vp]
-    lib.crc_keep_mask.restype = i32
-    return lib
-
-
-@functools.lru_cache(maxsize=None)
-def load_activation_library() -> ctypes.CDLL:
-    """The bias + exact-GELU kernel's library (``csrc/activation.cu``) with
-    its C signature declared."""
-    path, _, _ = build("activation")
-    lib = ctypes.CDLL(str(path))
-    vp, i64 = ctypes.c_void_p, ctypes.c_longlong
-    lib.crc_bias_gelu.argtypes = [vp, vp, vp, i64, i64, vp]
-    lib.crc_bias_gelu.restype = ctypes.c_int
-    return lib
-
-
-@functools.lru_cache(maxsize=None)
-def load_layer_norm_library() -> ctypes.CDLL:
-    """The residual add + LayerNorm kernel's library
-    (``csrc/layer_norm.cu``) with its C signature declared."""
-    path, _, _ = build("layer_norm")
-    lib = ctypes.CDLL(str(path))
-    vp, i64 = ctypes.c_void_p, ctypes.c_longlong
-    lib.crc_add_layer_norm.argtypes = [vp, vp, vp, vp, vp, vp, i64, i64,
-                                       ctypes.c_float, vp]
-    lib.crc_add_layer_norm.restype = ctypes.c_int
+def load(name: str) -> ctypes.CDLL:
+    """The library ``LIBRARIES[name]``, built on first use, with its entry
+    points' C signatures declared."""
+    lib = ctypes.CDLL(str(build(name)[0]))
+    for entry, argtypes in LIBRARIES[name].items():
+        fn = getattr(lib, entry)
+        fn.argtypes, fn.restype = list(argtypes), _I32
     return lib

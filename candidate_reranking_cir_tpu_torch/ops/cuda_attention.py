@@ -34,21 +34,21 @@ output is sliced back. The tensor-core kernel also takes d = 88
 without a bias, K1 and K3: it reads the 88-wide heads where they lie and
 pads them to its products' widths in shared memory, so no padded copy is
 made; those launches count in ``LAUNCHES`` under their kernel id and in
-``WIDE_LAUNCHES`` too. Any other width above 64 raises. The scale follows
-the JAX package's rule (``scaled_scores``): the fp32 scores times the
-scale, at every width, in the kernels and the plain versions alike
-(bit-equal to JAX's fold of a power-of-two scale into q).
+``registry.WIDE`` ("K1_d88", "K3_d88") too. Any other width above 64
+raises. The scale follows the JAX package's rule (``scaled_scores``): the
+fp32 scores times the scale, at every width, in the kernels and the plain
+versions alike (bit-equal to JAX's fold of a power-of-two scale into q).
 
 A tensor on the CPU goes to the plain version; a tensor on the card goes to
-the kernel or the wrapper raises. ``LAUNCHES`` counts kernel launches per
-kernel id; only a launch adds to it.
+the kernel or the wrapper raises. ``LAUNCHES`` (``registry.EVAL``) counts
+kernel launches per kernel id; only a launch adds to it.
 
 Gradients: on the card, where an input wants one, the kernel runs inside
-``_EvalAttention``, whose backward recomputes the plain version under
-autograd, as the JAX package's ``custom_vjp`` backward recomputes with XLA
-(``pallas_attention.py`` ``_bwd`` / ``_folded_bwd``); elsewhere the kernel
-is called directly. The bias gets no gradient. On the CPU the plain
-version runs under autograd directly.
+``registry.PlainBackward``, whose backward recomputes the plain version
+under autograd, as the JAX package's ``custom_vjp`` backward recomputes
+with XLA (``pallas_attention.py`` ``_bwd`` / ``_folded_bwd``); elsewhere
+the kernel is called directly. The bias gets no gradient. On the CPU the
+plain version runs under autograd directly.
 """
 from __future__ import annotations
 
@@ -57,20 +57,14 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
-# the launches at head width WIDE_HEAD_DIM, by kernel id (also in LAUNCHES)
-WIDE_LAUNCHES = {"K1": 0, "K3": 0}
+from candidate_reranking_cir_tpu_torch.ops import build, registry
+
+LAUNCHES = registry.EVAL
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_YZ = 65535
 KERNEL_HEAD_DIM = 64  # the head width the kernels are built for (kHeadDim)
 WIDE_HEAD_DIM = 88    # the tensor-core kernel's other width (kWideHeadDim)
-
-
-def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, WIDE_LAUNCHES):
-        for key in counts:
-            counts[key] = 0
 
 
 def scaled_scores(q, k, acc=torch.float32):
@@ -215,11 +209,7 @@ def _launch(kid: str, q4, k4, v4, bias3, out4, scale: float) -> None:
     """Launch the CUDA kernel on 4-D [E, L, H, KERNEL_HEAD_DIM] views
     (strided) at ``scale``, or [E, L, H, WIDE_HEAD_DIM] ones (bf16, no
     bias)."""
-    from candidate_reranking_cir_tpu_torch.ops.build import (
-        load_attention_library,
-    )
-
-    lib = load_attention_library()
+    lib = build.load("attention")
     wide = q4.shape[-1] == WIDE_HEAD_DIM
     e, lq, h, d, m = check_kernel_inputs(
         {"q": q4, "k": k4, "v": v4},
@@ -235,7 +225,7 @@ def _launch(kid: str, q4, k4, v4, bias3, out4, scale: float) -> None:
     raise_on_error(err, kid, {"q": q4, "k": k4, "v": v4, "out": out4})
     LAUNCHES[kid] += 1
     if wide:
-        WIDE_LAUNCHES[kid] += 1
+        registry.WIDE[kid + "_d88"] += 1
 
 
 def takes_wide_heads(q4, bias3) -> bool:
@@ -258,36 +248,10 @@ def _kernel_forward(kid: str, q4, k4, v4, bias3):
     return out if out.shape[-1] == d else out[..., :d]
 
 
-class _EvalAttention(torch.autograd.Function):
-    """Forward: the kernel. Backward: the plain version recomputed under
-    autograd (the JAX package's XLA recompute); no gradient for the bias."""
-
-    @staticmethod
-    def forward(ctx, q4, k4, v4, bias3, kid):
-        ctx.save_for_backward(q4, k4, v4, bias3)
-        return _kernel_forward(kid, q4, k4, v4, bias3)
-
-    @staticmethod
-    def backward(ctx, g):
-        q4, k4, v4, bias3 = ctx.saved_tensors
-        needs = ctx.needs_input_grad[:3]
-        inputs = [t.detach().requires_grad_(n)
-                  for t, n in zip((q4, k4, v4), needs)]
-        with torch.enable_grad():
-            out = attention_plain(*inputs, bias3)
-            wanted = [t for t in inputs if t.requires_grad]
-            grads = iter(torch.autograd.grad(out, wanted, g))
-        return (*(next(grads) if n else None for n in needs), None, None)
-
-
-def _card_forward(kid: str, q4, k4, v4, bias3):
-    """The kernel on the card, inside ``_EvalAttention`` only where a
-    gradient is wanted: the eval path (inference mode) and the frozen
-    producers (no grad) skip autograd's per-call host time."""
-    if torch.is_grad_enabled() and (q4.requires_grad or k4.requires_grad
-                                    or v4.requires_grad):
-        return _EvalAttention.apply(q4, k4, v4, bias3, kid)
-    return _kernel_forward(kid, q4, k4, v4, bias3)
+def _plain_forward(kid: str, q4, k4, v4, bias3):
+    """``_kernel_forward``'s plain version: no gradient for the bias."""
+    return attention_plain(q4, k4, v4,
+                           None if bias3 is None else bias3.detach())
 
 
 def _check_shapes(q, k, v, nd: int) -> None:
@@ -308,7 +272,8 @@ def fused_attention(q, k, v, bias=None):
     bias3 = _bias3(bias, e, lq, k.shape[1])
     if q.device.type == "cpu":
         return attention_plain(q, k, v, bias3)
-    return _card_forward("K2" if bias3 is not None else "K3", q, k, v, bias3)
+    return registry.run(_kernel_forward, _plain_forward,
+                        "K2" if bias3 is not None else "K3", q, k, v, bias3)
 
 
 def fused_attention_folded(q, k, v, bias=None, *, num_heads: int):
@@ -324,5 +289,6 @@ def fused_attention_folded(q, k, v, bias=None, *, num_heads: int):
     q4, k4, v4 = (t.unflatten(-1, (num_heads, d)) for t in (q, k, v))
     if q.device.type == "cpu":
         return attention_plain(q4, k4, v4, bias3).flatten(-2)
-    return _card_forward("K4" if bias3 is not None else "K1", q4, k4, v4,
-                         bias3).flatten(-2)
+    return registry.run(_kernel_forward, _plain_forward,
+                        "K4" if bias3 is not None else "K1", q4, k4, v4,
+                        bias3).flatten(-2)

@@ -27,23 +27,16 @@ and h1 in ``DualStreamEncoder``, the Q-Former's row slices) is made
 contiguous once, in the wrapper, before the launch.
 
 Gradients: where an input wants one, the kernel runs inside
-``_AddLayerNorm``, whose backward recomputes the plain version under
-autograd, as ``ops/activation._BiasGelu`` does.
-
-``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` the calls that took
-the plain version.
+``registry.PlainBackward``, whose backward recomputes the plain version
+under autograd. ``registry`` counts the launches ("G2") and the calls that
+took the plain version.
 """
 from __future__ import annotations
 
 import torch
 
-LAUNCHES = {"add_layer_norm": 0}
-PLAIN_CALLS = {"add_layer_norm": 0}
-
-
-def reset_launch_counts() -> None:
-    LAUNCHES["add_layer_norm"] = 0
-    PLAIN_CALLS["add_layer_norm"] = 0
+from candidate_reranking_cir_tpu_torch.ops import build, registry
+from candidate_reranking_cir_tpu_torch.ops.registry import FUSED, PLAIN_CALLS
 
 
 def add_layer_norm_plain(x, residual, weight, bias, eps: float,
@@ -86,10 +79,6 @@ def _check_kernel_inputs(x, residual, weight, bias, dtype) -> None:
 def _kernel_forward(x, residual, weight, bias, eps: float,
                     keep_sum: bool = False, dtype=None):
     """One launch of ``csrc/layer_norm.cu`` on the current stream."""
-    from candidate_reranking_cir_tpu_torch.ops.build import (
-        load_layer_norm_library,
-    )
-
     _check_kernel_inputs(x, residual, weight, bias, dtype)
     x = x.contiguous()
     residual = None if residual is None else residual.contiguous()
@@ -98,7 +87,7 @@ def _kernel_forward(x, residual, weight, bias, eps: float,
     n = x.shape[-1]
     rows = x.numel() // n
     if rows:
-        err = load_layer_norm_library().crc_add_layer_norm(
+        err = build.load("layer_norm").crc_add_layer_norm(
             x.data_ptr(), None if residual is None else residual.data_ptr(),
             weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
             None if s is None else s.data_ptr(), rows, n, eps,
@@ -107,35 +96,8 @@ def _kernel_forward(x, residual, weight, bias, eps: float,
             raise RuntimeError(f"add_layer_norm kernel launch failed: code "
                                f"{err} (a cudaError, or -1 for an empty or "
                                "too large shape)")
-        LAUNCHES["add_layer_norm"] += 1
+        FUSED["G2"] += 1
     return (out, s) if keep_sum else out
-
-
-class _AddLayerNorm(torch.autograd.Function):
-    """Forward: the kernel. Backward: the plain version recomputed under
-    autograd."""
-
-    @staticmethod
-    def forward(ctx, x, residual, weight, bias, eps, keep_sum, dtype):
-        ctx.save_for_backward(x, residual, weight, bias)
-        ctx.args = (eps, keep_sum, dtype)
-        return _kernel_forward(x, residual, weight, bias, eps, keep_sum,
-                               dtype)
-
-    @staticmethod
-    def backward(ctx, *grads):
-        needs = ctx.needs_input_grad[:4]
-        inputs = [None if t is None else t.detach().requires_grad_(n)
-                  for t, n in zip(ctx.saved_tensors, needs)]
-        with torch.enable_grad():
-            outs = add_layer_norm_plain(*inputs, *ctx.args)
-            outs = outs if ctx.args[1] else (outs,)
-            pairs = [(o, g) for o, g in zip(outs, grads) if o.requires_grad]
-            wanted = [t for t in inputs if t is not None and t.requires_grad]
-            got = iter(torch.autograd.grad([o for o, _ in pairs], wanted,
-                                           [g for _, g in pairs],
-                                           allow_unused=True))
-        return tuple(next(got) if n else None for n in needs) + (None,) * 3
 
 
 def add_layer_norm(x, residual, weight, bias, eps: float,
@@ -153,11 +115,8 @@ def add_layer_norm(x, residual, weight, bias, eps: float,
     summed = x.dtype if residual is None else torch.promote_types(
         x.dtype, residual.dtype)
     if x.device.type == "cpu" or summed == torch.float32:
-        PLAIN_CALLS["add_layer_norm"] += 1
+        PLAIN_CALLS["G2"] += 1
         return add_layer_norm_plain(x, residual, weight, bias, eps, keep_sum,
                                     dtype)
-    tensors = (x, residual, weight, bias)
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
-                                       for t in tensors):
-        return _AddLayerNorm.apply(*tensors, eps, keep_sum, dtype)
-    return _kernel_forward(*tensors, eps, keep_sum, dtype)
+    return registry.run(_kernel_forward, add_layer_norm_plain, x, residual,
+                        weight, bias, eps, keep_sum, dtype)

@@ -49,8 +49,7 @@ import numpy as np
 import torch
 
 from candidate_reranking_cir_tpu_torch.data.captions import compose_fiq_eval
-from candidate_reranking_cir_tpu_torch.ops import attention_train
-from candidate_reranking_cir_tpu_torch.ops import cuda_attention
+from candidate_reranking_cir_tpu_torch.ops import registry
 from candidate_reranking_cir_tpu_torch.ops.topk import cosine_rank, \
     cosine_scores
 from candidate_reranking_cir_tpu_torch.parallel import mesh as pmesh
@@ -406,10 +405,6 @@ def _ranked_body(pred, index, ent, width: int):
 # ---------------------------------------------------------------------------
 # the single-program executor
 
-def _launch_counts() -> dict:
-    return {**cuda_attention.LAUNCHES, **attention_train.LAUNCHES}
-
-
 def _weight_ptrs(model) -> tuple:
     """The addresses a captured graph reads the weights at: a model moved
     off the device and back has new ones, a ``load_state_dict`` keeps
@@ -428,8 +423,8 @@ class _CapturedGraph:
     read and never written. A failed capture raises. ``seconds``: the
     capture (the eager pass not included); ``pool_bytes``: the memory the
     capture reserved, the graph's private pool; ``launches``: the kernel
-    launches the capture recorded, by kernel id (a replay adds none to
-    the wrappers' counters)."""
+    launches the capture recorded, by kernel id (``registry.counts()``;
+    a replay adds none to the wrappers' counters)."""
 
     def __init__(self, fn, inputs: tuple, key, donate: bool = False):
         if not donate:
@@ -444,7 +439,7 @@ class _CapturedGraph:
         # the capture empties the allocator's cache first; empty it before
         # the baseline, so that the growth is the graph's pool alone
         torch.cuda.empty_cache()
-        before, reserved = _launch_counts(), torch.cuda.memory_reserved()
+        before, reserved = registry.counts(), torch.cuda.memory_reserved()
         self.graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         with torch.cuda.graph(self.graph):
@@ -452,7 +447,8 @@ class _CapturedGraph:
         torch.cuda.synchronize()
         self.seconds = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved() - reserved
-        self.launches = {k: v - before[k] for k, v in _launch_counts().items()}
+        self.launches = {k: v - before[k]
+                         for k, v in registry.counts().items()}
 
     def replay(self, inputs: tuple):
         for static, new in zip(self.inputs, inputs):

@@ -36,7 +36,7 @@ Phases, each printing its own lines:
    Then K1 and K3 at EVA ViT-g's 88-wide heads (BLIP-2's vision tower;
    bf16, no bias, read in place by ``attn_fwd_tc_kernel<wg, false, 88>``)
    at the ViT-g's [32, 257, 257, 16, 88] and at a ragged [3, 75, 131, 5,
-   88], the same way, each launch counted in ``WIDE_LAUNCHES`` too.
+   88], the same way, each launch counted as "K1_d88" or "K3_d88" too.
    Then G1, fc1's bias add and exact GELU (``ops/activation.bias_gelu``),
    at the ViT's fc1 at embed batch 32 ([18464, 3072]), a candidate-major
    dual-encoder chunk's ([8, 1280, 3072]), the caption head's transform
@@ -260,6 +260,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+from candidate_reranking_cir_tpu_torch.ops import registry
 
 SEED = 0
 N_IMAGES, N_QUERIES, TOPK, TEXT_LEN = 128, 256, 50, 40
@@ -604,15 +606,13 @@ WIDE_CASES = (
 
 def run_wide_cases() -> dict:
     """WIDE_CASES through ``run_kernel_case``; fails unless each one
-    launched the 88-wide instantiation (``WIDE_LAUNCHES``). Returns the
+    launched the 88-wide instantiation ("K1_d88", "K3_d88"). Returns the
     first K1 case's record under "K1_d88"."""
-    from candidate_reranking_cir_tpu_torch.ops import cuda_attention as ck
-
     records = {}
     for case in WIDE_CASES:
-        n0 = ck.WIDE_LAUNCHES[case[0]]
+        n0 = registry.WIDE[case[0] + "_d88"]
         rec = run_kernel_case(*case, torch.bfloat16, d=WIDE_D)
-        if ck.WIDE_LAUNCHES[case[0]] == n0:
+        if registry.WIDE[case[0] + "_d88"] == n0:
             fail(f"{case[0]} {case[1]}: no 88-wide launch counted")
         if case[0] == "K1":
             records.setdefault("K1_d88", rec)
@@ -733,10 +733,10 @@ def run_bias_gelu_cases() -> list:
         kernel = lambda: act.bias_gelu(p, b)
         plain = lambda: act.bias_gelu_plain(p, b)
         library = lambda: F.gelu(p + b.to(p.dtype))
-        n0 = act.LAUNCHES["bias_gelu"]
+        n0 = registry.FUSED["G1"]
         got = kernel()
         torch.cuda.synchronize()
-        launched = act.LAUNCHES["bias_gelu"] - n0
+        launched = registry.FUSED["G1"] - n0
         ref = plain()
         differ = int((got.view(torch.int16) != ref.view(torch.int16)).sum())
         err = (got.float() - ref.float()).abs().max().item()
@@ -819,10 +819,10 @@ def run_layer_norm_cases() -> list:
         plain = lambda: norm.add_layer_norm_plain(x, r, w, b, eps, keep)
         library = (lambda: F.layer_norm(x + r, (n,), wl, bl, eps)) \
             if residual else (lambda: F.layer_norm(x, (n,), wl, bl, eps))
-        n0 = norm.LAUNCHES["add_layer_norm"]
+        n0 = registry.FUSED["G2"]
         got = kernel()
         torch.cuda.synchronize()
-        launched = norm.LAUNCHES["add_layer_norm"] - n0
+        launched = registry.FUSED["G2"] - n0
         ref = plain()
         sum_differ = 0
         if keep:
@@ -1115,10 +1115,10 @@ def main_path():
     # counted run on all of them
     evaluate_cirr_stage2_datasets(s1, None, s2, None, tok, corpus,
                                   queries[:8], **kw)
-    reset_launch_counts()
+    registry.reset()
     res = evaluate_cirr_stage2_datasets(s1, None, s2, None, tok, corpus,
                                         queries, **kw)
-    launches = launch_counts()
+    launches = registry.counts()
     out = res.rerank
     n_pairs = int((~skip).sum()) * TOPK + N_QUERIES * 5
     rerank_s = res.seconds["zt"] + res.seconds["score"]
@@ -1402,7 +1402,7 @@ def timed_steps(tag: str, step, batches, seed: int, n_steps: int):
     loss = step(next(batches), seed)
     torch.cuda.synchronize()
     print(f"[{tag}] warm-up step: loss {float(loss):.4f}", flush=True)
-    reset_launch_counts()
+    registry.reset()
     torch.cuda.reset_peak_memory_stats()
     seconds, losses, widths, gc_seconds = [], [], [], []
     clock = GcClock()
@@ -1422,7 +1422,7 @@ def timed_steps(tag: str, step, batches, seed: int, n_steps: int):
         gc.callbacks.remove(clock)
     print(f"[{tag}] cyclic gc seconds inside each counted step "
           f"{[round(x, 4) for x in gc_seconds]}", flush=True)
-    launches = launch_counts()
+    launches = registry.counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if not all(np.isfinite(losses)):
         fail(f"non-finite {tag} loss")
@@ -1912,7 +1912,7 @@ def stage1_fp32_check(tok, words):
             opt, _ = make_optimizer(TrainConfig(), model, 1000,
                                     freeze_prefixes=("visual_encoder",))
             step = make_stage1_train_step(model, opt)
-            tat.reset_launch_counts()
+            registry.reset()
             t0 = time.perf_counter()
             loss = float(step(batch, SEED))
             grads = {n: p.grad.detach().float().cpu()
@@ -2037,9 +2037,9 @@ def stage1_eval_path(tok, words, queries: list[dict]) -> dict:
           f"{time.perf_counter() - t0:.1f} s; {len(queries)} queries",
           flush=True)
     gc.collect()
-    reset_launch_counts()
+    registry.reset()
     res, payload = evaluate_cirr_stage1(s1, None, corpus, queries, tok, **kw)
-    launches = launch_counts()
+    launches = registry.counts()
     sec = res.seconds
     print(f"[stage1_eval] seconds {json.dumps(sec)} (index: corpus embed "
           f"at batch {S1E_EMBED_BATCH}, the host-to-card copy of the images "
@@ -2191,10 +2191,10 @@ def single_program_path(tok, words, queries: list[dict], s1e: dict) -> dict:
               save_topk_k=TOPK, q_batch=S1E_Q_BATCH, device="cuda")
     n_q = len(queries)
     gc.collect()
-    reset_launch_counts()
+    registry.reset()
     res, _ = evaluate_cirr_stage1(s1, None, corpus, queries, tok,
                                   single_program=True, **kw)
-    launches = launch_counts()
+    launches = registry.counts()
     run = make_single_program_eval(s1)
     cap = run.capture
     sec = res.seconds
@@ -2450,7 +2450,7 @@ def dropout_layouts_path(tok) -> dict:
     models["cuda"] = RerankerModel(models["cpu"].cfg, device="cuda")
     models["cuda"].load_state_dict(models["cpu"].state_dict())
     seeds = seed_table(models["cpu"].text_encoder.seed_shape, SEED + 42)
-    reset_launch_counts()
+    registry.reset()
 
     def layout_run(dev, method, arrays):
         model = models[dev]
@@ -2475,9 +2475,9 @@ def dropout_layouts_path(tok) -> dict:
                           runs["cuda"], runs["cpu"])
         arrays, what = case(method, timed)
         layout_run("cuda", method, arrays)            # warm-up
-        before = launch_counts()
+        before = registry.counts()
         t = layout_run("cuda", method, arrays)[2]
-        k67 = {k: launch_counts()[k] - before[k] for k in ("K6", "K7")}
+        k67 = {k: registry.counts()[k] - before[k] for k in ("K6", "K7")}
         print(f"[dropout] {method} [{what}] fp32 on the card at the default "
               f"thresholds: {t:.3f} s a forward and backward; launches "
               f"{json.dumps(k67)}", flush=True)
@@ -2520,7 +2520,7 @@ def dropout_layouts_path(tok) -> dict:
     print(f"[dropout] CaptionDecoder caption loss fp32 on the card at the "
           f"default thresholds: {t:.3f} s a forward and backward",
           flush=True)
-    launches = launch_counts()
+    launches = registry.counts()
     print(f"[dropout] launches of the card runs {json.dumps(launches)}",
           flush=True)
     if not all(launches[k] > 0 for k in ("K5", "K6", "K7", "K8", "K9")):
@@ -2747,11 +2747,11 @@ def serving_path(tok, words, corpus: Corpus) -> dict:
         print(f"[serve] warm-up request in {time.perf_counter() - t0:.2f} s",
               flush=True)
         gc.collect()
-        reset_launch_counts()
+        registry.reset()
         run = drive_http(engine, bodies, admin=(
             {"names": added, "paths": add_paths}, {"names": removed}))
         torch.cuda.synchronize()
-        launches = launch_counts()
+        launches = registry.counts()
         report_http("bf16 index", run, len(bodies))
         print(f"[serve] launches {json.dumps(launches)}", flush=True)
         if not all(launches[k] > 0 for k in MAIN_PATH_KERNELS) or any(
@@ -2950,7 +2950,6 @@ def blip2_stage1_eval_path(tok, words) -> dict:
     from candidate_reranking_cir_tpu_torch.models.blip2_retrieval import (
         Blip2RetrievalModel,
     )
-    from candidate_reranking_cir_tpu_torch.ops import cuda_attention as ck
     from candidate_reranking_cir_tpu_torch.retrieval.validate_engine import (
         evaluate_cirr_stage1,
     )
@@ -2973,10 +2972,10 @@ def blip2_stage1_eval_path(tok, words) -> dict:
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
+    registry.reset()
     res, payload = evaluate_cirr_stage1(model, None, corpus, queries, tok,
                                         **kw)
-    launches = launch_counts()
+    launches = registry.counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     sec = res.seconds
     batches = -(-B2_IMAGES // S1E_EMBED_BATCH)
@@ -2988,11 +2987,10 @@ def blip2_stage1_eval_path(tok, words) -> dict:
           f"{json.dumps(sec)}; stage-I queries/s "
           f"{len(queries) / sec['total']:.1f}; peak {peak:.2f} GiB",
           flush=True)
-    print(f"[blip2] launches {json.dumps(launches)} (88-wide K3 "
-          f"{ck.WIDE_LAUNCHES['K3']})", flush=True)
+    print(f"[blip2] launches {json.dumps(launches)}", flush=True)
     print(f"[blip2] metrics {json.dumps(res.metrics)}", flush=True)
     want_wide = cfg.vit.num_layers * batches
-    if launches["K1_d88"] != want_wide or ck.WIDE_LAUNCHES["K3"] != 0 \
+    if launches["K1_d88"] != want_wide or launches["K3_d88"] != 0 \
             or launches["K1"] <= launches["K1_d88"] \
             or not all(launches[k] > 0 for k in ("K2", "K3", "G1", "G2")):
         fail(f"BLIP-2 stage-I launches {launches}: K1_d88 must be "
@@ -3143,32 +3141,6 @@ def compare_train_states(a_dir, b_dir) -> dict:
     same_counters = (a["step"], oa["count"], oa["mini_step"]) == \
         (b["step"], ob["count"], ob["mini_step"])
     return {"params": params, "moments": moments, "counters": same_counters}
-
-
-def launch_counts() -> dict:
-    """Launches of K1-K9, G1 and G2 since the last ``reset_launch_counts``,
-    and K1's at 88-wide heads as "K1_d88" (also in "K1")."""
-    from candidate_reranking_cir_tpu_torch.ops import activation as act
-    from candidate_reranking_cir_tpu_torch.ops import attention_train as tat
-    from candidate_reranking_cir_tpu_torch.ops import cuda_attention as ck
-    from candidate_reranking_cir_tpu_torch.ops import norm
-
-    return {**ck.LAUNCHES, **tat.LAUNCHES, "G1": act.LAUNCHES["bias_gelu"],
-            "G2": norm.LAUNCHES["add_layer_norm"],
-            "K1_d88": ck.WIDE_LAUNCHES["K1"]}
-
-
-def reset_launch_counts() -> None:
-    from candidate_reranking_cir_tpu_torch.ops import activation as act
-    from candidate_reranking_cir_tpu_torch.ops import attention_train as tat
-    from candidate_reranking_cir_tpu_torch.ops import cuda_attention as ck
-
-    from candidate_reranking_cir_tpu_torch.ops import norm
-
-    ck.reset_launch_counts()
-    tat.reset_launch_counts()
-    act.reset_launch_counts()
-    norm.reset_launch_counts()
 
 
 def remat_memory(tok, words) -> dict:
@@ -3418,7 +3390,7 @@ def train_cli_path(tok, words, native_ok: bool) -> dict:
                       "--batch-size", str(S1_B), "--validation-frequency",
                       "1"]
 
-        reset_launch_counts()
+        registry.reset()
         whole = run_cli("stage I, uninterrupted", stage1_train,
                         s1 + ["--experiment-name", "whole"])
         cut = run_cli("stage I, SIGTERM after step 1", stage1_train,
@@ -3428,7 +3400,7 @@ def train_cli_path(tok, words, native_ok: bool) -> dict:
             fail("the preempted stage-I run saved no resumable blip_last")
         resumed = run_cli("stage I, --resume", stage1_train,
                           s1 + ["--experiment-name", "cut", "--resume"])
-        s1_launches = launch_counts()
+        s1_launches = registry.counts()
         print(f"[train_cli] stage-I runs' launches "
               f"{json.dumps(s1_launches)}", flush=True)
         steps = S1T_TRAIN // S1_B
@@ -3466,7 +3438,7 @@ def train_cli_path(tok, words, native_ok: bool) -> dict:
 
         ckpt1 = models / "whole" / "saved_models" / "blip_mean"
         topk = Path(tmp.name) / "top50.npz"
-        reset_launch_counts()
+        registry.reset()
         with validate_seconds([]) as pil_validate:
             run_cli("validate (stage-I blip_mean -> top-50 file)", validate,
                     flags + ["--stage1-path", str(ckpt1), "--save-topk",
@@ -3477,7 +3449,7 @@ def train_cli_path(tok, words, native_ok: bool) -> dict:
             str(models), "--experiment-name", "s2", "--num-epochs", "1",
             "--batch-size", str(S2T_B), "--stage1-path", str(ckpt1),
             "--top-k-path", str(topk), "--K-value", str(S2T_K)])
-        s2_launches = launch_counts()
+        s2_launches = registry.counts()
         print(f"[train_cli] validate and stage-II runs' launches "
               f"{json.dumps(s2_launches)}", flush=True)
         if len(s2["losses"]) != S2T_TRAIN // S2T_B:
@@ -3734,7 +3706,7 @@ def caption_path(tok) -> dict:
         warm = decoder.visual_encoder(images[:2])
         bd.greedy_caption_cached(decoder, warm, max_len=3, **common)
         bd.beam_caption(decoder, warm, max_len=3, num_beams=2, **common)
-    reset_launch_counts()
+    registry.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with torch.inference_mode():
@@ -3742,7 +3714,7 @@ def caption_path(tok) -> dict:
     torch.cuda.synchronize()
     vit_s = time.perf_counter() - t0
     runs = caption_decodes(decoder, feats, tok, prompt_ids)
-    launches = launch_counts()
+    launches = registry.counts()
     print(f"[caption] CaptionDecoder ViT-B/16 @ 384 + 12-layer MED + vocab "
           f"{cfg.text.vocab_size}, bf16, {CAP_B} images: ViT {vit_s:.3f} s; "
           f"launches {json.dumps(launches)}", flush=True)
@@ -3848,11 +3820,11 @@ def image_ops_lines(model):
         fail(f"[image_ops] card vs CPU {err:.3e}")
     if pil_err >= IMAGE_OPS_PIL_MEAN:
         fail(f"[image_ops] mean |card - PIL| {pil_err:.4f}")
-    reset_launch_counts()
+    registry.reset()
     with torch.inference_mode():
         feats = model.embed_images(out)
     torch.cuda.synchronize()
-    launches = launch_counts()
+    launches = registry.counts()
     k1 = launches["K1"]
     print(f"[image_ops] the ViT embeds the batch: {list(feats.shape)}, K1 "
           f"launches {k1}; {time.perf_counter() - t0:.1f} s", flush=True)
@@ -4115,10 +4087,10 @@ def entry_lines() -> dict:
 
     t0 = time.perf_counter()
     fn, args = entry("cuda")
-    reset_launch_counts()
+    registry.reset()
     out = fn(*args)
     torch.cuda.synchronize()
-    launches = launch_counts()
+    launches = registry.counts()
     ms = time_ms(lambda: fn(*args), iters=5)
     print(f"[entry] entry(): scores {list(out.shape)}, finite "
           f"{bool(torch.isfinite(out).all())}, {ms:.2f} ms a call (CUDA "
@@ -4138,11 +4110,11 @@ def demo_lines(root: str) -> dict:
 
     t0 = time.perf_counter()
     workdir = os.path.join(root, "demo")
-    reset_launch_counts()
+    registry.reset()
     with contextlib.redirect_stdout(sys.stderr):
         res = demo.main(["--workdir", workdir, "--device", "cuda"])
     torch.cuda.synchronize()
-    launches = launch_counts()
+    launches = registry.counts()
     missing = [a for a in demo.ARTIFACTS
                if not os.path.isfile(os.path.join(workdir, a))]
     print(f"[demo] demo.main --device {"cuda"}: "
@@ -4235,21 +4207,22 @@ def build_native() -> tuple[str | None, float]:
 
 
 def build_libraries() -> bool:
-    """The four kernel libraries, one nvcc each, and the native host
-    libraries (``make -C native``), started together; ptxas's register and
-    spill lines of every kernel (the tensor-core kernels', G1's and G2's must be
-    among them when a library was built), and the tensor-core kernels'
-    dynamic shared memory. Returns whether the native libraries were built; if not, a
-    ``[native] unavailable`` line says what is missing."""
+    """The kernel libraries (``ops/build.LIBRARIES``), one nvcc each, and
+    the native host libraries (``make -C native``), started together;
+    ptxas's register and spill lines of every kernel (the tensor-core
+    kernels', G1's and G2's must be among them when a library was built),
+    and the tensor-core kernels' dynamic shared memory. Returns whether the
+    native libraries were built; if not, a ``[native] unavailable`` line
+    says what is missing."""
     from candidate_reranking_cir_tpu_torch.ops import attention_train as tat
     from candidate_reranking_cir_tpu_torch.ops.build import (
+        LIBRARIES,
         build,
-        load_attention_library,
-        load_attention_train_library,
+        load,
     )
 
-    names = ("attention", "attention_train", "activation", "layer_norm")
-    with ThreadPoolExecutor(5) as pool:
+    names = tuple(LIBRARIES)
+    with ThreadPoolExecutor(len(names) + 1) as pool:
         native = pool.submit(build_native)
         built = list(pool.map(build, names))
         native_missing_what, native_s = native.result()
@@ -4278,13 +4251,13 @@ def build_libraries() -> bool:
         for kernel in wanted:
             if log and kernel not in log:
                 fail(f"ptxas reported no {kernel}")
-    lib = load_attention_library()
+    lib = load("attention")
     print("[build] attn_fwd_tc_kernel dynamic shared memory: "
           f"{lib.crc_attention_tc_smem_bytes(1, 64)} B with 1 warpgroup "
           f"over one key tile, {lib.crc_attention_tc_smem_bytes(1, 577)} B "
           f"over more, {lib.crc_attention_tc_smem_bytes(2, 577)} B with 2",
           flush=True)
-    smem = load_attention_train_library().crc_attention_train_tc_smem_bytes
+    smem = load("attention_train").crc_attention_train_tc_smem_bytes
     print("[build] train tensor-core kernels' dynamic shared memory, over "
           "more than one key tile: K6 attn_train_fwd_tc_kernel "
           f"{smem(2)} B with 1 warpgroup, {smem(3)} B with 2; K8 "
@@ -4411,13 +4384,14 @@ def mesh_checks(tok, words, dtype, exact: bool) -> dict:
     )
 
     mesh = make_mesh(device="cuda")
-    report = {"world": mesh.size, "launches": {k: 0 for k in SOURCES}}
+    report = {"world": mesh.size,
+              "launches": dict.fromkeys(registry.counts(), 0)}
 
     def run(fn):  # a mesh call: its kernel launches count for "mesh"
-        before = launch_counts()
+        before = registry.counts()
         out = fn()
         torch.cuda.synchronize()
-        for k, v in launch_counts().items():
+        for k, v in registry.counts().items():
             report["launches"][k] += v - before[k]
         return out
 

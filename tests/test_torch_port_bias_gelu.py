@@ -29,6 +29,7 @@ from candidate_reranking_cir_tpu_torch.models.blip_retrieval import (
 )
 from candidate_reranking_cir_tpu_torch.models.med import BertFFN
 from candidate_reranking_cir_tpu_torch.ops import activation as act
+from candidate_reranking_cir_tpu_torch.ops import registry
 
 TINY_VIT = tcfg.ViTConfig(image_size=16, patch_size=8, hidden_size=16,
                           num_layers=1, num_heads=2)
@@ -69,9 +70,9 @@ def _bias(n, device="cpu", seed=1):
 
 @pytest.fixture
 def counts():
-    act.reset_launch_counts()
-    yield act
-    act.reset_launch_counts()
+    registry.reset()
+    yield registry
+    registry.reset()
 
 
 # ---------------------------------------------------------------------------
@@ -91,8 +92,8 @@ def test_cpu_bias_gelu_is_dense_then_exact_gelu(dtype, with_bias, counts):
     got = act.bias_gelu(dense.product(x), dense.bias)
     assert _same_bits(got, act.exact_gelu(dense(x)))
     assert got.dtype == dtype
-    assert counts.LAUNCHES == {"bias_gelu": 0}
-    assert counts.PLAIN_CALLS == {"bias_gelu": 1}
+    assert counts.FUSED["G1"] == 0
+    assert counts.PLAIN_CALLS["G1"] == 1
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -135,8 +136,8 @@ def test_cpu_ffn_modules_unchanged(module, dtype, counts):
     x = (torch.randn(2, 7, 16) * 2).to(dtype)
     with torch.no_grad():
         assert _same_bits(m.eval()(x), old(m, x))
-    assert counts.LAUNCHES == {"bias_gelu": 0}
-    assert counts.PLAIN_CALLS == {"bias_gelu": 1}
+    assert counts.FUSED["G1"] == 0
+    assert counts.PLAIN_CALLS["G1"] == 1
 
 
 def test_cpu_models_count_plain_calls_only(counts):
@@ -149,8 +150,8 @@ def test_cpu_models_count_plain_calls_only(counts):
                        device="cpu").eval()
     with torch.no_grad():
         _ffn_forwards(s1, s2, "cpu")
-    assert counts.LAUNCHES == {"bias_gelu": 0}
-    assert counts.PLAIN_CALLS["bias_gelu"] > 0
+    assert counts.FUSED["G1"] == 0
+    assert counts.PLAIN_CALLS["G1"] > 0
 
 
 @pytest.mark.parametrize("case", ["fp16", "strided", "fp16 bias",
@@ -175,9 +176,9 @@ def test_kernel_input_checks(case):
 
 @pytest.mark.parametrize("with_bias", [True, False])
 def test_function_backward_recomputes_plain(with_bias, monkeypatch):
-    """``_BiasGelu``'s backward gives the eager route's gradients (its
-    forward taken by the plain version, as on a card it is the kernel's
-    bit-equal output)."""
+    """``registry.PlainBackward``'s backward gives the eager route's
+    gradients (its forward taken by the plain version, as on a card it is
+    the kernel's bit-equal output)."""
     monkeypatch.setattr(act, "_kernel_forward", act.bias_gelu_plain)
     p0 = _product((6, 16), torch.bfloat16)
     b0 = _bias(16) if with_bias else None
@@ -191,7 +192,8 @@ def test_function_backward_recomputes_plain(with_bias, monkeypatch):
         return out, p.grad, None if b is None else b.grad
 
     ref = grads(act.bias_gelu_plain)
-    got = grads(act._BiasGelu.apply)
+    got = grads(lambda p, b: registry.PlainBackward.apply(
+        act._kernel_forward, act.bias_gelu_plain, p, b))
     for a, r in zip(got, ref):
         assert (a is None and r is None) or _same_bits(a, r)
 
@@ -232,8 +234,9 @@ def test_kernel_names_count_as_elementwise():
         assert chip_smoke.kernel_family(name) == \
             "elementwise, norms, gathers, optimizer"
         assert bench_kernels.family(name) == bench_kernels.OTHER
-    chip_smoke.reset_launch_counts()
-    assert chip_smoke.launch_counts() == dict.fromkeys(chip_smoke.SOURCES, 0)
+    registry.reset()
+    assert set(chip_smoke.SOURCES) <= set(registry.counts())
+    assert set(registry.counts().values()) == {0}
 
 
 def _ffn_forwards(s1, s2, dev):
@@ -255,7 +258,7 @@ def dev():
         pytest.skip("needs a CUDA card")
     from candidate_reranking_cir_tpu_torch.ops import build
 
-    build.load_activation_library()
+    build.load("activation")
     return torch.device("cuda")
 
 
@@ -276,8 +279,8 @@ def test_card_kernel_bit_equal(dev, shape, with_bias, counts):
     ref = act.bias_gelu_plain(p, b)
     got = act.bias_gelu(p, b)
     torch.cuda.synchronize()
-    assert counts.LAUNCHES == {"bias_gelu": 1}
-    assert counts.PLAIN_CALLS == {"bias_gelu": 0}
+    assert counts.FUSED["G1"] == 1
+    assert counts.PLAIN_CALLS["G1"] == 0
     assert _same_bits(got, ref)
 
 
@@ -324,7 +327,7 @@ def test_card_gradients_equal_eager(dev, with_bias, counts):
 
     ref = run(act.bias_gelu_plain)
     got = run(act.bias_gelu)
-    assert counts.LAUNCHES == {"bias_gelu": 1}
+    assert counts.FUSED["G1"] == 1
     for a, r in zip(got, ref):
         assert (a is None and r is None) or _same_bits(a, r)
 
@@ -343,7 +346,7 @@ def test_card_graph_replay_equals_eager(dev, counts):
     torch.cuda.synchronize()
     assert _same_bits(out, act.bias_gelu_plain(p, b))
     assert not _same_bits(out, eager)
-    assert counts.LAUNCHES == {"bias_gelu": 2}
+    assert counts.FUSED["G1"] == 2
 
 
 @pytest.mark.cuda
@@ -353,7 +356,7 @@ def test_card_refusals(dev, case, counts):
     p = p.half() if case == "fp16" else p[:, ::2]
     with pytest.raises(ValueError):
         act.bias_gelu(p, _bias(p.shape[-1], dev))
-    assert counts.LAUNCHES == {"bias_gelu": 0}
+    assert counts.FUSED["G1"] == 0
 
 
 @pytest.mark.cuda
@@ -361,10 +364,10 @@ def test_card_counts_one_launch_a_call(dev, counts):
     p, b = _product((7, 3072), torch.bfloat16, dev), _bias(3072, dev)
     for i in range(1, 4):
         act.bias_gelu(p, b)
-        assert counts.LAUNCHES == {"bias_gelu": i}
+        assert counts.FUSED["G1"] == i
     act.bias_gelu(p.float(), b)
-    assert counts.LAUNCHES == {"bias_gelu": 3}
-    assert counts.PLAIN_CALLS == {"bias_gelu": 1}
+    assert counts.FUSED["G1"] == 3
+    assert counts.PLAIN_CALLS["G1"] == 1
 
 
 @pytest.mark.cuda
@@ -379,12 +382,12 @@ def test_card_models_take_the_kernel(dev, counts):
             device="cuda").eval()
         s2 = RerankerModel(tcfg.RerankerModelConfig(
             vit=TINY_VIT, text=TINY_TEXT), dtype, device="cuda").eval()
-        act.reset_launch_counts()
+        registry.reset()
         with torch.inference_mode():
             _ffn_forwards(s1, s2, "cuda")
         if dtype == torch.bfloat16:
-            assert act.PLAIN_CALLS == {"bias_gelu": 0}
-            assert act.LAUNCHES["bias_gelu"] > 0
+            assert registry.PLAIN_CALLS["G1"] == 0
+            assert registry.FUSED["G1"] > 0
         else:
-            assert act.LAUNCHES == {"bias_gelu": 0}
-            assert act.PLAIN_CALLS["bias_gelu"] > 0
+            assert registry.FUSED["G1"] == 0
+            assert registry.PLAIN_CALLS["G1"] > 0

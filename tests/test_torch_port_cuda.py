@@ -21,6 +21,7 @@ import torch
 from candidate_reranking_cir_tpu_torch.ops import attention as tattn
 from candidate_reranking_cir_tpu_torch.ops import attention_train as tat
 from candidate_reranking_cir_tpu_torch.ops import cuda_attention as ck
+from candidate_reranking_cir_tpu_torch.ops import registry
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -33,8 +34,8 @@ def dev():
     # built and loaded before any test captures a graph
     from candidate_reranking_cir_tpu_torch.ops import build
 
-    build.load_attention_library()
-    build.load_attention_train_library()
+    build.load("attention")
+    build.load("attention_train")
     return torch.device("cuda")
 
 
@@ -1176,7 +1177,7 @@ def test_trainer_clis_in_bf16_launch_k6_to_k9(dev, tmp_path, monkeypatch):
     _train_cli_root(tmp_path, {"attention_dropout": 0.1})
     monkeypatch.setattr(tat, "MIN_KV", 0)
     monkeypatch.setattr(tat, "MIN_ROWS", 0)
-    tat.reset_launch_counts()
+    registry.reset()
     runs = _train_cli_runs(tmp_path, "cuda", "bf16", bf16=True)
     assert all(tat.LAUNCHES[k] > 0 for k in ("K5", "K6", "K7", "K8", "K9")), \
         tat.LAUNCHES
@@ -1247,7 +1248,7 @@ def test_serve_cli_on_the_card_matches_the_cpu(dev, tmp_path, monkeypatch,
                                    atol=1e-3)
         np.testing.assert_allclose(card["scores"][head:], cpu["scores"][head:],
                                    atol=1e-4)
-    ck.reset_launch_counts()
+    registry.reset()
     bf16 = _serve_stdio(tmp_path, common_flags(tmp_path, size, device="cuda")
                         + ["--index-int8"], monkeypatch, capsys)
     assert all(ck.LAUNCHES[k] > 0 for k in ("K1", "K2", "K3")), ck.LAUNCHES
@@ -1358,7 +1359,7 @@ def test_caption_decoder_on_the_card_matches_the_cpu(dev):
         torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-3)
     bf16 = bd.CaptionDecoder(cfg, dtype=torch.bfloat16, device=dev).eval()
     bf16.load_state_dict(cpu.state_dict())
-    ck.reset_launch_counts()
+    registry.reset()
     out = bd.greedy_caption_cached(bf16, bf16.visual_encoder(images.to(dev)),
                                    **kw)
     assert out.shape == (3, 10)
@@ -1602,7 +1603,7 @@ def _wide_case(dev, e, lq, m, h, seed, folded):
     k = _rand(dev, torch.bfloat16, e, m, h, d, seed=seed + 1)
     v = _rand(dev, torch.bfloat16, e, m, h, d, seed=seed + 2)
     kid = "K1" if folded else "K3"
-    before, wide = ck.LAUNCHES[kid], ck.WIDE_LAUNCHES[kid]
+    before, wide = ck.LAUNCHES[kid], registry.WIDE[f"{kid}_d88"]
     res = {}
 
     def run():
@@ -1615,7 +1616,7 @@ def _wide_case(dev, e, lq, m, h, seed, folded):
 
     names = _kernel_names(run)
     assert ck.LAUNCHES[kid] == before + 1
-    assert ck.WIDE_LAUNCHES[kid] == wide + 1
+    assert registry.WIDE[f"{kid}_d88"] == wide + 1
     out = res["out"]
     assert out.shape == (e, lq, h, d) and torch.isfinite(out).all()
     ref = ck.attention_plain(q, k, v)

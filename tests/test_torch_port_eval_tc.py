@@ -28,6 +28,7 @@ from candidate_reranking_cir_tpu.ops.pallas_attention import (
     _fused_attention_fwd_impl,
 )
 from candidate_reranking_cir_tpu_torch.ops import cuda_attention as ck
+from candidate_reranking_cir_tpu_torch.ops import registry
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -205,9 +206,9 @@ def test_raise_on_error_maps_the_entry_points_codes(err, exc, match):
     ("inference", True, False)])
 def test_card_forward_takes_autograd_only_for_gradients(monkeypatch, mode,
                                                         requires, autograd):
-    """The card's forward goes through ``_EvalAttention`` only where a
-    gradient is wanted (the kernel is replaced by the plain version, as
-    the card's cannot run here)."""
+    """The card's forward goes through ``registry.PlainBackward`` only
+    where a gradient is wanted (the kernel is replaced by the plain
+    version, as the card's cannot run here)."""
     calls = []
     monkeypatch.setattr(ck, "_kernel_forward", lambda kid, q, k, v, b: (
         calls.append(kid), ck.attention_plain(q, k, v, b))[1])
@@ -215,11 +216,12 @@ def test_card_forward_takes_autograd_only_for_gradients(monkeypatch, mode,
     ctx = {"grad": torch.enable_grad, "no_grad": torch.no_grad,
            "inference": torch.inference_mode}[mode]
     with ctx():
-        out = ck._card_forward("K3", q, k, v, None)
+        out = registry.run(ck._kernel_forward, ck._plain_forward, "K3", q,
+                           k, v, None)
     assert calls == ["K3"]
     assert (out.grad_fn is not None) == autograd
     if autograd:
-        assert type(out.grad_fn).__name__ == "_EvalAttentionBackward"
+        assert type(out.grad_fn).__name__ == "PlainBackwardBackward"
     np.testing.assert_allclose(f32(out), f32(ck.attention_plain(q, k, v)),
                                atol=1e-6)
 

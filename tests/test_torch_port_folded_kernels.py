@@ -17,6 +17,7 @@ from _torch_port_utils import f32, t
 from candidate_reranking_cir_tpu.ops import attention as jattn
 from candidate_reranking_cir_tpu.ops import pallas_attention_train as jpat
 from candidate_reranking_cir_tpu_torch.ops import attention_train as tat
+from candidate_reranking_cir_tpu_torch.ops import registry
 
 D = 64
 FWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -105,7 +106,7 @@ def test_folded_wrapper_on_cpu_runs_the_plain_versions(with_bias):
     and under autograd the plain backward, bit for bit; no launch."""
     e, lq, m, h = BLOCKED_BOTH
     _, (tq, tk, tv, tg), _, tb = _inputs(3, e, lq, m, h, with_bias)
-    tat.reset_launch_counts()
+    registry.reset()
     x = [a.clone().requires_grad_() for a in (tq, tk, tv)]
     out = tat.fused_attention_train_folded(*x, tb, SEED, 0.1, num_heads=h)
     grads = torch.autograd.grad(out, x, tg)

@@ -23,7 +23,7 @@ from candidate_reranking_cir_tpu_torch.models.blip_retrieval import (
     RetrievalModel,
 )
 from candidate_reranking_cir_tpu_torch.ops import attention as tattn
-from candidate_reranking_cir_tpu_torch.ops import cuda_attention as ck
+from candidate_reranking_cir_tpu_torch.ops import registry
 from candidate_reranking_cir_tpu_torch.retrieval import rerank
 from candidate_reranking_cir_tpu_torch.retrieval.index import build_index
 from candidate_reranking_cir_tpu_torch.ops.quant import quantize_bank
@@ -100,7 +100,7 @@ def test_caption_models_require_cuda_by_default(no_cuda, cls):
 
 def test_caption_decode_on_cpu_counts_no_launches():
     """Both decoding paths on the CPU run the plain versions only."""
-    ck.reset_launch_counts()
+    registry.reset()
     torch.manual_seed(0)
     dec = blip_decoder.CaptionDecoder(tcfg.RetrievalModelConfig(
         vit=TINY_VIT, text=TINY_TEXT), device="cpu").eval()
@@ -109,7 +109,7 @@ def test_caption_decode_on_cpu_counts_no_launches():
     for fn in (blip_decoder.greedy_caption,
                blip_decoder.greedy_caption_cached):
         assert fn(dec, feats, **kw).shape == (2, 5)
-    assert ck.LAUNCHES == {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    assert set(registry.counts().values()) == {0}
 
 
 def test_unported_options_raise():
@@ -137,7 +137,7 @@ def test_cpu_models_count_no_launches():
     """A full CPU forward through every attention route (ViT and MED cross:
     K1; masked text: K2; candidate-major cross: K3; masked folded: K4)
     runs the plain versions only."""
-    ck.reset_launch_counts()
+    registry.reset()
     torch.manual_seed(0)
     s1 = RetrievalModel(tcfg.RetrievalModelConfig(
         vit=TINY_VIT, text=TINY_TEXT, embed_dim=8), device="cpu").eval()
@@ -153,7 +153,7 @@ def test_cpu_models_count_no_launches():
         tattn.dot_product_attention_folded(
             q, q, q, tattn.make_additive_mask(torch.ones(2, 130)),
             num_heads=2)
-    assert ck.LAUNCHES == {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    assert set(registry.counts().values()) == {0}
 
 
 def test_resolve_device_rejects_other_devices():

@@ -33,7 +33,7 @@ from candidate_reranking_cir_tpu_torch.models.blip_retrieval import (
     RetrievalModel,
 )
 from candidate_reranking_cir_tpu_torch.models.qformer import QFormer
-from candidate_reranking_cir_tpu_torch.ops import norm
+from candidate_reranking_cir_tpu_torch.ops import norm, registry
 from candidate_reranking_cir_tpu_torch.ops.attention import make_additive_mask
 
 TINY_VIT = tcfg.ViTConfig(image_size=16, patch_size=8, hidden_size=16,
@@ -80,9 +80,9 @@ def _parent_ln(x, weight, bias, eps, dtype):
 
 @pytest.fixture
 def counts():
-    norm.reset_launch_counts()
-    yield norm
-    norm.reset_launch_counts()
+    registry.reset()
+    yield registry
+    registry.reset()
 
 
 # ---------------------------------------------------------------------------
@@ -100,8 +100,8 @@ def test_cpu_plain_is_parent_layer_norm(dtype, with_residual, eps, counts):
     ref = _parent_ln(x if r is None else x + r, w, b, eps, dtype)
     assert _same_bits(norm.add_layer_norm_plain(x, r, w, b, eps), ref)
     assert _same_bits(norm.add_layer_norm(x, r, w, b, eps, dtype=dtype), ref)
-    assert counts.LAUNCHES == {"add_layer_norm": 0}
-    assert counts.PLAIN_CALLS == {"add_layer_norm": 1}
+    assert counts.FUSED["G2"] == 0
+    assert counts.PLAIN_CALLS["G2"] == 1
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -118,7 +118,7 @@ def test_cpu_layer_norm_module_is_parent(dtype, counts):
                                             dtype))
         assert _same_bits(ln(x, r), _parent_ln(x + r, ln.weight, ln.bias,
                                                1e-5, dtype))
-    assert counts.PLAIN_CALLS == {"add_layer_norm": 2}
+    assert counts.PLAIN_CALLS["G2"] == 2
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -132,7 +132,7 @@ def test_cpu_keep_sum(dtype, counts):
     assert _same_bits(s, x + r)
     assert _same_bits(y, norm.add_layer_norm(x, r, w, b, 1e-6))
     assert _same_bits(y, _parent_ln(x + r, w, b, 1e-6, dtype))
-    assert counts.PLAIN_CALLS == {"add_layer_norm": 2}
+    assert counts.PLAIN_CALLS["G2"] == 2
 
 
 def test_cpu_fp32_and_cpu_inputs_take_the_plain_route(counts):
@@ -145,8 +145,8 @@ def test_cpu_fp32_and_cpu_inputs_take_the_plain_route(counts):
         got = norm.add_layer_norm(xx, rr, w, b, 1e-6)
         s = xx if rr is None else xx + rr
         assert _same_bits(got, _parent_ln(s, w, b, 1e-6, s.dtype))
-    assert counts.LAUNCHES == {"add_layer_norm": 0}
-    assert counts.PLAIN_CALLS == {"add_layer_norm": 4}
+    assert counts.FUSED["G2"] == 0
+    assert counts.PLAIN_CALLS["G2"] == 4
 
 
 @pytest.mark.parametrize("case", ["residual shape", "keep_sum alone"])
@@ -159,7 +159,7 @@ def test_route_refusals(case, counts):
             norm.add_layer_norm(x, _randn((1, 16)), w, b, 1e-6)
         else:
             norm.add_layer_norm(x, None, w, b, 1e-6, keep_sum=True)
-    assert counts.PLAIN_CALLS == {"add_layer_norm": 0}
+    assert counts.PLAIN_CALLS["G2"] == 0
 
 
 @pytest.mark.parametrize("case", ["fp16", "fp16 residual", "fp32 residual",
@@ -202,9 +202,9 @@ def test_kernel_input_checks(case):
                          [(True, False), (True, True), (False, False)])
 def test_function_backward_recomputes_plain(with_residual, keep_sum,
                                             monkeypatch):
-    """``_AddLayerNorm``'s backward gives the eager route's gradients for
-    every input (its forward taken by the plain version here; on a card it
-    is the kernel's)."""
+    """``registry.PlainBackward``'s backward gives the eager route's
+    gradients for every input (its forward taken by the plain version here;
+    on a card it is the kernel's)."""
     monkeypatch.setattr(norm, "_kernel_forward", norm.add_layer_norm_plain)
     shape = (6, 24)
     x0 = _randn(shape, torch.bfloat16, scale=2.0)
@@ -222,7 +222,8 @@ def test_function_backward_recomputes_plain(with_residual, keep_sum,
         return [*outs] + [None if t is None else t.grad for t in ins]
 
     ref = grads(norm.add_layer_norm_plain)
-    got = grads(norm._AddLayerNorm.apply)
+    got = grads(lambda *args: registry.PlainBackward.apply(
+        norm._kernel_forward, norm.add_layer_norm_plain, *args))
     for a, r in zip(got, ref):
         assert (a is None and r is None) or _same_bits(a, r)
 
@@ -249,8 +250,8 @@ def test_kernel_names_count_as_elementwise():
             "elementwise, norms, gathers, optimizer"
         assert bench_kernels.family(name) == bench_kernels.OTHER
     assert "G2" in chip_smoke.SOURCES and "G2" in chip_smoke.REPLACES
-    chip_smoke.reset_launch_counts()
-    assert chip_smoke.launch_counts()["G2"] == 0
+    registry.reset()
+    assert registry.counts()["G2"] == 0
 
 
 # ---------------------------------------------------------------------------
@@ -474,8 +475,8 @@ def test_cpu_models_count_plain_calls_only(counts, monkeypatch):
     s1, s2 = _tiny_models("cpu", torch.float32)
     with torch.no_grad():
         _forwards(s1, s2, "cpu")
-    assert counts.LAUNCHES == {"add_layer_norm": 0}
-    assert counts.PLAIN_CALLS["add_layer_norm"] == calls["n"] > 0
+    assert counts.FUSED["G2"] == 0
+    assert counts.PLAIN_CALLS["G2"] == calls["n"] > 0
 
 
 def _count_layer_norm_calls(monkeypatch) -> dict:
@@ -517,7 +518,7 @@ def dev():
         pytest.skip("needs a CUDA card")
     from candidate_reranking_cir_tpu_torch.ops import build
 
-    build.load_layer_norm_library()
+    build.load("layer_norm")
     return torch.device("cuda")
 
 
@@ -554,8 +555,8 @@ def test_card_kernel_within_bf16(dev, shape, mode, eps, counts):
     ref = norm.add_layer_norm_plain(x, r, w, b, eps, keep)
     got = norm.add_layer_norm(x, r, w, b, eps, keep)
     torch.cuda.synchronize()
-    assert counts.LAUNCHES == {"add_layer_norm": 1}
-    assert counts.PLAIN_CALLS == {"add_layer_norm": 0}
+    assert counts.FUSED["G2"] == 1
+    assert counts.PLAIN_CALLS["G2"] == 0
     if keep:
         assert _same_bits(got[1], ref[1])
         got, ref = got[0], ref[0]
@@ -588,7 +589,7 @@ def test_card_layouts(dev, case, counts):
     ref, s_ref = norm.add_layer_norm_plain(x, r, w, b, 1e-6, True)
     assert _same_bits(s, s_ref)
     _within_bf16(got, ref)
-    assert counts.LAUNCHES == {"add_layer_norm": 1}
+    assert counts.FUSED["G2"] == 1
 
 
 @pytest.mark.cuda
@@ -611,7 +612,7 @@ def test_card_gradients_equal_plain(dev, keep_sum, counts):
 
     ref = run(norm.add_layer_norm_plain)
     got = run(norm.add_layer_norm)
-    assert counts.LAUNCHES == {"add_layer_norm": 1}
+    assert counts.FUSED["G2"] == 1
     for a, r in zip(got, ref):
         assert _same_bits(a, r)
 
@@ -635,7 +636,7 @@ def test_card_graph_replay_equals_eager(dev, counts):
     eager, eager_s = norm.add_layer_norm(x, r, w, b, 1e-6, keep_sum=True)
     assert _same_bits(out, eager) and _same_bits(s, eager_s)
     assert not _same_bits(out, first[0])
-    assert counts.LAUNCHES == {"add_layer_norm": 3}
+    assert counts.FUSED["G2"] == 3
 
 
 @pytest.mark.cuda
@@ -648,7 +649,7 @@ def test_card_refusals(dev, case, counts):
             norm.add_layer_norm(x.half(), None, w, b, 1e-6)
         else:
             norm.add_layer_norm(x, None, w, b, 1e-6, dtype=torch.float32)
-    assert counts.LAUNCHES == {"add_layer_norm": 0}
+    assert counts.FUSED["G2"] == 0
 
 
 @pytest.mark.cuda
@@ -660,13 +661,13 @@ def test_card_models_launch_once_a_layer_norm(dev, counts, monkeypatch):
     for dtype in (torch.bfloat16, torch.float32):
         torch.manual_seed(0)
         s1, s2 = _tiny_models("cuda", dtype)
-        norm.reset_launch_counts()
+        registry.reset()
         calls["n"] = 0
         with torch.inference_mode():
             _forwards(s1, s2, "cuda")
         if dtype == torch.bfloat16:
-            assert norm.PLAIN_CALLS == {"add_layer_norm": 0}
-            assert norm.LAUNCHES["add_layer_norm"] == calls["n"] > 0
+            assert registry.PLAIN_CALLS["G2"] == 0
+            assert registry.FUSED["G2"] == calls["n"] > 0
         else:
-            assert norm.LAUNCHES == {"add_layer_norm": 0}
-            assert norm.PLAIN_CALLS["add_layer_norm"] == calls["n"] > 0
+            assert registry.FUSED["G2"] == 0
+            assert registry.PLAIN_CALLS["G2"] == calls["n"] > 0

@@ -45,6 +45,7 @@ from candidate_reranking_cir_tpu_torch.models.blip_retrieval import (
 )
 from candidate_reranking_cir_tpu_torch.ops import attention_train as tat
 from candidate_reranking_cir_tpu_torch.ops import cuda_attention as ck
+from candidate_reranking_cir_tpu_torch.ops import registry
 from candidate_reranking_cir_tpu_torch.retrieval.index import build_index
 from candidate_reranking_cir_tpu_torch.runtime import train_steps as tsteps
 from candidate_reranking_cir_tpu_torch.runtime.optim import make_optimizer
@@ -274,8 +275,7 @@ def test_cpu_stage1_step_launches_no_kernel(jax_params, monkeypatch):
     run their plain versions."""
     monkeypatch.setattr(tat, "MIN_KV", 0)
     monkeypatch.setattr(tat, "MIN_ROWS", 0)
-    ck.reset_launch_counts()
-    tat.reset_launch_counts()
+    registry.reset()
     cfg = _cfg(dataclasses.replace(TEXT, attention_dropout=0.1))
     losses, grads, _ = _run_port(_port_model(cfg, jax_params),
                                  _batch("frozen_targets", jax_params), False,

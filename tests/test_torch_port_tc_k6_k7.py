@@ -157,8 +157,8 @@ def test_k6_k7_wrappers_raise_on_the_entry_points_codes(monkeypatch, kid,
                                                         code, exc, match):
     from candidate_reranking_cir_tpu_torch.ops import build
 
-    monkeypatch.setattr(build, "load_attention_train_library",
-                        lambda: _FakeTrainLibrary(code))
+    monkeypatch.setattr(build, "load",
+                        lambda name: _FakeTrainLibrary(code))
     monkeypatch.setattr(tat, "_stream", lambda device: 0)
     q, k, v, g = (torch.zeros(2, n, 2, D, dtype=torch.bfloat16)
                   for n in (4, 9, 9, 4))

@@ -196,8 +196,8 @@ def test_k8_wrapper_raises_on_the_entry_points_codes(monkeypatch, code, exc,
     """A refused or failed K8 launch raises and counts no launch."""
     from candidate_reranking_cir_tpu_torch.ops import build
 
-    monkeypatch.setattr(build, "load_attention_train_library",
-                        lambda: _FakeTrainLibrary(code))
+    monkeypatch.setattr(build, "load",
+                        lambda name: _FakeTrainLibrary(code))
     monkeypatch.setattr(tat, "_stream", lambda device: 0)
     q, k, v = (tat._heads(torch.zeros(2, n, 2 * D, dtype=torch.bfloat16), 2)
                for n in (4, 9, 9))
@@ -212,8 +212,8 @@ def test_k8_occupancy_query_reports_the_entry_points_answer(monkeypatch,
                                                             blocks, exc):
     from candidate_reranking_cir_tpu_torch.ops import build
 
-    monkeypatch.setattr(build, "load_attention_train_library",
-                        lambda: _FakeTrainLibrary(blocks=blocks))
+    monkeypatch.setattr(build, "load",
+                        lambda name: _FakeTrainLibrary(blocks=blocks))
     if exc is None:
         assert tat.folded_forward_blocks_per_sm(32, 577) == blocks
     else:

@@ -27,6 +27,7 @@ from candidate_reranking_cir_tpu_torch import config as tcfg
 from candidate_reranking_cir_tpu_torch.ops import attention as tattn
 from candidate_reranking_cir_tpu_torch.ops import attention_train as tat
 from candidate_reranking_cir_tpu_torch.ops import cuda_attention as ck
+from candidate_reranking_cir_tpu_torch.ops import registry
 from candidate_reranking_cir_tpu_torch.parallel.contrastive import (
     cross_entropy_rows,
 )
@@ -262,9 +263,10 @@ def test_folded_train_route_matches_jax_on_cpu():
 
 @pytest.mark.parametrize("kid", ["K1", "K2", "K3", "K4"])
 def test_eval_kernel_backward_matches_jax_vjp(kid, monkeypatch):
-    """``_EvalAttention`` with its kernel replaced by the plain version
-    (the card's forward cannot run here), so that its backward runs on the
-    CPU; against jax.vjp of the Pallas kernel's custom_vjp (interpreted)."""
+    """``registry.PlainBackward`` with the eval kernel replaced by the plain
+    version (the card's forward cannot run here), so that its backward runs
+    on the CPU; against jax.vjp of the Pallas kernel's custom_vjp
+    (interpreted)."""
     monkeypatch.setattr(
         ck, "_kernel_forward",
         lambda kid, q, k, v, b: ck.attention_plain(q, k, v, b))
@@ -286,8 +288,9 @@ def test_eval_kernel_backward_matches_jax_vjp(kid, monkeypatch):
 
     tx = [x.clone().requires_grad_() for x in (tq, tk, tv)]
     q4, k4, v4 = ((x.unflatten(-1, (h, D)) if folded else x) for x in tx)
-    out = ck._EvalAttention.apply(
-        q4, k4, v4, None if tb is None else ck._bias3(tb, e, lq, m), kid)
+    out = registry.PlainBackward.apply(
+        ck._kernel_forward, ck._plain_forward, kid, q4, k4, v4,
+        None if tb is None else ck._bias3(tb, e, lq, m))
     assert out.grad_fn is not None
     grads = torch.autograd.grad(out.flatten(-2) if folded else out, tx, tg)
     for a, b in zip(grads, refs):

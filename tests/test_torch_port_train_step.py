@@ -296,9 +296,9 @@ def test_cpu_train_step_launches_no_kernel():
     """On CPU tensors every train route (the eval kernels' routes, the
     pair grid through K6/K7's route, plain dropout) runs plain versions."""
     from candidate_reranking_cir_tpu_torch.ops import cuda_attention as ck
+    from candidate_reranking_cir_tpu_torch.ops import registry
 
-    ck.reset_launch_counts()
-    tat.reset_launch_counts()
+    registry.reset()
     torch.manual_seed(0)
     s1_cfg, s2_cfg = _configs(dataclasses.replace(TEXT, hidden_dropout=0.1,
                                                   attention_dropout=0.1))
