@@ -36,6 +36,7 @@ from candidate_reranking_cir_tpu_torch.ops.attention import (
 )
 from candidate_reranking_cir_tpu_torch.ops.cuda_attention import scaled_scores
 from candidate_reranking_cir_tpu_torch.ops.norm import add_layer_norm
+from candidate_reranking_cir_tpu_torch.ops.registry import DENSE
 
 
 class DotsPolicy:
@@ -169,7 +170,20 @@ class LayerNorm(nn.Module):
 
 class Dense(nn.Module):
     """Linear layer: float32 weight [out, in] cast to the compute dtype, the
-    product rounded to it, then the bias added in it (JAX ``Dense``)."""
+    product rounded to it, then the bias added in it (JAX ``Dense``).
+
+    The route follows from what a call can observe:
+
+    - grad mode on, or a float32 compute dtype: that formula as written,
+      the casts made on every call (a gradient flows through them);
+    - otherwise the weight and bias cast to the compute dtype once per
+      version (``cast``). On the card the bias then rides the product's
+      epilogue, ``F.linear(x, w, b)``: one cuBLASLt launch, the fp32
+      product plus the bias rounded once, as XLA's fusion computes it (a
+      non-contiguous input takes a product and one in-place add). On the
+      CPU the product is rounded and the bias added after it, bit for bit
+      the formula above.
+    """
 
     def __init__(self, in_features: int, out_features: int,
                  dtype=torch.float32, device=None, bias: bool = True):
@@ -179,21 +193,91 @@ class Dense(nn.Module):
             torch.empty(out_features, in_features, device=device)))
         self.bias = (nn.Parameter(torch.zeros(out_features, device=device))
                      if bias else None)
+        # (key, weight, bias) in the compute dtype; a plain attribute, so
+        # state_dict and checkpoints never hold it
+        self._casts = None
+
+    def keeps_casts(self) -> bool:
+        """Whether a call now takes the kept casts: no grad mode, a compute
+        dtype other than float32, parameters that are no inference tensors
+        (which keep no version)."""
+        return (self.dtype != torch.float32 and not torch.is_grad_enabled()
+                and not self.weight.is_inference()
+                and not (self.bias is not None and self.bias.is_inference()))
+
+    def cast(self):
+        """(weight, bias) in the compute dtype, cast once per version.
+
+        The copies are made again when a parameter's object, address or
+        version (an optimizer step, ``load_state_dict``, ``.to()``, a
+        ``.data`` assignment), its device or the compute dtype changed, in
+        place where the shapes allow, so that a CUDA graph that reads them
+        reads the new values once they are brought up to date
+        (``kept_casts``). Under a CUDA-graph capture a stale copy is cast
+        inline and nothing is kept: nothing of a graph's pool may outlive
+        it. Counted in ``registry.DENSE``."""
+        params = (self.weight, self.bias)
+        key = (self.dtype, self.weight.device,
+               *((None,) if p is None else (id(p), p.data_ptr(), p._version)
+                 for p in params))
+        kept = self._casts
+        if kept is not None and kept[0] == key:
+            DENSE["cached"] += 1
+            return kept[1], kept[2]
+        DENSE["cast"] += 1
+        if self.weight.is_cuda and torch.cuda.is_current_stream_capturing():
+            return tuple(None if p is None else p.to(self.dtype)
+                         for p in params)
+        olds = (None, None) if kept is None else kept[1:]
+        # a normal tensor under inference mode too, so that it can be used
+        # and refreshed in place under either mode
+        with torch.inference_mode(False), torch.no_grad():
+            casts = tuple(_cast_into(old, p, self.dtype)
+                          for old, p in zip(olds, params))
+        self._casts = (key, *casts)
+        return casts
 
     def product(self, x):
         """The product without the bias, rounded to the compute dtype (what
         ``ops/activation.bias_gelu`` takes with ``self.bias``)."""
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        w = self.cast()[0] if self.keeps_casts() \
+            else self.weight.to(self.dtype)
+        return F.linear(x.to(self.dtype), w)
 
     def forward(self, x):
-        y = self.product(x)
-        if self.bias is not None:
-            y = y + self.bias.to(self.dtype)
-        return y
+        if not self.keeps_casts():
+            y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+            return y if self.bias is None else y + self.bias.to(self.dtype)
+        w, b = self.cast()
+        x = x.to(self.dtype)
+        if x.is_cuda:
+            return F.linear(x, w, b)
+        y = F.linear(x, w)
+        return y if b is None else y + b
 
     def gelu(self, x):
         """``exact_gelu(self(x))``, through ``ops/activation.bias_gelu``."""
         return bias_gelu(self.product(x), self.bias)
+
+
+def _cast_into(old, p, dtype):
+    """``p`` in ``dtype``, written into ``old`` where it fits (a captured
+    graph may read that address), else a new copy; None for no ``p``."""
+    if p is None:
+        return None
+    if old is not None and old.shape == p.shape and old.dtype == dtype \
+            and old.device == p.device:
+        return old.copy_(p)
+    return p.to(dtype, copy=True)
+
+
+def kept_casts(module) -> tuple:
+    """The compute-dtype copies that the ``Dense`` layers of ``module`` read
+    under no grad, each brought up to date first (``Dense.cast``): what a
+    captured CUDA graph reads in place of their float32 weights."""
+    return tuple(t for m in module.modules()
+                 if isinstance(m, Dense) and m.keeps_casts()
+                 for t in m.cast() if t is not None)
 
 
 class MultiHeadAttention(nn.Module):

@@ -10,7 +10,12 @@ Counters, by kernel id (``PERF.md`` §6 has the kernel table):
 - ``FUSED``: G1, the bias + exact GELU (``ops/activation``), and G2, the
   residual add + LayerNorm (``ops/norm``);
 - ``PLAIN_CALLS``: the calls of G1's and G2's entry points that took the
-  plain version (no launch).
+  plain version (no launch);
+- ``DENSE``: the calls of ``models/layers.Dense`` that took its cached
+  weight and bias in the compute dtype, "cached", and those that cast
+  them first, "cast" (a new copy or a stale one). They count no kernel, so
+  they are in no launch family and not in ``counts()``; the hit share is
+  ``cached / (cached + cast)``.
 
 ``EVAL`` and ``TRAIN`` are also the attention modules' ``LAUNCHES``, the
 two dicts whose sum the benchmark holds against the attention kernels of a
@@ -34,11 +39,12 @@ TRAIN = dict.fromkeys(("K5", "K6", "K7", "K8", "K9"), 0)
 FUSED = dict.fromkeys(("G1", "G2"), 0)
 WIDE = dict.fromkeys(("K1_d88", "K3_d88"), 0)
 PLAIN_CALLS = dict.fromkeys(("G1", "G2"), 0)
+DENSE = dict.fromkeys(("cast", "cached"), 0)
 LAUNCH_FAMILIES = (EVAL, TRAIN, FUSED, WIDE)
 
 
 def reset() -> None:
-    for counters in (*LAUNCH_FAMILIES, PLAIN_CALLS):
+    for counters in (*LAUNCH_FAMILIES, PLAIN_CALLS, DENSE):
         for key in counters:
             counters[key] = 0
 

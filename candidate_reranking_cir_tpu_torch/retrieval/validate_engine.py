@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from candidate_reranking_cir_tpu_torch.data.captions import compose_fiq_eval
+from candidate_reranking_cir_tpu_torch.models.layers import kept_casts
 from candidate_reranking_cir_tpu_torch.ops import registry
 from candidate_reranking_cir_tpu_torch.ops.topk import cosine_rank, \
     cosine_scores
@@ -406,11 +407,12 @@ def _ranked_body(pred, index, ent, width: int):
 # the single-program executor
 
 def _weight_ptrs(model) -> tuple:
-    """The addresses a captured graph reads the weights at: a model moved
-    off the device and back has new ones, a ``load_state_dict`` keeps
-    them."""
+    """The addresses a captured graph reads the weights at, ``Dense``'s
+    compute-dtype copies among them, which this brings up to date first
+    (``layers.kept_casts``): a model moved off the device and back has new
+    ones, a ``load_state_dict`` keeps them."""
     return tuple(t.data_ptr() for t in (*model.parameters(),
-                                        *model.buffers()))
+                                        *model.buffers(), *kept_casts(model)))
 
 
 class _CapturedGraph:

@@ -239,8 +239,11 @@ Phases, each printing its own lines:
     "caption", phase 14's as "glue", phase 15's as "single_program"
     and "dropout_layouts", phase 16's as "mesh" and phase 17's as
     "blip2_stage1_eval"; K1_d88 is K1 at 88-wide heads, also counted in
-    K1), then the card's name
-    and power limit, then the last line ``{"ok": true, "device": {...}}``.
+    K1), then ``Dense``'s hit share by path (``[dense]`` lines: the calls
+    that took their bf16 weight and bias from the cache, those that cast
+    them, on each path's counted run; also printed after each run), then
+    the card's name and power limit, then the last line ``{"ok": true,
+    "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero without the last line.
 Imports nothing of JAX.
@@ -1119,6 +1122,7 @@ def main_path():
     res = evaluate_cirr_stage2_datasets(s1, None, s2, None, tok, corpus,
                                         queries, **kw)
     launches = registry.counts()
+    dense_share("stage2_eval")
     out = res.rerank
     n_pairs = int((~skip).sum()) * TOPK + N_QUERIES * 5
     rerank_s = res.seconds["zt"] + res.seconds["score"]
@@ -1392,6 +1396,23 @@ class GcClock:
             self._t0 = None
 
 
+# ``Dense``'s kept casts on each path's counted run, by path (printed last)
+DENSE_BY_PATH = {}
+
+
+def dense_share(path: str) -> None:
+    """Print and keep ``registry.DENSE`` since the path's ``reset()``: the
+    ``Dense`` calls that took their bf16 weight and bias from the cache,
+    those that cast them first, and the hit share (None where no call took
+    the cached route: fp32, or grad mode)."""
+    n = dict(registry.DENSE)
+    total = n["cast"] + n["cached"]
+    share = round(100.0 * n["cached"] / total, 3) if total else None
+    DENSE_BY_PATH[path] = {**n, "hit_share_pct": share}
+    print(f"[dense] {path}: {n['cached']} cached, {n['cast']} cast, hit "
+          f"share {share}%", flush=True)
+
+
 def timed_steps(tag: str, step, batches, seed: int, n_steps: int):
     """One warm-up step, then ``n_steps`` counted steps with every launch
     count set to 0 just before them and read just after; prints the
@@ -1423,6 +1444,7 @@ def timed_steps(tag: str, step, batches, seed: int, n_steps: int):
     print(f"[{tag}] cyclic gc seconds inside each counted step "
           f"{[round(x, 4) for x in gc_seconds]}", flush=True)
     launches = registry.counts()
+    dense_share(tag)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if not all(np.isfinite(losses)):
         fail(f"non-finite {tag} loss")
@@ -2040,6 +2062,7 @@ def stage1_eval_path(tok, words, queries: list[dict]) -> dict:
     registry.reset()
     res, payload = evaluate_cirr_stage1(s1, None, corpus, queries, tok, **kw)
     launches = registry.counts()
+    dense_share("stage1_eval")
     sec = res.seconds
     print(f"[stage1_eval] seconds {json.dumps(sec)} (index: corpus embed "
           f"at batch {S1E_EMBED_BATCH}, the host-to-card copy of the images "
@@ -2195,6 +2218,7 @@ def single_program_path(tok, words, queries: list[dict], s1e: dict) -> dict:
     res, _ = evaluate_cirr_stage1(s1, None, corpus, queries, tok,
                                   single_program=True, **kw)
     launches = registry.counts()
+    dense_share("single_program")
     run = make_single_program_eval(s1)
     cap = run.capture
     sec = res.seconds
@@ -2752,6 +2776,7 @@ def serving_path(tok, words, corpus: Corpus) -> dict:
             {"names": added, "paths": add_paths}, {"names": removed}))
         torch.cuda.synchronize()
         launches = registry.counts()
+        dense_share("serve")
         report_http("bf16 index", run, len(bodies))
         print(f"[serve] launches {json.dumps(launches)}", flush=True)
         if not all(launches[k] > 0 for k in MAIN_PATH_KERNELS) or any(
@@ -2976,6 +3001,7 @@ def blip2_stage1_eval_path(tok, words) -> dict:
     res, payload = evaluate_cirr_stage1(model, None, corpus, queries, tok,
                                         **kw)
     launches = registry.counts()
+    dense_share("blip2_stage1_eval")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     sec = res.seconds
     batches = -(-B2_IMAGES // S1E_EMBED_BATCH)
@@ -3715,6 +3741,7 @@ def caption_path(tok) -> dict:
     vit_s = time.perf_counter() - t0
     runs = caption_decodes(decoder, feats, tok, prompt_ids)
     launches = registry.counts()
+    dense_share("caption")
     print(f"[caption] CaptionDecoder ViT-B/16 @ 384 + 12-layer MED + vocab "
           f"{cfg.text.vocab_size}, bf16, {CAP_B} images: ViT {vit_s:.3f} s; "
           f"launches {json.dumps(launches)}", flush=True)
@@ -4701,6 +4728,8 @@ def main():
                                          "sdpa_own_mask_ms", "bytes_bound_ms",
                                          "issue_bound_ms") if key in rec}})
     print(json.dumps({"kernels": kernels}))
+    print(f"[dense] hit share by path {json.dumps(DENSE_BY_PATH)}",
+          flush=True)
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -61,10 +61,11 @@ def _demangle(name: bytes) -> str:
         else name.decode()
 
 
-def _graph_kernel_names(graph: int) -> set:
+def _graph_kernel_names(graph: int, every: bool = False):
     """The demangled names of a cudaGraph_t's kernel nodes, from libcuda
     (cuGraphKernelNodeGetParams_v2: the node's CUfunction at offset 0 of
-    its params, or its CUkernel at offset 56)."""
+    its params, or its CUkernel at offset 56): a set, or with ``every`` a
+    list of one name a node."""
     cuda = ctypes.CDLL("libcuda.so.1")
 
     def check(err):
@@ -76,7 +77,7 @@ def _graph_kernel_names(graph: int) -> set:
     nodes = (ctypes.c_void_p * count.value)()
     check(cuda.cuGraphGetNodes(ctypes.c_void_p(graph), nodes,
                                ctypes.byref(count)))
-    names = set()
+    names = []
     for node in nodes:
         kind = ctypes.c_int(-1)
         check(cuda.cuGraphNodeGetType(ctypes.c_void_p(node),
@@ -93,21 +94,21 @@ def _graph_kernel_names(graph: int) -> set:
         else:
             check(cuda.cuKernelGetName(ctypes.byref(name),
                                        ctypes.c_void_p(params[7])))
-        names.add(_demangle(name.value))
-    return names
+        names.append(_demangle(name.value))
+    return names if every else set(names)
 
 
-def _kernel_names(fn) -> set:
+def _kernel_names(fn, every: bool = False):
     """Names of the device kernels one call of ``fn`` launches: the call is
     captured in a CUDA graph, whose kernel nodes libcuda names, and the
     graph is replayed once, so that what ``fn`` returns holds its results.
     (Not the profiler: on the card it loses a kernel's record now and
-    then.)"""
+    then.) A set, or with ``every`` a list of one name a launch."""
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph, capture_error_mode="relaxed"):
         fn()
-    names = _graph_kernel_names(graph.raw_cuda_graph())
+    names = _graph_kernel_names(graph.raw_cuda_graph(), every)
     graph.replay()
     torch.cuda.synchronize()
     return names
@@ -1726,3 +1727,119 @@ def d64_digests(dev) -> dict:
 
 def test_d64_launches_bit_equal_to_before_the_wide_heads(dev):
     assert d64_digests(dev) == D64_DIGESTS
+
+
+# ---------------------------------------------------------------------------
+# Dense in bf16 without a gradient: the weight and bias cast once per
+# version, the bias in the product's epilogue (one cuBLASLt launch)
+
+# (label, leading shape of x, in features, out features): the paths' shapes
+DENSE_CASES = [
+    ("ViT-B qkv/out", (16, 577), 768, 768),
+    ("ViT-B fc2", (16, 577), 3072, 768),
+    ("MED cross k/v from 577 tokens", (32, 577), 768, 768),
+    ("dual encoder, candidate-major chunk", (8, 1280), 768, 768),
+    ("ViT-g 1,408 -> 1,408", (32, 257), 1408, 1408),
+    ("ViT-g fc2 6,144 -> 1,408", (32, 257), 6144, 1408),
+    ("LM head, 30,524 wide", (48, 20), 768, 30524),
+]
+
+
+def _bf16_dense(dev, n_in, n_out, seed):
+    from candidate_reranking_cir_tpu_torch.models.layers import Dense
+
+    d = Dense(n_in, n_out, torch.bfloat16, dev)
+    with torch.no_grad():
+        d.weight.copy_(_rand(dev, torch.float32, n_out, n_in, seed=seed)
+                       * n_in ** -0.5)
+        d.bias.copy_(_rand(dev, torch.float32, n_out, seed=seed + 1))
+    return d
+
+
+@pytest.mark.parametrize("label,lead,n_in,n_out", DENSE_CASES,
+                         ids=[c[0] for c in DENSE_CASES])
+def test_dense_epilogue_route_matches_the_eager_route(dev, label, lead, n_in,
+                                                      n_out):
+    """Within bf16's 2e-2 of the eager route (product rounded, then the
+    bias added in bf16), in one launch of a cuBLAS kernel and none of
+    PyTorch's elementwise kernels; the second call's casts come from the
+    cache."""
+    d = _bf16_dense(dev, n_in, n_out, seed=2000 + n_in % 97)
+    x = _rand(dev, torch.bfloat16, *lead, n_in, seed=2100)
+    with torch.no_grad():
+        eager = (torch.nn.functional.linear(x, d.weight.bfloat16())
+                 + d.bias.bfloat16())
+        registry.reset()
+        got = d(x)
+        assert registry.DENSE == {"cast": 1, "cached": 0}
+        out = {}
+        nodes = _kernel_names(lambda: out.update(y=d(x)), every=True)
+        assert registry.DENSE == {"cast": 1, "cached": 1}
+    torch.testing.assert_close(got.float(), eager.float(), rtol=2e-2,
+                               atol=2e-2)
+    assert torch.equal(out["y"], got)
+    assert len(nodes) == 1, nodes
+    assert "at::native" not in nodes[0], nodes
+
+
+def test_dense_capture_with_a_cold_cache_casts_inline_and_keeps_nothing(dev):
+    """A miss inside a CUDA-graph capture casts in the graph and keeps
+    nothing; after an eager call a capture holds the product alone."""
+    d = _bf16_dense(dev, 768, 768, seed=2200)
+    x = _rand(dev, torch.bfloat16, 4, 40, 768, seed=2201)
+    out = {}
+    with torch.no_grad():
+        cold = _kernel_names(lambda: out.update(y=d(x)), every=True)
+        assert d._casts is None
+        want = d(x)
+        warm = _kernel_names(lambda: out.update(y=d(x)), every=True)
+    assert any("bfloat16_copy" in n for n in cold), cold
+    assert len(warm) == 1 and "bfloat16_copy" not in warm[0], warm
+    assert torch.equal(out["y"], want)
+
+
+def test_dense_blocks_captured_after_warm_up_hold_no_cast(dev):
+    """The ViT's attention and MLP and the MED's FFN in bf16 under
+    inference mode, captured after one eager call: no fp32-to-bf16 cast
+    node, one product a Dense."""
+    from candidate_reranking_cir_tpu_torch.models import layers
+    from candidate_reranking_cir_tpu_torch.models.med import BertFFN
+    from candidate_reranking_cir_tpu_torch import config as tcfg
+
+    bf = torch.bfloat16
+    attn = layers.MultiHeadAttention(12, 64, 768, dtype=bf, device=dev)
+    mlp = layers.Mlp(768, 3072, 768, dtype=bf, device=dev)
+    ffn = BertFFN(tcfg.TextEncoderConfig(), bf, dev)
+    x = _rand(dev, bf, 4, 577, 768, seed=2300)
+    t = _rand(dev, bf, 16, 40, 768, seed=2301)
+    for module, arg in ((attn, x), (mlp, x), (ffn, t)):
+        n_dense = sum(isinstance(m, layers.Dense) for m in module.modules())
+        out = {}
+        with torch.inference_mode():
+            want = module(arg)
+            registry.reset()
+            nodes = _kernel_names(lambda: out.update(y=module(arg)),
+                                  every=True)
+        assert registry.DENSE == {"cast": 0, "cached": n_dense}
+        assert not any("bfloat16_copy" in n for n in nodes), nodes
+        gemms = [n for n in nodes if "at::native" not in n and not any(
+            k in n for k in ("attn_", "bias_gelu", "add_layer_norm"))]
+        assert len(gemms) == n_dense, nodes
+        assert torch.equal(out["y"], want)
+
+
+@pytest.mark.parametrize("name", ["retrieval", "reranker", "blip2",
+                                  "caption", "blip_base"])
+def test_dense_hit_share_is_whole_on_a_second_eval_call(dev, name):
+    """bf16 on the card: a second eval call of each model takes every
+    ``Dense`` cast from the cache, and gives the first call's outputs."""
+    from _torch_port_dense_models import MODELS
+
+    model, call = MODELS[name](torch.bfloat16, dev)
+    with torch.inference_mode():
+        first = call()
+        registry.reset()
+        second = call()
+    assert registry.DENSE["cast"] == 0 and registry.DENSE["cached"] > 0
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
