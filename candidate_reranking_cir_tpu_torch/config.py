@@ -15,7 +15,9 @@ Port-only: BLIP-2's stage-I retrieval model (``Blip2RetrievalModelConfig``,
 ``models/blip2_retrieval.py``), which the JAX package lacks, with the two
 ViT keys its EVA ViT-g tower needs (``qkv_bias``, ``final_norm_eps``;
 off by default). ``load_config`` reads a ``stage1`` that holds
-``num_query_tokens`` as BLIP-2's.
+``num_query_tokens`` as BLIP-2's. Kimi-VL-A3B-Instruct as a point-wise
+stage-II re-ranker (``KimiVLRerankerConfig``: ``MoonViTConfig``,
+``KimiLMConfig``, ``RerankTemplate``; ``models/kimi_vl.py``).
 """
 from __future__ import annotations
 
@@ -161,6 +163,92 @@ class RerankerModelConfig:
     vit: ViTConfig = field(default_factory=lambda: ViTConfig(drop_path_rate=0.1))
     text: TextEncoderConfig = field(default_factory=TextEncoderConfig)
     text_len: int = 40
+
+
+@dataclass(frozen=True)
+class MoonViTConfig:
+    """Kimi-VL's vision tower and projector (arXiv:2504.07491; SigLIP-SO400M's
+    shape): ``num_layers`` pre-LN blocks of ``hidden_size`` with heads of
+    72, a tanh-GELU MLP of ``intermediate_size``, a learned ``pos_grid`` x
+    ``pos_grid`` position table resized to the patch grid, a 2-D rotary
+    embedding of base ``rope_theta``, and a ``merge`` x ``merge`` patch
+    merge into the projector's two layers."""
+
+    image_size: int = 392
+    patch_size: int = 14
+    hidden_size: int = 1152
+    num_layers: int = 27
+    num_heads: int = 16
+    intermediate_size: int = 4304
+    pos_grid: int = 64
+    rope_theta: float = 10000.0
+    layer_norm_eps: float = 1e-5
+    merge: int = 2
+
+    @property
+    def grid(self) -> int:
+        return self.image_size // self.patch_size
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+
+@dataclass(frozen=True)
+class KimiLMConfig:
+    """Kimi-VL's deepseek_v3 decoder (its ``config.json``'s names): MLA
+    without a query latent, a dense first layer, then sigmoid-routed
+    experts (``noaux_tc``, one group) with shared experts."""
+
+    vocab_size: int = 163840
+    hidden_size: int = 2048
+    intermediate_size: int = 11264
+    moe_intermediate_size: int = 1408
+    num_hidden_layers: int = 27
+    num_attention_heads: int = 16
+    n_shared_experts: int = 2
+    n_routed_experts: int = 64
+    num_experts_per_tok: int = 6
+    routed_scaling_factor: float = 2.446
+    norm_topk_prob: bool = True
+    first_k_dense_replace: int = 1
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    rms_norm_eps: float = 1e-5
+    kv_norm_eps: float = 1e-6        # kv_a_layernorm's (the module default)
+    rope_theta: float = 800000.0
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+
+@dataclass(frozen=True)
+class RerankTemplate:
+    """The fixed ids around a query's and a candidate's image tokens: a
+    query is [template][media start][image][media end][caption], a
+    candidate [media start][image][media end][question][assistant start],
+    scored by logit(yes) - logit(no) at its last position."""
+
+    template_ids: tuple[int, ...] = (163587, 163588, 163589)
+    media_start_ids: tuple[int, ...] = (163590, 163591, 163592)
+    media_end_ids: tuple[int, ...] = (163593,)
+    question_ids: tuple[int, ...] = tuple(range(40, 52))
+    assistant_ids: tuple[int, ...] = (163594, 163595, 163596, 163597)
+    yes_id: int = 163598
+    no_id: int = 163599
+
+
+@dataclass(frozen=True)
+class KimiVLRerankerConfig:
+    """Kimi-VL-A3B-Instruct as a point-wise stage-II re-ranker
+    (``models/kimi_vl.py``)."""
+
+    vision: MoonViTConfig = field(default_factory=MoonViTConfig)
+    lm: KimiLMConfig = field(default_factory=KimiLMConfig)
+    template: RerankTemplate = field(default_factory=RerankTemplate)
 
 
 @dataclass(frozen=True)

@@ -9,8 +9,9 @@
 //   - fp32 scores times the scale (the JAX package folds a power-of-two
 //     scale into q, which gives the same bits; the kernels take d = 64,
 //     and the wrappers zero-pad narrower heads and pass their own scale;
-//     the tensor-core kernel also takes d = 88 without a bias, in place:
-//     EVA ViT-g's heads, BLIP-2's vision tower),
+//     the tensor-core kernel also takes d = 88 and d = 72 without a bias,
+//     in place: EVA ViT-g's heads, BLIP-2's vision tower, and MoonViT's,
+//     Kimi-VL's),
 //   - max-subtracted exp, a sum, and a DIVIDE (not a
 //     reciprocal multiply), as pallas_attention.py:_head_attention does,
 //   - the probabilities rounded to the input type before P.V,
@@ -136,14 +137,15 @@ int crc_attention_tc_smem_bytes(int warpgroups, int m) {
 // is a cudaError_t): more keys than the fp32-FMA kernel's score rows hold
 // in shared memory (fwd_max_keys()); on the tensor-core route a base
 // pointer or stride that is not aligned (tc::aligned()); a head width
-// other than kHeadDim, or kWideHeadDim in bf16 without a bias.
+// other than kHeadDim, or kWideHeadDim or kMoonViTHeadDim in bf16 without
+// a bias.
 constexpr int kRefusedKeys = -1;
 constexpr int kRefusedAlignment = -2;
 constexpr int kRefusedHeadDim = -3;
 
 // dtype: 0 = float32, 1 = bfloat16. head_dim: kHeadDim, or kWideHeadDim
-// (bf16, no bias). bias: null, or fp32 with strides strides[12..13].
-// strides: q, k, v, out as (entry, row, head) triples. Routes bf16 to the
+// or kMoonViTHeadDim (bf16, no bias). bias: null, or fp32 with strides
+// strides[12..13]. strides: q, k, v, out as (entry, row, head) triples. Routes bf16 to the
 // tensor-core kernel, fp32 to attn_fwd_kernel. Returns the launch's
 // cudaGetLastError() (0 = success), cudaErrorInvalidValue for an empty axis
 // or an unknown dtype, or one of the refusals above.
@@ -155,10 +157,16 @@ int crc_attention_forward(int dtype, int head_dim, const void* q,
   const Strides st = unpack_strides(strides);
   if (m < 1 || lq < 1) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  if (head_dim == tc::kWideHeadDim && dtype == 1 && !bias) {
+  if ((head_dim == tc::kWideHeadDim || head_dim == tc::kMoonViTHeadDim) &&
+      dtype == 1 && !bias) {
     if (!tc::aligned(q, k, v, out, st)) return kRefusedAlignment;
-    return launch_tc<false, tc::kWideHeadDim>(q, k, v, bias, out, entries,
-                                              heads, lq, m, scale, st, s);
+    return head_dim == tc::kWideHeadDim
+               ? launch_tc<false, tc::kWideHeadDim>(q, k, v, bias, out,
+                                                    entries, heads, lq, m,
+                                                    scale, st, s)
+               : launch_tc<false, tc::kMoonViTHeadDim>(q, k, v, bias, out,
+                                                       entries, heads, lq,
+                                                       m, scale, st, s);
   }
   if (head_dim != kHeadDim) return kRefusedHeadDim;
   if (dtype == 1) {

@@ -104,6 +104,12 @@
 // not the products, bound it (128 operations a byte against the card's
 // 295). The two accumulators take 32 more registers a thread, so the wide
 // kernel asks for one block an SM in its launch bounds.
+//
+// Head width 72 (kMoonViTHeadDim: MoonViT's 16 heads of 1152, Kimi-VL's
+// vision tower) takes the same route: nine chunks a row, the second
+// sub-tile holding lanes 64..71 and a zero-filled chunk for lanes 72..79;
+// S takes five k-steps (lanes 0..79) and P.V one m64n64 a sub-tile, of
+// which lanes 0..71 are stored.
 
 #pragma once
 
@@ -122,7 +128,8 @@ constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = 2^(x log2 e)
 
 static_assert(kHeadDim == 64, "a tile row is one 128-byte swizzle row");
 
-constexpr int kWideHeadDim = 88;  // the other head width (no bias)
+constexpr int kWideHeadDim = 88;  // the other head widths (no bias)
+constexpr int kMoonViTHeadDim = 72;
 
 // A head of kDim lanes in shared memory: kSubTiles 64-lane sub-tiles of
 // kTileBytes each (a d = 64 tile's layout), kChunks 16-byte chunks of the
@@ -693,8 +700,9 @@ __device__ __forceinline__ void attn_fwd_tc_body(
   }
 }
 
-// K1-K4 in bf16; kDim the head width (64, or kWideHeadDim without a
-// bias), a template argument so that a trace names the width
+// K1-K4 in bf16; kDim the head width (64, or kWideHeadDim or
+// kMoonViTHeadDim without a bias), a template argument so that a trace
+// names the width
 template <int kWarpgroups, bool kHasBias, int kDim>
 __global__ void __launch_bounds__(kWarpgroups * 128,
                                   kDim == kHeadDim ? 4 / kWarpgroups : 1)

@@ -24,6 +24,10 @@ class RerankerModel(nn.Module):
     """Built on ``device`` (default 'cuda'; raises without a card unless
     device='cpu'); computes in ``dtype``."""
 
+    # read by the stage-II engine: z_t and the pair scorers, not a prefix
+    # pass (``models/kimi_vl.py``)
+    prefix_scorer = False
+
     def __init__(self, cfg: RerankerModelConfig, dtype=torch.float32,
                  device=None):
         super().__init__()

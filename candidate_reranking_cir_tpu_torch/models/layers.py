@@ -183,15 +183,24 @@ class Dense(nn.Module):
       non-contiguous input takes a product and one in-place add). On the
       CPU the product is rounded and the bias added after it, bit for bit
       the formula above.
+
+    ``param_dtype`` (float32 by default) is the dtype the parameters are
+    held in. A model held in its compute dtype (an inference-only model
+    too large for float32 parameters beside a copy, ``models/kimi_vl.py``)
+    passes that dtype: ``cast`` then hands the parameters over as they
+    are, with no kept copy, and the route is the same.
     """
 
     def __init__(self, in_features: int, out_features: int,
-                 dtype=torch.float32, device=None, bias: bool = True):
+                 dtype=torch.float32, device=None, bias: bool = True,
+                 param_dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
         self.weight = nn.Parameter(_normal_(
-            torch.empty(out_features, in_features, device=device)))
-        self.bias = (nn.Parameter(torch.zeros(out_features, device=device))
+            torch.empty(out_features, in_features, device=device,
+                        dtype=param_dtype)))
+        self.bias = (nn.Parameter(torch.zeros(out_features, device=device,
+                                              dtype=param_dtype))
                      if bias else None)
         # (key, weight, bias) in the compute dtype; a plain attribute, so
         # state_dict and checkpoints never hold it
@@ -215,8 +224,13 @@ class Dense(nn.Module):
         reads the new values once they are brought up to date
         (``kept_casts``). Under a CUDA-graph capture a stale copy is cast
         inline and nothing is kept: nothing of a graph's pool may outlive
-        it. Counted in ``registry.DENSE``."""
+        it. Parameters held in the compute dtype are returned as they are
+        (a hit: there is nothing to cast or keep). Counted in
+        ``registry.DENSE``."""
         params = (self.weight, self.bias)
+        if all(p is None or p.dtype == self.dtype for p in params):
+            DENSE["cached"] += 1
+            return params
         key = (self.dtype, self.weight.device,
                *((None,) if p is None else (id(p), p.data_ptr(), p._version)
                  for p in params))

@@ -10,14 +10,21 @@ as the JAX package's own XLA path draws it from ``jax.random``. CPU
 tensors take the kernels' plain versions. Layouts follow the JAX package:
 ``[..., seq, heads, head_dim]`` unfolded, ``[..., seq, heads*head_dim]``
 folded; the additive mask is ``(1 - mask) * -10000``.
+
+Head widths no kernel of the port takes (Kimi-VL's latent attention: 192
+lanes for q and k, 128 for v) go to ``F.scaled_dot_product_attention``
+(``sdpa_attention``), with a boolean keep-mask or causal, counted in
+``registry.SDPA``.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 from candidate_reranking_cir_tpu_torch.ops import attention_train, draws
+from candidate_reranking_cir_tpu_torch.ops.registry import SDPA
 from candidate_reranking_cir_tpu_torch.ops.cuda_attention import (
     fused_attention,
     fused_attention_folded,
@@ -178,3 +185,17 @@ def pair_cross_attention(q, k, v, *, dropout_rate: float = 0.0,
         return out.reshape(n_c, n_q, lq, h, d).transpose(0, 1)
     return _plain_attention("qclhd,ckhd->qchlk", "qchlk,ckhd->qclhd",
                             q, k, v, None, dropout_rate, generator)
+
+
+def sdpa_attention(q, k, v, mask=None, *, causal: bool = False,
+                   kind: str = "mla"):
+    """Attention through ``F.scaled_dot_product_attention``: q [B, Lq, H, Dk];
+    k [B, M, H, Dk]; v [B, M, H, Dv]; ``mask`` None or a boolean keep-mask
+    broadcastable to [B, H, Lq, M]; ``causal`` (without a mask) masks key j
+    > query i. Scale Dk ** -0.5; returns [B, Lq, H, Dv] in q's dtype.
+    Counted in ``registry.SDPA[kind]``."""
+    out = F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask, is_causal=causal)
+    SDPA[kind] += 1
+    return out.transpose(1, 2)

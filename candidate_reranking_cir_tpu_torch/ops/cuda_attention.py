@@ -30,12 +30,13 @@ Head widths and the scale: the kernels are built for d = 64 (ViT-B/16's
 and the MED's heads). A narrower head (the tiny configs' 6 or 8) runs
 zero-padded to 64 (``pad_heads``) with its own scale d ** -0.5, and the
 output is sliced back. The tensor-core kernel also takes d = 88
-(``WIDE_HEAD_DIM``: EVA ViT-g's heads in BLIP-2's vision tower) in bf16
-without a bias, K1 and K3: it reads the 88-wide heads where they lie and
-pads them to its products' widths in shared memory, so no padded copy is
-made; those launches count in ``LAUNCHES`` under their kernel id and in
-``registry.WIDE`` ("K1_d88", "K3_d88") too. Any other width above 64
-raises. The scale follows the JAX package's rule (``scaled_scores``): the
+(``WIDE_HEAD_DIM``: EVA ViT-g's heads in BLIP-2's vision tower) and d = 72
+(``MOONVIT_HEAD_DIM``: MoonViT's heads in Kimi-VL's vision tower) in bf16
+without a bias, K1 and K3: it reads those heads where they lie and pads
+them to its products' widths in shared memory, so no padded copy is made;
+those launches count in ``LAUNCHES`` under their kernel id and in
+``registry.WIDE`` ("K1_d88", "K3_d88", "K1_d72", "K3_d72") too. Any other
+width above 64 raises. The scale follows the JAX package's rule (``scaled_scores``): the
 fp32 scores times the scale, at every width, in the kernels and the plain
 versions alike (bit-equal to JAX's fold of a power-of-two scale into q).
 
@@ -64,7 +65,10 @@ LAUNCHES = registry.EVAL
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_YZ = 65535
 KERNEL_HEAD_DIM = 64  # the head width the kernels are built for (kHeadDim)
-WIDE_HEAD_DIM = 88    # the tensor-core kernel's other width (kWideHeadDim)
+# the tensor-core kernel's other widths (kWideHeadDim, kMoonViTHeadDim)
+WIDE_HEAD_DIM = 88
+MOONVIT_HEAD_DIM = 72
+WIDE_HEAD_DIMS = (MOONVIT_HEAD_DIM, WIDE_HEAD_DIM)
 
 
 def scaled_scores(q, k, acc=torch.float32):
@@ -207,10 +211,10 @@ def raise_on_error(err: int, kid: str, tensors: dict) -> None:
 
 def _launch(kid: str, q4, k4, v4, bias3, out4, scale: float) -> None:
     """Launch the CUDA kernel on 4-D [E, L, H, KERNEL_HEAD_DIM] views
-    (strided) at ``scale``, or [E, L, H, WIDE_HEAD_DIM] ones (bf16, no
-    bias)."""
+    (strided) at ``scale``, or [E, L, H, d] ones for d in WIDE_HEAD_DIMS
+    (bf16, no bias)."""
     lib = build.load("attention")
-    wide = q4.shape[-1] == WIDE_HEAD_DIM
+    wide = q4.shape[-1] in WIDE_HEAD_DIMS
     e, lq, h, d, m = check_kernel_inputs(
         {"q": q4, "k": k4, "v": v4},
         q4.shape[-1] if wide else lib.crc_attention_head_dim())
@@ -225,21 +229,21 @@ def _launch(kid: str, q4, k4, v4, bias3, out4, scale: float) -> None:
     raise_on_error(err, kid, {"q": q4, "k": k4, "v": v4, "out": out4})
     LAUNCHES[kid] += 1
     if wide:
-        registry.WIDE[kid + "_d88"] += 1
+        registry.WIDE[f"{kid}_d{d}"] += 1
 
 
 def takes_wide_heads(q4, bias3) -> bool:
-    """Whether a launch runs at WIDE_HEAD_DIM as it is: 88-wide bf16
-    heads without a bias (K1, K3)."""
-    return (q4.shape[-1] == WIDE_HEAD_DIM and q4.dtype == torch.bfloat16
+    """Whether a launch runs at its own width as it is: 72- or 88-wide
+    bf16 heads without a bias (K1, K3)."""
+    return (q4.shape[-1] in WIDE_HEAD_DIMS and q4.dtype == torch.bfloat16
             and bias3 is None)
 
 
 def _kernel_forward(kid: str, q4, k4, v4, bias3):
     """The kernel's output [E, Lq, H, d] for 4-D views q4, k4, v4; heads
     narrower than the kernels' width run zero-padded (``pad_heads``) at
-    their own scale, and the output is sliced back to d; 88-wide heads
-    (``takes_wide_heads``) run as they are."""
+    their own scale, and the output is sliced back to d; 72- and 88-wide
+    heads (``takes_wide_heads``) run as they are."""
     d = q4.shape[-1]
     if not takes_wide_heads(q4, bias3):
         q4, k4, v4 = pad_heads(q4, k4, v4)

@@ -15,7 +15,14 @@ Query-major (``rerank``, serving and ``schedule='query_major'``): fixed
 own K/V (``RerankerModel.score_per_query``), or with ``dedup`` the K/V of
 the chunk's unique candidates gathered per pair (``score_indexed``).
 
-Both gather bank rows through ``ops/quant.take_rows``, so the bank may be
+Prefix-scored (``rerank_prefixed``, the query-major schedule of a
+re-ranker whose class sets ``prefix_scorer``, Kimi-VL's): no z_t and no stage-I
+model; each chunk of ``q_batch`` queries is one prefix pass over their
+reference images and captions (the layer span 'prefix') and one suffix pass
+over their K(+5) candidates, which attend to the prefixes' kept latents
+(the layer span 'score').
+
+All gather bank rows through ``ops/quant.take_rows``, so the bank may be
 an ``Int8Bank``.
 
 Over a mesh (``parallel/mesh.py``), as in the JAX package:
@@ -68,7 +75,10 @@ class RerankOutput:
 
 def bind_module(module, params, device: torch.device):
     """Load ``params`` (a port state dict, or None to keep the module's own
-    weights) into ``module``, move it to ``device`` and set eval mode."""
+    weights) into ``module``, move it to ``device`` and set eval mode; no
+    module (a prefix scorer's absent stage I) stays None."""
+    if module is None:
+        return None
     if params is not None:
         module.load_state_dict(params, strict=True)
     return module.to(device).eval()
@@ -209,16 +219,93 @@ def rerank(stage1, s1_params, reranker, s2_params, tokenizer, *,
             if do_groups:
                 grp_logits[rows[:count]] = out[:count, k:]
 
-        if skip_mask is not None:
-            logits[np.asarray(skip_mask, bool)] = SKIP_LOGIT
-
-        # descending sort; stable on the negated scores for deterministic
-        # ties
-        rank_order = np.argsort(-logits, axis=-1, kind="stable")
-        group_order = (np.argsort(-grp_logits, axis=-1, kind="stable")
-                       if do_groups else None)
+        rank_order, group_order = _finish(logits, grp_logits, skip_mask)
     return pmesh.share(mesh, RerankOutput(logits, grp_logits, rank_order,
                                           group_order))
+
+
+def _finish(logits, grp_logits, skip_mask) -> tuple:
+    """The SKIP_LOGIT rows set, then both descending orders (stable on the
+    negated scores, for deterministic ties)."""
+    if skip_mask is not None:
+        logits[np.asarray(skip_mask, bool)] = SKIP_LOGIT
+    order = np.argsort(-logits, axis=-1, kind="stable")
+    group_order = (np.argsort(-grp_logits, axis=-1, kind="stable")
+                   if grp_logits is not None else None)
+    return order, group_order
+
+
+@torch.inference_mode()
+def rerank_prefixed(reranker, s2_params, tokenizer, *, captions: list[str],
+                    reference_names: list[str], topk_names: np.ndarray,
+                    index_feats, index_names: list[str], text_len: int,
+                    q_batch: int = 4,
+                    skip_mask: np.ndarray | None = None,
+                    group_members: list[list[str]] | None = None,
+                    device=None, trace_as: str = "rerank") -> RerankOutput:
+    """``rerank``'s outputs from a prefix scorer (``reranker.prefix``,
+    ``reranker.score``): chunks of ``q_batch`` queries (the tail padded with
+    repeats of its first), each a prefix pass over the queries' reference
+    rows of the bank and captions (layer span 'prefix'), then a suffix pass
+    over their K top-K candidates and 5 group members (layer span 'score');
+    captions of at most ``text_len`` tokens as the tokenizer counts them;
+    each span ends in a device sync (phase ``<trace_as>.wait``), so that
+    it times its work. Skipped queries are scored, then set to SKIP_LOGIT,
+    as in ``rerank``."""
+    plan = f"{trace_as}.plan"
+    with tracing.trace_phase(plan):
+        device = resolve_device(device)
+        reranker = bind_module(reranker, s2_params, device)
+        feats = index_feats.to(device)
+        n, k = len(captions), topk_names.shape[1]
+        pos = {name: i for i, name in enumerate(index_names)}
+        ref_idx = np.asarray([pos[r] for r in reference_names], np.int64)
+        cand_idx = np.asarray([[pos[nm] for nm in row] for row in topk_names],
+                              np.int64)
+        do_groups = group_members is not None
+        if do_groups:
+            grp_idx = np.asarray(
+                [[pos[m] for m in g if m != r][:5]
+                 for g, r in zip(group_members, reference_names)], np.int64)
+            cand_idx = np.concatenate([cand_idx, grp_idx], axis=1)
+        caption_ids = reranker.caption_ids(tokenizer, captions, text_len)
+        width = cand_idx.shape[1]
+
+    def to_dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    chunks = []  # (rows, count, device scores [q_batch, width])
+    for start in range(0, n, q_batch):
+        with tracing.trace_phase(plan):
+            rows = np.arange(start, min(start + q_batch, n))
+            count = len(rows)
+            rows = np.concatenate([rows, np.repeat(rows[:1],
+                                                   q_batch - count)])
+        with tracing.layer_span("prefix"):
+            cache = reranker.prefix(take_rows(feats, to_dev(ref_idx[rows])),
+                                    [caption_ids[r] for r in rows])
+            with tracing.trace_phase(f"{trace_as}.wait"):
+                sync_device(device)
+        with tracing.layer_span("score"):
+            cands = take_rows(feats, to_dev(cand_idx[rows].ravel()))
+            out = reranker.score(cache, cands.unflatten(0, (q_batch, width)))
+            del cache, cands
+            with tracing.trace_phase(f"{trace_as}.wait"):
+                sync_device(device)
+        chunks.append((rows, count, out))
+
+    logits = np.empty((n, k), np.float32)
+    grp_logits = np.empty((n, width - k), np.float32) if do_groups else None
+    with tracing.trace_phase(f"{trace_as}.wait"):
+        scores = torch.stack([c[2] for c in chunks]).cpu().numpy() \
+            if chunks else []
+    with tracing.trace_phase(f"{trace_as}.finish"):
+        for (rows, count, _), out in zip(chunks, scores):
+            logits[rows[:count]] = out[:count, :k]
+            if do_groups:
+                grp_logits[rows[:count]] = out[:count, k:]
+        order, group_order = _finish(logits, grp_logits, skip_mask)
+    return RerankOutput(logits, grp_logits, order, group_order)
 
 
 def resolve_l_buckets(l_buckets, lengths: np.ndarray,

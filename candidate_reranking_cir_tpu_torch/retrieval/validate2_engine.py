@@ -34,6 +34,7 @@ from candidate_reranking_cir_tpu_torch.retrieval.rerank import (
     cirr_group_labels,
     rerank,
     rerank_candidate_major,
+    rerank_prefixed,
 )
 from candidate_reranking_cir_tpu_torch.runtime import tracing
 from candidate_reranking_cir_tpu_torch.runtime.device import (
@@ -59,9 +60,14 @@ def run_rerank(schedule: str, stage1, reranker, tokenizer, *, q_batch: int,
     ``_run_rerank``) over bound models: 'candidate_major' groups pairs by
     candidate, so K/V projections serve the ~90 queries that rank each
     corpus image; 'query_major' runs fixed [q_batch, K] chunks at the
-    single ``text_len`` bucket. ``shard_index`` (a block-sharded bank)
-    needs 'candidate_major'."""
+    single ``text_len`` bucket, or for a re-ranker whose class sets
+    ``prefix_scorer`` (Kimi-VL) ``rerank_prefixed``'s prefix and suffix
+    passes (no stage I). ``shard_index`` (a block-sharded bank) needs
+    'candidate_major'."""
     if schedule == "candidate_major":
+        if reranker.prefix_scorer:
+            raise ValueError("a prefix scorer (Kimi-VL) runs with "
+                             "schedule='query_major'")
         return rerank_candidate_major(stage1, None, reranker, None, tokenizer,
                                       l_buckets=l_buckets, device=device,
                                       mesh=mesh, index_sharded=shard_index,
@@ -70,6 +76,11 @@ def run_rerank(schedule: str, stage1, reranker, tokenizer, *, q_batch: int,
         raise ValueError("shard_index requires schedule='candidate_major'")
     if schedule == "query_major":
         with tracing.layer_span("rerank"):
+            if reranker.prefix_scorer:
+                if mesh is not None:
+                    raise ValueError("a prefix scorer runs on one device")
+                return rerank_prefixed(reranker, None, tokenizer,
+                                       q_batch=q_batch, device=device, **kw)
             return rerank(stage1, None, reranker, None, tokenizer,
                           q_batch=q_batch, device=device, mesh=mesh, **kw)
     raise ValueError(f"unknown schedule {schedule!r}")

@@ -29,6 +29,14 @@ Two sources, one result (a state dict that ``load_state_dict`` takes with
   ``model='base'`` a BLIP_Base's (``visual_encoder.*``,
   ``text_encoder.*``), as JAX's ``convert_caption_decoder`` and
   ``convert_base`` do.
+
+A third source, for ``models/kimi_vl.KimiVLReranker``:
+``kimi_vl_state_dict`` maps the published Kimi-VL-A3B-Instruct
+checkpoint's keys (``language_model.*``, ``vision_tower.*``,
+``multi_modal_projector.*``) to the port's, stacking each layer's experts
+and reordering the patch embedding's convolution; the tensors keep their
+dtype (bf16 in the checkpoint), and ``load_state_dict`` casts the few the
+port holds in float32 (norm gains, the router's correction bias).
 """
 from __future__ import annotations
 
@@ -401,3 +409,66 @@ def convert_vit_npz(path_or_dict, num_layers: int, num_patches: int, *,
                 a(src + f"MlpBlock_3/{name}/kernel").T
             out[dst + f"mlp.{fc}.bias"] = a(src + f"MlpBlock_3/{name}/bias")
     return {prefix + k: _to_tensor(v) for k, v in out.items()}
+
+
+# the published Kimi-VL checkpoint's keys -> the port's (the vision tower's
+# and the projector's as HF's modeling_kimi_vl.py names them)
+_KIMI_VL_KEYS = [(re.compile(a), b) for a, b in (
+    (r"^vision_tower\.patch_embed\.proj\.bias$", "vision.patch_embed.bias"),
+    (r"^vision_tower\.patch_embed\.pos_emb\.weight$", "vision.pos_emb"),
+    (r"^vision_tower\.encoder\.blocks\.(\d+)\.wqkv\.(weight|bias)$",
+     r"vision.blocks.\1.attn.qkv.\2"),
+    (r"^vision_tower\.encoder\.blocks\.(\d+)\.wo\.(weight|bias)$",
+     r"vision.blocks.\1.attn.proj.\2"),
+    (r"^vision_tower\.encoder\.blocks\.(\d+)\.(norm0|norm1|mlp\.fc0|mlp\.fc1)"
+     r"\.(weight|bias)$", r"vision.blocks.\1.\2.\3"),
+    (r"^vision_tower\.encoder\.final_layernorm\.(weight|bias)$",
+     r"vision.final_norm.\1"),
+    (r"^multi_modal_projector\.(pre_norm|linear_1|linear_2)\.(weight|bias)$",
+     r"projector.\1.\2"),
+    (r"^language_model\.model\.(embed_tokens\.weight|norm\.weight)$",
+     r"lm.\1"),
+    (r"^language_model\.lm_head\.weight$", "lm.lm_head.weight"),
+    (r"^language_model\.model\.layers\.(\d+)\.((self_attn|mlp\.gate|"
+     r"mlp\.shared_experts|mlp\.(gate|up|down)_proj|input_layernorm|"
+     r"post_attention_layernorm)\..*)$", r"lm.layers.\1.\2"),
+)]
+_KIMI_VL_EXPERT = re.compile(
+    r"^language_model\.model\.layers\.(\d+)\.mlp\.experts\.(\d+)\."
+    r"(gate|up|down)_proj\.weight$")
+
+
+def kimi_vl_state_dict(sd: Mapping) -> dict[str, torch.Tensor]:
+    """The published Kimi-VL checkpoint's state dict (keys as its
+    safetensors name them) -> ``KimiVLReranker``'s: each MoE layer's
+    experts stacked, gate and up as [E, 2F, D] (gate first), down as
+    [E, D, F]; the patch embedding's convolution [D, 3, P, P] as the port's
+    dense layer over (row, column, channel) patches [D, P * P * 3]. The
+    rotary caches and keys the port has no place for are dropped."""
+    out: dict[str, torch.Tensor] = {}
+    experts: dict[int, dict] = {}
+    for key, val in sd.items():
+        if "rotary_emb" in key:
+            continue
+        val = torch.as_tensor(val)
+        m = _KIMI_VL_EXPERT.match(key)
+        if m:
+            layer, e, kind = int(m[1]), int(m[2]), m[3]
+            experts.setdefault(layer, {}).setdefault(kind, {})[e] = val
+            continue
+        if key == "vision_tower.patch_embed.proj.weight":
+            out["vision.patch_embed.weight"] = \
+                val.permute(0, 2, 3, 1).reshape(val.shape[0], -1)
+            continue
+        for pat, dst in _KIMI_VL_KEYS:
+            if pat.match(key):
+                out[pat.sub(dst, key)] = val
+                break
+    for layer, kinds in experts.items():
+        n = len(kinds["gate"])
+        prefix = f"lm.layers.{layer}.mlp.experts."
+        out[prefix + "gate_up"] = torch.stack(
+            [torch.cat([kinds["gate"][e], kinds["up"][e]]) for e in range(n)])
+        out[prefix + "down"] = torch.stack([kinds["down"][e]
+                                            for e in range(n)])
+    return out

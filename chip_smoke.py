@@ -36,7 +36,11 @@ Phases, each printing its own lines:
    Then K1 and K3 at EVA ViT-g's 88-wide heads (BLIP-2's vision tower;
    bf16, no bias, read in place by ``attn_fwd_tc_kernel<wg, false, 88>``)
    at the ViT-g's [32, 257, 257, 16, 88] and at a ragged [3, 75, 131, 5,
-   88], the same way, each launch counted as "K1_d88" or "K3_d88" too.
+   88], the same way, each launch counted as "K1_d88" or "K3_d88" too;
+   and at MoonViT's 72-wide heads (Kimi-VL's vision tower,
+   ``attn_fwd_tc_kernel<wg, false, 72>``) at its bank batch's [16, 784,
+   784, 16, 72] and at a ragged [3, 75, 131, 5, 72], counted as "K1_d72"
+   or "K3_d72" too.
    Then G1, fc1's bias add and exact GELU (``ops/activation.bias_gelu``),
    at the ViT's fc1 at embed batch 32 ([18464, 3072]), a candidate-major
    dual-encoder chunk's ([8, 1280, 3072]), the caption head's transform
@@ -219,6 +223,18 @@ Phases, each printing its own lines:
     K1 above K1_d88 (the Q-Former's cross-attention), K2 (its masked
     self-attention), K3 (its query pass's unmasked one), G1 and G2 > 0) and
     the metrics.
+18. (run after phase 17, before phase 10) Kimi-VL-A3B-Instruct as the
+    stage-II re-ranker: ``evaluate_cirr_stage2_datasets(stage1=None,
+    schedule='query_major')`` with ``KimiVLReranker`` at its published
+    widths (MoonViT at 392, 27 blocks of 1152, 16 heads of 72; the
+    27-layer MLA + 64-expert decoder) with its parameters held in bf16,
+    random weights drawn in place from the seed, on KV_IMAGES images and
+    KV_QUERIES queries (top-50, chunks of KV_Q_BATCH), after a warm-up on
+    one chunk: seconds by layer span, queries/s, peak GiB, the launches
+    after a reset (one 72-wide K1 a MoonViT block and bank batch, K1_d72 =
+    27 x batches and K1 = K1_d72; no 72-wide K3; G2 > 0), the routed rows
+    and MLA calls, and ``Dense``'s hit share (every parameter held in
+    bf16: all hits).
 16. the multi-card paths (after phase 14) at full width through NCCL,
     over min(4, cards) ranks: one rank in this process in bf16, where every
     result must be bit-equal to the same call without a mesh; with several
@@ -238,8 +254,8 @@ Phases, each printing its own lines:
     counts as "train_cli", phase 11's as "serve", phase 13's as
     "caption", phase 14's as "glue", phase 15's as "single_program"
     and "dropout_layouts", phase 16's as "mesh" and phase 17's as
-    "blip2_stage1_eval"; K1_d88 is K1 at 88-wide heads, also counted in
-    K1), then ``Dense``'s hit share by path (``[dense]`` lines: the calls
+    "blip2_stage1_eval", phase 18's as "kimi_vl_rerank"; K1_d88 and
+    K1_d72 are K1 at 88- and 72-wide heads, also counted in K1), then ``Dense``'s hit share by path (``[dense]`` lines: the calls
     that took their bf16 weight and bias from the cache, those that cast
     them, on each path's counted run; also printed after each run), then
     the card's name and power limit, then the last line ``{"ok": true,
@@ -323,6 +339,10 @@ S1E_TIE_GAP = 1e-6             # top-50 lists may differ only at such gaps
 # phase 17: BLIP-2's stage-I eval at full width on a corpus of B2_IMAGES
 # images at 224 px and B2_QUERIES queries (after a warm-up on B2_WARMUP)
 B2_IMAGES, B2_QUERIES, B2_WARMUP = 256, 512, (32, 64)
+# phase 18: Kimi-VL's stage-II re-rank at full width: a corpus of
+# KV_IMAGES images, KV_QUERIES queries in chunks of KV_Q_BATCH, the bank
+# in batches of KV_BANK_BATCH (the benchmark cell's engine settings)
+KV_IMAGES, KV_QUERIES, KV_Q_BATCH, KV_BANK_BATCH = 64, 8, 4, 16
 # phase 15: the single-program stage-I eval on phase 9's corpus and
 # queries, SP_REPLAYS replays timed (the recapture of a moved model on the
 # warm-up's small corpus); the dropout layouts at full width in fp32 with
@@ -432,7 +452,9 @@ SOURCES = {"K1": f"{CSRC}/attention_tc.cuh", "K2": f"{CSRC}/attention_tc.cuh",
            "G1": f"{CSRC}/activation.cu",
            "G2": f"{CSRC}/layer_norm.cu",
            # K1 at 88-wide heads: attn_fwd_tc_kernel<wg, false, 88>
-           "K1_d88": f"{CSRC}/attention_tc.cuh"}
+           "K1_d88": f"{CSRC}/attention_tc.cuh",
+           # and at 72-wide heads: attn_fwd_tc_kernel<wg, false, 72>
+           "K1_d72": f"{CSRC}/attention_tc.cuh"}
 JAX_KERNELS = "candidate_reranking_cir_tpu/ops/pallas_attention.py"
 JAX_TRAIN = "candidate_reranking_cir_tpu/ops/pallas_attention_train.py"
 REPLACES = {"K1": f"{JAX_KERNELS}:220", "K2": f"{JAX_KERNELS}:132",
@@ -440,6 +462,7 @@ REPLACES = {"K1": f"{JAX_KERNELS}:220", "K2": f"{JAX_KERNELS}:132",
             "K5": f"{JAX_TRAIN}:61", "K6": f"{JAX_TRAIN}:114",
             "K7": f"{JAX_TRAIN}:135", "K8": f"{JAX_TRAIN}:382",
             "K9": f"{JAX_TRAIN}:414", "K1_d88": f"{JAX_KERNELS}:220",
+            "K1_d72": f"{JAX_KERNELS}:220",
             # G1 replaces no TPU kernel: XLA fuses the same formula into
             # fc1's epilogue
             "G1": "none (candidate_reranking_cir_tpu/models/layers.py: "
@@ -592,33 +615,41 @@ NARROW_CASES = (
 )
 
 
-# K1 and K3 at EVA ViT-g's 88-wide heads (BLIP-2's vision tower), bf16 and
-# no bias, which the tensor-core kernel reads in place: the ViT-g's
-# self-attention at the embed batch, folded (K1, the path's) and unfolded
-# (K3), and a ragged shape (rows and keys no multiple of the tiles, 5 heads)
-WIDE_D = 88
+# K1 and K3 at heads wider than 64, bf16 and no bias, which the tensor-core
+# kernel reads in place: EVA ViT-g's 88-wide heads (BLIP-2's vision tower)
+# at its embed batch and MoonViT's 72-wide ones (Kimi-VL's) at its bank
+# batch, folded (K1, the paths') and unfolded (K3), and a ragged shape of
+# each width (rows and keys no multiple of the tiles, 5 heads); the last
+# item is the head width
 WIDE_CASES = (
     ("K1", "ViT-g self-attention, 88-wide heads", S1E_EMBED_BATCH, 257, 257,
-     16, True, False),
+     16, True, False, 88),
     ("K3", "ViT-g self-attention unfolded, 88-wide heads", S1E_EMBED_BATCH,
-     257, 257, 16, False, False),
-    ("K1", "ragged, 88-wide heads", 3, 75, 131, 5, True, False),
-    ("K3", "ragged, 88-wide heads", 3, 75, 131, 5, False, False),
+     257, 257, 16, False, False, 88),
+    ("K1", "ragged, 88-wide heads", 3, 75, 131, 5, True, False, 88),
+    ("K3", "ragged, 88-wide heads", 3, 75, 131, 5, False, False, 88),
+    ("K1", "MoonViT self-attention, 72-wide heads", KV_BANK_BATCH, 784, 784,
+     16, True, False, 72),
+    ("K3", "MoonViT self-attention unfolded, 72-wide heads", KV_BANK_BATCH,
+     784, 784, 16, False, False, 72),
+    ("K1", "ragged, 72-wide heads", 3, 75, 131, 5, True, False, 72),
+    ("K3", "ragged, 72-wide heads", 3, 75, 131, 5, False, False, 72),
 )
 
 
 def run_wide_cases() -> dict:
     """WIDE_CASES through ``run_kernel_case``; fails unless each one
-    launched the 88-wide instantiation ("K1_d88", "K3_d88"). Returns the
-    first K1 case's record under "K1_d88"."""
+    launched its width's instantiation ("K1_d88", "K3_d72", ...). Returns
+    each width's first K1 case's record under "K1_d88" and "K1_d72"."""
     records = {}
-    for case in WIDE_CASES:
-        n0 = registry.WIDE[case[0] + "_d88"]
-        rec = run_kernel_case(*case, torch.bfloat16, d=WIDE_D)
-        if registry.WIDE[case[0] + "_d88"] == n0:
-            fail(f"{case[0]} {case[1]}: no 88-wide launch counted")
+    for *case, d in WIDE_CASES:
+        kid = f"{case[0]}_d{d}"
+        n0 = registry.WIDE[kid]
+        rec = run_kernel_case(*case, torch.bfloat16, d=d)
+        if registry.WIDE[kid] == n0:
+            fail(f"{case[0]} {case[1]}: no {d}-wide launch counted")
         if case[0] == "K1":
-            records.setdefault("K1_d88", rec)
+            records.setdefault(kid, rec)
     return records
 
 
@@ -3035,6 +3066,107 @@ def blip2_stage1_eval_path(tok, words) -> dict:
     return launches
 
 
+def draw_in_place(model, seed: int) -> None:
+    """Random weights in each parameter's own dtype, on its device: a
+    matrix (or a stack of them, the last axis its input) N(0, 1 / fan_in),
+    a norm gain 1 + N(0, 0.02^2), every other vector (biases, the router's
+    selection bias) N(0, 0.02^2)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for name, prm in model.named_parameters():
+            if prm.dim() >= 2:
+                prm.normal_(0.0, prm.shape[-1] ** -0.5, generator=g)
+            elif name.endswith("weight"):
+                prm.normal_(1.0, 0.02, generator=g)
+            else:
+                prm.normal_(0.0, 0.02, generator=g)
+
+
+def kimi_vl_rerank_path(tok, words) -> dict:
+    """``evaluate_cirr_stage2_datasets`` with no stage-I model and
+    ``KimiVLReranker`` at its published widths, parameters held in bf16
+    (random weights drawn in place from SEED), query-major in chunks of
+    KV_Q_BATCH on KV_IMAGES images at 392 px and KV_QUERIES queries, after
+    a warm-up on one chunk. Fails unless every MoonViT block launched one
+    72-wide K1 a bank batch and no other K1 ran (K1_d72 = K1 = layers x
+    batches), no 72-wide K3 ran, G2 ran, every routed layer routed rows,
+    the latent attention ran, every ``Dense`` call was a hit and the
+    scores are finite. Returns the counted run's launches."""
+    from candidate_reranking_cir_tpu_torch.config import KimiVLRerankerConfig
+    from candidate_reranking_cir_tpu_torch.models.kimi_vl import (
+        KimiVLReranker,
+    )
+    from candidate_reranking_cir_tpu_torch.retrieval.validate2_engine import (
+        evaluate_cirr_stage2_datasets,
+    )
+
+    t_phase = time.perf_counter()
+    cfg = KimiVLRerankerConfig()
+    model = KimiVLReranker(cfg, dtype=torch.bfloat16, device="cuda").eval()
+    draw_in_place(model, SEED)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[kimi_vl] {n_params / 1e9:.2f} B parameters held in bf16, "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the card, "
+          f"drawn in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    size = cfg.vision.image_size
+    rng = np.random.default_rng(SEED + 18)
+    corpus = Corpus(KV_IMAGES, size, rng, float32_draw=True)
+    queries = make_queries(corpus.index_names, KV_QUERIES, TOPK, rng, words)
+    kw = dict(k=TOPK, text_len=32, batch_size=KV_BANK_BATCH,
+              schedule="query_major", q_batch=KV_Q_BATCH, device="cuda")
+    evaluate_cirr_stage2_datasets(None, None, model, None, tok, corpus,
+                                  queries[:KV_Q_BATCH], **kw)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    registry.reset()
+    res = evaluate_cirr_stage2_datasets(None, None, model, None, tok, corpus,
+                                        queries, **kw)
+    launches = registry.counts()
+    moe = {key: int(val) for key, val in registry.MOE.items()}
+    sdpa = dict(registry.SDPA)
+    dense_share("kimi_vl_rerank")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    sec, out = res.seconds, res.rerank
+    print(f"[kimi_vl] MoonViT @ {size} ({cfg.vision.num_layers} blocks of "
+          f"{cfg.vision.hidden_size}, {cfg.vision.num_heads} heads of "
+          f"{cfg.vision.hidden_size // cfg.vision.num_heads}) + the "
+          f"{cfg.lm.num_hidden_layers}-layer MLA decoder with "
+          f"{cfg.lm.n_routed_experts} experts, bf16: {KV_IMAGES} images, "
+          f"{len(queries)} queries; seconds {json.dumps(sec)}; queries/s "
+          f"{len(queries) / sec['total']:.2f}; peak {peak:.2f} GiB",
+          flush=True)
+    print(f"[kimi_vl] launches {json.dumps(launches)}; routed rows "
+          f"{json.dumps(moe)}; SDPA calls {json.dumps(sdpa)}", flush=True)
+    print(f"[kimi_vl] metrics {json.dumps(res.metrics)}", flush=True)
+    batches = -(-KV_IMAGES // KV_BANK_BATCH)
+    want = cfg.vision.num_layers * batches
+    if launches["K1_d72"] != want or launches["K1"] != want \
+            or launches["K3_d72"] != 0 or launches["G2"] <= 0:
+        fail(f"Kimi-VL launches {launches}: K1_d72 and K1 must be {want} "
+             "(one a MoonViT block and bank batch), 72-wide K3 0, G2 > 0")
+    if moe["routed"] <= 0 or moe["busiest"] <= 0 or sdpa["mla"] <= 0:
+        fail(f"Kimi-VL routed rows {moe}, SDPA calls {sdpa}: both must "
+             "be > 0")
+    if DENSE_BY_PATH["kimi_vl_rerank"]["hit_share_pct"] != 100.0:
+        fail(f"Kimi-VL Dense calls {DENSE_BY_PATH['kimi_vl_rerank']}: "
+             "every parameter is held in bf16, so every call is a hit")
+    if out.logits.shape != (len(queries), TOPK) or \
+            not np.isfinite(out.logits).all() or \
+            not np.isfinite(out.group_logits).all():
+        fail("unexpected or non-finite Kimi-VL scores")
+    for key, val in res.metrics.items():
+        if not 0.0 <= val <= 100.0:
+            fail(f"Kimi-VL metric {key} = {val} out of range")
+    del model, corpus
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[kimi_vl] phase seconds {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    return launches
+
+
 # ---------------------------------------------------------------------------
 # phase 10: the training CLIs
 
@@ -4666,6 +4798,7 @@ def main():
     del s1e
     gc.collect()
     blip2_launches = blip2_stage1_eval_path(tok, words)
+    kimi_launches = kimi_vl_rerank_path(tok, words)
     cli = train_cli_path(tok, words, native_ok)
     caption = caption_path(tok)
     glue = glue_path(tok, words)
@@ -4673,7 +4806,7 @@ def main():
 
     kernels = []
     for kid in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "G1",
-                "G2", "K1_d88"):
+                "G2", "K1_d88", "K1_d72"):
         rec = records[kid]
         # K1-K4: launches on the two eval paths (stage II, then stage I);
         # K6/K7 on the stage-II training path; K8/K9 on the stage-I one; K5
@@ -4691,16 +4824,21 @@ def main():
         # eval paths, both training paths and the dropout layouts
         # K1_d88 (K1 at 88-wide heads, in K1's counts too) runs on BLIP-2's
         # stage-I eval (phase 17) alone, under "blip2_stage1_eval", which
-        # also counts K1-K4, G1 and G2
+        # also counts K1-K4, G1 and G2; K1_d72 on Kimi-VL's re-rank (phase
+        # 18) alone, under "kimi_vl_rerank", which also counts K1 and G2
         by_path = {}
+        wide = kid in ("K1_d88", "K1_d72")
         if kid == "K1_d88":
             by_path = {"blip2_stage1_eval": blip2_launches[kid]}
+        elif kid == "K1_d72":
+            by_path = {"kimi_vl_rerank": kimi_launches[kid]}
         elif kid in EVAL_KERNELS or kid in ("G1", "G2"):
             by_path = {"stage2_eval": launches[kid],
                        "stage1_eval": s1e_launches[kid],
                        "serve": serve_launches[kid],
                        "single_program": p15["single_program"][kid],
-                       "blip2_stage1_eval": blip2_launches[kid]}
+                       "blip2_stage1_eval": blip2_launches[kid],
+                       "kimi_vl_rerank": kimi_launches[kid]}
         if kid in ("K5", "G1", "G2"):
             by_path.update(stage2_train=train["launches"][kid],
                            stage1_train=stage1["launches"][kid])
@@ -4708,9 +4846,9 @@ def main():
             by_path["stage1_train"] = stage1["launches"][kid]
         elif kid in ("K6", "K7"):
             by_path["stage2_train"] = train["launches"][kid]
-        if kid not in EVAL_KERNELS and kid != "K1_d88":
+        if kid not in EVAL_KERNELS and not wide:
             by_path["dropout_layouts"] = p15["dropout_layouts"][kid]
-        if kid != "K1_d88":
+        if not wide:
             by_path["train_cli"] = cli["launches"][kid]
             by_path["caption"] = caption["launches"][kid]
             by_path["glue"] = glue["launches"][kid]

@@ -1705,11 +1705,11 @@ D64_DIGESTS = {
 }
 
 
-def d64_digests(dev) -> dict:
+def d64_digests(dev, cases: dict = D64_CASES) -> dict:
     import hashlib
 
     out = {}
-    for label, (kid, e, lq, m, h, d) in D64_CASES.items():
+    for label, (kid, e, lq, m, h, d) in cases.items():
         q = _rand(dev, torch.bfloat16, e, lq, h, d, seed=1800)
         k = _rand(dev, torch.bfloat16, e, m, h, d, seed=1801)
         v = _rand(dev, torch.bfloat16, e, m, h, d, seed=1802)
@@ -1727,6 +1727,124 @@ def d64_digests(dev) -> dict:
 
 def test_d64_launches_bit_equal_to_before_the_wide_heads(dev):
     assert d64_digests(dev) == D64_DIGESTS
+
+
+# ---------------------------------------------------------------------------
+# head width 72 (MoonViT, Kimi-VL's vision tower): K1 and K3 in bf16
+# without a bias, the 72-wide heads read in place; the 64- and 88-wide
+# launches' bits as before the 72-wide instantiation came
+
+def _d72_case(dev, e, lq, m, h, seed, folded):
+    d = ck.MOONVIT_HEAD_DIM
+    q = _rand(dev, torch.bfloat16, e, lq, h, d, seed=seed)
+    k = _rand(dev, torch.bfloat16, e, m, h, d, seed=seed + 1)
+    v = _rand(dev, torch.bfloat16, e, m, h, d, seed=seed + 2)
+    kid = "K1" if folded else "K3"
+    before, wide = ck.LAUNCHES[kid], registry.WIDE[f"{kid}_d72"]
+    res = {}
+
+    def run():
+        if folded:
+            res["out"] = ck.fused_attention_folded(
+                q.flatten(-2), k.flatten(-2), v.flatten(-2),
+                num_heads=h).unflatten(-1, (h, d))
+        else:
+            res["out"] = ck.fused_attention(q, k, v)
+
+    names = _kernel_names(run)
+    assert ck.LAUNCHES[kid] == before + 1
+    assert registry.WIDE[f"{kid}_d72"] == wide + 1
+    out = res["out"]
+    assert out.shape == (e, lq, h, d) and torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(),
+                               ck.attention_plain(q, k, v).float(), rtol=0,
+                               atol=TOL[torch.bfloat16])
+    return names
+
+
+def test_k1_at_moonvit_shape_matches_plain(dev, monkeypatch):
+    """K1 at MoonViT's self-attention, [E, 784, 784, 16, 72]: the 72-wide
+    instantiation (its width in the kernel's name), no padded copy."""
+    _no_pad(monkeypatch)
+    names = _d72_case(dev, 8, 784, 784, 16, seed=1900, folded=True)
+    wide = [n for n in names if "attn_fwd_tc_kernel<" in n]
+    assert wide and all(", 72>" in n for n in wide), names
+
+
+@pytest.mark.parametrize("folded", [True, False])
+@pytest.mark.parametrize("m", [1, 64, 65, 131])
+@pytest.mark.parametrize("lq", [1, 33, 64, 65, 200])
+def test_d72_heads_match_plain(dev, monkeypatch, folded, lq, m):
+    """K1 and K3 at head width 72 over one and several key tiles, one and
+    two warpgroups, partial row tiles."""
+    _no_pad(monkeypatch)
+    _d72_case(dev, 2, lq, m, 3, seed=1910 + lq + m, folded=folded)
+
+
+def test_d72_heads_strided_views(dev, monkeypatch):
+    """q, k, v sliced out of MoonViT's fused [E, L, 3 x 16 x 72]
+    projection (row stride 3,456): read where they lie."""
+    _no_pad(monkeypatch)
+    e, l, h, d = 2, 784, 16, ck.MOONVIT_HEAD_DIM
+    qkv = _rand(dev, torch.bfloat16, e, l, 3 * h * d, seed=1950)
+    q, k, v = qkv.chunk(3, dim=-1)
+    out = ck.fused_attention_folded(q, k, v, num_heads=h)
+    ref = ck.attention_plain(*(x.unflatten(-1, (h, d)) for x in (q, k, v)))
+    torch.testing.assert_close(out.unflatten(-1, (h, d)).float(),
+                               ref.float(), rtol=0, atol=TOL[torch.bfloat16])
+
+
+def test_d72_heads_refused_off_their_route(dev):
+    d = ck.MOONVIT_HEAD_DIM
+    q = _rand(dev, torch.float32, 2, 8, 2, d)
+    with pytest.raises(ValueError, match=f"head width {d}"):
+        ck.fused_attention(q, q, q)
+    qb = q.to(torch.bfloat16)
+    with pytest.raises(ValueError, match=f"head width {d}"):
+        ck.fused_attention(qb, qb, qb, _mask_bias(dev, 2, 8))
+
+
+# the 88-wide launches, and their output bits read on the kernel as it was
+# before the 72-wide instantiation came (the same on its build and on
+# this one, on an H100 80GB HBM3 at 700 W with PyTorch 2.11 and CUDA 12.8)
+D88_CASES = {
+    "K1 ViT-g": ("K1", 4, 257, 257, 16, 88),
+    "K3 ragged 88": ("K3", 3, 75, 131, 5, 88),
+}
+D88_DIGESTS = {
+    "K1 ViT-g": "ad713514eefecd7d",
+    "K3 ragged 88": "93ca5861d7ed88df",
+}
+
+
+def test_d64_and_d88_launches_bit_equal_to_before_the_d72_heads(dev):
+    assert d64_digests(dev, {**D64_CASES, **D88_CASES}) == \
+        {**D64_DIGESTS, **D88_DIGESTS}
+
+
+# ---------------------------------------------------------------------------
+# the routed experts' grouped products (ops/moe.grouped_experts) against
+# the per-expert loop, in bf16 on the card
+
+@pytest.mark.parametrize("t,e,k", [(40, 8, 2), (932, 64, 6), (4752, 64, 6)])
+def test_grouped_experts_match_the_per_expert_loop(dev, t, e, k):
+    from candidate_reranking_cir_tpu_torch.ops import moe
+
+    g = torch.Generator(device="cpu").manual_seed(t)
+    d, f = 2048, 1408
+    x = torch.randn(t, d, generator=g).to(dev, torch.bfloat16)
+    gate_up = (torch.randn(e, 2 * f, d, generator=g) * d ** -0.5).to(
+        dev, torch.bfloat16)
+    down = (torch.randn(e, d, f, generator=g) * f ** -0.5).to(
+        dev, torch.bfloat16)
+    # skewed: a quarter of the experts get no rows
+    idx = torch.stack([torch.randperm(3 * e // 4, generator=g)[:k]
+                       for _ in range(t)]).to(dev)
+    w = torch.rand(t, k, generator=g)
+    w = (w / w.sum(-1, keepdim=True)).to(dev)
+    got = moe.grouped_experts(x, idx, w, gate_up, down)
+    want = moe.grouped_experts_plain(x, idx, w, gate_up, down)
+    torch.testing.assert_close(got, want, rtol=0, atol=TOL[torch.bfloat16])
 
 
 # ---------------------------------------------------------------------------

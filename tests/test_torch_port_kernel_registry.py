@@ -45,15 +45,17 @@ def _same_bits(a, b) -> bool:
 # ---------------------------------------------------------------------------
 # the counters
 
-@pytest.mark.parametrize("kid", KERNEL_IDS + ("K1_d88", "K3_d88"))
+WIDE_IDS = ("K1_d88", "K3_d88", "K1_d72", "K3_d72")
+
+
+@pytest.mark.parametrize("kid", KERNEL_IDS + WIDE_IDS)
 def test_every_kernel_has_one_counter(kid):
     assert sum(kid in family for family in registry.LAUNCH_FAMILIES) == 1
     assert kid in registry.counts()
 
 
 def test_counts_hold_every_launch_family_and_nothing_else():
-    assert list(registry.counts()) == [
-        *KERNEL_IDS, "K1_d88", "K3_d88"]
+    assert list(registry.counts()) == [*KERNEL_IDS, *WIDE_IDS]
     assert set(registry.PLAIN_CALLS) == {"G1", "G2"}
 
 
